@@ -1,0 +1,40 @@
+"""hygrid_tpu_torch: the PyTorch/CUDA port of hygrid_tpu for NVIDIA Hopper.
+
+Mirrors ``hygrid_tpu``'s module paths and public names.  Plain tensor code
+is PyTorch; the TPU kernels on the ported path are CUDA C++ kernels for
+``sm_90a`` (``csrc/``), built with ``nvcc`` at their first launch.  Importing
+the package needs neither JAX nor a GPU nor ``nvcc``.
+"""
+from . import lattice
+from .ops.geometry import (hex_to_rect_resample, hexresize,
+                           image_geometric_transformation,
+                           rect_to_hex_resample, warp_output_shape)
+from .ops.sampling import SamplePlan, apply_plan, apply_plan_auto
+from .nn.functional import (hex_conv2d, hex_conv2d_output_shape,
+                            hex_global_pool2d, hex_kernel_num, hex_pool2d)
+from .nn.layers import HexConvStack
+from .models import HexCNN, hexcnn_small, hexcnn_tiny, hexify_batch
+
+__version__ = "0.1.0"
+
+__all__ = [
+    "lattice",
+    "hex_to_rect_resample",
+    "hexresize",
+    "image_geometric_transformation",
+    "rect_to_hex_resample",
+    "warp_output_shape",
+    "SamplePlan",
+    "apply_plan",
+    "apply_plan_auto",
+    "hex_conv2d",
+    "hex_conv2d_output_shape",
+    "hex_global_pool2d",
+    "hex_kernel_num",
+    "hex_pool2d",
+    "HexConvStack",
+    "HexCNN",
+    "hexcnn_small",
+    "hexcnn_tiny",
+    "hexify_batch",
+]

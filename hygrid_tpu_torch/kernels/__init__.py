@@ -1,0 +1,11 @@
+"""Hand-written Hopper (sm_90a) kernels of the PyTorch port.
+
+* ``resample.plan_gather`` — ``csrc/plan_gather.cu`` (replaces
+  ``hygrid_tpu/kernels/resample_pallas.py::_resample_kernel``);
+* ``conv_stack.hex_conv_layer`` — ``csrc/hex_conv_layer.cu`` (replaces
+  ``hygrid_tpu/kernels/conv_pallas.py::_stack_layer_kernel``).
+
+Importing these modules builds nothing: ``_build.load_library`` compiles
+the CUDA sources at the first kernel launch.  A wrapper given a CPU tensor
+runs the kernel's plain PyTorch version.
+"""

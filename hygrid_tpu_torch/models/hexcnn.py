@@ -1,0 +1,96 @@
+"""Flagship HexCNN image classifier, PyTorch port of the stacked route of
+``hygrid_tpu/models/hexcnn.py``.
+
+Stages of :class:`HexConvStack` (conv -> GN -> ReLU, NHWC) separated by
+stride-2 hex max-pools, then a global average pool and a linear head.  The
+public input is ``(B, C, H, W)`` brick-wall hex storage with offset 0 (the
+output of ``rect_to_hex_resample``); stages run channels-last, as
+``hygrid_tpu``'s stage-wise route does (``hexcnn.py:120-154``).  Its
+packed-plane route (``pack_planes`` / ``hex_packed_maxpool2``) is a TPU
+lane-packing layout and is not ported; ``hygrid_tpu`` tests it equal to
+the stage-wise route.
+"""
+from __future__ import annotations
+
+import math
+from typing import Optional, Sequence
+
+import torch
+from torch import nn
+
+from ..nn import functional as F
+from ..nn.layers import HexConvStack
+
+__all__ = ["HexCNN", "hexcnn_small", "hexcnn_tiny"]
+
+
+class HexCNN(nn.Module):
+    """Hex conv stages -> global average pool -> linear head.
+
+    Each stage is ``depth`` conv + norm + ReLU layers (one
+    :class:`HexConvStack`) followed, except after the last, by a stride-2
+    hex max-pool.
+
+    Args:
+        num_classes: classifier width.
+        channels: feature width per stage.
+        depth: conv layers per stage.
+        radius: hex kernel radius.
+        norm: ``"GN"`` or None.  ``hygrid_tpu``'s other norms run per-module
+            ``HexConvModule`` bundles, which are not ported yet.
+        in_channels: input channels (flax infers them at init; torch
+            builds parameters up front).
+        dtype: compute dtype; parameters stay float32.
+        device / generator: where the parameters live and the generator
+            that initialises them.
+    """
+
+    def __init__(self, num_classes: int = 10,
+                 channels: Sequence[int] = (32, 64, 128), depth: int = 2,
+                 radius: int = 2, norm: Optional[str] = "BN",
+                 in_channels: int = 3, dtype: torch.dtype = torch.float32,
+                 device=None, generator: Optional[torch.Generator] = None):
+        super().__init__()
+        if norm not in ("GN", None):
+            raise NotImplementedError(
+                f"HexCNN norm={norm!r} runs hygrid_tpu's HexConvModule "
+                "bundles, not ported yet (ROADMAP queue 1, nn/modules.py); "
+                "use norm='GN' or None")
+        self.channels, self.radius, self.dtype = tuple(channels), radius, dtype
+        cin = in_channels
+        for stage, width in enumerate(self.channels):
+            self.add_module(f"stage{stage}", HexConvStack(
+                cin, width, depth, hexkernel_radius=radius, norm=norm,
+                num_groups=8, data_format="NHWC", dtype=dtype, device=device,
+                generator=generator))
+            cin = width
+        self.head = nn.Linear(cin, num_classes, device=device)
+        # flax Dense defaults: lecun_normal kernel, zero bias
+        std = 1.0 / math.sqrt(cin) / 0.87962566103423978
+        with torch.no_grad():
+            nn.init.trunc_normal_(self.head.weight, std=std, a=-2 * std,
+                                  b=2 * std, generator=generator)
+            self.head.bias.zero_()
+
+    def forward(self, x: torch.Tensor, *, plain: bool = False) -> torch.Tensor:
+        """Logits ``(B, num_classes)`` for hex images ``(B, C, H, W)``;
+        ``plain=True`` runs the conv layers' plain versions (the reference
+        a kernel run is compared with)."""
+        x = x.to(self.dtype).permute(0, 2, 3, 1).contiguous()
+        last = len(self.channels) - 1
+        for stage in range(len(self.channels)):
+            x = getattr(self, f"stage{stage}")(x, plain=plain)
+            if stage != last:
+                x = F.hex_pool2d(x, "max", kernel_size=2, stride=2,
+                                 data_format="NHWC").contiguous()
+        x = F.hex_global_pool2d(x, "average", data_format="NHWC")
+        return nn.functional.linear(x, self.head.weight.to(self.dtype),
+                                    self.head.bias.to(self.dtype))
+
+
+def hexcnn_tiny(num_classes: int = 10, **kw) -> HexCNN:
+    return HexCNN(num_classes=num_classes, channels=(16, 32), depth=1, **kw)
+
+
+def hexcnn_small(num_classes: int = 10, **kw) -> HexCNN:
+    return HexCNN(num_classes=num_classes, channels=(32, 64, 128), depth=2, **kw)

@@ -1,0 +1,15 @@
+"""Hex NN layer of the PyTorch port: functional ops and modules."""
+from . import functional
+from .functional import (hex_conv2d, hex_conv2d_output_shape,
+                         hex_global_pool2d, hex_kernel_num, hex_pool2d)
+from .layers import HexConvStack
+
+__all__ = [
+    "functional",
+    "hex_conv2d",
+    "hex_conv2d_output_shape",
+    "hex_global_pool2d",
+    "hex_kernel_num",
+    "hex_pool2d",
+    "HexConvStack",
+]

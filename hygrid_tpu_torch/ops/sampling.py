@@ -1,0 +1,219 @@
+"""Unified resampling engine (layer L2 core), PyTorch port of
+``hygrid_tpu/ops/sampling.py``.
+
+* **Plan** — sample coordinates -> gather indices and blend weights, built
+  once in float64 numpy (bit-equal to ``hygrid_tpu``'s plans).
+* **Apply** — the gather-and-blend on a tensor of any device.
+  :func:`apply_plan` is the plain PyTorch version; :func:`apply_plan_auto`
+  hands the tensor to the plan-gather kernel wrapper
+  (``kernels/resample.py``), which launches the CUDA kernel for a CUDA
+  tensor and runs :func:`apply_plan` for a CPU tensor.
+
+Deliberate difference from ``hygrid_tpu``: for floating images the blend
+accumulates in float32 (float64 for float64 images) with float32 weights,
+and rounds once to the image dtype.  ``hygrid_tpu``'s XLA ``apply_plan``
+accumulates bf16 images in bf16, and its TPU kernel ships bf16 weights for
+bf16 images; in float32 the two packages agree.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, Tuple
+
+import numpy as np
+import torch
+
+from .. import lattice
+
+__all__ = [
+    "SamplePlan",
+    "hex_sample_plan",
+    "rect_sample_plan",
+    "apply_plan",
+    "apply_plan_auto",
+]
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class SamplePlan:
+    """Gather/blend recipe for one resampling op.
+
+    Attributes:
+        idx: ``(K, h1, w1)`` int32 flattened source indices (``i * W + j``),
+            clamped into range.
+        weights: ``(K, h1, w1)`` float32 blend weights; out-of-range
+            contributions carry weight 0.
+        src_shape: ``(H, W)`` of the source image.
+        out_shape: ``(h1, w1)``.
+        exact_select: True when K == 1 and weights are pure 0/1 masks
+            (nearest modes) — lets ``apply_plan`` preserve integer dtypes.
+    """
+
+    idx: np.ndarray
+    weights: np.ndarray
+    src_shape: Tuple[int, int]
+    out_shape: Tuple[int, int]
+    exact_select: bool = False
+    _device_copies: Dict[str, Tuple[torch.Tensor, torch.Tensor]] = \
+        dataclasses.field(default_factory=dict, repr=False)
+
+    def tensors(self, device) -> Tuple[torch.Tensor, torch.Tensor]:
+        """``(idx, weights)`` as contiguous ``(K, h1*w1)`` int32 / float32
+        tensors on ``device``, uploaded once per plan and device."""
+        key = str(torch.device(device))
+        pair = self._device_copies.get(key)
+        if pair is None:
+            k = self.idx.shape[0]
+            pair = (torch.from_numpy(self.idx.reshape(k, -1)).to(device),
+                    torch.from_numpy(self.weights.reshape(k, -1)).to(device))
+            self._device_copies[key] = pair
+        return pair
+
+
+def _finalize(idx_list, w_list, h, w, exact_select=False):
+    iidx = np.stack([np.clip(i, 0, h - 1) for i, _ in idx_list], axis=0)
+    jidx = np.stack([np.clip(j, 0, w - 1) for _, j in idx_list], axis=0)
+    flat = (iidx * w + jidx).astype(np.int32)
+    weights = np.stack(w_list, axis=0).astype(np.float32)
+    return SamplePlan(flat, weights, (h, w), flat.shape[1:], exact_select)
+
+
+def hex_sample_plan(x, y, h: int, w: int, method: str) -> SamplePlan:
+    """Plan for sampling a hex (brick-wall, offset-0) image at Cartesian
+    points ``(x, y)`` (float64 numpy arrays).
+
+    method: ``"linear"`` (barycentric over the 3 enclosing vertices),
+    ``"nearest"`` (nearest vertex) or ``"bilinear"`` (two-stage lerp over
+    the affine parallelogram of the 4 de-skewed neighbours); see
+    ``hygrid_tpu.ops.sampling.hex_sample_plan`` for the reference notes.
+    """
+    xp = np
+    i_, j_ = lattice.affine_index(x, y, h, w)
+    i_n = lattice._trunc_int(i_, xp)
+    j_n = lattice._trunc_int(j_, xp)
+    i_f = i_ - i_n
+    j_f = j_ - j_n
+
+    (i1, j1), (i2, j2), (i3, j3), (i4, j4) = lattice.hex_neighbors(i_n, j_n, xp)
+
+    def valid(i, j):
+        return ((i >= 0) & (j >= 0) & (i < h) & (j < w))
+
+    flag, p1, p2, p3 = lattice.triangle_vertices(i_n, j_n, i_f, j_f, h, w, xp)
+
+    # vertex 2 of the triangle is neighbour 2 (next row) in the upper
+    # triangle, neighbour 3 (same row) in the lower
+    i2s = xp.where(flag, i2, i3)
+    j2s = xp.where(flag, j2, j3)
+    v1 = valid(i1, j1)
+    v2 = xp.where(flag, valid(i2, j2), valid(i3, j3))
+    v3 = valid(i4, j4)
+
+    fdt = x.dtype
+    if method == "linear":
+        a, b, g = lattice.triangle_weights_linear(x, y, p1, p2, p3, xp)
+        w1_ = a * v1.astype(fdt)
+        w2_ = b * v2.astype(fdt)
+        w3_ = g * v3.astype(fdt)
+        return _finalize([(i1, j1), (i2s, j2s), (i4, j4)], [w1_, w2_, w3_], h, w)
+    if method == "nearest":
+        sel = lattice.triangle_select_nearest(x, y, p1, p2, p3, xp)
+        ii = xp.where(sel == 0, i1, xp.where(sel == 1, i2s, i4))
+        jj = xp.where(sel == 0, j1, xp.where(sel == 1, j2s, j4))
+        vv = xp.where(sel == 0, v1, xp.where(sel == 1, v2, v3))
+        return _finalize([(ii, jj)], [vv.astype(fdt)], h, w, exact_select=True)
+    if method == "bilinear":
+        vall = [valid(i1, j1), valid(i2, j2), valid(i3, j3), valid(i4, j4)]
+        ws = [(1 - i_f) * (1 - j_f), i_f * (1 - j_f),
+              (1 - i_f) * j_f, i_f * j_f]
+        return _finalize(
+            [(i1, j1), (i2, j2), (i3, j3), (i4, j4)],
+            [wk * vk.astype(fdt) for wk, vk in zip(ws, vall)], h, w)
+    raise ValueError(f"unsupported hex sampling method {method!r}")
+
+
+def rect_sample_plan(x, y, h: int, w: int, method: str,
+                     nearest_metric: str = "reference") -> SamplePlan:
+    """Plan for sampling a rectangular image at Cartesian points ``(x, y)``
+    (image-centered coordinates): ``"nearest"`` or ``"bilinear"``.
+
+    ``nearest_metric="reference"`` replicates the reference's mixed-frame
+    distance (always the truncated cell for H, W >= 3); ``"euclidean"`` is
+    the true nearest neighbour (see ``hygrid_tpu.ops.sampling``).
+    """
+    xp = np
+    i_ = x + (h - 1) * 0.5
+    j_ = y + (w - 1) * 0.5
+    i_n = lattice._trunc_int(i_, xp)
+    j_n = lattice._trunc_int(j_, xp)
+    i_f = i_ - i_n
+    j_f = j_ - j_n
+
+    nbrs = [(i_n, j_n), (i_n, j_n + 1), (i_n + 1, j_n), (i_n + 1, j_n + 1)]
+
+    def valid(i, j):
+        return ((i >= 0) & (j >= 0) & (i < h) & (j < w))
+
+    vs = [valid(i, j) for i, j in nbrs]
+    fdt = x.dtype
+
+    if method == "nearest":
+        if nearest_metric == "reference":
+            sx, sy = x, y  # mixed-frame distances, see docstring
+        elif nearest_metric == "euclidean":
+            sx, sy = i_, j_
+        else:
+            raise ValueError(f"unknown nearest_metric {nearest_metric!r}")
+        ds = [(sx - i) ** 2 + (sy - j) ** 2 for i, j in nbrs]
+        sel = xp.argmin(xp.stack(ds, axis=0), axis=0)
+        ii = nbrs[0][0] + (sel >= 2).astype(i_n.dtype)
+        jj = nbrs[0][1] + (sel % 2).astype(j_n.dtype)
+        vv = xp.where(sel == 0, vs[0], xp.where(sel == 1, vs[1],
+                      xp.where(sel == 2, vs[2], vs[3])))
+        return _finalize([(ii, jj)], [vv.astype(fdt)], h, w, exact_select=True)
+    if method == "bilinear":
+        w1_ = (1 - j_f) * (1 - i_f) * vs[0].astype(fdt)
+        w2_ = j_f * (1 - i_f) * vs[1].astype(fdt)
+        w3_ = (1 - j_f) * i_f * vs[2].astype(fdt)
+        w4_ = j_f * i_f * vs[3].astype(fdt)
+        return _finalize(nbrs, [w1_, w2_, w3_, w4_], h, w)
+    raise ValueError(f"unsupported rect sampling method {method!r}")
+
+
+def apply_plan(image: torch.Tensor, plan: SamplePlan) -> torch.Tensor:
+    """Execute a :class:`SamplePlan` on ``(..., H, W)``: the plain PyTorch
+    gather-blend, on any device.
+
+    ``out[..., p] = sum_k w[k, p] * image[..., idx[k, p]]``.  Floating
+    images come back in their own dtype; integer images through an
+    exact-select plan keep their dtype bit-exactly, other integer blends
+    return float32 (as ``hygrid_tpu`` does).
+    """
+    h, w = plan.src_shape
+    if tuple(image.shape[-2:]) != (h, w):
+        raise ValueError(f"image spatial shape {tuple(image.shape[-2:])} != "
+                         f"plan source {plan.src_shape}")
+    idx, weights = plan.tensors(image.device)
+    lead = image.shape[:-2]
+    flat = image.reshape(lead + (h * w,))
+    taken = flat.index_select(-1, idx.reshape(-1)).reshape(
+        lead + idx.shape)                                 # (..., K, P)
+    if plan.exact_select:
+        # one selected value per output cell: multiply by the 0/1 mask in
+        # the image dtype so integer inputs round-trip bit-exactly
+        out = taken[..., 0, :] * weights[0].to(image.dtype)
+    else:
+        # float64 blends in float64, everything else in float32
+        acc = torch.float64 if image.dtype == torch.float64 else torch.float32
+        out = (taken.to(acc) * weights.to(acc)).sum(dim=-2)
+        if image.dtype.is_floating_point:
+            out = out.to(image.dtype)
+    return out.reshape(lead + tuple(plan.out_shape))
+
+
+def apply_plan_auto(image: torch.Tensor, plan: SamplePlan) -> torch.Tensor:
+    """Device-dispatching plan execution: the plan-gather kernel for a CUDA
+    tensor, :func:`apply_plan` for a CPU tensor (see
+    ``kernels/resample.py::plan_gather``)."""
+    from ..kernels.resample import plan_gather
+    return plan_gather(image, plan)

@@ -1,0 +1,166 @@
+"""The port's CUDA kernels against their plain PyTorch versions, on the card.
+
+Needs an NVIDIA GPU (Hopper: the kernels are built for sm_90a) and nvcc; each
+test skips where ``torch.cuda.is_available()`` is False.  This file imports
+no JAX, so it also runs where JAX is not installed:
+
+    python -m pytest tests/test_torch_cuda_kernels.py -q --noconftest
+
+Tolerances: float32 within 1e-5 absolute without a norm and 1e-4 relative
+with GroupNorm (it rescales summation-order differences); bfloat16 within
+1e-2 (resample) and 3e-2 (conv layer) relative, a few bf16 ulps of the
+output once both sides round their float32 results.
+"""
+import math
+
+import pytest
+import torch
+
+from hygrid_tpu_torch.kernels import _build, conv_stack, resample
+from hygrid_tpu_torch.models import hexcnn_tiny, hexify_batch
+from hygrid_tpu_torch.ops import geometry, sampling
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture(autouse=True)
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device; run on the GPU machine")
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _rel(got, want):
+    return float((got.float() - want.float()).abs().max()
+                 / want.float().abs().max())
+
+
+PLANS = {
+    "r2h-512-bilinear": lambda: geometry.rect_to_hex_plan(512, 512, 256, 256, "bilinear"),
+    "r2h-61x47-nearest": lambda: geometry.rect_to_hex_plan(61, 47, 30, 25, "nearest"),
+    "h2r-33x29-linear": lambda: geometry.hex_to_rect_plan(33, 29, 70, 61, "linear"),
+    "resize-40x31-bilinear": lambda: geometry.hexresize_plan(40, 31, 23, 50, "bilinear"),
+    "warp-37x21-linear": lambda: geometry.warp_plan(
+        37, 21, [[0.9, 0.3, 1.0], [-0.2, 1.1, -2.0], [0, 0, 1]], "linear"),
+}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("name", list(PLANS))
+def test_plan_gather_matches_plain(cuda, name, dtype):
+    plan = PLANS[name]()
+    h, w = plan.src_shape
+    x = torch.rand((2, 3, h, w), device=cuda).to(dtype)
+    before = resample.LAUNCHES
+    got = resample.plan_gather(x, plan)
+    want = sampling.apply_plan(x, plan)
+    torch.cuda.synchronize()
+    assert resample.LAUNCHES == before + 1
+    assert got.shape == want.shape and got.dtype == dtype
+    if dtype == torch.float32:
+        assert float((got - want).abs().max()) <= 1e-6
+    else:
+        assert _rel(got, want) <= 1e-2
+
+
+def test_plan_gather_refuses_what_it_does_not_take(cuda):
+    plan = geometry.rect_to_hex_plan(16, 16, 8, 8, "bilinear")
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        resample.plan_gather(torch.zeros((3, 16, 16), device=cuda,
+                                         dtype=torch.float64), plan)
+    with pytest.raises(ValueError, match="contiguous"):
+        resample.plan_gather(torch.zeros((16, 16, 3), device=cuda
+                                         ).permute(2, 0, 1), plan)
+
+
+LAYER_CASES = [  # (B, H, W, Cin, Cout, radius, dilation, norm kind, relu)
+    (2, 11, 13, 5, 40, 2, 1, "gn", True),
+    (2, 12, 9, 16, 32, 2, 1, None, True),
+    (1, 10, 70, 3, 32, 2, 1, "affine", False),
+    (2, 9, 14, 8, 24, 3, 1, "gn", False),
+    (1, 13, 12, 7, 16, 2, 2, None, False),
+    (3, 64, 63, 64, 128, 2, 1, "gn", True),
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", LAYER_CASES)
+def test_hex_conv_layer_matches_plain(cuda, case, dtype):
+    b, h, w, cin, cout, r, d, kind, relu = case
+    gen = torch.Generator(device=cuda).manual_seed(LAYER_CASES.index(case))
+    kn = 3 * r * r - 3 * r + 1
+    x = torch.rand((b, h, w, cin), generator=gen, device=cuda).to(dtype)
+    k = (torch.randn((cout, cin, kn), generator=gen, device=cuda)
+         / math.sqrt(cin * kn)).to(dtype)
+    bias = norm = None
+    if kind is None:
+        bias = 0.1 * torch.randn((cout,), generator=gen, device=cuda)
+    elif kind == "gn":
+        norm = ("gn", math.gcd(8, cout),
+                1 + 0.1 * torch.rand((cout,), generator=gen, device=cuda),
+                0.1 * torch.randn((cout,), generator=gen, device=cuda))
+    else:
+        norm = ("affine", 1 + 0.1 * torch.rand((cout,), generator=gen, device=cuda),
+                0.1 * torch.randn((cout,), generator=gen, device=cuda))
+    kw = dict(radius=r, dilation=d, norm=norm, relu=relu)
+    before = conv_stack.LAUNCHES
+    got = conv_stack.hex_conv_layer(x, k, bias, **kw)
+    want = conv_stack.hex_conv_layer_plain(x, k, bias, **kw)
+    torch.cuda.synchronize()
+    assert conv_stack.LAUNCHES == before + 1
+    assert got.shape == want.shape and got.dtype == dtype
+    if dtype == torch.bfloat16:
+        assert _rel(got, want) <= 3e-2
+    elif kind == "gn":
+        assert _rel(got, want) <= 1e-4
+    else:
+        assert float((got - want).abs().max()) <= 1e-5
+
+
+def test_hex_conv_layer_refuses_what_it_does_not_take(cuda):
+    x = torch.zeros((1, 8, 8, 4), device=cuda)
+    k = torch.zeros((8, 4, 7), device=cuda)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        conv_stack.hex_conv_layer(x.double(), k, radius=2)
+    with pytest.raises(ValueError, match="kernel must be"):
+        conv_stack.hex_conv_layer(x, k[:, :3], radius=2)
+    with pytest.raises(ValueError, match="contiguous"):
+        conv_stack.hex_conv_layer(x.permute(0, 2, 1, 3), k, radius=2)
+
+
+def test_hex_conv_stack_matches_plain(cuda):
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    x = torch.rand((2, 3, 20, 17), generator=gen, device=cuda)
+    ks = [torch.randn((16, 3, 7), generator=gen, device=cuda) / 5,
+          torch.randn((16, 16, 7), generator=gen, device=cuda) / 10]
+    norms = [("gn", 8, torch.ones(16, device=cuda), torch.zeros(16, device=cuda))] * 2
+    got = conv_stack.hex_conv_stack(x, ks, radius=2, norms=norms)
+    want = conv_stack.hex_conv_stack(x, ks, radius=2, norms=norms, plain=True)
+    assert got.shape == (2, 16, 20, 17)
+    assert _rel(got, want) <= 1e-4
+
+
+def test_hexcnn_on_cuda_goes_through_both_kernels(cuda):
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    model = hexcnn_tiny(norm="GN", dtype=torch.bfloat16, device=cuda,
+                        generator=gen)
+    ref = hexcnn_tiny(norm="GN", device=cuda)
+    ref.load_state_dict(model.state_dict())
+    rect = torch.rand((4, 3, 64, 64), generator=gen, device=cuda)
+    resample.LAUNCHES = conv_stack.LAUNCHES = 0
+    with torch.inference_mode():
+        out = model(hexify_batch(rect.to(torch.bfloat16)))
+        want = ref(hexify_batch(rect, plain=True), plain=True)
+    assert (resample.LAUNCHES, conv_stack.LAUNCHES) == (1, 2)
+    assert out.dtype == torch.bfloat16 and out.shape == (4, 10)
+    assert bool(torch.isfinite(out).all())
+    assert _rel(out, want) <= 5e-2
+
+
+def test_library_is_built_once_into_build_dir(cuda):
+    lib = _build.load_library()
+    assert _build.load_library() is lib
+    path = _build.library_path()
+    assert path.exists() and path.parent == _build.BUILD_DIR

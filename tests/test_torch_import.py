@@ -1,0 +1,63 @@
+"""The port stands alone: importing it pulls in neither JAX nor flax, builds
+no kernel, and chip_smoke.py refuses to run without a GPU."""
+import ast
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+
+ROOT = Path(__file__).resolve().parents[1]
+MODULES = ["hygrid_tpu_torch", "hygrid_tpu_torch.kernels.resample",
+           "hygrid_tpu_torch.kernels.conv_stack",
+           "hygrid_tpu_torch.kernels._build", "hygrid_tpu_torch.utils.params",
+           "hygrid_tpu_torch.models.train"]
+
+
+def _run(code, cwd=ROOT):
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    return subprocess.run([sys.executable, "-c", code], cwd=cwd, env=env,
+                          capture_output=True, text=True, timeout=120)
+
+
+def test_import_pulls_in_no_jax_and_builds_nothing():
+    code = ("import sys, importlib\n"
+            f"for m in {MODULES!r}: importlib.import_module(m)\n"
+            "from hygrid_tpu_torch.kernels import _build\n"
+            "bad = [m for m in ('jax', 'flax', 'triton') if m in sys.modules]\n"
+            "assert not bad, bad\n"
+            "assert _build._lib is None\n")
+    proc = _run(code)
+    assert proc.returncode == 0, proc.stderr
+
+
+@pytest.mark.parametrize("path", sorted(
+    str(p.relative_to(ROOT)) for p in [*ROOT.glob("hygrid_tpu_torch/**/*.py"),
+                                       ROOT / "chip_smoke.py"]))
+def test_sources_import_no_jax(path):
+    tree = ast.parse((ROOT / path).read_text())
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            names = [node.module]
+        else:
+            continue
+        for name in names:
+            assert name.split(".")[0] not in ("jax", "flax", "hygrid_tpu"), \
+                f"{path} imports {name}"
+
+
+def test_chip_smoke_fails_without_gpu(tmp_path):
+    """Here there is no CUDA device: the script exits non-zero and prints
+    no result, in the checkout and alone in an empty directory."""
+    for cwd, script in ((ROOT, ROOT / "chip_smoke.py"),
+                        (tmp_path, tmp_path / "chip_smoke.py")):
+        if cwd == tmp_path:
+            script.write_text((ROOT / "chip_smoke.py").read_text())
+        proc = subprocess.run([sys.executable, str(script)], cwd=cwd,
+                              capture_output=True, text=True, timeout=120,
+                              env=dict(os.environ, PYTHONPATH=""))
+        assert proc.returncode != 0
+        assert '"ok"' not in proc.stdout
