@@ -13,7 +13,8 @@ from .ops.sampling import SamplePlan, apply_plan, apply_plan_auto
 from .nn.functional import (hex_conv2d, hex_conv2d_output_shape,
                             hex_global_pool2d, hex_kernel_num, hex_pool2d)
 from .nn.layers import HexConvStack
-from .models import HexCNN, hexcnn_small, hexcnn_tiny, hexify_batch
+from .models import (HexCNN, create_train_state, hexcnn_small, hexcnn_tiny,
+                     hexify_batch, train_step)
 
 __version__ = "0.1.0"
 
@@ -37,4 +38,6 @@ __all__ = [
     "hexcnn_small",
     "hexcnn_tiny",
     "hexify_batch",
+    "create_train_state",
+    "train_step",
 ]

@@ -36,16 +36,21 @@
 //      scale = rstd * gamma, shift = beta - mean * scale.
 // Without GN, the conv pass applies bias, the per-channel affine and ReLU
 // in its epilogue and writes the working dtype directly.
-#include <cuda_runtime.h>
-#include <cuda_bf16.h>
+//
+// The backward's dL/dx (kernels/conv_stack.py::hex_conv_layer_dgrad) is
+// this conv pass alone, run with the adjoint tap table
+// (nn/functional.py::hex_adjoint_tap_table), the weights transposed to
+// (kn, Cout, Cin), no bias, norm or ReLU: it replaces the dx half of
+// conv_pallas.py::_stack_layer_bwd_kernel.  The dW half is
+// hex_conv_wgrad.cu.
+#include "hex_common.cuh"
 
 namespace {
 
-constexpr int kMaxTaps = 64;
-struct TapTable {
-  int dr[2][kMaxTaps];
-  int dc[2][kMaxTaps];
-};
+using hg::kMaxTaps;
+using hg::TapTable;
+using hg::store;
+using hg::to_f32;
 
 constexpr int TP = 64;                               // output pixels per block
 constexpr int COB = 32;                              // output channels per block
@@ -54,11 +59,6 @@ constexpr int PT = 4;                                // pixels per thread
 constexpr int CT = 4;                                // channels per thread
 constexpr int kPixLanes = TP / PT;                   // 16
 constexpr int kConvThreads = kPixLanes * (COB / CT);  // 128
-
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
-__device__ __forceinline__ void store(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float v) { *p = __float2bfloat16(v); }
 
 template <typename Tin, typename Tout>
 __global__ void __launch_bounds__(kConvThreads)
@@ -230,13 +230,12 @@ struct Geometry {
 
 Geometry make_geometry(const int* taps_host, int kn) {
   Geometry g{};
+  g.taps = hg::make_tap_table(taps_host, kn);
   int r_lo = 1 << 30, r_hi = -(1 << 30), c_lo = 1 << 30, c_hi = -(1 << 30);
   for (int q = 0; q < 2; ++q)
     for (int t = 0; t < kn; ++t) {
-      const int dr = taps_host[(q * kn + t) * 2];
-      const int dc = taps_host[(q * kn + t) * 2 + 1];
-      g.taps.dr[q][t] = dr;
-      g.taps.dc[q][t] = dc;
+      const int dr = g.taps.dr[q][t];
+      const int dc = g.taps.dc[q][t];
       r_lo = dr < r_lo ? dr : r_lo;
       r_hi = dr > r_hi ? dr : r_hi;
       c_lo = dc < c_lo ? dc : c_lo;

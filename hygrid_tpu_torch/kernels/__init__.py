@@ -3,7 +3,11 @@
 * ``resample.plan_gather`` — ``csrc/plan_gather.cu`` (replaces
   ``hygrid_tpu/kernels/resample_pallas.py::_resample_kernel``);
 * ``conv_stack.hex_conv_layer`` — ``csrc/hex_conv_layer.cu`` (replaces
-  ``hygrid_tpu/kernels/conv_pallas.py::_stack_layer_kernel``).
+  ``hygrid_tpu/kernels/conv_pallas.py::_stack_layer_kernel``);
+* ``conv_stack.hex_conv_layer_dgrad`` (the same conv pass on the adjoint
+  tap table) and ``conv_stack.hex_conv_layer_wgrad``
+  (``csrc/hex_conv_wgrad.cu``) — together they replace
+  ``conv_pallas.py::_stack_layer_bwd_kernel``.
 
 Importing these modules builds nothing: ``_build.load_library`` compiles
 the CUDA sources at the first kernel launch.  A wrapper given a CPU tensor

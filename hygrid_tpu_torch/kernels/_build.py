@@ -1,10 +1,13 @@
 """Build and load the port's CUDA kernels.
 
-Every ``csrc/*.cu`` file is compiled by ``nvcc`` for Hopper (``sm_90a``)
-into one shared library with a plain C interface, loaded with ``ctypes``:
+Every ``csrc/*.cu`` file is compiled by its own ``nvcc`` for Hopper
+(``sm_90a``), all at once, and the objects are linked into one shared
+library with a plain C interface, loaded with ``ctypes``:
 
-    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \\
-         -Xcompiler -fPIC -o build/hygrid_tpu_torch/libhygrid_<hash>.so csrc/*.cu
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 \\
+         -Xcompiler -fPIC -Xptxas -v -c -o <name>.o csrc/<name>.cu   # each, in parallel
+    nvcc -gencode arch=compute_90a,code=sm_90a -shared \\
+         -o build/hygrid_tpu_torch/libhygrid_<hash>.so *.o
 
 The library is built at the first kernel call, from the sources in this
 package only, and named by a hash of the sources and flags, so an edited
@@ -18,6 +21,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import tempfile
 import threading
 import time
 from pathlib import Path
@@ -25,8 +29,9 @@ from pathlib import Path
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "hygrid_tpu_torch"
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
+NVCC_FLAGS = [*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+              "-Xptxas", "-v"]
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -38,6 +43,8 @@ _SIGNATURES = {
     "hg_plan_gather": [_P, _P, _P, _P, _LL, _LL, _LL, _I, _I, _P],
     "hg_hex_conv_layer": [_P, _P, _P, _P, _P, _P, _P, _I, _F, _P, _P, _P, _I,
                           _P, _I, _I, _I, _I, _I, _I, _I, _P, _I, _P],
+    "hg_hex_conv_wgrad": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _I,
+                          _I, _P],
 }
 
 _lock = threading.Lock()
@@ -70,20 +77,35 @@ def library_path() -> Path:
     return BUILD_DIR / f"libhygrid_{digest.hexdigest()[:16]}.so"
 
 
+def _run_all(cmds):
+    """Run the commands in parallel; raise with the output of the first
+    that fails.  Returns their combined output."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for c in cmds]
+    logs = [p.communicate()[0] for p in procs]
+    for cmd, proc, log in zip(cmds, procs, logs):
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
+                               f"{' '.join(cmd)}\n{log}")
+    return "".join(logs)
+
+
 def _build(out: Path) -> None:
-    cu = [str(s) for s in _sources() if s.suffix == ".cu"]
+    nvcc = _nvcc()
+    cu = [s for s in _sources() if s.suffix == ".cu"]
     out.parent.mkdir(parents=True, exist_ok=True)
     tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *cu]
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
+    with tempfile.TemporaryDirectory(dir=out.parent) as objdir:
+        objs = [str(Path(objdir) / f"{s.stem}.o") for s in cu]
+        compile_cmds = [[nvcc, *NVCC_FLAGS, "-c", "-o", o, str(s)]
+                        for s, o in zip(cu, objs)]
+        link_cmd = [nvcc, *ARCH_FLAGS, "-shared", "-o", str(tmp), *objs]
+        log = _run_all(compile_cmds) + _run_all([link_cmd])
     os.replace(tmp, out)
-    build_info.update(seconds=time.perf_counter() - t0, command=cmd,
-                      log=proc.stdout + proc.stderr)
+    build_info.update(seconds=time.perf_counter() - t0,
+                      command=[*compile_cmds, link_cmd], log=log)
 
 
 def load_library() -> ctypes.CDLL:

@@ -1,5 +1,6 @@
-"""Kernel B: the hex conv layer (``csrc/hex_conv_layer.cu``) and the
-'same' conv stack built from it.
+"""Kernel B: the hex conv layer (``csrc/hex_conv_layer.cu``), its backward
+(dL/dx through the same conv pass, dL/dW in ``csrc/hex_conv_wgrad.cu``)
+and the 'same' conv stack built from it.
 
 Port of the stack part of ``hygrid_tpu/kernels/conv_pallas.py``:
 :func:`hex_conv_stack` takes ``hex_conv_stack_pallas``'s arguments and runs
@@ -10,7 +11,18 @@ and an optional ReLU, as ``_stack_layer_kernel`` computes it:
 * ``("gn", G, gamma, beta)`` — per-sample GroupNorm over G channel groups,
   statistics from the float32 pre-activation (``E[x^2] - mean^2`` clamped
   at 0, eps 1e-5);
-* ``("affine", scale, shift)`` — per-channel ``x * scale + shift``.
+* ``("affine", scale, shift)`` — per-channel ``x * scale + shift``
+  (forward only: under grad it raises ``NotImplementedError``).
+
+:func:`hex_conv_layer` is a ``torch.autograd.Function`` (the counterpart of
+the stack's ``custom_vjp``, ``conv_pallas.py:1266-1362``).  Its forward
+keeps the layer input and, for GN layers, the float32 pre-activation the
+conv pass writes anyway.  Its backward pulls the output cotangent back
+through ReLU / GN / bias in plain PyTorch (``torch.autograd.grad`` of
+:func:`_post_plain`, as JAX takes ``jax.vjp`` of ``_make_post``), rounds it
+to the activation dtype, and runs :func:`hex_conv_layer_dgrad` (dL/dx) and
+:func:`hex_conv_layer_wgrad` (dL/dW): the two halves of
+``_stack_layer_bwd_kernel``.  Each grad comes back in its input's dtype.
 
 The TPU's lane packing, plane margins, in-place aliasing, banding and
 whole-stack fusion are not ported: ``fused``, ``band_rows``, ``packed_io``
@@ -18,7 +30,11 @@ and ``extra_input`` raise ``NotImplementedError``.
 
 The plain version of a layer is :func:`hex_conv_layer_plain`
 (``hex_conv2d(impl="direct")`` + :func:`_group_norm_nchw`, computed in
-float32); chained, it is the twin of ``conv_pallas._stack_xla``.
+float32); chained, it is the twin of ``conv_pallas._stack_xla``.  The plain
+versions of the backward kernels are :func:`hex_conv_layer_dgrad_plain`
+and :func:`hex_conv_layer_wgrad_plain` (autograd of the plain conv).
+Every wrapper runs its plain version for a CPU tensor, launches its kernel
+for a CUDA tensor and raises for anything else.
 """
 from __future__ import annotations
 
@@ -27,26 +43,44 @@ import math
 
 import numpy as np
 import torch
+from torch.autograd.function import once_differentiable
 
 from ..nn import functional as F
 from . import _build
 
-__all__ = ["hex_conv_layer", "hex_conv_layer_plain", "hex_conv_stack"]
+__all__ = ["hex_conv_layer", "hex_conv_layer_plain", "hex_conv_layer_dgrad",
+           "hex_conv_layer_dgrad_plain", "hex_conv_layer_wgrad",
+           "hex_conv_layer_wgrad_plain", "hex_conv_stack"]
 
 LAUNCHES = 0
 """Number of layers run by the kernel (one GN layer is four CUDA launches
 and counts once)."""
+DGRAD_LAUNCHES = 0
+"""Number of dL/dx launches (:func:`hex_conv_layer_dgrad`)."""
+WGRAD_LAUNCHES = 0
+"""Number of dL/dW runs (:func:`hex_conv_layer_wgrad`; two CUDA launches
+each)."""
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _EPS = 1e-5
-_GN_BLOCKS = 2048   # target (sample, pixel-chunk) blocks of the GN stats pass
+_GN_BLOCKS = 2048     # target (sample, pixel-chunk) blocks of the GN stats pass
+_WGRAD_BLOCKS = 2048  # target blocks of the dW partial-sum pass
+
+
+def _frozen(table: np.ndarray) -> np.ndarray:
+    table = np.ascontiguousarray(table)
+    table.setflags(write=False)
+    return table
 
 
 @functools.lru_cache(maxsize=None)
 def _taps(radius: int, dilation: int) -> np.ndarray:
-    table = np.ascontiguousarray(F.hex_tap_table(radius, dilation))
-    table.setflags(write=False)
-    return table
+    return _frozen(F.hex_tap_table(radius, dilation))
+
+
+@functools.lru_cache(maxsize=None)
+def _adjoint_taps(radius: int, dilation: int) -> np.ndarray:
+    return _frozen(F.hex_adjoint_tap_table(radius, dilation))
 
 
 def _group_norm_nchw(v: torch.Tensor, groups: int, gamma, beta,
@@ -66,20 +100,20 @@ def _group_norm_nchw(v: torch.Tensor, groups: int, gamma, beta,
     return out.to(v.dtype)
 
 
-def hex_conv_layer_plain(x: torch.Tensor, kernel: torch.Tensor, bias=None, *,
-                         radius: int, dilation: int = 1, norm=None,
-                         relu: bool = False) -> torch.Tensor:
-    """Plain PyTorch version of :func:`hex_conv_layer`, on any device.
-
-    Computes in float32 (the kernel's accumulation type) and returns the
-    input's dtype.  On CUDA, ``torch.nn.functional.conv2d`` runs in TF32
-    unless ``torch.backends.cudnn.allow_tf32`` is False.
-    """
+def _pre_plain(x, kernel, bias, radius: int, dilation: int) -> torch.Tensor:
+    """The float32 pre-activation ``conv(x) + bias`` of a layer, NHWC."""
     h = F.hex_conv2d(x.permute(0, 3, 1, 2).float(), kernel.float(),
                      None if bias is None else bias.float(),
                      even_odd_offset=0, radius=radius,
                      padding=dilation * (radius - 1), dilation=dilation,
                      impl="direct")
+    return h.permute(0, 2, 3, 1)
+
+
+def _post_plain(y, norm, relu: bool, dtype) -> torch.Tensor:
+    """The tail of a layer on its float32 NHWC pre-activation: norm, ReLU,
+    rounding to ``dtype``."""
+    h = y.permute(0, 3, 1, 2)
     if norm is not None:
         if norm[0] == "gn":
             _, groups, gamma, beta = norm
@@ -90,7 +124,48 @@ def hex_conv_layer_plain(x: torch.Tensor, kernel: torch.Tensor, bias=None, *,
                 + shift.float()[None, :, None, None]
     if relu:
         h = torch.relu(h)
-    return h.permute(0, 2, 3, 1).to(x.dtype).contiguous()
+    return h.permute(0, 2, 3, 1).to(dtype).contiguous()
+
+
+def hex_conv_layer_plain(x: torch.Tensor, kernel: torch.Tensor, bias=None, *,
+                         radius: int, dilation: int = 1, norm=None,
+                         relu: bool = False) -> torch.Tensor:
+    """Plain PyTorch version of :func:`hex_conv_layer`, on any device.
+
+    Computes in float32 (the kernel's accumulation type) and returns the
+    input's dtype.  On CUDA, ``torch.nn.functional.conv2d`` runs in TF32
+    unless ``torch.backends.cudnn.allow_tf32`` is False.
+    """
+    return _post_plain(_pre_plain(x, kernel, bias, radius, dilation), norm,
+                       relu, x.dtype)
+
+
+def hex_conv_layer_dgrad_plain(gpre: torch.Tensor, kernel: torch.Tensor, *,
+                               radius: int, dilation: int = 1
+                               ) -> torch.Tensor:
+    """Plain version of :func:`hex_conv_layer_dgrad`: autograd of the plain
+    conv with respect to its input, in float32, returned in ``gpre``'s
+    dtype."""
+    b, h, w, _ = gpre.shape
+    x = torch.zeros((b, h, w, kernel.shape[1]), dtype=torch.float32,
+                    device=gpre.device, requires_grad=True)
+    with torch.enable_grad():
+        y = _pre_plain(x, kernel.detach(), None, radius, dilation)
+        (dx,) = torch.autograd.grad(y, x, gpre.float())
+    return dx.to(gpre.dtype)
+
+
+def hex_conv_layer_wgrad_plain(x: torch.Tensor, gpre: torch.Tensor, *,
+                               radius: int, dilation: int = 1
+                               ) -> torch.Tensor:
+    """Plain version of :func:`hex_conv_layer_wgrad`: autograd of the plain
+    conv with respect to its flat hex weights, float32 ``(Cout, Cin, kn)``."""
+    k = torch.zeros((gpre.shape[-1], x.shape[-1], F.hex_kernel_num(radius)),
+                    dtype=torch.float32, device=x.device, requires_grad=True)
+    with torch.enable_grad():
+        y = _pre_plain(x.detach(), k, None, radius, dilation)
+        (dk,) = torch.autograd.grad(y, k, gpre.float())
+    return dk
 
 
 def _check_param(t, name, n, device):
@@ -102,49 +177,42 @@ def _check_param(t, name, n, device):
     return t.float().contiguous()
 
 
-def hex_conv_layer(x: torch.Tensor, kernel: torch.Tensor, bias=None, *,
-                   radius: int, dilation: int = 1, norm=None,
-                   relu: bool = False) -> torch.Tensor:
-    """One stride-1 'same' hex conv layer on NHWC ``x`` ``(B, H, W, Cin)``
-    with flat hex weights ``kernel`` ``(Cout, Cin, kn)``, then ``bias``, an
-    optional ``norm`` (``("gn", G, gamma, beta)`` or ``("affine", scale,
-    shift)``) and an optional ReLU.  Returns ``(B, H, W, Cout)`` in x's
-    dtype.
+def _check_activations(t: torch.Tensor, what: str) -> None:
+    if t.dtype not in _DTYPES:
+        raise TypeError(f"{what}: the kernel takes float32 or bfloat16 "
+                        f"activations, got {t.dtype}")
+    if t.ndim != 4 or not t.is_contiguous():
+        raise ValueError(f"{what}: activations must be a contiguous "
+                         "(B, H, W, C) tensor")
 
-    A CPU tensor runs :func:`hex_conv_layer_plain`.  A CUDA tensor (float32
-    or bfloat16, contiguous) launches the kernel; anything else raises.
-    """
-    global LAUNCHES
-    if x.device.type == "cpu":
-        return hex_conv_layer_plain(x, kernel, bias, radius=radius,
-                                    dilation=dilation, norm=norm, relu=relu)
-    if x.device.type != "cuda":
-        raise ValueError(f"hex_conv_layer: no kernel for device {x.device}")
-    if x.dtype not in _DTYPES:
-        raise TypeError(f"hex_conv_layer: the kernel takes float32 or "
-                        f"bfloat16 activations, got {x.dtype}")
-    if x.ndim != 4 or not x.is_contiguous():
-        raise ValueError("hex_conv_layer: x must be a contiguous (B, H, W, C) "
-                         "tensor")
+
+def _check_kernel(kernel, shape, device, what: str) -> None:
+    if tuple(kernel.shape) != shape or kernel.device != device:
+        raise ValueError(f"{what}: kernel must be {shape} on {device}, got "
+                         f"{tuple(kernel.shape)} on {kernel.device}")
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+def _conv_launch(x, wt, cout, taps, what, bias=None, norm=None, relu=False):
+    """One ``hg_hex_conv_layer`` call on checked NHWC ``x`` with float32
+    weights ``wt`` ``(kn, Cin, Cout)``.  Returns ``(out, y)``: ``y`` is
+    the float32 pre-activation scratch of a GN layer, else None."""
     b, h, w, cin = x.shape
-    kn = F.hex_kernel_num(radius)
-    cout = kernel.shape[0]
-    if tuple(kernel.shape) != (cout, cin, kn) or kernel.device != x.device:
-        raise ValueError(f"hex_conv_layer: kernel must be ({cout}, {cin}, "
-                         f"{kn}) on {x.device}, got {tuple(kernel.shape)} "
-                         f"on {kernel.device}")
+    kn = wt.shape[0]
     if h > 65535 or b * math.ceil(cout / 32) > 65535:
-        raise ValueError(f"hex_conv_layer: grid too large for H={h}, B={b}, "
+        raise ValueError(f"{what}: grid too large for H={h}, B={b}, "
                          f"Cout={cout}")
-    wt = kernel.float().permute(2, 1, 0).contiguous()       # (kn, Cin, Cout)
     bias = _check_param(bias, "bias", cout, x.device)
     scale = shift = gamma = beta = y = partial = stats = None
     groups = n_chunks = 0
     if norm is not None and norm[0] == "gn":
         _, groups, gamma, beta = norm
         if cout % groups or cout > 1024:
-            raise ValueError(f"hex_conv_layer: GroupNorm needs groups | Cout "
-                             f"<= 1024, got {groups} groups, Cout={cout}")
+            raise ValueError(f"{what}: GroupNorm needs groups | Cout <= 1024, "
+                             f"got {groups} groups, Cout={cout}")
         gamma = _check_param(gamma, "gamma", cout, x.device)
         beta = _check_param(beta, "beta", cout, x.device)
         n_chunks = max(1, min(h * w, -(-_GN_BLOCKS // b)))
@@ -158,22 +226,181 @@ def hex_conv_layer(x: torch.Tensor, kernel: torch.Tensor, bias=None, *,
         scale = _check_param(scale, "scale", cout, x.device)
         shift = _check_param(shift, "shift", cout, x.device)
     out = torch.empty((b, h, w, cout), dtype=x.dtype, device=x.device)
-    taps = _taps(radius, dilation)
-
-    def ptr(t):
-        return None if t is None else t.data_ptr()
-
     lib = _build.load_library()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         status = lib.hg_hex_conv_layer(
-            x.data_ptr(), wt.data_ptr(), ptr(bias), ptr(scale), ptr(shift),
-            ptr(gamma), ptr(beta), groups, _EPS, ptr(y), ptr(partial),
-            ptr(stats), n_chunks, out.data_ptr(), _DTYPES[x.dtype], b, h, w,
+            x.data_ptr(), wt.data_ptr(), _ptr(bias), _ptr(scale), _ptr(shift),
+            _ptr(gamma), _ptr(beta), groups, _EPS, _ptr(y), _ptr(partial),
+            _ptr(stats), n_chunks, out.data_ptr(), _DTYPES[x.dtype], b, h, w,
             cin, cout, kn, taps.ctypes.data, int(relu), stream)
-    _build.check(status, "hex_conv_layer")
+    _build.check(status, what)
+    return out, y
+
+
+def _layer_forward(x, kernel, bias, radius, dilation, norm, relu):
+    """``(out, y)`` of one layer: ``y`` is its float32 NHWC pre-activation
+    where the device path has it (always on the CPU, GN layers on CUDA)."""
+    global LAUNCHES
+    if x.device.type == "cpu":
+        y = _pre_plain(x, kernel, bias, radius, dilation)
+        return _post_plain(y, norm, relu, x.dtype), y
+    _check_activations(x, "hex_conv_layer")
+    cin, cout = x.shape[-1], kernel.shape[0]
+    _check_kernel(kernel, (cout, cin, F.hex_kernel_num(radius)), x.device,
+                  "hex_conv_layer")
+    wt = kernel.float().permute(2, 1, 0).contiguous()       # (kn, Cin, Cout)
+    out, y = _conv_launch(x, wt, cout, _taps(radius, dilation),
+                          "hex_conv_layer", bias, norm, relu)
     LAUNCHES += 1
-    return out
+    return out, y
+
+
+class _HexConvLayer(torch.autograd.Function):
+    """One layer with GN (``groups > 0``) or without a norm; see the module
+    docstring for the backward."""
+
+    @staticmethod
+    def forward(ctx, x, kernel, bias, gamma, beta, radius, dilation, groups,
+                relu):
+        norm = ("gn", groups, gamma, beta) if groups else None
+        out, y = _layer_forward(x, kernel, bias, radius, dilation, norm, relu)
+        ctx.geometry = (radius, dilation, groups, relu)
+        # GN layers pull back through their pre-activation; the others
+        # through the ReLU mask of their output
+        ctx.save_for_backward(x, kernel, bias, gamma, beta,
+                              y if groups else out)
+        return out
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, gout):
+        x, kernel, bias, gamma, beta, saved = ctx.saved_tensors
+        radius, dilation, groups, relu = ctx.geometry
+        dgamma = dbeta = None
+        if groups:
+            with torch.enable_grad():
+                y = saved.detach().requires_grad_()
+                gm = gamma.detach().requires_grad_()
+                bt = beta.detach().requires_grad_()
+                out = _post_plain(y, ("gn", groups, gm, bt), relu, gout.dtype)
+                g32, dgamma, dbeta = torch.autograd.grad(out, (y, gm, bt),
+                                                         gout)
+        else:
+            g32 = gout.float() * (saved > 0) if relu else gout.float()
+        gpre = g32.to(x.dtype).contiguous()
+        need = ctx.needs_input_grad
+        dx = (hex_conv_layer_dgrad(gpre, kernel, radius=radius,
+                                   dilation=dilation) if need[0] else None)
+        dk = (hex_conv_layer_wgrad(x, gpre, radius=radius, dilation=dilation
+                                   ).to(kernel.dtype) if need[1] else None)
+        db = (g32.sum((0, 1, 2)).to(bias.dtype)
+              if bias is not None and need[2] else None)
+        return dx, dk, db, dgamma, dbeta, None, None, None, None
+
+
+def hex_conv_layer(x: torch.Tensor, kernel: torch.Tensor, bias=None, *,
+                   radius: int, dilation: int = 1, norm=None,
+                   relu: bool = False) -> torch.Tensor:
+    """One stride-1 'same' hex conv layer on NHWC ``x`` ``(B, H, W, Cin)``
+    with flat hex weights ``kernel`` ``(Cout, Cin, kn)``, then ``bias``, an
+    optional ``norm`` (``("gn", G, gamma, beta)`` or ``("affine", scale,
+    shift)``) and an optional ReLU.  Returns ``(B, H, W, Cout)`` in x's
+    dtype, differentiable in x, kernel, bias, gamma and beta.
+
+    A CPU tensor runs the plain versions (forward and backward).  A CUDA
+    tensor (float32 or bfloat16, contiguous) launches the kernels; anything
+    else raises.  An affine norm is forward-only.
+    """
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"hex_conv_layer: no kernel for device {x.device}")
+    if norm is not None and norm[0] == "affine":
+        if torch.is_grad_enabled() and any(
+                isinstance(t, torch.Tensor) and t.requires_grad
+                for t in (x, kernel, bias, *norm[1:])):
+            raise NotImplementedError(
+                "hex_conv_layer: an affine norm has no backward in the port "
+                "(the training path has none); use norm None or GN")
+        return _layer_forward(x, kernel, bias, radius, dilation, norm,
+                              relu)[0]
+    groups, gamma, beta = (0, None, None) if norm is None else norm[1:]
+    return _HexConvLayer.apply(x, kernel, bias, gamma, beta, radius,
+                               dilation, int(groups), bool(relu))
+
+
+def hex_conv_layer_dgrad(gpre: torch.Tensor, kernel: torch.Tensor, *,
+                         radius: int, dilation: int = 1) -> torch.Tensor:
+    """dL/dx of one layer's conv, ``(B, H, W, Cin)`` in ``gpre``'s dtype,
+    for the pre-activation cotangent ``gpre`` ``(B, H, W, Cout)``.
+
+    On CUDA it is the conv pass of ``csrc/hex_conv_layer.cu`` run with the
+    adjoint tap table and the weights transposed to ``(kn, Cout, Cin)``.
+    A CPU tensor runs :func:`hex_conv_layer_dgrad_plain`.
+    """
+    global DGRAD_LAUNCHES
+    if gpre.device.type == "cpu":
+        return hex_conv_layer_dgrad_plain(gpre, kernel, radius=radius,
+                                          dilation=dilation)
+    if gpre.device.type != "cuda":
+        raise ValueError(f"hex_conv_layer_dgrad: no kernel for device "
+                         f"{gpre.device}")
+    _check_activations(gpre, "hex_conv_layer_dgrad")
+    cout, cin = gpre.shape[-1], kernel.shape[1]
+    _check_kernel(kernel, (cout, cin, F.hex_kernel_num(radius)), gpre.device,
+                  "hex_conv_layer_dgrad")
+    wt = kernel.detach().float().permute(2, 0, 1).contiguous()  # (kn, Cout, Cin)
+    dx, _ = _conv_launch(gpre, wt, cin, _adjoint_taps(radius, dilation),
+                         "hex_conv_layer_dgrad")
+    DGRAD_LAUNCHES += 1
+    return dx
+
+
+def hex_conv_layer_wgrad(x: torch.Tensor, gpre: torch.Tensor, *,
+                         radius: int, dilation: int = 1) -> torch.Tensor:
+    """dL/dW of one layer's conv, float32 ``(Cout, Cin, kn)``, from its input
+    ``x`` ``(B, H, W, Cin)`` and pre-activation cotangent ``gpre``
+    ``(B, H, W, Cout)`` of the same dtype.
+
+    On CUDA it runs ``csrc/hex_conv_wgrad.cu`` (per-chunk partial sums,
+    then a fold in chunk order: deterministic).  A CPU tensor runs
+    :func:`hex_conv_layer_wgrad_plain`.
+    """
+    global WGRAD_LAUNCHES
+    if x.device.type == "cpu":
+        return hex_conv_layer_wgrad_plain(x, gpre, radius=radius,
+                                          dilation=dilation)
+    if x.device.type != "cuda":
+        raise ValueError(f"hex_conv_layer_wgrad: no kernel for device "
+                         f"{x.device}")
+    _check_activations(x, "hex_conv_layer_wgrad")
+    _check_activations(gpre, "hex_conv_layer_wgrad")
+    if (gpre.shape[:3] != x.shape[:3] or gpre.dtype != x.dtype
+            or gpre.device != x.device):
+        raise ValueError(f"hex_conv_layer_wgrad: x {tuple(x.shape)} "
+                         f"{x.dtype} and gpre {tuple(gpre.shape)} "
+                         f"{gpre.dtype} must share (B, H, W), dtype and device")
+    b, h, w, cin = x.shape
+    cout = gpre.shape[-1]
+    kn = F.hex_kernel_num(radius)
+    rows = b * h
+    tiles = math.ceil(cin / 64) * math.ceil(cout / 64)
+    n_chunks = max(1, min(rows, -(-_WGRAD_BLOCKS // (kn * tiles))))
+    rows_per_chunk = -(-rows // n_chunks)
+    n_chunks = -(-rows // rows_per_chunk)
+    partial = torch.empty((n_chunks, kn, cin, cout), dtype=torch.float32,
+                          device=x.device)
+    dw = torch.empty((cout, cin, kn), dtype=torch.float32, device=x.device)
+    lib = _build.load_library()
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        status = lib.hg_hex_conv_wgrad(
+            x.data_ptr(), gpre.data_ptr(), partial.data_ptr(), dw.data_ptr(),
+            _DTYPES[x.dtype], b, h, w, cin, cout, kn,
+            _taps(radius, dilation).ctypes.data, rows_per_chunk, n_chunks,
+            stream)
+    _build.check(status, "hex_conv_layer_wgrad")
+    WGRAD_LAUNCHES += 1
+    return dw
 
 
 def _split_norms(norms, kernels):

@@ -1,5 +1,11 @@
-"""Built-in hex model families of the PyTorch port."""
+"""Built-in hex model families and training utilities of the PyTorch port."""
+from .fit import fit
 from .hexcnn import HexCNN, hexcnn_small, hexcnn_tiny
-from .train import hexify_batch
+from .train import (TrainState, create_train_state, dense_onehot_xent,
+                    eval_step, hexify_batch, mean_iou, synthetic_hex_cifar,
+                    synthetic_hex_shapes, train_step)
 
-__all__ = ["HexCNN", "hexcnn_small", "hexcnn_tiny", "hexify_batch"]
+__all__ = ["HexCNN", "hexcnn_small", "hexcnn_tiny", "fit", "TrainState",
+           "create_train_state", "train_step", "eval_step",
+           "dense_onehot_xent", "hexify_batch", "synthetic_hex_cifar",
+           "synthetic_hex_shapes", "mean_iou"]

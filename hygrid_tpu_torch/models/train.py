@@ -1,15 +1,145 @@
-"""Model input helpers, PyTorch port of ``hexify_batch`` from
-``hygrid_tpu/models/train.py`` (the training utilities come with the
-training slice)."""
+"""Training utilities for hex models, PyTorch port of
+``hygrid_tpu/models/train.py``: train state, train and eval steps, the
+one-hot cross-entropy, mean IoU, the rect->hex input helper and the
+synthetic datasets.
+
+``hygrid_tpu``'s steps are pure functions of a flax ``TrainState``; here
+the state holds a ``torch.nn.Module`` and a ``torch.optim.AdamW``, and
+:func:`train_step` updates both in place.  Batch-norm statistics
+(``batch_stats``) are not ported: a model with buffers raises.
+"""
 from __future__ import annotations
 
-from typing import Optional, Tuple
+import dataclasses
+from typing import Callable, Optional, Tuple
 
+import numpy as np
 import torch
+from torch import nn
 
 from ..ops import geometry, sampling
 
-__all__ = ["hexify_batch"]
+__all__ = [
+    "TrainState",
+    "create_train_state",
+    "train_step",
+    "eval_step",
+    "dense_onehot_xent",
+    "hexify_batch",
+    "synthetic_hex_cifar",
+    "synthetic_hex_shapes",
+    "mean_iou",
+]
+
+
+@dataclasses.dataclass
+class TrainState:
+    """The model, its optimizer and the number of steps taken."""
+    model: nn.Module
+    optimizer: torch.optim.Optimizer
+    step: int = 0
+
+
+def create_train_state(model: nn.Module, sample_input=None,
+                       tx: Optional[Callable] = None,
+                       learning_rate: float = 1e-3) -> TrainState:
+    """Wrap ``model`` with an optimizer over all of its parameters.
+
+    ``tx`` is a callable ``params -> torch.optim.Optimizer``; the default is
+    ``optax.adamw(learning_rate)``'s semantics in ``torch.optim.AdamW``:
+    betas (0.9, 0.999), eps 1e-8 and weight decay 1e-4 on every parameter
+    (optax's defaults; torch's own weight decay default is 1e-2).
+    ``sample_input`` is accepted for ``hygrid_tpu``'s signature and not
+    used: torch modules build their parameters at construction.
+    """
+    del sample_input
+    if any(True for _ in model.buffers()):
+        raise NotImplementedError(
+            "create_train_state: models with buffers (batch-norm batch_stats)"
+            " are not ported; HexCNN with norm='GN' or None has none")
+    params = list(model.parameters())
+    if tx is None:
+        optimizer = torch.optim.AdamW(params, lr=learning_rate,
+                                      betas=(0.9, 0.999), eps=1e-8,
+                                      weight_decay=1e-4)
+    else:
+        optimizer = tx(params)
+    return TrainState(model=model, optimizer=optimizer)
+
+
+def _class_axis_last(logits: torch.Tensor, labels: torch.Tensor
+                     ) -> torch.Tensor:
+    """Channel-first per-cell logits (B, K, h, w) against (B, h, w) labels
+    move the class axis last, so one cross-entropy serves classifiers and
+    segmenters."""
+    if labels.ndim >= 2 and logits.ndim == labels.ndim + 1:
+        return torch.movedim(logits, 1, -1)
+    return logits
+
+
+def dense_onehot_xent(logits: torch.Tensor, labels: torch.Tensor
+                      ) -> torch.Tensor:
+    """Mean softmax cross-entropy in the dense one-hot form, in the logits'
+    dtype: the loss :func:`train_step` optimises (twin of
+    ``hygrid_tpu.models.train.dense_onehot_xent``; a label outside
+    ``[0, K)`` gets an all-zero row, as ``jax.nn.one_hot`` gives it).
+    ``logits`` class-axis-last."""
+    k = logits.shape[-1]
+    onehot = (labels[..., None] == torch.arange(k, device=labels.device)
+              ).to(logits.dtype)
+    return -(onehot * torch.log_softmax(logits, dim=-1)).sum(-1).mean()
+
+
+def _accuracy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    return (logits.argmax(-1) == labels).float().mean()
+
+
+def train_step(state: TrainState, images: torch.Tensor,
+               labels: torch.Tensor):
+    """One optimisation step: forward, :func:`dense_onehot_xent`, backward,
+    optimizer update.  Unlike ``hygrid_tpu``'s pure step it updates
+    ``state`` (the model's parameters, the optimizer's moments and
+    ``state.step``) in place, and returns it with ``{"loss", "accuracy"}``
+    as 0-d tensors.  The parameters' ``.grad`` keep this step's grads.
+
+    ``labels`` may be (B,) class ids or (B, h, w) per-cell ids against
+    (B, K, h, w) logits.
+    """
+    model = state.model.train()
+    state.optimizer.zero_grad(set_to_none=True)
+    logits = _class_axis_last(model(images), labels)
+    loss = dense_onehot_xent(logits, labels)
+    loss.backward()
+    state.optimizer.step()
+    state.step += 1
+    return state, {"loss": loss.detach(),
+                   "accuracy": _accuracy(logits.detach(), labels)}
+
+
+@torch.no_grad()
+def eval_step(state: TrainState, images: torch.Tensor,
+              labels: torch.Tensor) -> dict:
+    """Integer-label cross-entropy and accuracy, without a grad."""
+    logits = _class_axis_last(state.model.eval()(images), labels)
+    logp = torch.log_softmax(logits, dim=-1)
+    loss = -logp.gather(-1, labels[..., None].long()).squeeze(-1).mean()
+    return {"loss": loss, "accuracy": _accuracy(logits, labels)}
+
+
+def mean_iou(logits: torch.Tensor, labels: torch.Tensor,
+             num_classes: int) -> torch.Tensor:
+    """Mean intersection-over-union over the classes present in the
+    prediction or the truth.  ``logits`` (B, K, h, w) or (B, h, w, K);
+    ``labels`` (B, h, w)."""
+    pred = _class_axis_last(logits, labels).argmax(-1)
+    ious, valid = [], []
+    for k in range(num_classes):
+        p, t = pred == k, labels == k
+        inter, union = (p & t).sum(), (p | t).sum()
+        ious.append(torch.where(union > 0, inter / union.clamp(min=1), 0.0))
+        valid.append(union > 0)
+    ious, valid = torch.stack(ious), torch.stack(valid)
+    return (ious * valid).sum() / valid.sum().clamp(min=1)
 
 
 def hexify_batch(images: torch.Tensor,
@@ -28,3 +158,58 @@ def hexify_batch(images: torch.Tensor,
         return geometry.rect_to_hex_resample(images, hex_size, interpolation)
     plan = geometry.rect_to_hex_plan(h, w, *hex_size, interpolation)
     return sampling.apply_plan(images, plan)
+
+
+def synthetic_hex_cifar(rng: np.random.Generator, n: int, *,
+                        num_classes: int = 10, size: int = 32):
+    """Deterministic CIFAR-like synthetic data (class-dependent oriented
+    gratings + noise), hexified to (size//2, size//2): the numpy draws of
+    ``hygrid_tpu.models.synthetic_hex_cifar``, so one seed gives both
+    packages the same data.  Returns float32 images and int64 labels."""
+    labels = rng.integers(0, num_classes, n)
+    yy, xx = np.mgrid[0:size, 0:size] / size
+    images = np.zeros((n, 3, size, size), np.float32)
+    for k in range(num_classes):
+        sel = labels == k
+        angle = np.pi * k / num_classes
+        wave = np.sin(2 * np.pi * (np.cos(angle) * xx + np.sin(angle) * yy)
+                      * (2 + k % 3))
+        images[sel] = wave[None]
+    images += rng.normal(0, 0.3, images.shape).astype(np.float32)
+    return hexify_batch(torch.from_numpy(images)), torch.from_numpy(labels)
+
+
+def synthetic_hex_shapes(rng: np.random.Generator, n: int, *, size: int = 64,
+                         num_classes: int = 4, noise: float = 0.25):
+    """Synthetic dense-prediction task: rect scenes of noisy coloured disks,
+    squares and diamonds -> per-cell class labels, both hexified (images
+    bilinear, labels through the exact nearest plan).  The numpy draws of
+    ``hygrid_tpu.models.synthetic_hex_shapes``.  Returns float32 images
+    (n, 3, size//2, size//2) and int32 labels (n, size//2, size//2)."""
+    colors = np.array([[0.1, 0.1, 0.1],          # background
+                       [0.9, 0.3, 0.2],          # disk
+                       [0.2, 0.8, 0.3],          # square
+                       [0.3, 0.4, 0.9]])[:num_classes]
+    yy, xx = np.mgrid[0:size, 0:size]
+    images = np.zeros((n, 3, size, size), np.float32)
+    labels = np.zeros((n, size, size), np.int64)
+    for i in range(n):
+        images[i] = colors[0][:, None, None]
+        for _ in range(int(rng.integers(2, 5))):
+            cls = int(rng.integers(1, num_classes))
+            cy, cx = rng.integers(10, size - 10, 2)
+            r = int(rng.integers(6, 12))
+            if cls == 1:
+                mask = (yy - cy) ** 2 + (xx - cx) ** 2 <= r * r
+            elif cls == 2:
+                mask = (np.abs(yy - cy) <= r) & (np.abs(xx - cx) <= r)
+            else:
+                mask = np.abs(yy - cy) + np.abs(xx - cx) <= r
+            images[i, :, mask] = colors[cls]
+            labels[i][mask] = cls
+    images += rng.normal(0, noise, images.shape).astype(np.float32)
+    hex_images = hexify_batch(torch.from_numpy(images))
+    hex_labels = geometry.rect_to_hex_resample(
+        torch.from_numpy(labels.astype(np.int32)), (size // 2, size // 2),
+        "nearest")
+    return hex_images, hex_labels

@@ -28,6 +28,7 @@ __all__ = [
     "hex_kernel_num",
     "scatter_hex_kernel",
     "hex_tap_table",
+    "hex_adjoint_tap_table",
     "hex_conv2d",
     "hex_conv2d_output_shape",
     "hex_pool2d",
@@ -117,6 +118,27 @@ def hex_tap_table(radius: int, dilation: int = 1) -> np.ndarray:
         for (i, t, ln, start) in _hex_kernel_rows(radius):
             for k in range(ln):
                 table[q, start + k] = (i * d - p, c0[i] + d * k - p)
+    return table
+
+
+def hex_adjoint_tap_table(radius: int, dilation: int = 1) -> np.ndarray:
+    """Tap table of the adjoint of the 'same' conv of :func:`hex_tap_table`.
+
+    Forward output row ``o`` (parity ``q``) reads input row ``o + dr_t``
+    with ``dr_t = T[q, t, 0]`` the same for both parities.  So input pixel
+    ``(i, j)`` receives tap ``t`` from output row ``o = i - dr_t``, whose
+    parity is ``(i % 2) ^ (dr_t & 1)``, at column ``j - dc`` with ``dc``
+    read at that parity.  Returns int32 ``(2, kn, 2)``: for input-row
+    parity ``p``, ``dL/dx(i, j) = sum_t W_t^T g(i + A[p, t, 0],
+    j + A[p, t, 1])`` (zero outside the image), ``W_t`` the ``(Cout, Cin)``
+    weights of tap ``t``.
+    """
+    fwd = hex_tap_table(radius, dilation)
+    table = np.empty_like(fwd)
+    for p in (0, 1):
+        for t in range(fwd.shape[1]):
+            dr = int(fwd[0, t, 0])
+            table[p, t] = (-dr, -fwd[p ^ (dr & 1), t, 1])
     return table
 
 

@@ -8,8 +8,11 @@ no JAX, so it also runs where JAX is not installed:
 
 Tolerances: float32 within 1e-5 absolute without a norm and 1e-4 relative
 with GroupNorm (it rescales summation-order differences); bfloat16 within
-1e-2 (resample) and 3e-2 (conv layer) relative, a few bf16 ulps of the
-output once both sides round their float32 results.
+1e-2 (resample) and 3e-2 (conv layer, dx) relative, a few bf16 ulps of the
+output once both sides round their float32 results.  dW is float32 on both
+sides from the same inputs: 1e-4 relative (summation order over many
+pixels).  Model grads in float32: 1e-3 relative per leaf (GN and the
+backward's chain rescale summation-order differences).
 """
 import math
 
@@ -17,7 +20,9 @@ import pytest
 import torch
 
 from hygrid_tpu_torch.kernels import _build, conv_stack, resample
-from hygrid_tpu_torch.models import hexcnn_tiny, hexify_batch
+from hygrid_tpu_torch.models import (HexCNN, create_train_state,
+                                     dense_onehot_xent, hexcnn_tiny,
+                                     hexify_batch, train_step)
 from hygrid_tpu_torch.ops import geometry, sampling
 
 pytestmark = pytest.mark.cuda
@@ -164,3 +169,129 @@ def test_library_is_built_once_into_build_dir(cuda):
     assert _build.load_library() is lib
     path = _build.library_path()
     assert path.exists() and path.parent == _build.BUILD_DIR
+
+
+BWD_CASES = [  # (B, H, W, Cin, Cout, radius, dilation)
+    (2, 11, 13, 5, 40, 2, 1), (3, 12, 9, 32, 16, 2, 1),
+    (1, 10, 70, 3, 32, 2, 1), (2, 9, 14, 8, 24, 3, 1),
+    (1, 13, 12, 7, 16, 2, 2), (2, 17, 66, 64, 128, 2, 1),
+    (1, 9, 11, 33, 65, 4, 1),
+]
+
+
+def _bwd_inputs(case, dtype, cuda):
+    b, h, w, cin, cout, r, d = case
+    gen = torch.Generator(device=cuda).manual_seed(BWD_CASES.index(case))
+    kn = 3 * r * r - 3 * r + 1
+    x = torch.rand((b, h, w, cin), generator=gen, device=cuda).to(dtype)
+    g = torch.randn((b, h, w, cout), generator=gen, device=cuda).to(dtype)
+    k = (torch.randn((cout, cin, kn), generator=gen, device=cuda)
+         / math.sqrt(cin * kn)).to(dtype)
+    return x, g, k, dict(radius=r, dilation=d)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", BWD_CASES)
+def test_dgrad_matches_plain(cuda, case, dtype):
+    x, g, k, kw = _bwd_inputs(case, dtype, cuda)
+    before = conv_stack.DGRAD_LAUNCHES
+    got = conv_stack.hex_conv_layer_dgrad(g, k, **kw)
+    want = conv_stack.hex_conv_layer_dgrad_plain(g, k, **kw)
+    torch.cuda.synchronize()
+    assert conv_stack.DGRAD_LAUNCHES == before + 1
+    assert got.shape == x.shape and got.dtype == dtype
+    assert _rel(got, want) <= (1e-5 if dtype == torch.float32 else 3e-2)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", BWD_CASES)
+def test_wgrad_matches_plain(cuda, case, dtype):
+    x, g, k, kw = _bwd_inputs(case, dtype, cuda)
+    before = conv_stack.WGRAD_LAUNCHES
+    got = conv_stack.hex_conv_layer_wgrad(x, g, **kw)
+    want = conv_stack.hex_conv_layer_wgrad_plain(x, g, **kw)
+    torch.cuda.synchronize()
+    assert conv_stack.WGRAD_LAUNCHES == before + 1
+    assert got.shape == k.shape and got.dtype == torch.float32
+    assert _rel(got, want) <= 1e-4
+
+
+def test_wgrad_is_deterministic(cuda):
+    x, g, _, kw = _bwd_inputs(BWD_CASES[5], torch.bfloat16, cuda)
+    first = conv_stack.hex_conv_layer_wgrad(x, g, **kw)
+    assert torch.equal(first, conv_stack.hex_conv_layer_wgrad(x, g, **kw))
+
+
+@pytest.mark.parametrize("name", ["r2h-61x47-nearest", "h2r-33x29-linear",
+                                  "resize-40x31-bilinear"])
+def test_plan_gather_grad_matches_apply_plan(cuda, name):
+    plan = PLANS[name]()
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    x = torch.rand((2, 3) + plan.src_shape, generator=gen, device=cuda)
+    g = torch.randn((2, 3) + tuple(plan.out_shape), generator=gen,
+                    device=cuda)
+    grads = []
+    for fn in (resample.plan_gather, sampling.apply_plan):
+        xx = x.clone().requires_grad_()
+        (fn(xx, plan) * g).sum().backward()
+        grads.append(xx.grad)
+    assert float((grads[0] - grads[1]).abs().max()) <= 1e-5
+
+
+def _model_grads(model, rect, labels, plain):
+    model.zero_grad(set_to_none=True)
+    logits = model(hexify_batch(rect, plain=plain), plain=plain)
+    dense_onehot_xent(logits, labels).backward()
+    return {n: p.grad for n, p in model.named_parameters()}
+
+
+@pytest.mark.parametrize("norm", ["GN", None])
+def test_hexcnn_kernel_path_grads_match_plain(cuda, norm):
+    """Every parameter gets a grad through the kernels, equal to the plain
+    path's: the conv kernels and GN affine included, not only the head."""
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    model = HexCNN(channels=(16, 32), depth=2, norm=norm, device=cuda,
+                   generator=gen)
+    rect = torch.rand((2, 3, 64, 64), generator=gen, device=cuda)
+    labels = torch.tensor([3, 7], device=cuda)
+    for mod in (resample, conv_stack):
+        mod.LAUNCHES = 0
+    conv_stack.DGRAD_LAUNCHES = conv_stack.WGRAD_LAUNCHES = 0
+    got = _model_grads(model, rect, labels, plain=False)
+    counts = (resample.LAUNCHES, conv_stack.LAUNCHES,
+              conv_stack.DGRAD_LAUNCHES, conv_stack.WGRAD_LAUNCHES)
+    want = _model_grads(model, rect, labels, plain=True)
+    assert counts == (1, 4, 3, 4)
+    assert sorted(got) == sorted(want)
+    for name in want:
+        assert got[name] is not None, name
+        assert _rel(got[name], want[name]) <= 1e-3, name
+
+
+class _Plain(torch.nn.Module):
+    def __init__(self, model):
+        super().__init__()
+        self.model = model
+
+    def forward(self, x):
+        return self.model(x, plain=True)
+
+
+def test_train_step_kernel_path_matches_plain(cuda):
+    gen = torch.Generator(device=cuda).manual_seed(2)
+    model = HexCNN(channels=(8, 16), depth=2, norm="GN", device=cuda,
+                   generator=gen)
+    ref = HexCNN(channels=(8, 16), depth=2, norm="GN", device=cuda)
+    ref.load_state_dict(model.state_dict())
+    images = hexify_batch(torch.rand((4, 3, 32, 32), generator=gen,
+                                     device=cuda))
+    labels = torch.arange(4, device=cuda) % 10
+    state, m = train_step(create_train_state(model), images, labels)
+    ref_state, ref_m = train_step(create_train_state(_Plain(ref)), images,
+                                  labels)
+    assert abs(float(m["loss"]) - float(ref_m["loss"])) \
+        <= 1e-4 * abs(float(ref_m["loss"]))
+    for (name, p), q in zip(model.named_parameters(), ref.parameters()):
+        g = q.grad.abs()
+        sel = g >= 1e-3 * g.max()
+        assert float((p.detach() - q.detach())[sel].abs().max()) <= 1e-5, name
