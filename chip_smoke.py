@@ -30,10 +30,33 @@ Phases, each of which raises on failure (the script then exits non-zero):
    6 kernel-B layers, 5 dL/dx and 6 dL/dW launches; losses must be
    finite; one step's loss and every parameter's grad must agree with the
    plain path run in float32 on the card (and, tighter, the float32 kernel
-   path with it).
+   path with it);
+8. kernel C (shift_resample) against its plain version, float32 and
+   bfloat16, on the 720p rect->hex bilinear plan (b=1 and b=8, C=3), the
+   4K mosaic (540x960 -> 2160x3840, C=3, bit-equal), the 1080p rect->hex
+   plan in float32 (the shape where the TPU kernel bands its source) and
+   the 512^2 same-size hex->rect linear plan (which routes to
+   plan_gather); with kernel, plain and plan_gather times per call (CUDA
+   events, as for every kernel), the kernel's and plan_gather's device
+   times by CUDA-graph replay (the host's dispatch left out) beside them,
+   and the bound from the bytes the function needs (source, output and the
+   plan's indices and weights; the kernel's own weight table is reported
+   as its overhead);
+9. the video slice: the default 720p frame processor (bf16, hex 640x360,
+   7-tap Gaussian): device ms per frame over 32 pre-staged frames (CUDA
+   events), then 64 distinct numpy frames streamed through
+   ``process_stream(depth=8)`` and again with ``microbatch=8`` (frames/s
+   by wall clock); one shift_resample launch and no plan_gather launch per
+   call; every streamed frame within 2e-2 of the plain float32 path on the
+   card, microbatched frames within one bf16 ulp of per-frame ones;
+10. the mosaic slice: 20 renders each of a float32 and a uint8 540x960
+    image at 2160x3840 (frames/s by CUDA events), one shift_resample
+    launch per render, both bit-equal to the plain gather.
 
-The last lines are the kernel summary, the card's name and power limit,
-and ``{"ok": true, "device": {...}}``.
+The last lines are the kernel summary (with each kernel's bound: the bytes
+it must move at 3.35 TB/s or its operations at the card's peak for their
+type, whichever takes longer), the card's name and power limit, and
+``{"ok": true, "device": {...}}``.
 """
 import json
 import math
@@ -42,6 +65,8 @@ import subprocess
 import sys
 import time
 from pathlib import Path
+
+import numpy as np
 
 ROOT = Path(__file__).resolve().parent
 BATCH = 32
@@ -52,7 +77,11 @@ LAYERS = [(3, 32, 256, 256), (32, 32, 256, 256), (32, 64, 128, 127),
 N_STEPS = 4
 TOL = {"a_f32_abs": 1e-6, "a_bf16_rel": 1e-2, "b_f32_rel": 1e-4,
        "b_bf16_rel": 3e-2, "slice_rel": 5e-2, "loss_rel": 1e-2,
-       "grad_bf16_rel": 1e-1, "grad_f32_rel": 1e-3}
+       "grad_bf16_rel": 1e-1, "grad_f32_rel": 1e-3, "video_rel": 2e-2}
+# the card's published peaks (H100 SXM data sheet, dense, at 700 W)
+HBM_BYTES_S = 3.35e12
+PEAK_FLOPS = {"bf16": 989e12, "f32": 67e12}
+VIDEO_FRAMES, VIDEO_TIMED, MICROBATCH, MOSAIC_RENDERS = 64, 32, 8, 20
 # grad_bf16_rel: bf16 compute alone moves single leaves by up to 6e-2
 # against the float32 plain path (the bf16 plain path as much as the bf16
 # kernel path; PERF.md, findings on the training step), so the bound is
@@ -79,6 +108,30 @@ def cuda_ms(torch, fn, iters=10, warmup=2):
     return start.elapsed_time(end) / iters
 
 
+def graph_ms(torch, fn, iters=20):
+    """Device time of one ``fn`` call in ms, without the host's dispatch:
+    ``iters`` calls captured in one CUDA graph, replayed between CUDA
+    events after a warm-up replay."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
+
+
 def max_err(got, want):
     """(max abs error, max abs error relative to max |want|), in float32."""
     diff = (got.float() - want.float()).abs().max().item()
@@ -89,6 +142,27 @@ def max_err(got, want):
 def require(ok, what):
     if not ok:
         raise AssertionError(what)
+
+
+def bound(nbytes, flops, peak):
+    """(ms, "bytes" or "operations"): the least time the card could take,
+    the larger of moving ``nbytes`` once and doing ``flops`` at ``peak``."""
+    t_bytes = nbytes / HBM_BYTES_S * 1e3
+    t_ops = flops / PEAK_FLOPS[peak] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def summed_bound(parts):
+    """Sum of per-call bounds; named by the kind that bounds more of it."""
+    total = sum(ms for ms, _ in parts)
+    by_bytes = sum(ms for ms, by in parts if by == "bytes")
+    return dict(bound_ms=total,
+                bound_by="bytes" if by_bytes >= total - by_bytes
+                else "operations")
+
+
+def nbytes(*tensors):
+    return sum(t.numel() * t.element_size() for t in tensors)
 
 
 def check_kernel_a(torch, gen):
@@ -117,11 +191,17 @@ def check_kernel_a(torch, gen):
                         f"plan_gather {name} bf16: relative err {rel}")
             ms = cuda_ms(torch, lambda: resample.plan_gather(x, plan))
             plain = cuda_ms(torch, lambda: sampling.apply_plan(x, plan))
+            idx, wts = plan.tensors(x.device)
+            b_ms, b_by = bound(nbytes(x, got, idx, wts),
+                               2 * got.numel() * idx.shape[0], "f32")
             log(f"plan_gather {name} K={plan.idx.shape[0]} b={BATCH} C=3 "
                 f"{str(dtype)[6:]}: max_abs_err={err!r} rel={rel!r} "
-                f"kernel_ms={ms!r} plain_ms={plain!r}")
+                f"kernel_ms={ms!r} plain_ms={plain!r} "
+                f"bound_ms={b_ms!r} ({b_by})")
             if summary is None and dtype == torch.bfloat16:
-                summary = dict(max_abs_err=err, ms=ms, plain_ms=plain)
+                summary = dict(max_abs_err=err, ms=ms, plain_ms=plain,
+                               **summed_bound([(b_ms, b_by)]),
+                               library_ms=None)
     return summary
 
 
@@ -129,7 +209,7 @@ def check_kernel_b(torch, gen):
     from hygrid_tpu_torch.kernels import conv_stack
     from hygrid_tpu_torch.nn.functional import hex_kernel_num
     kn = hex_kernel_num(2)
-    errs, ms_sum, plain_sum = [], 0.0, 0.0
+    errs, ms_sum, plain_sum, bounds = [], 0.0, 0.0, []
     for li, (cin, cout, h, w) in enumerate(LAYERS):
         groups = math.gcd(8, cout)
         k = torch.randn((cout, cin, kn), generator=gen, device="cuda") \
@@ -160,14 +240,20 @@ def check_kernel_b(torch, gen):
                                 f"err {rel} > {tol}")
             ms = cuda_ms(torch, kernel, iters=5)
             pms = cuda_ms(torch, plain, iters=5)
+            b_ms, b_by = bound(nbytes(x, kd, gamma, beta, got),
+                               2 * kn * BATCH * h * w * cin * cout,
+                               "bf16" if dtype == torch.bfloat16 else "f32")
             line += (f" {str(dtype)[6:]} max_abs_err={err!r} rel={rel!r} "
-                     f"kernel_ms={ms!r} plain_ms={pms!r};")
+                     f"kernel_ms={ms!r} plain_ms={pms!r} "
+                     f"bound_ms={b_ms!r} ({b_by});")
             if dtype == torch.bfloat16:
                 errs.append(err)
                 ms_sum += ms
                 plain_sum += pms
+                bounds.append((b_ms, b_by))
         log(line)
-    return dict(max_abs_err=max(errs), ms=ms_sum, plain_ms=plain_sum)
+    return dict(max_abs_err=max(errs), ms=ms_sum, plain_ms=plain_sum,
+                **summed_bound(bounds), library_ms=None)
 
 
 def run_slice(torch):
@@ -239,6 +325,7 @@ def check_backward(torch, gen):
     kn = hex_kernel_num(2)
     sums = {name: dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0)
             for name in ("dgrad", "wgrad")}
+    bounds = {"dgrad": [], "wgrad": []}
     for li, (cin, cout, h, w) in enumerate(LAYERS):
         k = torch.randn((cout, cin, kn), generator=gen, device="cuda") \
             / math.sqrt(cin * kn)
@@ -270,14 +357,23 @@ def check_backward(torch, gen):
                                     f"{rel} > {tol}")
                 ms = cuda_ms(torch, kernel, iters=5)
                 pms = cuda_ms(torch, plain, iters=5)
+                b_ms, b_by = bound(
+                    nbytes(g, kd, got) if name == "dgrad"
+                    else nbytes(x, g, got),
+                    2 * kn * BATCH * h * w * cin * cout,
+                    "bf16" if dtype == torch.bfloat16 else "f32")
                 line += (f" {name} {str(dtype)[6:]} max_abs_err={err!r} "
-                         f"rel={rel!r} kernel_ms={ms!r} plain_ms={pms!r};")
+                         f"rel={rel!r} kernel_ms={ms!r} plain_ms={pms!r} "
+                         f"bound_ms={b_ms!r} ({b_by});")
                 if dtype == torch.bfloat16 and (name == "wgrad" or li > 0):
                     acc = sums[name]
                     acc["max_abs_err"] = max(acc["max_abs_err"], err)
                     acc["ms"] += ms
                     acc["plain_ms"] += pms
+                    bounds[name].append((b_ms, b_by))
         log(line)
+    for name in sums:
+        sums[name].update(summed_bound(bounds[name]), library_ms=None)
     return sums
 
 
@@ -372,6 +468,225 @@ def run_training(torch):
     return launches
 
 
+def _shift_plans(torch):
+    """Phase 8's plans: (name, plan, lead dims, dtypes, main path, whether
+    apply_plan_auto routes it to shift_resample)."""
+    from hygrid_tpu_torch.ops import geometry
+    from hygrid_tpu_torch.viz import render
+    p720 = geometry.rect_to_hex_plan(720, 1280, 360, 640, "bilinear")
+    both = (torch.float32, torch.bfloat16)
+    return [
+        ("720p rect->hex 1280x720->640x360 bilinear", p720, (1, 3), both,
+         "video", True),
+        ("720p rect->hex 1280x720->640x360 bilinear", p720, (8, 3), both,
+         None, True),
+        ("4K mosaic 540x960->2160x3840",
+         render._mosaic_sample_plan(540, 960, 2160, 3840, 0, None), (3,),
+         both, "mosaic", True),
+        ("1080p rect->hex 1920x1080->960x540 bilinear",
+         geometry.rect_to_hex_plan(1080, 1920, 540, 960, "bilinear"),
+         (1, 3), (torch.float32,), None, True),
+        ("512^2 same-size hex->rect linear",
+         geometry.hex_to_rect_plan(512, 512, 512, 512, "linear"), (1, 3),
+         both, None, False),
+    ]
+
+
+def check_kernel_c(torch, gen):
+    """Phase 8: shift_resample against its plain version.  Returns the
+    summary over the main paths' shapes (720p b=1 and the mosaic, bf16):
+    ``ms`` and ``plain_ms`` per call by CUDA events, as for every kernel,
+    and ``graph_ms`` the kernel's device time alone."""
+    from hygrid_tpu_torch.kernels import resample, resample_shift as rs
+    from hygrid_tpu_torch.ops import sampling
+    main = []
+    for name, plan, lead, dtypes, path, shift in _shift_plans(torch):
+        require(sampling.takes_shift_route(plan) is shift,
+                f"{name}: apply_plan_auto routes to "
+                f"{'plan_gather' if shift else 'shift_resample'}")
+        geo = rs.shift_decompose_cached(plan)
+        x32 = torch.rand(lead + plan.src_shape, generator=gen, device="cuda")
+        for dtype in dtypes:
+            x = x32.to(dtype)
+            got = rs.shift_resample(x, plan)
+            want = rs.shift_resample_plain(x, plan)
+            torch.cuda.synchronize()
+            require(got.shape == want.shape and got.dtype == dtype,
+                    f"shift_resample {name}: shape/dtype {got.shape} "
+                    f"{got.dtype}")
+            err, rel = max_err(got, want)
+            if plan.exact_select:
+                require(torch.equal(got, want),
+                        f"shift_resample {name} {dtype}: not bit-equal")
+            elif dtype == torch.float32:
+                require(err <= TOL["a_f32_abs"],
+                        f"shift_resample {name} f32: max abs err {err}")
+            else:
+                require(rel <= TOL["a_bf16_rel"],
+                        f"shift_resample {name} bf16: relative err {rel}")
+            ms = cuda_ms(torch, lambda: rs.shift_resample(x, plan))
+            plain = cuda_ms(torch, lambda: rs.shift_resample_plain(x, plan))
+            pg = cuda_ms(torch, lambda: resample.plan_gather(x, plan))
+            dev = graph_ms(torch, lambda: rs.shift_resample(x, plan))
+            pg_dev = graph_ms(torch, lambda: resample.plan_gather(x, plan))
+            # what the function needs: the source, the output and the
+            # plan's (idx, weights); the kernel's dense weight table is
+            # its own overhead on top
+            idx, wts = plan.tensors(x.device)
+            moved = nbytes(x, got, idx, wts)
+            table = nbytes(geo.tensors(x.device)["wtab"])
+            b_ms, b_by = bound(moved, 2 * idx.shape[0] * got.numel(), "f32")
+            line = (f"shift_resample {name} lead={lead} "
+                    f"{str(dtype)[6:]}: slots={len(geo.slots)} "
+                    f"num={geo.num} den={geo.den} "
+                    f"{'phase' if geo.phase_mode else 'dense'} mode "
+                    f"({geo.n_phases} phases) max_abs_err={err!r} "
+                    f"rel={rel!r} per call (CUDA events): kernel_ms={ms!r} "
+                    f"plain_ms={plain!r} plan_gather_ms={pg!r}; device "
+                    f"alone (CUDA graph): kernel_ms={dev!r} "
+                    f"plan_gather_ms={pg_dev!r}; bytes={moved} "
+                    f"bound_ms={b_ms!r} ({b_by}); weight table "
+                    f"{table} bytes (the kernel's overhead)")
+            log(line)
+            if path is not None and dtype == torch.bfloat16:
+                main.append((err, ms, plain, dev, (b_ms, b_by)))
+    return dict(max_abs_err=max(m[0] for m in main),
+                ms=sum(m[1] for m in main), plain_ms=sum(m[2] for m in main),
+                graph_ms=sum(m[3] for m in main),
+                **summed_bound([m[4] for m in main]), library_ms=None)
+
+
+def _bf16_ulp(torch, a, b):
+    """Spacing of bfloat16 numbers at max(|a|, |b|), elementwise."""
+    mag = torch.maximum(a.float().abs(), b.float().abs()).clamp_min(1e-30)
+    return torch.exp2(torch.floor(torch.log2(mag)) - 7)
+
+
+def run_video(torch):
+    """Phase 9: the 720p video slice.  Returns the launches of the
+    streamed run."""
+    from hygrid_tpu_torch.kernels import resample, resample_shift as rs
+    from hygrid_tpu_torch.models import video
+    from hygrid_tpu_torch.nn import filters
+    from hygrid_tpu_torch.ops import geometry, sampling
+    h, w = 720, 1280
+    proc = video.make_frame_processor(h, w)
+    batch = video.make_batch_processor(h, w)
+    rng = np.random.default_rng(4)
+    frames = [rng.random((3, h, w), dtype=np.float32)
+              for _ in range(VIDEO_FRAMES)]
+    staged = [torch.from_numpy(f).cuda() for f in frames[:VIDEO_TIMED]]
+    with torch.inference_mode():
+        proc(staged[0])
+        batch(torch.stack(staged[:MICROBATCH]))
+        torch.cuda.synchronize()
+        rs.LAUNCHES = resample.LAUNCHES = 0
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for f in staged:
+            proc(f)
+        end.record()
+        end.synchronize()
+        dev_ms = start.elapsed_time(end) / VIDEO_TIMED
+        require((rs.LAUNCHES, resample.LAUNCHES) == (VIDEO_TIMED, 0),
+                f"video: {rs.LAUNCHES} shift_resample and "
+                f"{resample.LAUNCHES} plan_gather launches for "
+                f"{VIDEO_TIMED} frames")
+
+        graph_frame_ms = graph_ms(torch, lambda: proc(staged[0]))
+        runs = {}
+        for label, processor, mb in (("per-frame", proc, 1),
+                                     ("microbatch", batch, MICROBATCH)):
+            # warm-up: pinned staging buffers and the stream's first calls
+            list(video.process_stream(iter(frames[:2 * mb]), processor,
+                                      microbatch=mb))
+            stats = video.StreamStats()
+            rs.LAUNCHES = resample.LAUNCHES = 0
+            outs = list(video.process_stream(iter(frames), processor, stats,
+                                             depth=8, microbatch=mb))
+            launches = {"shift_resample": rs.LAUNCHES,
+                        "plan_gather": resample.LAUNCHES}
+            calls = -(-VIDEO_FRAMES // mb)
+            require(launches == {"shift_resample": calls, "plan_gather": 0},
+                    f"video {label} stream: launches {launches} for "
+                    f"{calls} calls")
+            require(stats.frames == len(outs) == VIDEO_FRAMES,
+                    f"video {label} stream: {len(outs)} frames out")
+            runs[label] = (outs, stats.fps, launches)
+
+        plan = geometry.rect_to_hex_plan(h, w, h // 2, w // 2, "bilinear")
+        taps = filters.hex_gaussian_kernel(1.0)
+        worst = 0.0
+        for i, (frame, out) in enumerate(zip(frames, runs["per-frame"][0])):
+            require(out.shape == (3, h // 2, w // 2)
+                    and out.dtype == torch.bfloat16,
+                    f"video frame {i}: {tuple(out.shape)} {out.dtype}")
+            x = torch.from_numpy(frame).cuda()[None]
+            ref = filters.hex_filter(sampling.apply_plan(x, plan), taps)[0]
+            rel = max_err(out, ref)[1]
+            worst = max(worst, rel)
+            require(rel <= TOL["video_rel"],
+                    f"video frame {i} vs plain f32: relative err {rel}")
+        for i, (a, b) in enumerate(zip(runs["microbatch"][0],
+                                       runs["per-frame"][0])):
+            require(bool(((a.float() - b.float()).abs()
+                          <= _bf16_ulp(torch, a, b)).all()),
+                    f"video frame {i}: microbatched differs from per-frame "
+                    f"by more than one bf16 ulp")
+    log(f"video 720p bf16 hex 640x360 + 7-tap Gaussian: device "
+        f"{dev_ms!r} ms/frame over {VIDEO_TIMED} pre-staged frames "
+        f"(fps={1e3 / dev_ms!r}), {graph_frame_ms!r} ms/frame on the device "
+        f"alone (CUDA graph); process_stream(depth=8) "
+        f"{VIDEO_FRAMES} numpy f32 frames: fps={runs['per-frame'][1]!r}, "
+        f"microbatch={MICROBATCH}: fps={runs['microbatch'][1]!r}; "
+        f"launches per-frame {runs['per-frame'][2]}, microbatch "
+        f"{runs['microbatch'][2]}; worst frame vs plain f32 rel={worst!r}")
+    return runs["per-frame"][2]
+
+
+def run_mosaic(torch):
+    """Phase 10: the 4K mosaic slice.  Returns the launches of the timed
+    renders."""
+    from hygrid_tpu_torch.kernels import resample, resample_shift as rs
+    from hygrid_tpu_torch.ops import sampling
+    from hygrid_tpu_torch.viz import render
+    out_size = (2160, 3840)
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    img32 = torch.rand((3, 540, 960), generator=gen, device="cuda") * 255
+    img8 = img32.to(torch.uint8)
+    plan = render._mosaic_sample_plan(540, 960, *out_size, 0, None)
+    launches = {"shift_resample": 0, "plan_gather": 0}
+    line = "mosaic 540x960 -> 2160x3840 C=3:"
+    with torch.inference_mode():
+        for img in (img32, img8):
+            render.render_mosaic(img, out_size)
+            torch.cuda.synchronize()
+            rs.LAUNCHES = resample.LAUNCHES = 0
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            for _ in range(MOSAIC_RENDERS):
+                frame = render.render_mosaic(img, out_size)
+            end.record()
+            end.synchronize()
+            ms = start.elapsed_time(end) / MOSAIC_RENDERS
+            require((rs.LAUNCHES, resample.LAUNCHES) == (MOSAIC_RENDERS, 0),
+                    f"mosaic {img.dtype}: {rs.LAUNCHES} shift_resample and "
+                    f"{resample.LAUNCHES} plan_gather launches for "
+                    f"{MOSAIC_RENDERS} renders")
+            launches["shift_resample"] += rs.LAUNCHES
+            want = sampling.apply_plan(
+                img.to(torch.bfloat16) if img.dtype == torch.float32
+                else img, plan).to(img.dtype)
+            require(frame.dtype == img.dtype and torch.equal(frame, want),
+                    f"mosaic {img.dtype}: not bit-equal to the plain gather")
+            line += (f" {str(img.dtype)[6:]} {ms!r} ms/frame "
+                     f"(fps={1e3 / ms!r}), bit-equal;")
+    log(line + f" launches {launches}")
+    return launches
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -415,13 +730,18 @@ def main():
     with torch.inference_mode():
         a = check_kernel_a(torch, gen)
         b = check_kernel_b(torch, gen)
-    serve = run_slice(torch)
+    paths = {"serve": run_slice(torch)}
     bwd = check_backward(torch, gen)
-    train = run_training(torch)
+    paths["train"] = run_training(torch)
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        c = check_kernel_c(torch, gen)
+    paths["video"] = run_video(torch)
+    paths["mosaic"] = run_mosaic(torch)
+    log(f"phases 8-10: {time.perf_counter() - t0:.1f} s")
 
     def count(name):
-        by_path = {p: n[name] for p, n in (("serve", serve), ("train", train))
-                   if name in n}
+        by_path = {p: n[name] for p, n in paths.items() if n.get(name)}
         return dict(launches=sum(by_path.values()), launches_by_path=by_path)
 
     kernels = [
@@ -441,7 +761,14 @@ def main():
              source="hygrid_tpu_torch/csrc/hex_conv_wgrad.cu",
              replaces="hygrid_tpu/kernels/conv_pallas.py:1402",
              **count("hex_conv_wgrad"), **bwd["wgrad"]),
+        dict(name="shift_resample", route="cuda",
+             source="hygrid_tpu_torch/csrc/shift_resample.cu",
+             replaces="hygrid_tpu/kernels/resample_shift.py:215",
+             also_replaces="hygrid_tpu/kernels/resample_shift.py:234",
+             **count("shift_resample"), **c),
     ]
+    for k in kernels:
+        require(k["launches"] > 0, f"{k['name']}: no launch on the main path")
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -5,7 +5,7 @@ is PyTorch; the TPU kernels on the ported path are CUDA C++ kernels for
 ``sm_90a`` (``csrc/``), built with ``nvcc`` at their first launch.  Importing
 the package needs neither JAX nor a GPU nor ``nvcc``.
 """
-from . import lattice
+from . import lattice, viz
 from .ops.geometry import (hex_to_rect_resample, hexresize,
                            image_geometric_transformation,
                            rect_to_hex_resample, warp_output_shape)
@@ -20,6 +20,7 @@ __version__ = "0.1.0"
 
 __all__ = [
     "lattice",
+    "viz",
     "hex_to_rect_resample",
     "hexresize",
     "image_geometric_transformation",

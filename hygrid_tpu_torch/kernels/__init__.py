@@ -7,7 +7,10 @@
 * ``conv_stack.hex_conv_layer_dgrad`` (the same conv pass on the adjoint
   tap table) and ``conv_stack.hex_conv_layer_wgrad``
   (``csrc/hex_conv_wgrad.cu``) — together they replace
-  ``conv_pallas.py::_stack_layer_bwd_kernel``.
+  ``conv_pallas.py::_stack_layer_bwd_kernel``;
+* ``resample_shift.shift_resample`` — ``csrc/shift_resample.cu`` (replaces
+  ``hygrid_tpu/kernels/resample_shift.py::_shift_kernel_full`` and
+  ``::_shift_kernel_banded``).
 
 Importing these modules builds nothing: ``_build.load_library`` compiles
 the CUDA sources at the first kernel launch.  A wrapper given a CPU tensor

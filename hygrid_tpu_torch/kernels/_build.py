@@ -45,6 +45,8 @@ _SIGNATURES = {
                           _P, _I, _I, _I, _I, _I, _I, _I, _P, _I, _P],
     "hg_hex_conv_wgrad": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _I,
                           _I, _P],
+    "hg_shift_resample": [_P, _P, _P, _P, _P, _P, _P, _I, _LL, _I, _I, _I, _I,
+                          _I, _I, _I, _P],
 }
 
 _lock = threading.Lock()

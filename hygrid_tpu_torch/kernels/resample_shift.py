@@ -1,0 +1,349 @@
+"""Shift-structured resampler (``csrc/shift_resample.cu``).
+
+Port of ``hygrid_tpu/kernels/resample_shift.py`` (``_shift_kernel_full``
+and ``_shift_kernel_banded``) and of the numpy row-band decomposition of
+``hygrid_tpu/kernels/resample_pallas.py`` it builds on.  Many plans map
+output column ``j`` to source columns ``(num * j) // den + s`` for a few
+integer shifts ``s`` and read two source rows ``rowbase[r] + d`` per output
+row ``r``.  :func:`shift_decompose` finds that structure and sums the plan's
+weights per slot ``(d, s)``; then
+
+    out[n, r, j] = sum_i  W[i, r, j] * src[n, rowbase[r] + d_i, (num*j)//den + s_i]
+
+over the slots ``i`` in the order of ``geo.slots``, with a source column
+outside ``[0, W)`` reading 0.  ``W`` is ``wphase[phase_idx[r], i, j]`` in
+phase mode and ``wplanes[i, r, j]`` otherwise (the same numbers).
+
+The reference stores slot ``i`` as ``(d, u, a)``, with ``a`` relative to a
+pre-stretched (``den > 1``) or de-interleaved (``num > 1``) copy of the
+source.  Here ``s`` is the raw column shift (:func:`slot_shifts`) and no
+copy is built.
+
+Both versions accumulate in float32 (float64 for float64 images, plain
+version only) with float32 weights and round once to the image dtype.
+``hygrid_tpu`` ships the weights in bf16 where that is lossless; the sums
+are the same.  The gradient is the transpose of the plan
+(:func:`~hygrid_tpu_torch.kernels.resample.plan_gather_vjp_plain`), as the
+reference's shift executor takes ``apply_plan_pallas``'s custom VJP
+(``resample_pallas.py:432-457``).
+"""
+from __future__ import annotations
+
+import dataclasses
+import hashlib
+from typing import Dict
+
+import numpy as np
+import torch
+from torch.autograd.function import once_differentiable
+
+from ..ops.sampling import SamplePlan
+from . import _build
+
+__all__ = ["rowsep_decompose", "ShiftGeometry",
+           "shift_decompose", "shift_decompose_cached", "slot_shifts",
+           "shift_resample", "shift_resample_plain"]
+
+LAUNCHES = 0
+"""Number of kernel launches made by :func:`shift_resample`."""
+
+_MAX_SHIFTS = 8
+_MAX_SLOTS = 10
+_STRIDES = ((1, 1), (1, 2), (1, 4), (1, 8), (2, 1), (4, 1), (1, 3), (3, 1))
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def rowsep_decompose(plan: SamplePlan):
+    """Decompose a plan into the row-band form.
+
+    Returns ``(rowbase (h1,) int32, cols (2, K, h1, w1) int32,
+    wts (2, K, h1, w1) float32)`` such that::
+
+        out[c, r, :] = sum_d sum_k wts[d,k,r,:] * src[c, rowbase[r]+d, cols[d,k,r,:]]
+
+    or None if the plan is not row-separable.
+    """
+    h, w = plan.src_shape
+    if h < 2:
+        return None
+    k, h1, w1 = plan.idx.shape
+    rows = plan.idx // w
+    cols = plan.idx % w
+    valid = plan.weights != 0
+    # zero-weight entries are clamped placeholders: they can live anywhere
+    big = np.where(valid, rows, h + 10)
+    base = big.min(axis=(0, 2))                      # (h1,)
+    invalid = base > h                               # fully-invalid rows:
+    if invalid.all():
+        base = np.zeros_like(base)
+    elif invalid.any():
+        # forward/backward-fill from valid neighbours (any in-range value
+        # is correct: these rows carry only zero weights)
+        idxs = np.arange(base.shape[0])
+        ffill = np.maximum.accumulate(np.where(~invalid, idxs, -1))
+        rev = np.where(~invalid[::-1], idxs[::-1], 2 * base.shape[0])
+        bfill = np.minimum.accumulate(rev)[::-1]
+        base = base[np.where(ffill >= 0, ffill, bfill)]
+    base = np.clip(base, 0, h - 2).astype(np.int64)
+    delta = rows - base[None, :, None]
+    if np.any(valid & ((delta < 0) | (delta > 1))):
+        return None
+    # keep only slots that carry any weight for the given row-part
+    per_d = []
+    for d in (0, 1):
+        sel = valid & (delta == d)
+        c_list, w_list = [], []
+        for kk in range(k):
+            wk = np.where(sel[kk], plan.weights[kk], 0.0)
+            if np.any(wk):
+                c_list.append(np.where(sel[kk], cols[kk], 0))
+                w_list.append(wk)
+        per_d.append((c_list, w_list))
+    kd = max(1, max(len(c) for c, _ in per_d))
+    out_cols = np.zeros((2, kd, h1, w1), np.int32)
+    out_wts = np.zeros((2, kd, h1, w1), np.float32)
+    for d in (0, 1):
+        c_list, w_list = per_d[d]
+        for i, (c, wv) in enumerate(zip(c_list, w_list)):
+            out_cols[d, i] = c
+            out_wts[d, i] = wv
+    return base.astype(np.int32), out_cols, out_wts
+
+
+@dataclasses.dataclass(frozen=True)
+class ShiftGeometry:
+    """Decomposition of a shift-structured plan (fields bit-equal to
+    ``hygrid_tpu``'s).
+
+    ``slots[i] = (d, u, a)``: row-part d reads de-interleaved source plane u
+    (always 0 unless downsampling) at lane shift ``a`` relative to output
+    column j; ``wplanes[i]`` carries that slot's per-(row, column) weights
+    (the sum of every plan term that lands on the slot, accumulated in the
+    plan's k order).
+    """
+    num: int                      # column stride numerator (downsample Q)
+    den: int                      # column stride denominator (upsample Q)
+    slots: tuple                  # ((d, u, a), ...)
+    wplanes: np.ndarray           # (n_slots, h1, w1) float32
+    rowbase: np.ndarray           # (h1,) int32
+    phase_idx: np.ndarray         # (h1,) int32
+    n_phases: int
+    phase_mode: bool
+    wphase: np.ndarray            # (n_phases, n_slots, w1) f32 (phase mode)
+    _device_copies: Dict[str, dict] = dataclasses.field(
+        default_factory=dict, repr=False, compare=False)
+
+    def tensors(self, device) -> dict:
+        """The kernel's tables on ``device``, uploaded once per geometry
+        and device: ``rowbase`` (h1,) int32, ``phase_idx`` (h1,) int32 or
+        None (dense mode), ``wtab`` float32 ``(n_phases, n_slots, w1)`` in
+        phase mode and ``(h1, n_slots, w1)`` otherwise, and the slots'
+        row parts and raw column shifts as host int32 arrays."""
+        key = str(torch.device(device))
+        tabs = self._device_copies.get(key)
+        if tabs is None:
+            wtab = (self.wphase if self.phase_mode
+                    else self.wplanes.transpose(1, 0, 2))
+            shifts = slot_shifts(self)
+            tabs = dict(
+                rowbase=torch.from_numpy(self.rowbase).to(device),
+                phase_idx=(torch.from_numpy(self.phase_idx).to(device)
+                           if self.phase_mode else None),
+                wtab=torch.from_numpy(np.ascontiguousarray(wtab)).to(device),
+                slot_d=np.array([d for d, _ in shifts], np.int32),
+                slot_s=np.array([s for _, s in shifts], np.int32))
+            self._device_copies[key] = tabs
+        return tabs
+
+
+def shift_decompose(plan: SamplePlan, max_shifts: int = _MAX_SHIFTS):
+    """Detect constant column stride and build slot weight planes, or None.
+
+    Works from the row-band decomposition; the extra condition is that
+    ``cols - (num*j)//den`` takes at most ``max_shifts`` distinct values
+    over the live (weight != 0) entries.
+    """
+    dec = rowsep_decompose(plan)
+    if dec is None:
+        return None
+    rowbase, cols, wts = dec
+    _, k, h1, w1 = cols.shape
+    valid = wts != 0
+    if not valid.any():
+        return None
+    j = np.arange(w1, dtype=np.int64)
+    for num, den in _STRIDES:
+        base = (num * j) // den
+        delta = cols - base[None, None, None, :]
+        shifts = np.unique(delta[valid])
+        if len(shifts) <= max_shifts:
+            break
+    else:
+        return None
+
+    slots, planes = [], []
+    for d in (0, 1):
+        for s in shifts:
+            wpl = np.zeros((h1, w1), np.float32)
+            live = False
+            for kk in range(k):
+                m = valid[d, kk] & (delta[d, kk] == s)
+                if m.any():
+                    wpl = np.where(m, wpl + wts[d, kk], wpl)
+                    live = True
+            if live:
+                s = int(s)
+                if den > 1:          # pre-stretched source: stride-1 @ den*s
+                    slots.append((d, 0, den * s))
+                else:                # de-interleaved plane u, shift s//num
+                    slots.append((d, s % num, s // num))
+                planes.append(wpl)
+    if not slots or len(slots) > _MAX_SLOTS:
+        return None
+    wplanes = np.stack(planes)
+
+    # row-phase dedup: bit-identical weight rows share a phase
+    row_key: dict = {}
+    phase_idx = np.empty(h1, np.int32)
+    first_rows: list = []
+    for r in range(h1):
+        dg = hashlib.blake2b(wplanes[:, r, :].tobytes(), digest_size=16)
+        p = row_key.setdefault(dg.digest(), len(row_key))
+        if p == len(first_rows):
+            first_rows.append(r)
+        phase_idx[r] = p
+    n_phases = len(first_rows)
+    phase_mode = n_phases <= 64 and \
+        n_phases * len(slots) * w1 * 4 <= 4 * 2**20
+    wphase = (wplanes[:, np.asarray(first_rows), :].transpose(1, 0, 2).copy()
+              if phase_mode else np.zeros((0,), np.float32))
+    return ShiftGeometry(
+        num=num if den == 1 else 1, den=den, slots=tuple(slots),
+        wplanes=wplanes, rowbase=rowbase.astype(np.int32),
+        phase_idx=phase_idx, n_phases=n_phases, phase_mode=phase_mode,
+        wphase=wphase)
+
+
+def shift_decompose_cached(plan: SamplePlan):
+    """:func:`shift_decompose`, computed once per plan and kept on it, so
+    that the geometry and its device tables live exactly as long as the
+    plan (plans are interned by the geometry-level and view caches; the
+    decomposition is a full numpy pass)."""
+    if "shift" not in plan._derived:
+        plan._derived["shift"] = shift_decompose(plan)
+    return plan._derived["shift"]
+
+
+def slot_shifts(geo: ShiftGeometry):
+    """``[(d, s), ...]``: each slot's row part and raw column shift, so
+    that slot i reads source column ``(num * j) // den + s``."""
+    def raw(u, a):
+        if geo.den > 1:
+            return a // geo.den
+        return a * geo.num + u
+    return [(d, raw(u, a)) for d, u, a in geo.slots]
+
+
+def shift_resample_plain(image: torch.Tensor, plan: SamplePlan,
+                         geo: ShiftGeometry = None) -> torch.Tensor:
+    """The plain PyTorch version of the kernel, on any device: per slot,
+    gather the shifted source rows and columns and add ``W * value`` to a
+    float32 accumulator (float64 for float64 images), in slot order.
+    Floating images come back in their dtype, others in float32."""
+    geo = geo if geo is not None else shift_decompose_cached(plan)
+    if geo is None:
+        raise ValueError("plan is not shift-structured")
+    h, w = plan.src_shape
+    h1, w1 = plan.out_shape
+    if tuple(image.shape[-2:]) != (h, w):
+        raise ValueError(f"image spatial shape {tuple(image.shape[-2:])} != "
+                         f"plan source {plan.src_shape}")
+    lead = tuple(image.shape[:-2])
+    x = image.reshape((-1, h, w))
+    dev = image.device
+    acc_dtype = (torch.float64 if image.dtype == torch.float64
+                 else torch.float32)
+    tabs = geo.tensors(dev)
+    wtab = tabs["wtab"]
+    if geo.phase_mode:
+        wtab = wtab[tabs["phase_idx"].long()]            # (h1, n_slots, w1)
+    rowbase = tabs["rowbase"].long()
+    base = (geo.num * torch.arange(w1, device=dev)) // geo.den
+    acc = torch.zeros((x.shape[0], h1, w1), dtype=acc_dtype, device=dev)
+    for i, (d, s) in enumerate(slot_shifts(geo)):
+        cols = base + s
+        inside = (cols >= 0) & (cols < w)
+        v = x[:, rowbase + d][:, :, cols.clamp(0, w - 1)].to(acc_dtype)
+        v = torch.where(inside, v, torch.zeros((), dtype=acc_dtype,
+                                               device=dev))
+        acc = acc + v * wtab[:, i, :].to(acc_dtype)
+    out_dtype = image.dtype if image.dtype.is_floating_point else torch.float32
+    return acc.to(out_dtype).reshape(lead + (h1, w1))
+
+
+def shift_resample(image: torch.Tensor, plan: SamplePlan) -> torch.Tensor:
+    """Execute a shift-structured ``plan`` on ``image`` ``(..., H, W)``.
+
+    A CPU tensor runs :func:`shift_resample_plain`.  A CUDA tensor (float32
+    or bfloat16, contiguous) launches the kernel; anything else raises, as
+    does a plan that :func:`shift_decompose` refuses.  The result has the
+    image's dtype and shape ``(..., h1, w1)``; its gradient is the plan's
+    transpose on either device.
+    """
+    if image.device.type not in ("cpu", "cuda"):
+        raise ValueError(
+            f"shift_resample: no kernel for device {image.device}")
+    return _ShiftResample.apply(image, plan)
+
+
+class _ShiftResample(torch.autograd.Function):
+
+    @staticmethod
+    def forward(ctx, image, plan):
+        ctx.plan = plan
+        geo = shift_decompose_cached(plan)
+        if geo is None:
+            raise ValueError("shift_resample: plan is not shift-structured")
+        if image.device.type == "cpu":
+            return shift_resample_plain(image, plan, geo)
+        return _launch(image, plan, geo)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, grad):
+        from .resample import plan_gather_vjp_plain
+        return plan_gather_vjp_plain(grad, ctx.plan), None
+
+
+def _launch(image: torch.Tensor, plan: SamplePlan,
+            geo: ShiftGeometry) -> torch.Tensor:
+    global LAUNCHES
+    if image.dtype not in _DTYPES:
+        raise TypeError(f"shift_resample: the kernel takes float32 or "
+                        f"bfloat16 images, got {image.dtype}")
+    if not image.is_contiguous():
+        raise ValueError("shift_resample: the image must be contiguous")
+    h, w = plan.src_shape
+    h1, w1 = plan.out_shape
+    if tuple(image.shape[-2:]) != (h, w):
+        raise ValueError(f"image spatial shape {tuple(image.shape[-2:])} != "
+                         f"plan source {plan.src_shape}")
+    tabs = geo.tensors(image.device)
+    lead = tuple(image.shape[:-2])
+    n_planes = image.numel() // (h * w)
+    out = torch.empty(lead + (h1, w1), dtype=image.dtype, device=image.device)
+    if n_planes == 0:
+        return out
+    phase_idx = tabs["phase_idx"]
+    lib = _build.load_library()
+    with torch.cuda.device(image.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        status = lib.hg_shift_resample(
+            image.data_ptr(), out.data_ptr(), tabs["rowbase"].data_ptr(),
+            None if phase_idx is None else phase_idx.data_ptr(),
+            tabs["wtab"].data_ptr(), tabs["slot_d"].ctypes.data,
+            tabs["slot_s"].ctypes.data, len(geo.slots), n_planes, h, w, h1,
+            w1, geo.num, geo.den, _DTYPES[image.dtype], stream)
+    _build.check(status, "shift_resample")
+    LAUNCHES += 1
+    return out

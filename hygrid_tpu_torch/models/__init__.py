@@ -4,8 +4,11 @@ from .hexcnn import HexCNN, hexcnn_small, hexcnn_tiny
 from .train import (TrainState, create_train_state, dense_onehot_xent,
                     eval_step, hexify_batch, mean_iou, synthetic_hex_cifar,
                     synthetic_hex_shapes, train_step)
+from .video import (StreamStats, make_batch_processor, make_frame_processor,
+                    process_stream)
 
 __all__ = ["HexCNN", "hexcnn_small", "hexcnn_tiny", "fit", "TrainState",
            "create_train_state", "train_step", "eval_step",
            "dense_onehot_xent", "hexify_batch", "synthetic_hex_cifar",
-           "synthetic_hex_shapes", "mean_iou"]
+           "synthetic_hex_shapes", "mean_iou", "make_frame_processor",
+           "make_batch_processor", "process_stream", "StreamStats"]

@@ -41,15 +41,16 @@ class HexCNN(nn.Module):
         in_channels: input channels (flax infers them at init; torch
             builds parameters up front).
         dtype: compute dtype; parameters stay float32.
-        device / generator: where the parameters live and the generator
-            that initialises them.
+        device / generator: where the parameters live (the card unless
+            the caller asks for the CPU) and the generator that initialises
+            them.
     """
 
     def __init__(self, num_classes: int = 10,
                  channels: Sequence[int] = (32, 64, 128), depth: int = 2,
                  radius: int = 2, norm: Optional[str] = "BN",
                  in_channels: int = 3, dtype: torch.dtype = torch.float32,
-                 device=None, generator: Optional[torch.Generator] = None):
+                 device="cuda", generator: Optional[torch.Generator] = None):
         super().__init__()
         if norm not in ("GN", None):
             raise NotImplementedError(

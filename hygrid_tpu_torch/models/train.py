@@ -148,8 +148,9 @@ def hexify_batch(images: torch.Tensor,
                  plain: bool = False) -> torch.Tensor:
     """rect (B, C, H, W) -> hex (B, C, h, w) through one resample plan.
 
-    Default target is (H//2, W//2).  A CUDA batch runs the plan-gather
-    kernel; ``plain=True`` runs the plain gather-blend on any device.
+    Default target is (H//2, W//2).  A CUDA batch runs the resample kernel
+    that ``apply_plan_auto`` picks for the plan; ``plain=True`` runs the
+    plain gather-blend on any device.
     """
     h, w = images.shape[-2:]
     if hex_size is None:

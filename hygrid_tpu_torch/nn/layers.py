@@ -41,8 +41,9 @@ class HexConvStack(nn.Module):
         data_format: layout of input and output, "NCHW" or "NHWC".
         dtype: compute dtype (parameters stay ``param_dtype``); None keeps
             the input's dtype.
-        device / generator: where the parameters live, and the generator
-            that initialises them.
+        device / generator: where the parameters live (the card unless
+            the caller asks for the CPU), and the generator that initialises
+            them.
     """
 
     def __init__(self, in_channels: int, width: int, depth: int, *,
@@ -54,7 +55,7 @@ class HexConvStack(nn.Module):
                  data_format: str = "NCHW",
                  dtype: Optional[torch.dtype] = None,
                  param_dtype: torch.dtype = torch.float32,
-                 device=None, generator: Optional[torch.Generator] = None):
+                 device="cuda", generator: Optional[torch.Generator] = None):
         super().__init__()
         if norm not in (None, "GN"):
             raise ValueError(

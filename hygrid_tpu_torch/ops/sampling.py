@@ -5,9 +5,10 @@
   once in float64 numpy (bit-equal to ``hygrid_tpu``'s plans).
 * **Apply** — the gather-and-blend on a tensor of any device.
   :func:`apply_plan` is the plain PyTorch version; :func:`apply_plan_auto`
-  hands the tensor to the plan-gather kernel wrapper
-  (``kernels/resample.py``), which launches the CUDA kernel for a CUDA
-  tensor and runs :func:`apply_plan` for a CPU tensor.
+  hands the tensor to the shift resampler (``kernels/resample_shift.py``)
+  or the plan-gather kernel (``kernels/resample.py``), by the plan's
+  structure; each launches its CUDA kernel for a CUDA tensor and runs its
+  plain version for a CPU tensor.
 
 Deliberate difference from ``hygrid_tpu``: for floating images the blend
 accumulates in float32 (float64 for float64 images) with float32 weights,
@@ -31,6 +32,7 @@ __all__ = [
     "rect_sample_plan",
     "apply_plan",
     "apply_plan_auto",
+    "takes_shift_route",
 ]
 
 
@@ -56,6 +58,10 @@ class SamplePlan:
     exact_select: bool = False
     _device_copies: Dict[str, Tuple[torch.Tensor, torch.Tensor]] = \
         dataclasses.field(default_factory=dict, repr=False)
+    # results derived from the plan (its shift decomposition), which live
+    # and die with it
+    _derived: Dict[str, object] = dataclasses.field(default_factory=dict,
+                                                    repr=False)
 
     def tensors(self, device) -> Tuple[torch.Tensor, torch.Tensor]:
         """``(idx, weights)`` as contiguous ``(K, h1*w1)`` int32 / float32
@@ -211,9 +217,42 @@ def apply_plan(image: torch.Tensor, plan: SamplePlan) -> torch.Tensor:
     return out.reshape(lead + tuple(plan.out_shape))
 
 
+def takes_shift_route(plan: SamplePlan) -> bool:
+    """Whether :func:`apply_plan_auto` runs ``plan`` on the shift resampler.
+
+    Only the shift-structured plans with a column stride other than 1 and
+    at least 640 output columns take it: those of the 720p video and the
+    mosaic paths, where ``hygrid_tpu``'s TPU routing runs its shift kernel
+    (``resample_shift.py:162``).  Unit-stride plans stay on the
+    plan-gather kernel, which was the faster of the two on every plan
+    measured on an H100.
+    """
+    from ..kernels.resample_shift import shift_decompose_cached
+    geo = shift_decompose_cached(plan)
+    return (geo is not None and (geo.num > 1 or geo.den > 1)
+            and plan.out_shape[1] >= 640)
+
+
 def apply_plan_auto(image: torch.Tensor, plan: SamplePlan) -> torch.Tensor:
-    """Device-dispatching plan execution: the plan-gather kernel for a CUDA
-    tensor, :func:`apply_plan` for a CPU tensor (see
-    ``kernels/resample.py::plan_gather``)."""
+    """Plan execution through the port's resample kernels.
+
+    The executor follows from the plan's structure alone, the same on
+    every device: the shift resampler (``kernels/resample_shift.py``)
+    where :func:`takes_shift_route` holds, else the plan-gather kernel
+    (``kernels/resample.py``).  Each launches its CUDA kernel for a CUDA
+    tensor and runs its plain version for a CPU tensor.  Integer images
+    keep ``hygrid_tpu``'s rules: 8-bit images through an exact-select
+    plan go through bfloat16 and back bit-exactly, other integer images
+    run :func:`apply_plan`.
+    """
     from ..kernels.resample import plan_gather
+    from ..kernels.resample_shift import shift_resample
+    image = torch.as_tensor(image)
+    if not image.dtype.is_floating_point:
+        if plan.exact_select and image.element_size() == 1:
+            out = apply_plan_auto(image.to(torch.bfloat16), plan)
+            return out.to(image.dtype)
+        return apply_plan(image, plan)
+    if takes_shift_route(plan):
+        return shift_resample(image, plan)
     return plan_gather(image, plan)

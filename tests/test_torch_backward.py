@@ -177,7 +177,7 @@ def test_hexconvstack_grads_match_jax(norm, min_cells):
         return jnp.sum(jm.apply({"params": p}, x) * g)
 
     want_p, want_x = jax.jit(jax.grad(loss, argnums=(0, 1)))(params, x)
-    tm = HexConvStack(3, 16, 2, norm=norm, data_format="NHWC")
+    tm = HexConvStack(3, 16, 2, norm=norm, data_format="NHWC", device="cpu")
     tm.load_state_dict({k: _t(v) for k, v in params.items()})
     xt = _t(x).requires_grad_()
     (tm(xt) * _t(g)).sum().backward()
@@ -222,7 +222,7 @@ def test_layer_backward_skips_dx_of_an_input_without_grad(monkeypatch):
         return orig(*a, **kw)
 
     monkeypatch.setattr(tcs, "hex_conv_layer_dgrad", spy)
-    tm = HexConvStack(3, 8, 3, norm="GN", data_format="NHWC")
+    tm = HexConvStack(3, 8, 3, norm="GN", data_format="NHWC", device="cpu")
     tm(torch.rand(1, 8, 7, 3)).sum().backward()
     assert len(calls) == 2
     assert all(p.grad is not None for p in tm.parameters())

@@ -12,18 +12,25 @@ with GroupNorm (it rescales summation-order differences); bfloat16 within
 output once both sides round their float32 results.  dW is float32 on both
 sides from the same inputs: 1e-4 relative (summation order over many
 pixels).  Model grads in float32: 1e-3 relative per leaf (GN and the
-backward's chain rescale summation-order differences).
+backward's chain rescale summation-order differences).  The shift
+resampler: float32 within 1e-6 absolute (fma against multiply-add),
+bfloat16 within 1e-2 relative, the exact-select mosaic bit-equal.
 """
 import math
 
 import pytest
 import torch
 
-from hygrid_tpu_torch.kernels import _build, conv_stack, resample
+import numpy as np
+
+from hygrid_tpu_torch.kernels import (_build, conv_stack, resample,
+                                      resample_shift)
 from hygrid_tpu_torch.models import (HexCNN, create_train_state,
                                      dense_onehot_xent, hexcnn_tiny,
                                      hexify_batch, train_step)
+from hygrid_tpu_torch.models import video
 from hygrid_tpu_torch.ops import geometry, sampling
+from hygrid_tpu_torch.viz import render
 
 pytestmark = pytest.mark.cuda
 
@@ -295,3 +302,108 @@ def test_train_step_kernel_path_matches_plain(cuda):
         g = q.grad.abs()
         sel = g >= 1e-3 * g.max()
         assert float((p.detach() - q.detach())[sel].abs().max()) <= 1e-5, name
+
+
+SHIFT_PLANS = {  # the shapes chip_smoke.py checks (phase 8): plan, lead
+    "720p-b1": (lambda: geometry.rect_to_hex_plan(720, 1280, 360, 640,
+                                                  "bilinear"), (1, 3)),
+    "720p-b8": (lambda: geometry.rect_to_hex_plan(720, 1280, 360, 640,
+                                                  "bilinear"), (8, 3)),
+    "mosaic-4k": (lambda: render._mosaic_sample_plan(540, 960, 2160, 3840, 0,
+                                                     None), (3,)),
+    "1080p": (lambda: geometry.rect_to_hex_plan(1080, 1920, 540, 960,
+                                                "bilinear"), (1, 3)),
+    "512-same-size": (lambda: geometry.hex_to_rect_plan(512, 512, 512, 512,
+                                                        "linear"), (1, 3)),
+}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("name", list(SHIFT_PLANS))
+def test_shift_resample_matches_plain(cuda, name, dtype):
+    build, lead = SHIFT_PLANS[name]
+    plan = build()
+    # the same-size plan has unit stride and routes to plan_gather; the
+    # kernel is held against its plain version there all the same
+    assert sampling.takes_shift_route(plan) is (name != "512-same-size")
+    gen = torch.Generator(device=cuda).manual_seed(len(name))
+    x = torch.rand(lead + plan.src_shape, generator=gen,
+                   device=cuda).to(dtype)
+    before = resample_shift.LAUNCHES
+    got = resample_shift.shift_resample(x, plan)
+    want = resample_shift.shift_resample_plain(x, plan)
+    torch.cuda.synchronize()
+    assert resample_shift.LAUNCHES == before + 1
+    assert got.dtype == dtype and got.shape == want.shape
+    if plan.exact_select:
+        assert torch.equal(got, want)
+    elif dtype == torch.float32:
+        assert float((got - want).abs().max()) <= 1e-6
+    else:
+        assert _rel(got, want) <= 1e-2
+
+
+def test_shift_resample_refuses_what_it_does_not_take(cuda):
+    plan = SHIFT_PLANS["512-same-size"][0]()
+    with pytest.raises(TypeError):
+        resample_shift.shift_resample(
+            torch.zeros((3, 512, 512), device=cuda, dtype=torch.float16),
+            plan)
+    with pytest.raises(ValueError, match="contiguous"):
+        resample_shift.shift_resample(
+            torch.zeros((512, 512, 3), device=cuda).permute(2, 0, 1), plan)
+
+
+def test_shift_resample_grad_matches_apply_plan(cuda):
+    plan = geometry.rect_to_hex_plan(48, 1300, 24, 650, "bilinear")
+    assert sampling.takes_shift_route(plan)
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    x = torch.rand((2, 3) + plan.src_shape, generator=gen, device=cuda)
+    g = torch.randn((2, 3) + tuple(plan.out_shape), generator=gen,
+                    device=cuda)
+    grads = []
+    for fn in (resample_shift.shift_resample, sampling.apply_plan):
+        xx = x.clone().requires_grad_()
+        (fn(xx, plan) * g).sum().backward()
+        grads.append(xx.grad)
+    assert float((grads[0] - grads[1]).abs().max()) <= 1e-5
+
+
+def test_video_frame_launches_the_shift_kernel_once(cuda):
+    proc = video.make_frame_processor(720, 1280)
+    frame = torch.rand((3, 720, 1280), device=cuda)
+    proc(frame)
+    resample.LAUNCHES = resample_shift.LAUNCHES = 0
+    out = proc(frame)
+    torch.cuda.synchronize()
+    assert (resample_shift.LAUNCHES, resample.LAUNCHES) == (1, 0)
+    assert out.shape == (3, 360, 640) and out.dtype == torch.bfloat16
+    assert out.device.type == "cuda"
+
+
+def test_video_stream_matches_per_frame(cuda):
+    rng = np.random.default_rng(0)
+    frames = [rng.random((3, 72, 1280)).astype(np.float32)
+              for _ in range(12)]
+    proc = video.make_frame_processor(72, 1280)
+    batch = video.make_batch_processor(72, 1280)
+    outs = list(video.process_stream(iter(frames), proc, depth=2))
+    outs_mb = list(video.process_stream(iter(frames), batch, depth=2,
+                                        microbatch=4))
+    assert len(outs) == len(outs_mb) == 12
+    for frame, out, out_mb in zip(frames, outs, outs_mb):
+        want = proc(torch.from_numpy(frame).to(cuda))
+        assert torch.equal(out, want)
+        assert _rel(out_mb, want) <= 1e-2
+
+
+def test_mosaic_render_launches_once_and_is_bit_exact(cuda):
+    img = (torch.rand((3, 540, 960), device=cuda) * 255).to(torch.uint8)
+    render.render_mosaic(img, (2160, 3840))
+    resample.LAUNCHES = resample_shift.LAUNCHES = 0
+    out = render.render_mosaic(img, (2160, 3840))
+    torch.cuda.synchronize()
+    assert (resample_shift.LAUNCHES, resample.LAUNCHES) == (1, 0)
+    plan = render._mosaic_sample_plan(540, 960, 2160, 3840, 0, None)
+    assert out.dtype == torch.uint8
+    assert torch.equal(out, sampling.apply_plan(img, plan))

@@ -29,8 +29,8 @@ def _flax_model(kw, min_cells):
 
 def _port_model(kw):
     if "channels" in kw:
-        return tm.HexCNN(**kw)
-    return tm.hexcnn_tiny(**kw)
+        return tm.HexCNN(device="cpu", **kw)
+    return tm.hexcnn_tiny(device="cpu", **kw)
 
 
 def _perturbed_params(model, hexed, seed):
@@ -76,7 +76,7 @@ def test_converter_maps_every_leaf():
     params = jax.tree_util.tree_map(
         np.asarray, model.init(jax.random.key(0), hexed)["params"])
     sd = hexcnn_state_dict_from_flax({"params": params})
-    port = tm.HexCNN(channels=(8, 16), depth=2, norm="GN")
+    port = tm.HexCNN(channels=(8, 16), depth=2, norm="GN", device="cpu")
     assert sorted(sd) == sorted(port.state_dict())
     np.testing.assert_array_equal(sd["head.weight"].numpy(),
                                   params["head"]["kernel"].T)
@@ -93,9 +93,12 @@ def test_converter_rejects_module_bundles():
 
 
 def test_model_init_from_generator():
-    a = tm.hexcnn_small(norm="GN", generator=torch.Generator().manual_seed(3))
-    b = tm.hexcnn_small(norm="GN", generator=torch.Generator().manual_seed(3))
-    c = tm.hexcnn_small(norm="GN", generator=torch.Generator().manual_seed(4))
+    a = tm.hexcnn_small(norm="GN", device="cpu",
+                       generator=torch.Generator().manual_seed(3))
+    b = tm.hexcnn_small(norm="GN", device="cpu",
+                       generator=torch.Generator().manual_seed(3))
+    c = tm.hexcnn_small(norm="GN", device="cpu",
+                       generator=torch.Generator().manual_seed(4))
     sa, sb, sc = a.state_dict(), b.state_dict(), c.state_dict()
     assert all(torch.equal(sa[k], sb[k]) for k in sa)
     assert not torch.equal(sa["stage0.kernel_0"], sc["stage0.kernel_0"])
@@ -105,8 +108,9 @@ def test_model_init_from_generator():
 
 def test_bf16_model_runs_in_bf16_and_tracks_f32():
     gen = torch.Generator().manual_seed(0)
-    model = tm.hexcnn_tiny(norm="GN", dtype=torch.bfloat16, generator=gen)
-    ref = tm.hexcnn_tiny(norm="GN")
+    model = tm.hexcnn_tiny(norm="GN", dtype=torch.bfloat16, device="cpu",
+                           generator=gen)
+    ref = tm.hexcnn_tiny(norm="GN", device="cpu")
     ref.load_state_dict(model.state_dict())
     rect = torch.rand((2, 3, 32, 32), generator=gen)
     with torch.no_grad():

@@ -12,7 +12,10 @@ ROOT = Path(__file__).resolve().parents[1]
 MODULES = ["hygrid_tpu_torch", "hygrid_tpu_torch.kernels.resample",
            "hygrid_tpu_torch.kernels.conv_stack",
            "hygrid_tpu_torch.kernels._build", "hygrid_tpu_torch.utils.params",
-           "hygrid_tpu_torch.models.train"]
+           "hygrid_tpu_torch.models.train",
+           "hygrid_tpu_torch.kernels.resample_shift",
+           "hygrid_tpu_torch.nn.filters", "hygrid_tpu_torch.models.video",
+           "hygrid_tpu_torch.viz", "hygrid_tpu_torch.viz.render"]
 
 
 def _run(code, cwd=ROOT):

@@ -141,15 +141,17 @@ def test_hexconvstack_module_matches_jax(min_cells):
     params = {k: v + rng.normal(0, 0.1, v.shape).astype(np.float32)
               for k, v in params.items()}
     want = np.asarray(jm.apply({"params": params}, x))
-    tm = HexConvStack(3, 16, 2, norm="GN", data_format="NHWC")
+    tm = HexConvStack(3, 16, 2, norm="GN", data_format="NHWC", device="cpu")
     tm.load_state_dict({k: torch.from_numpy(v) for k, v in params.items()})
     got = tm(torch.from_numpy(x)).detach().numpy()
     assert _rel_err(got, want) <= REL
 
 
 def test_hexconvstack_parameters_and_generator():
-    a = HexConvStack(3, 8, 2, norm=None, generator=torch.Generator().manual_seed(7))
-    b = HexConvStack(3, 8, 2, norm=None, generator=torch.Generator().manual_seed(7))
+    a = HexConvStack(3, 8, 2, norm=None, device="cpu",
+                     generator=torch.Generator().manual_seed(7))
+    b = HexConvStack(3, 8, 2, norm=None, device="cpu",
+                     generator=torch.Generator().manual_seed(7))
     names = [n for n, _ in a.named_parameters()]
     assert names == ["kernel_0", "bias_0", "kernel_1", "bias_1"]
     assert tuple(a.kernel_0.shape) == (8, 3, 7)
@@ -157,7 +159,7 @@ def test_hexconvstack_parameters_and_generator():
     assert float(a.kernel_0.detach().abs().max()) <= bound
     for (_, p), (_, q) in zip(a.named_parameters(), b.named_parameters()):
         assert torch.equal(p, q)
-    gn = HexConvStack(4, 8, 1, norm="GN")
+    gn = HexConvStack(4, 8, 1, norm="GN", device="cpu")
     assert [n for n, _ in gn.named_parameters()] == \
         ["kernel_0", "gn_scale_0", "gn_bias_0"]
 

@@ -53,7 +53,7 @@ def _pair(min_cells, seed=0):
     rng = np.random.default_rng(seed)
     params = jax.tree_util.tree_map(
         lambda v: v + rng.normal(0, 0.1, v.shape).astype(np.float32), params)
-    port = tm.HexCNN(**MODEL)
+    port = tm.HexCNN(device="cpu", **MODEL)
     port.load_state_dict(hexcnn_state_dict_from_flax(params))
     return model, params, port
 
@@ -165,8 +165,8 @@ def test_fit_history_matches_jax_shape():
     kw = dict(num_epochs=2, eval_data=evals, log_every=2)
     _, want = jm.fit(jm.HexCNN(channels=(8, 16), depth=1, norm="GN"), data,
                      **kw)
-    state, got = tm.fit(tm.HexCNN(channels=(8, 16), depth=1, norm="GN"),
-                        data, **kw)
+    state, got = tm.fit(tm.HexCNN(channels=(8, 16), depth=1, norm="GN",
+                                  device="cpu"), data, **kw)
     assert state.step == 6
     assert {k: len(v) for k, v in got.items()} == \
         {k: len(v) for k, v in want.items()} == \
@@ -175,14 +175,15 @@ def test_fit_history_matches_jax_shape():
 
 
 def test_create_train_state_uses_optax_adamw_defaults():
-    state = tm.create_train_state(tm.HexCNN(**MODEL), learning_rate=3e-4)
+    state = tm.create_train_state(tm.HexCNN(device="cpu", **MODEL),
+                                  learning_rate=3e-4)
     opt = state.optimizer
     assert isinstance(opt, torch.optim.AdamW)
     group = opt.param_groups[0]
     assert (group["lr"], group["betas"], group["eps"],
             group["weight_decay"]) == (3e-4, (0.9, 0.999), 1e-8, 1e-4)
     assert len(group["params"]) == len(list(state.model.parameters()))
-    sgd = tm.create_train_state(tm.HexCNN(**MODEL),
+    sgd = tm.create_train_state(tm.HexCNN(device="cpu", **MODEL),
                                 tx=lambda p: torch.optim.SGD(p, lr=0.1))
     assert isinstance(sgd.optimizer, torch.optim.SGD)
     bn = torch.nn.Sequential(torch.nn.BatchNorm1d(4))
@@ -194,4 +195,4 @@ def test_create_train_state_uses_optax_adamw_defaults():
                                     dict(checkpoint_path="ckpt")])
 def test_fit_unported_options_raise(option):
     with pytest.raises(NotImplementedError, match="queue 1 items 19-20"):
-        tm.fit(tm.HexCNN(**MODEL), [_batch(0, b=2)], **option)
+        tm.fit(tm.HexCNN(device="cpu", **MODEL), [_batch(0, b=2)], **option)
