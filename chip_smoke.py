@@ -51,7 +51,23 @@ Phases, each of which raises on failure (the script then exits non-zero):
    card, microbatched frames within one bf16 ulp of per-frame ones;
 10. the mosaic slice: 20 renders each of a float32 and a uint8 540x960
     image at 2160x3840 (frames/s by CUDA events), one shift_resample
-    launch per render, both bit-equal to the plain gather.
+    launch per render, both bit-equal to the plain gather;
+11. the TPU's banded and phased tiers on the port's kernels, float32 and
+    bfloat16, with kernel, plain and bound times: hex_conv_layer at the
+    P-4K stack layer (1x1080x1920, 16->16, no norm, ReLU; TPU kernel #9)
+    and plan_gather at the P-4K rect->hex plan (#2, with shift_resample
+    beside it), a 3-phase 512^2 plan (#3) and the 4K->4K resample4k plan
+    (#4, bfloat16);
+12. the fused stack (hex_conv_fused_stack, TPU kernel #11) at the P-512
+    stack (16x256x256x16, 11 layers), float32 and bfloat16: against its
+    plain version and bit-equal to chained hex_conv_layer launches, with
+    its time, the chained time, the plain time and the bound;
+13. the north-star pipeline (bench.py's build_pipeline on the port):
+    P-512 (b=16 RGB 512^2, bf16) unfused and fused, and P-4K (b=1 RGB
+    2160x3840): 8 calls on distinct inputs by CUDA events (Mpix/s of rect
+    input, peak memory), launches per call (2 plan_gather, 0
+    shift_resample, 11 hex_conv_layer or 1 fused stack), one call against
+    the plain float32 path, and a torch.profiler split of one P-4K call.
 
 The last lines are the kernel summary (with each kernel's bound: the bytes
 it must move at 3.35 TB/s or its operations at the card's peak for their
@@ -501,7 +517,7 @@ def check_kernel_c(torch, gen):
     from hygrid_tpu_torch.ops import sampling
     main = []
     for name, plan, lead, dtypes, path, shift in _shift_plans(torch):
-        require(sampling.takes_shift_route(plan) is shift,
+        require(sampling.takes_shift_route(plan, 2) is shift,
                 f"{name}: apply_plan_auto routes to "
                 f"{'plan_gather' if shift else 'shift_resample'}")
         geo = rs.shift_decompose_cached(plan)
@@ -687,6 +703,306 @@ def run_mosaic(torch):
     return launches
 
 
+# the bench.py pipeline (the north star): bench.py's own size and a 4K
+# frame; the 11-layer C=16 stack is bench.py's (layers=10 plus the
+# projection)
+PIPE_CHANNELS, PIPE_LAYERS, PIPE_RADIUS = 16, 10, 2
+PIPELINES = [("P-512", 16, (512, 512), False),
+             ("P-512 fused", 16, (512, 512), True),
+             ("P-4K", 1, (2160, 3840), False)]
+PIPE_CALLS = 8
+
+
+def build_pipeline(shape, channels, layers, radius, dtype, *, fused=False,
+                   plain=False, device="cuda"):
+    """``bench.py::build_pipeline`` composed from the port's public
+    functions, with bench.py's weights (numpy ``default_rng(0)``, drawn in
+    its order).  rect->hex bilinear to half of ``shape``; channels padded
+    from 3 to ``channels``; ``hex_conv_stack`` of ``layers + 1`` layers
+    without norms or biases (a stem whose inputs >= 3 are zero,
+    ``layers - 1`` full layers, a projection whose outputs >= 3 are zero;
+    ReLU on all but the last), ``fused`` as given; the first 3 channels;
+    hex->rect linear back to ``shape``, in float32.  ``plain=True`` runs the
+    plain versions (``apply_plan``, plain layers) on any device.  Returns
+    ``(pipeline, kernels)``."""
+    import torch
+    from hygrid_tpu_torch.kernels.conv_stack import hex_conv_stack
+    from hygrid_tpu_torch.nn.functional import hex_kernel_num
+    from hygrid_tpu_torch.ops import geometry, sampling
+    h, w = shape
+    rng = np.random.default_rng(0)
+    kn = hex_kernel_num(radius)
+    stem = np.zeros((channels, channels, kn), np.float32)
+    stem[:, :3] = rng.normal(0, 0.1, (channels, 3, kn))
+    draws = [stem] + [rng.normal(0, 0.1, (channels, channels, kn))
+                      for _ in range(layers - 1)]
+    proj = np.zeros((channels, channels, kn), np.float32)
+    proj[:3] = rng.normal(0, 0.1, (3, channels, kn))
+    draws.append(proj)
+    kernels = [torch.as_tensor(k, dtype=torch.float32).to(device=device,
+                                                          dtype=dtype)
+               for k in draws]
+
+    def pipeline(x):
+        x = x.to(dtype)
+        if plain:
+            hexed = sampling.apply_plan(x, geometry.rect_to_hex_plan(
+                h, w, h // 2, w // 2, "bilinear"))
+        else:
+            hexed = geometry.rect_to_hex_resample(x, (h // 2, w // 2),
+                                                  "bilinear")
+        v = torch.nn.functional.pad(hexed, (0, 0, 0, 0, 0, channels - 3))
+        v = hex_conv_stack(v, kernels, None, radius=radius,
+                           final_activation=False, fused=fused,
+                           plain=plain)[:, :3]
+        if plain:
+            out = sampling.apply_plan(v, geometry.hex_to_rect_plan(
+                h // 2, w // 2, h, w, "linear"))
+        else:
+            out = geometry.hex_to_rect_resample(v, (h, w), "linear")
+        return out.float()
+
+    return pipeline, kernels
+
+
+def check_tiers(torch, gen):
+    """Phase 11: the TPU's banded and phased tiers, which compute what the
+    port's kernels compute, checked at the shapes they served: the P-4K
+    stack layer (#9, on hex_conv_layer) and, on plan_gather, the P-4K
+    rect->hex plan (#2; shift_resample beside it), a 3-phase plan under
+    8 MiB (#3) and the resample4k plan (#4)."""
+    from hygrid_tpu_torch.kernels import conv_stack as cs
+    from hygrid_tpu_torch.kernels import resample, resample_shift as rs
+    from hygrid_tpu_torch.ops import geometry, sampling
+    both = (torch.float32, torch.bfloat16)
+    x32 = torch.rand((1, 1080, 1920, 16), generator=gen, device="cuda")
+    k32 = torch.randn((16, 16, 7), generator=gen, device="cuda") / math.sqrt(
+        16 * 7)
+    line = ("tier #9 (hex_conv_layer) P-4K stack layer 1x1080x1920 16->16, "
+            "no norm, no bias, ReLU:")
+    for dtype in both:
+        x, k = x32.to(dtype), k32.to(dtype)
+
+        def kernel():
+            return cs.hex_conv_layer(x, k, radius=2, relu=True)
+
+        def plain():
+            return cs.hex_conv_layer_plain(x, k, radius=2, relu=True)
+
+        got, want = kernel(), plain()
+        torch.cuda.synchronize()
+        err, rel = max_err(got, want)
+        tol = TOL["b_f32_rel" if dtype == torch.float32 else "b_bf16_rel"]
+        require(rel <= tol, f"tier #9 {dtype}: relative err {rel} > {tol}")
+        ms = cuda_ms(torch, kernel, iters=5)
+        pms = cuda_ms(torch, plain, iters=5)
+        b_ms, b_by = bound(nbytes(x, k, got), 2 * 7 * x.numel() * 16,
+                           "bf16" if dtype == torch.bfloat16 else "f32")
+        line += (f" {str(dtype)[6:]} max_abs_err={err!r} rel={rel!r} "
+                 f"kernel_ms={ms!r} plain_ms={pms!r} bound_ms={b_ms!r} "
+                 f"({b_by});")
+    log(line)
+
+    t0 = time.perf_counter()
+    plans = [
+        ("#2 P-4K rect->hex 2160x3840->1080x1920 bilinear",
+         geometry.rect_to_hex_plan(2160, 3840, 1080, 1920, "bilinear"),
+         (1, 3), both),
+        ("#3 512^2 same-size hex->rect linear",
+         geometry.hex_to_rect_plan(512, 512, 512, 512, "linear"), (16, 3),
+         both),
+        ("#4 resample4k 4K->4K hex->rect linear",
+         geometry.hex_to_rect_plan(2160, 3840, 2160, 3840, "linear"), (3,),
+         (torch.bfloat16,)),
+    ]
+    log(f"tier plans built in {time.perf_counter() - t0:.1f} s (numpy)")
+    for name, plan, lead, dtypes in plans:
+        x32 = torch.rand(lead + plan.src_shape, generator=gen, device="cuda")
+        for dtype in dtypes:
+            x = x32.to(dtype)
+            require(not sampling.takes_shift_route(plan, x.element_size()),
+                    f"tier {name}: routed to shift_resample")
+            got = resample.plan_gather(x, plan)
+            want = sampling.apply_plan(x, plan)
+            torch.cuda.synchronize()
+            err, rel = max_err(got, want)
+            if dtype == torch.float32:
+                require(err <= TOL["a_f32_abs"],
+                        f"tier {name} f32: max abs err {err}")
+            else:
+                require(rel <= TOL["a_bf16_rel"],
+                        f"tier {name} bf16: relative err {rel}")
+            ms = cuda_ms(torch, lambda: resample.plan_gather(x, plan))
+            pms = cuda_ms(torch, lambda: sampling.apply_plan(x, plan))
+            idx, wts = plan.tensors(x.device)
+            b_ms, b_by = bound(nbytes(x, got, idx, wts),
+                               2 * got.numel() * idx.shape[0], "f32")
+            line = (f"tier {name} lead={lead} {str(dtype)[6:]} (plan_gather):"
+                    f" max_abs_err={err!r} rel={rel!r} kernel_ms={ms!r} "
+                    f"plain_ms={pms!r} bound_ms={b_ms!r} ({b_by})")
+            if name.startswith("#2"):
+                # ROADMAP item 12b: the shift kernel on the same plan
+                sms = cuda_ms(torch, lambda: rs.shift_resample(x, plan))
+                line += (f"; shift_resample kernel_ms={sms!r}; device alone "
+                         f"(CUDA graph): plan_gather_ms="
+                         f"{graph_ms(torch, lambda: resample.plan_gather(x, plan))!r}"
+                         f" shift_resample_ms="
+                         f"{graph_ms(torch, lambda: rs.shift_resample(x, plan))!r}")
+            log(line)
+
+
+def check_fused(torch, gen):
+    """Phase 12: hex_conv_fused_stack against its plain version and
+    against chained hex_conv_layer launches at the P-512 stack.  Returns
+    the bf16 summary for the kernels line."""
+    from hygrid_tpu_torch.kernels import conv_stack as cs
+    b, h, w, c = 16, 256, 256, PIPE_CHANNELS
+    x32 = torch.rand((b, h, w, c), generator=gen, device="cuda")
+    summary = None
+    line = f"fused stack P-512 {b}x{h}x{w}x{c}, {PIPE_LAYERS + 1} layers:"
+    for dtype in (torch.float32, torch.bfloat16):
+        _, ks = build_pipeline((512, 512), c, PIPE_LAYERS, PIPE_RADIUS, dtype)
+        x = x32.to(dtype)
+        relus = [True] * (len(ks) - 1) + [False]
+
+        def fused():
+            return cs.hex_conv_fused_stack(x, ks, radius=PIPE_RADIUS,
+                                           relus=relus)
+
+        def chained():
+            v = x
+            for k, relu in zip(ks, relus):
+                v = cs.hex_conv_layer(v, k, radius=PIPE_RADIUS, relu=relu)
+            return v
+
+        def plain():
+            return cs.hex_conv_fused_stack_plain(
+                x, ks, [None] * len(ks), radius=PIPE_RADIUS, relus=relus)
+
+        got, ch, want = fused(), chained(), plain()
+        torch.cuda.synchronize()
+        err, rel = max_err(got, want)
+        tol = TOL["b_f32_rel" if dtype == torch.float32 else "b_bf16_rel"]
+        require(rel <= tol, f"fused stack {dtype}: relative err {rel} > {tol}")
+        equal = torch.equal(got, ch)
+        require(equal, f"fused stack {dtype}: differs from chained "
+                       f"hex_conv_layer by {max_err(got, ch)[0]}")
+        ms = cuda_ms(torch, fused, iters=5)
+        cms = cuda_ms(torch, chained, iters=5)
+        pms = cuda_ms(torch, plain, iters=3)
+        b_ms, b_by = bound(nbytes(x, got, *ks),
+                           2 * ks[0].shape[-1] * x.numel() * c * len(ks),
+                           "bf16" if dtype == torch.bfloat16 else "f32")
+        line += (f" {str(dtype)[6:]} max_abs_err={err!r} rel={rel!r} "
+                 f"bit-equal to chained={equal} kernel_ms={ms!r} "
+                 f"chained_ms={cms!r} plain_ms={pms!r} bound_ms={b_ms!r} "
+                 f"({b_by});")
+        if dtype == torch.bfloat16:
+            summary = dict(max_abs_err=err, ms=ms, plain_ms=pms,
+                           **summed_bound([(b_ms, b_by)]), library_ms=None)
+    log(line)
+    return summary
+
+
+def _profile_split(torch, fn, call_ms):
+    """Device time of one ``fn`` call by kernel, from torch.profiler, and
+    the share of ``call_ms`` (the call's time by CUDA events) that no
+    kernel ran."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+
+    def dev(e):
+        return getattr(e, "self_device_time_total", 0) or 0
+
+    # kernels only: the CPU-side ops that launched them carry their time too
+    kernels = [e for e in prof.key_averages()
+               if str(e.device_type).endswith("CUDA") and dev(e) > 0]
+    total = sum(dev(e) for e in kernels)
+    if not total:
+        return "no device time in the profile"
+    top = sorted(kernels, key=dev, reverse=True)[:6]
+    return (f"kernels {total / 1e3!r} ms of {call_ms!r} ms a call (idle "
+            f"{100 * (1 - total / 1e3 / call_ms):.2f} %): " + ", ".join(
+                f"{e.key[:48]} {dev(e) / 1e3!r} ms "
+                f"({100 * dev(e) / total:.2f} %)" for e in top))
+
+
+def _run_pipeline(torch, name, batch, shape, fused):
+    """One configuration of phase 13; returns its launches.  A function of
+    its own, so that one configuration's tensors are freed before the
+    next one's peak memory is read."""
+    from hygrid_tpu_torch.kernels import conv_stack as cs
+    from hygrid_tpu_torch.kernels import resample, resample_shift as rs
+    t0 = time.perf_counter()
+    pipe, _ = build_pipeline(shape, PIPE_CHANNELS, PIPE_LAYERS, PIPE_RADIUS,
+                             torch.bfloat16, fused=fused)
+    ref, _ = build_pipeline(shape, PIPE_CHANNELS, PIPE_LAYERS, PIPE_RADIUS,
+                            torch.float32, plain=True)
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    xs = [torch.rand((batch, 3) + shape, generator=gen, device="cuda")
+          for _ in range(PIPE_CALLS + 1)]
+    with torch.inference_mode():
+        pipe(xs[0])                     # plans, device copies, the build
+        torch.cuda.synchronize()
+        setup = time.perf_counter() - t0
+        torch.cuda.reset_peak_memory_stats()
+        resample.LAUNCHES = rs.LAUNCHES = 0
+        cs.LAUNCHES = cs.FUSED_LAUNCHES = 0
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        outs = [pipe(x) for x in xs[1:]]
+        end.record()
+        end.synchronize()
+        ms = start.elapsed_time(end) / PIPE_CALLS
+        peak = torch.cuda.max_memory_allocated()
+        launches = {"plan_gather": resample.LAUNCHES,
+                    "shift_resample": rs.LAUNCHES,
+                    "hex_conv_layer": cs.LAUNCHES,
+                    "hex_conv_fused_stack": cs.FUSED_LAUNCHES}
+        n_layers = PIPE_LAYERS + 1
+        want = {"plan_gather": 2, "shift_resample": 0,
+                "hex_conv_layer": 0 if fused else n_layers,
+                "hex_conv_fused_stack": 1 if fused else 0}
+        require(launches == {k: v * PIPE_CALLS for k, v in want.items()},
+                f"pipeline {name}: launches {launches} in {PIPE_CALLS} "
+                f"calls, want {want} per call")
+        for i, out in enumerate(outs):
+            require(out.shape == (batch, 3) + shape
+                    and out.dtype == torch.float32
+                    and bool(torch.isfinite(out).all()),
+                    f"pipeline {name} call {i}: {tuple(out.shape)} "
+                    f"{out.dtype} or non-finite")
+        require(not torch.equal(outs[0], outs[1]),
+                f"pipeline {name}: distinct inputs gave equal outputs")
+        err, rel = max_err(outs[0], ref(xs[1]))
+        require(rel <= TOL["slice_rel"],
+                f"pipeline {name} vs plain f32: relative err {rel}")
+        split = (_profile_split(torch, lambda: pipe(xs[1]), ms)
+                 if name == "P-4K" else None)
+    mpix = batch * shape[0] * shape[1] / 1e6
+    log(f"pipeline {name} b={batch} {shape[0]}x{shape[1]} bf16: {ms!r} ms "
+        f"a call over {PIPE_CALLS} distinct inputs (CUDA events), "
+        f"Mpix/s={mpix / (ms / 1e3)!r}, calls/s={1e3 / ms!r}; "
+        f"peak_mem_bytes={peak} (the {PIPE_CALLS + 1} inputs and "
+        f"{PIPE_CALLS} outputs included); set-up {setup:.1f} s; "
+        f"launches={launches}; vs plain f32 max_abs_err={err!r} "
+        f"rel={rel!r}")
+    if split:
+        log(f"pipeline {name} torch.profiler, one call: {split}")
+    return launches
+
+
+def run_pipelines(torch):
+    """Phase 13: the north-star pipeline end to end, P-512 unfused and
+    fused, and P-4K.  Returns the launches per path."""
+    return {name: _run_pipeline(torch, name, batch, shape, fused)
+            for name, batch, shape, fused in PIPELINES}
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -739,6 +1055,12 @@ def main():
     paths["video"] = run_video(torch)
     paths["mosaic"] = run_mosaic(torch)
     log(f"phases 8-10: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        check_tiers(torch, gen)
+        fused = check_fused(torch, gen)
+    paths.update(run_pipelines(torch))
+    log(f"phases 11-13: {time.perf_counter() - t0:.1f} s")
 
     def count(name):
         by_path = {p: n[name] for p, n in paths.items() if n.get(name)}
@@ -748,10 +1070,14 @@ def main():
         dict(name="plan_gather", route="cuda",
              source="hygrid_tpu_torch/csrc/plan_gather.cu",
              replaces="hygrid_tpu/kernels/resample_pallas.py:358",
+             also_replaces=["hygrid_tpu/kernels/resample_pallas.py:374",
+                            "hygrid_tpu/kernels/resample_pallas.py:289",
+                            "hygrid_tpu/kernels/resample_pallas.py:315"],
              **count("plan_gather"), **a),
         dict(name="hex_conv_layer", route="cuda",
              source="hygrid_tpu_torch/csrc/hex_conv_layer.cu",
              replaces="hygrid_tpu/kernels/conv_pallas.py:807",
+             also_replaces=["hygrid_tpu/kernels/conv_pallas.py:374"],
              **count("hex_conv_layer"), **b),
         dict(name="hex_conv_layer_dgrad", route="cuda",
              source="hygrid_tpu_torch/csrc/hex_conv_layer.cu",
@@ -766,6 +1092,10 @@ def main():
              replaces="hygrid_tpu/kernels/resample_shift.py:215",
              also_replaces="hygrid_tpu/kernels/resample_shift.py:234",
              **count("shift_resample"), **c),
+        dict(name="hex_conv_fused_stack", route="cuda",
+             source="hygrid_tpu_torch/csrc/hex_conv_fused_stack.cu",
+             replaces="hygrid_tpu/kernels/conv_pallas.py:965",
+             **count("hex_conv_fused_stack"), **fused),
     ]
     for k in kernels:
         require(k["launches"] > 0, f"{k['name']}: no launch on the main path")

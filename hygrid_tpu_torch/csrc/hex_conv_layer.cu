@@ -17,14 +17,12 @@
 // What bounds it: arithmetic.  The six HexCNN-small layers at 512^2 input
 // and b=32 are about 122 GFLOP per request on at most 268 MB of f32
 // activations: well above the memory balance point.  This first version
-// runs the FMAs on the CUDA cores, not the tensor cores: each block stages
-// an input patch (the rows the taps reach x (64 + tap width) pixels x 16
-// input channels) and the matching weights (taps x 16 x 32 output channels)
-// in shared memory, and each of its 128 threads accumulates a 4 pixel x 4
-// channel register tile in f32.  Patch rows are laid out [row][channel][col]
-// so the 16 threads of a warp that share a channel read 16 consecutive words
-// (no bank conflicts); the 4 output channels come as one float4.  An
-// implicit GEMM on wgmma/TMA is later work.
+// runs the FMAs on the CUDA cores, not the tensor cores: one block is one
+// tile of hex_common.cuh::conv_tile (64 pixels of a row x 32 output
+// channels; each of its 128 threads accumulates 4 pixels x 4 channels in
+// f32).  At Cout = 16 half of the block's threads compute only padding
+// channels; hex_conv_fused_stack.cu takes a 16-channel tile.  An implicit
+// GEMM on wgmma/TMA is later work.
 //
 // GroupNorm (norm "gn"), in three more passes of the same simple kind:
 //   1. the conv pass writes the f32 pre-activation (+bias) to scratch;
@@ -47,18 +45,16 @@
 
 namespace {
 
+using hg::kChanT;
+using hg::kConvThreads;
 using hg::kMaxTaps;
-using hg::TapTable;
+using hg::kTileP;
+using hg::Geometry;
 using hg::store;
-using hg::to_f32;
 
-constexpr int TP = 64;                               // output pixels per block
 constexpr int COB = 32;                              // output channels per block
-constexpr int CK = 16;                               // input channels per stage
-constexpr int PT = 4;                                // pixels per thread
-constexpr int CT = 4;                                // channels per thread
-constexpr int kPixLanes = TP / PT;                   // 16
-constexpr int kConvThreads = kPixLanes * (COB / CT);  // 128
+constexpr int PT = hg::ConvTile<COB>::kPT;           // 4 pixels per thread
+constexpr int kPixLanes = hg::ConvTile<COB>::kPixLanes;  // 16
 
 template <typename Tin, typename Tout>
 __global__ void __launch_bounds__(kConvThreads)
@@ -66,70 +62,21 @@ hex_conv_kernel(const Tin* __restrict__ x, const float* __restrict__ w,
                 const float* __restrict__ bias, const float* __restrict__ scale,
                 const float* __restrict__ shift, Tout* __restrict__ out,
                 int H, int W, int Cin, int Cout, int kn,
-                const __grid_constant__ TapTable taps, int r_lo, int n_rows,
+                const __grid_constant__ hg::TapTable taps, int r_lo, int n_rows,
                 int c_lo, int n_cols, int relu) {
   extern __shared__ __align__(16) float smem[];
-  float* xs = smem;                          // [n_rows][CK][n_cols]
-  float* ws = smem + n_rows * CK * n_cols;   // [kn][CK][COB]
   const int n_cob = (Cout + COB - 1) / COB;
   const int b = blockIdx.z / n_cob;
   const int co0 = (blockIdx.z % n_cob) * COB;
   const int o = blockIdx.y;
-  const int w0 = blockIdx.x * TP;
-  const int q = o & 1;
-  const int tid = threadIdx.x;
-  const int tp = tid % kPixLanes;
-  const int tc = tid / kPixLanes;
+  const int w0 = blockIdx.x * kTileP;
+  const int tp = threadIdx.x % kPixLanes;
+  const int tc = threadIdx.x / kPixLanes;
 
-  float acc[PT][CT];
-#pragma unroll
-  for (int i = 0; i < PT; ++i)
-#pragma unroll
-    for (int j = 0; j < CT; ++j) acc[i][j] = 0.f;
-
-  const Tin* xb = x + (long long)b * H * W * Cin;
-  for (int ci0 = 0; ci0 < Cin; ci0 += CK) {
-    __syncthreads();
-    // channel-fastest walk: consecutive threads read consecutive channels
-    const int n_x = n_rows * n_cols * CK;
-    for (int e = tid; e < n_x; e += kConvThreads) {
-      const int ck = e % CK;
-      const int c = (e / CK) % n_cols;
-      const int r = e / (CK * n_cols);
-      const int gi = o + r_lo + r, gj = w0 + c_lo + c, gc = ci0 + ck;
-      float v = 0.f;
-      if (gi >= 0 && gi < H && gj >= 0 && gj < W && gc < Cin)
-        v = to_f32(xb[((long long)gi * W + gj) * Cin + gc]);
-      xs[(r * CK + ck) * n_cols + c] = v;
-    }
-    const int n_w = kn * CK * COB;
-    for (int e = tid; e < n_w; e += kConvThreads) {
-      const int co = e % COB;
-      const int ck = (e / COB) % CK;
-      const int t = e / (COB * CK);
-      const int gc = ci0 + ck, gco = co0 + co;
-      ws[e] = (gc < Cin && gco < Cout)
-                  ? __ldg(w + ((long long)t * Cin + gc) * Cout + gco) : 0.f;
-    }
-    __syncthreads();
-    for (int t = 0; t < kn; ++t) {
-      const float* xr = xs + (taps.dr[q][t] - r_lo) * CK * n_cols
-                      + (taps.dc[q][t] - c_lo) + tp;
-      const float* wr = ws + t * CK * COB + tc * CT;
-#pragma unroll 4
-      for (int ck = 0; ck < CK; ++ck) {
-        const float4 wv = *reinterpret_cast<const float4*>(wr + ck * COB);
-#pragma unroll
-        for (int i = 0; i < PT; ++i) {
-          const float xv = xr[ck * n_cols + i * kPixLanes];
-          acc[i][0] = fmaf(xv, wv.x, acc[i][0]);
-          acc[i][1] = fmaf(xv, wv.y, acc[i][1]);
-          acc[i][2] = fmaf(xv, wv.z, acc[i][2]);
-          acc[i][3] = fmaf(xv, wv.w, acc[i][3]);
-        }
-      }
-    }
-  }
+  float acc[PT][kChanT];
+  hg::conv_tile<COB>(x + (long long)b * H * W * Cin, w, smem, H, W, Cin, Cout,
+                     kn, taps, r_lo, n_rows, c_lo, n_cols, o, w0, co0, true,
+                     acc);
 
 #pragma unroll
   for (int i = 0; i < PT; ++i) {
@@ -137,8 +84,8 @@ hex_conv_kernel(const Tin* __restrict__ x, const float* __restrict__ w,
     if (pix >= W) continue;
     Tout* op = out + (((long long)b * H + o) * W + pix) * Cout;
 #pragma unroll
-    for (int j = 0; j < CT; ++j) {
-      const int co = co0 + tc * CT + j;
+    for (int j = 0; j < kChanT; ++j) {
+      const int co = co0 + tc * kChanT + j;
       if (co >= Cout) continue;
       float v = acc[i][j];
       if (bias) v += bias[co];
@@ -223,44 +170,18 @@ __global__ void gn_apply_kernel(const float* __restrict__ y,
   store(out + e, v);
 }
 
-struct Geometry {
-  TapTable taps;
-  int r_lo, n_rows, c_lo, n_cols;
-};
-
-Geometry make_geometry(const int* taps_host, int kn) {
-  Geometry g{};
-  g.taps = hg::make_tap_table(taps_host, kn);
-  int r_lo = 1 << 30, r_hi = -(1 << 30), c_lo = 1 << 30, c_hi = -(1 << 30);
-  for (int q = 0; q < 2; ++q)
-    for (int t = 0; t < kn; ++t) {
-      const int dr = g.taps.dr[q][t];
-      const int dc = g.taps.dc[q][t];
-      r_lo = dr < r_lo ? dr : r_lo;
-      r_hi = dr > r_hi ? dr : r_hi;
-      c_lo = dc < c_lo ? dc : c_lo;
-      c_hi = dc > c_hi ? dc : c_hi;
-    }
-  g.r_lo = r_lo;
-  g.n_rows = r_hi - r_lo + 1;
-  g.c_lo = c_lo;
-  g.n_cols = TP + c_hi - c_lo;
-  return g;
-}
-
 template <typename Tin, typename Tout>
 int launch_conv(const void* x, const float* w, const float* bias,
                 const float* scale, const float* shift, void* out, int B,
                 int H, int W, int Cin, int Cout, int kn, const Geometry& g,
                 int relu, cudaStream_t stream) {
-  const size_t smem =
-      sizeof(float) * ((size_t)g.n_rows * CK * g.n_cols + (size_t)kn * CK * COB);
+  const size_t smem = hg::conv_tile_smem(g, kn, COB);
   auto kernel = hex_conv_kernel<Tin, Tout>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   const int n_cob = (Cout + COB - 1) / COB;
-  dim3 grid((W + TP - 1) / TP, H, B * n_cob);
+  dim3 grid((W + kTileP - 1) / kTileP, H, B * n_cob);
   kernel<<<grid, kConvThreads, smem, stream>>>(
       static_cast<const Tin*>(x), w, bias, scale, shift,
       static_cast<Tout*>(out), H, W, Cin, Cout, kn, g.taps, g.r_lo, g.n_rows,
@@ -323,7 +244,7 @@ extern "C" int hg_hex_conv_layer(
                                            !stats || !gamma || !beta)))
     return -1;
   if ((scale == nullptr) != (shift == nullptr)) return -1;
-  const Geometry g = make_geometry(static_cast<const int*>(taps), kn);
+  const Geometry g = hg::make_geometry(static_cast<const int*>(taps), kn);
   auto s = static_cast<cudaStream_t>(stream);
   auto f = [](const void* p) { return static_cast<const float*>(p); };
   if (dtype == 0)

@@ -36,6 +36,7 @@ NVCC_FLAGS = [*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _LL = ctypes.c_longlong
+_ULL = ctypes.c_ulonglong
 _F = ctypes.c_float
 # every pointer and the stream are c_void_p: a bare Python int would be
 # passed as a 32-bit C int and cut the address
@@ -47,6 +48,8 @@ _SIGNATURES = {
                           _I, _P],
     "hg_shift_resample": [_P, _P, _P, _P, _P, _P, _P, _I, _LL, _I, _I, _I, _I,
                           _I, _I, _I, _P],
+    "hg_hex_conv_fused_stack": [_P, _P, _P, _P, _P, _P, _ULL, _ULL, _I, _I,
+                                _I, _I, _I, _I, _I, _I, _P, _P],
 }
 
 _lock = threading.Lock()
@@ -132,5 +135,8 @@ def check(status: int, what: str) -> None:
     """Raise for a non-zero status returned by a C entry point."""
     if status == -1:
         raise ValueError(f"{what}: the kernel refused its arguments")
+    if status == -2:
+        raise RuntimeError(f"{what}: the device cannot run the cooperative "
+                           "launch")
     if status != 0:
         raise RuntimeError(f"{what}: CUDA error {status} at launch")

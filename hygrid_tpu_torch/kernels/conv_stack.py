@@ -1,12 +1,15 @@
 """Kernel B: the hex conv layer (``csrc/hex_conv_layer.cu``), its backward
-(dL/dx through the same conv pass, dL/dW in ``csrc/hex_conv_wgrad.cu``)
-and the 'same' conv stack built from it.
+(dL/dx through the same conv pass, dL/dW in ``csrc/hex_conv_wgrad.cu``),
+the fused norm-free stack (``csrc/hex_conv_fused_stack.cu``) and the 'same'
+conv stack built from them.
 
 Port of the stack part of ``hygrid_tpu/kernels/conv_pallas.py``:
 :func:`hex_conv_stack` takes ``hex_conv_stack_pallas``'s arguments and runs
-one :func:`hex_conv_layer` per layer on NHWC activations.  Each layer is a
-stride-1 'same' hex conv (padding ``d*(r-1)``), then bias, an optional norm
-and an optional ReLU, as ``_stack_layer_kernel`` computes it:
+one :func:`hex_conv_layer` per layer on NHWC activations, or, with
+``fused=True`` on a uniform-width stack of two or more layers, one
+:func:`hex_conv_fused_stack` launch.  Each layer is a stride-1 'same' hex
+conv (padding ``d*(r-1)``), then bias, an optional norm and an optional
+ReLU, as ``_stack_layer_kernel`` computes it:
 
 * ``("gn", G, gamma, beta)`` — per-sample GroupNorm over G channel groups,
   statistics from the float32 pre-activation (``E[x^2] - mean^2`` clamped
@@ -23,18 +26,25 @@ through ReLU / GN / bias in plain PyTorch (``torch.autograd.grad`` of
 to the activation dtype, and runs :func:`hex_conv_layer_dgrad` (dL/dx) and
 :func:`hex_conv_layer_wgrad` (dL/dW): the two halves of
 ``_stack_layer_bwd_kernel``.  Each grad comes back in its input's dtype.
+:func:`hex_conv_fused_stack`'s backward recomputes the stack through
+chained :func:`hex_conv_layer` calls, as the reference's VJP recomputes
+through ``_stack_xla``.
 
-The TPU's lane packing, plane margins, in-place aliasing, banding and
-whole-stack fusion are not ported: ``fused``, ``band_rows``, ``packed_io``
-and ``extra_input`` raise ``NotImplementedError``.
+``band_rows`` selects the TPU's row-banded layer kernel, which exists only
+to fit planes larger than VMEM; the port computes the same function with
+:func:`hex_conv_layer` and keeps only the reference's argument checks.
+The TPU's lane packing, plane margins, in-place aliasing and split first
+layer are not ported: ``packed_io`` and ``extra_input`` raise
+``NotImplementedError``.
 
 The plain version of a layer is :func:`hex_conv_layer_plain`
 (``hex_conv2d(impl="direct")`` + :func:`_group_norm_nchw`, computed in
-float32); chained, it is the twin of ``conv_pallas._stack_xla``.  The plain
-versions of the backward kernels are :func:`hex_conv_layer_dgrad_plain`
-and :func:`hex_conv_layer_wgrad_plain` (autograd of the plain conv).
-Every wrapper runs its plain version for a CPU tensor, launches its kernel
-for a CUDA tensor and raises for anything else.
+float32); chained, it is the twin of ``conv_pallas._stack_xla``, and
+:func:`hex_conv_fused_stack_plain`.  The plain versions of the backward
+kernels are :func:`hex_conv_layer_dgrad_plain` and
+:func:`hex_conv_layer_wgrad_plain` (autograd of the plain conv).  Every
+wrapper runs its plain version for a CPU tensor, launches its kernel for a
+CUDA tensor and raises for anything else.
 """
 from __future__ import annotations
 
@@ -50,7 +60,8 @@ from . import _build
 
 __all__ = ["hex_conv_layer", "hex_conv_layer_plain", "hex_conv_layer_dgrad",
            "hex_conv_layer_dgrad_plain", "hex_conv_layer_wgrad",
-           "hex_conv_layer_wgrad_plain", "hex_conv_stack"]
+           "hex_conv_layer_wgrad_plain", "hex_conv_fused_stack",
+           "hex_conv_fused_stack_plain", "hex_conv_stack"]
 
 LAUNCHES = 0
 """Number of layers run by the kernel (one GN layer is four CUDA launches
@@ -60,11 +71,17 @@ DGRAD_LAUNCHES = 0
 WGRAD_LAUNCHES = 0
 """Number of dL/dW runs (:func:`hex_conv_layer_wgrad`; two CUDA launches
 each)."""
+FUSED_LAUNCHES = 0
+"""Number of whole-stack launches (:func:`hex_conv_fused_stack`)."""
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _EPS = 1e-5
 _GN_BLOCKS = 2048     # target (sample, pixel-chunk) blocks of the GN stats pass
 _WGRAD_BLOCKS = 2048  # target blocks of the dW partial-sum pass
+# batch elements of one fused-stack group: each of its two scratch buffers
+# holds at most this many bytes, so both stay in the card's 50 MB L2
+_FUSED_GROUP_BYTES = 16 * 2 ** 20
+_FUSED_MAX_LAYERS = 64
 
 
 def _frozen(table: np.ndarray) -> np.ndarray:
@@ -403,6 +420,148 @@ def hex_conv_layer_wgrad(x: torch.Tensor, gpre: torch.Tensor, *,
     return dw
 
 
+def hex_conv_fused_stack_plain(x: torch.Tensor, kernels, biases, *,
+                               radius: int, dilation: int = 1, relus
+                               ) -> torch.Tensor:
+    """Plain version of :func:`hex_conv_fused_stack`: chained
+    :func:`hex_conv_layer_plain`, each layer rounded to x's dtype, as the
+    kernel rounds its activations between layers."""
+    for k, b, relu in zip(kernels, biases, relus):
+        x = hex_conv_layer_plain(x, k, b, radius=radius, dilation=dilation,
+                                 relu=relu)
+    return x
+
+
+def _fused_launch(x, kernels, biases, radius, dilation, relus):
+    """One ``hg_hex_conv_fused_stack`` call on checked NHWC ``x``."""
+    global FUSED_LAUNCHES
+    _check_activations(x, "hex_conv_fused_stack")
+    b, h, w, c = x.shape
+    n = len(kernels)
+    kn = F.hex_kernel_num(radius)
+    if not 2 <= n <= _FUSED_MAX_LAYERS:
+        raise ValueError(f"hex_conv_fused_stack: 2 to {_FUSED_MAX_LAYERS} "
+                         f"layers, got {n}")
+    for k in kernels:
+        _check_kernel(k, (c, c, kn), x.device, "hex_conv_fused_stack")
+    w_all = torch.stack([k.detach().float().permute(2, 1, 0)
+                         for k in kernels]).contiguous()   # (L, kn, C, C)
+    bias_bits = sum(1 << i for i, bs in enumerate(biases) if bs is not None)
+    bias_all = None
+    if bias_bits:
+        bias_all = torch.stack([
+            torch.zeros(c, device=x.device) if bs is None
+            else _check_param(bs.detach(), "bias", c, x.device)
+            for bs in biases]).contiguous()                 # (L, C)
+    relu_bits = sum(1 << i for i, r in enumerate(relus) if r)
+    group = max(1, min(b, _FUSED_GROUP_BYTES // (h * w * c * x.element_size())))
+    out = torch.empty_like(x)
+    bufs = [torch.empty((group, h, w, c), dtype=x.dtype, device=x.device)
+            for _ in range(2)]
+    lib = _build.load_library()
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        status = lib.hg_hex_conv_fused_stack(
+            x.data_ptr(), out.data_ptr(), bufs[0].data_ptr(),
+            bufs[1].data_ptr(), w_all.data_ptr(),
+            _ptr(bias_all), bias_bits, relu_bits, _DTYPES[x.dtype], n, b,
+            group, h, w, c, kn, _taps(radius, dilation).ctypes.data, stream)
+    _build.check(status, "hex_conv_fused_stack")
+    FUSED_LAUNCHES += 1
+    return out
+
+
+class _HexConvFusedStack(torch.autograd.Function):
+    """The fused stack on CUDA; its backward recomputes the stack through
+    chained :func:`hex_conv_layer` calls and pulls the cotangent back
+    through them (``conv_pallas.py:1338-1362`` recomputes through
+    ``_stack_xla``)."""
+
+    @staticmethod
+    def forward(ctx, x, radius, dilation, relus, n, *params):
+        kernels, biases = params[:n], params[n:]
+        ctx.geometry = (radius, dilation, relus, n)
+        ctx.save_for_backward(x, *kernels,
+                              *[bs for bs in biases if bs is not None])
+        ctx.has_bias = [bs is not None for bs in biases]
+        return _fused_launch(x, kernels, biases, radius, dilation, relus)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, gout):
+        radius, dilation, relus, n = ctx.geometry
+        saved = ctx.saved_tensors
+        x, kernels, rest = saved[0], saved[1:n + 1], list(saved[n + 1:])
+        biases = [rest.pop(0) if has else None for has in ctx.has_bias]
+        with torch.enable_grad():
+            xs = x.detach().requires_grad_(ctx.needs_input_grad[0])
+            ks = [k.detach().requires_grad_() for k in kernels]
+            bs = [None if b is None else b.detach().requires_grad_()
+                  for b in biases]
+            h = xs
+            for k, b, relu in zip(ks, bs, relus):
+                h = hex_conv_layer(h, k, b, radius=radius, dilation=dilation,
+                                   relu=relu)
+            leaves = [t for t in (xs, *ks, *bs)
+                      if t is not None and t.requires_grad]
+            grads = iter(torch.autograd.grad(h, leaves, gout))
+        dx = next(grads) if xs.requires_grad else None
+        dks = [next(grads) for _ in ks]
+        dbs = [None if b is None else next(grads) for b in bs]
+        return (dx, None, None, None, None, *dks, *dbs)
+
+
+def hex_conv_fused_stack(x: torch.Tensor, kernels, biases=None, *,
+                         radius: int, dilation: int = 1, relus
+                         ) -> torch.Tensor:
+    """A uniform-width, norm-free stack of stride-1 'same' hex conv layers
+    on NHWC ``x`` ``(B, H, W, C)``: layer i is the conv with ``kernels[i]``
+    ``(C, C, kn)``, plus ``biases[i]`` ``(C,)`` if not None, then ReLU where
+    ``relus[i]``.  Returns ``(B, H, W, C)`` in x's dtype, differentiable in
+    x, the kernels and the biases.
+
+    A CPU tensor runs :func:`hex_conv_fused_stack_plain`.  A CUDA tensor
+    (float32 or bfloat16, contiguous, 2 to 64 layers) runs the whole stack
+    in one cooperative launch of ``csrc/hex_conv_fused_stack.cu``; a device
+    that cannot run the launch raises ``RuntimeError``.  Anything else
+    raises.
+    """
+    kernels = list(kernels)
+    biases = [None] * len(kernels) if biases is None else list(biases)
+    relus = tuple(bool(r) for r in relus)
+    if not len(kernels) == len(biases) == len(relus):
+        raise ValueError(f"hex_conv_fused_stack: {len(kernels)} kernels, "
+                         f"{len(biases)} biases and {len(relus)} relus")
+    if x.device.type == "cpu":
+        return hex_conv_fused_stack_plain(x, kernels, biases, radius=radius,
+                                          dilation=dilation, relus=relus)
+    if x.device.type != "cuda":
+        raise ValueError(f"hex_conv_fused_stack: no kernel for device "
+                         f"{x.device}")
+    return _HexConvFusedStack.apply(x, radius, dilation, relus, len(kernels),
+                                    *kernels, *biases)
+
+
+def _same_margin_feasible(radius: int, dilation: int, q: int) -> bool:
+    """``conv_pallas._same_meta_feasible``: whether the folded 'same'
+    padding ``d*(r-1)`` stays inside the TPU's packed plane margin (one row
+    and one packed column at the top and left) at packing ``q``.  Kept only
+    for the reference's ``band_rows`` argument check."""
+    d = dilation
+    p = d * (radius - 1)
+    parity = p % 2
+    for (i, t, ln, _) in F._hex_kernel_rows(radius):
+        c0 = ((1 + t * d - ((i * d + parity) % 2)) // 2,
+              (2 + t * d - ((1 + i * d + parity) % 2)) // 2)
+        for row_base in (0, 1):
+            if (row_base + i * d - p) // 2 + 1 < 0:
+                return False
+            # the leftmost packed column is read by output lane 0, tap 0
+            if (c0[row_base] - p) // q + 1 < 0:
+                return False
+    return True
+
+
 def _split_norms(norms, kernels):
     """Validate the per-layer ``norms`` list (``conv_pallas._split_norms``)
     and return one normalised entry per layer."""
@@ -442,17 +601,20 @@ def hex_conv_stack(x: torch.Tensor, kernels, biases=None, *, radius: int,
     the trailing activation is skipped when ``final_activation`` is False.
     ``norms`` has one entry per layer: None, ``("gn", G, gamma, beta)`` or
     ``("affine", scale, shift)``.  ``data_format`` is "NCHW" or "NHWC" for
-    both input and output (layers run NHWC).  ``plain=True`` runs
-    :func:`hex_conv_layer_plain` on any device (the reference a kernel run
-    is compared with).
+    both input and output (layers run NHWC).  ``fused=True`` runs a
+    uniform-width stack of two or more layers as one
+    :func:`hex_conv_fused_stack` launch and chains other stacks, as the
+    reference does; ``band_rows`` computes the same function as without it.
+    Both raise the reference's ``ValueError`` with norms, and together.
+    ``plain=True`` runs the plain versions on any device (the reference a
+    kernel run is compared with).
     """
-    for name, val in (("fused", fused), ("band_rows", band_rows is not None),
-                      ("packed_io", packed_io),
+    for name, val in (("packed_io", packed_io),
                       ("extra_input", extra_input is not None)):
         if val:
             raise NotImplementedError(
-                f"hex_conv_stack: {name} is not ported yet (ROADMAP queue 2: "
-                "the TPU's fused, banded, packed and split stack kernels)")
+                f"hex_conv_stack: {name} is not ported yet (ROADMAP queue 1: "
+                "the TPU's packed-plane and split-layer stack kernels)")
     if data_format not in ("NCHW", "NHWC"):
         raise ValueError(f"data_format must be NCHW or NHWC, got "
                          f"{data_format!r}")
@@ -466,12 +628,35 @@ def hex_conv_stack(x: torch.Tensor, kernels, biases=None, *, radius: int,
     kernels = list(kernels)
     biases = [None] * len(kernels) if biases is None else list(biases)
     norms = _split_norms(norms, kernels)
-    layer = hex_conv_layer_plain if plain else hex_conv_layer
+    has_norm = any(nm is not None for nm in norms)
+    if fused and has_norm:
+        raise ValueError("norms are not supported with fused=True")
+    if band_rows is not None:
+        if has_norm:
+            raise ValueError(
+                "band_rows is incompatible with norms: GroupNorm needs "
+                "whole-image statistics, a band sees only its rows")
+        if fused:
+            raise ValueError("band_rows is incompatible with fused=True")
+        cb = int(x.shape[-1] if data_format == "NHWC" else x.shape[1])
+        if cb <= 128 and 128 % cb == 0 and not _same_margin_feasible(
+                radius, dilation, 128 // cb):
+            raise ValueError(
+                f"banded stack does not support radius={radius}, "
+                f"dilation={dilation} (the 'same' padding exceeds the "
+                f"banded plane margin)")
     h = x.permute(0, 2, 3, 1) if data_format == "NCHW" else x
     h = h.contiguous()
     n = len(kernels)
-    for i, (k, bs, nm) in enumerate(zip(kernels, biases, norms)):
-        relu = activation == "relu" and (final_activation or i < n - 1)
-        h = layer(h, k, bs, radius=radius, dilation=dilation, norm=nm,
-                  relu=relu)
+    relus = [activation == "relu" and (final_activation or i < n - 1)
+             for i in range(n)]
+    chans = {h.shape[-1]} | {int(k.shape[0]) for k in kernels}
+    if fused and len(chans) == 1 and n >= 2 and not plain:
+        h = hex_conv_fused_stack(h, kernels, biases, radius=radius,
+                                 dilation=dilation, relus=relus)
+    else:
+        layer = hex_conv_layer_plain if plain else hex_conv_layer
+        for k, bs, nm, relu in zip(kernels, biases, norms, relus):
+            h = layer(h, k, bs, radius=radius, dilation=dilation, norm=nm,
+                      relu=relu)
     return h.permute(0, 3, 1, 2) if data_format == "NCHW" else h

@@ -6,8 +6,10 @@ Four thin coordinate generators over the one engine in
 ``hygrid_tpu`` exactly (each function's corner box differs, see
 ``lattice.corner_box``); the gather plan is computed once in float64 numpy
 and cached by shape and method, and each call is one gather-blend over all
-leading (batch, channel) dims — through the plan-gather kernel for a CUDA
-tensor.
+leading (batch, channel) dims — through the resample kernels for a CUDA
+tensor.  A tensor is resampled on its own device; numpy arrays and other
+inputs are moved to ``device`` first, the card unless the caller asks for
+the CPU (``hygrid_tpu`` puts them on JAX's default device).
 """
 from __future__ import annotations
 
@@ -45,9 +47,14 @@ def _cached_plan(key, builder) -> sampling.SamplePlan:
     return plan
 
 
-def _as_image(img) -> torch.Tensor:
-    """Accept (H, W), (C, H, W) or (..., C, H, W) tensors or arrays."""
-    img = torch.as_tensor(img)
+def _as_image(img, device) -> torch.Tensor:
+    """Accept (H, W), (C, H, W) or (..., C, H, W) tensors or arrays, as a
+    contiguous tensor.  A tensor stays on its device; anything else is
+    moved to ``device``."""
+    if not torch.is_tensor(img):
+        img = torch.as_tensor(np.asarray(img), device=device)
+    # the resample kernels take contiguous images (a channel slice is not)
+    img = img.contiguous()
     if img.ndim < 2:
         raise ValueError(f"dim of image should be >= 2, but got dim = {img.ndim} instead")
     return img
@@ -141,20 +148,21 @@ def hexresize_plan(h: int, w: int, h1: int, w1: int,
 
 
 def image_geometric_transformation(img, H=None, interpolation: str = "nearest",
-                                   offset: int = 0):
+                                   offset: int = 0, device="cuda"):
     """Hex->hex warp by a 3x3 homogeneous (affine) matrix.  ``offset`` is
     accepted for API parity; the sampling assumes an offset-0 source, as
     in the reference."""
-    img = _as_image(img)
+    img = _as_image(img, device)
     h, w = img.shape[-2:]
     plan = warp_plan(h, w, H, interpolation)
     return _ref_squeeze(sampling.apply_plan_auto(img, plan), img.ndim)
 
 
 def hex_to_rect_resample(hex_image, rect_dsize: Optional[Tuple[int, int]] = None,
-                         interpolation: str = "nearest", offset: int = 0):
+                         interpolation: str = "nearest", offset: int = 0,
+                         device="cuda"):
     """Resample a hex image onto a rect grid spanning its extent."""
-    img = _as_image(hex_image)
+    img = _as_image(hex_image, device)
     h, w = img.shape[-2:]
     h1, w1 = (h, w) if rect_dsize is None else tuple(rect_dsize)
     plan = hex_to_rect_plan(h, w, h1, w1, interpolation)
@@ -164,11 +172,11 @@ def hex_to_rect_resample(hex_image, rect_dsize: Optional[Tuple[int, int]] = None
 def rect_to_hex_resample(rect_image, hex_dsize: Optional[Tuple[int, int]] = None,
                          interpolation: str = "nearest", offset: int = 0,
                          hex_grid_shift: bool = False,
-                         nearest_metric: str = "reference"):
+                         nearest_metric: str = "reference", device="cuda"):
     """Resample a rect image onto a hex-lattice-sized grid.  Like the
     reference, the sample grid is a plain rectangular grid unless
     ``hex_grid_shift=True``."""
-    img = _as_image(rect_image)
+    img = _as_image(rect_image, device)
     h, w = img.shape[-2:]
     h1, w1 = (h, w) if hex_dsize is None else tuple(hex_dsize)
     plan = rect_to_hex_plan(h, w, h1, w1, interpolation, hex_grid_shift,
@@ -177,10 +185,10 @@ def rect_to_hex_resample(rect_image, hex_dsize: Optional[Tuple[int, int]] = None
 
 
 def hexresize(image, dsize: Tuple[int, int], interpolation: str = "linear",
-              offset: int = 0):
+              offset: int = 0, device="cuda"):
     """Hex->hex rescale to ``dsize`` (plain linspace output lattice, as in
     the reference)."""
-    img = _as_image(image)
+    img = _as_image(image, device)
     h, w = img.shape[-2:]
     h1, w1 = tuple(dsize)
     plan = hexresize_plan(h, w, h1, w1, interpolation)

@@ -217,29 +217,49 @@ def apply_plan(image: torch.Tensor, plan: SamplePlan) -> torch.Tensor:
     return out.reshape(lead + tuple(plan.out_shape))
 
 
-def takes_shift_route(plan: SamplePlan) -> bool:
-    """Whether :func:`apply_plan_auto` runs ``plan`` on the shift resampler.
+# the reference's VMEM budget for the shift kernel's resident source
+# (resample_shift.py:48): a structural gate copied only so that each path
+# runs the counterpart of its TPU kernel, not an H100 threshold
+_SHIFT_SOURCE_BYTES = 8 * 2 ** 20
 
-    Only the shift-structured plans with a column stride other than 1 and
-    at least 640 output columns take it: those of the 720p video and the
-    mosaic paths, where ``hygrid_tpu``'s TPU routing runs its shift kernel
-    (``resample_shift.py:162``).  Unit-stride plans stay on the
-    plan-gather kernel, which was the faster of the two on every plan
-    measured on an H100.
+
+def takes_shift_route(plan: SamplePlan, esz: int) -> bool:
+    """Whether :func:`apply_plan_auto` runs ``plan`` on the shift resampler
+    for an image of ``esz``-byte elements.
+
+    Only where ``hygrid_tpu``'s TPU routing runs its shift kernel
+    (``resample_shift.py::shift_prefers``): a shift-structured plan with a
+    column stride other than 1, at least 640 output columns, and a source
+    that the TPU kernel can hold resident (its pre-stretched or
+    de-interleaved planes, padded to 128 lanes, at most 8 MiB).  These are
+    the 720p video and the mosaic plans.  Unit-stride plans and larger
+    sources (the 4K rect->hex leg) stay on the plan-gather kernel, which
+    was the faster of the two on every plan measured on an H100.  The
+    gates are the TPU's, kept only so that each path runs its TPU kernel's
+    counterpart; they are not H100 measurements.
     """
     from ..kernels.resample_shift import shift_decompose_cached
     geo = shift_decompose_cached(plan)
-    return (geo is not None and (geo.num > 1 or geo.den > 1)
-            and plan.out_shape[1] >= 640)
+    if (geo is None or (geo.num == 1 and geo.den == 1)
+            or plan.out_shape[1] < 640):
+        return False
+    h, w = plan.src_shape
+    # one stretched plane (den > 1, num == 1) or num de-interleaved planes
+    w_eff = w * geo.den if geo.den > 1 else -(-w // geo.num)
+    a_min = min(a for _, _, a in geo.slots)
+    a_max = max(a for _, _, a in geo.slots)
+    w1p = -(-plan.out_shape[1] // 128) * 128
+    w_lane = -(-(max(0, -a_min) + max(w_eff, a_max + w1p)) // 128) * 128
+    return geo.num * h * w_lane * esz <= _SHIFT_SOURCE_BYTES
 
 
 def apply_plan_auto(image: torch.Tensor, plan: SamplePlan) -> torch.Tensor:
     """Plan execution through the port's resample kernels.
 
-    The executor follows from the plan's structure alone, the same on
-    every device: the shift resampler (``kernels/resample_shift.py``)
-    where :func:`takes_shift_route` holds, else the plan-gather kernel
-    (``kernels/resample.py``).  Each launches its CUDA kernel for a CUDA
+    The executor follows from the plan's structure and the image's element
+    size, the same on every device: the shift resampler
+    (``kernels/resample_shift.py``) where :func:`takes_shift_route` holds,
+    else the plan-gather kernel (``kernels/resample.py``).  Each launches its CUDA kernel for a CUDA
     tensor and runs its plain version for a CPU tensor.  Integer images
     keep ``hygrid_tpu``'s rules: 8-bit images through an exact-select
     plan go through bfloat16 and back bit-exactly, other integer images
@@ -253,6 +273,6 @@ def apply_plan_auto(image: torch.Tensor, plan: SamplePlan) -> torch.Tensor:
             out = apply_plan_auto(image.to(torch.bfloat16), plan)
             return out.to(image.dtype)
         return apply_plan(image, plan)
-    if takes_shift_route(plan):
+    if takes_shift_route(plan, image.element_size()):
         return shift_resample(image, plan)
     return plan_gather(image, plan)

@@ -325,7 +325,7 @@ def test_shift_resample_matches_plain(cuda, name, dtype):
     plan = build()
     # the same-size plan has unit stride and routes to plan_gather; the
     # kernel is held against its plain version there all the same
-    assert sampling.takes_shift_route(plan) is (name != "512-same-size")
+    assert sampling.takes_shift_route(plan, 2) is (name != "512-same-size")
     gen = torch.Generator(device=cuda).manual_seed(len(name))
     x = torch.rand(lead + plan.src_shape, generator=gen,
                    device=cuda).to(dtype)
@@ -356,7 +356,7 @@ def test_shift_resample_refuses_what_it_does_not_take(cuda):
 
 def test_shift_resample_grad_matches_apply_plan(cuda):
     plan = geometry.rect_to_hex_plan(48, 1300, 24, 650, "bilinear")
-    assert sampling.takes_shift_route(plan)
+    assert sampling.takes_shift_route(plan, 4)
     gen = torch.Generator(device=cuda).manual_seed(5)
     x = torch.rand((2, 3) + plan.src_shape, generator=gen, device=cuda)
     g = torch.randn((2, 3) + tuple(plan.out_shape), generator=gen,
@@ -407,3 +407,111 @@ def test_mosaic_render_launches_once_and_is_bit_exact(cuda):
     plan = render._mosaic_sample_plan(540, 960, 2160, 3840, 0, None)
     assert out.dtype == torch.uint8
     assert torch.equal(out, sampling.apply_plan(img, plan))
+
+
+FUSED_CASES = [  # (B, H, W, C, radius, layers, bias): the reference's fused
+    (2, 16, 16, 16, 2, 3, True),   # cases, and the P-512 stack of bench.py
+    (2, 18, 13, 16, 2, 4, False),
+    (2, 12, 10, 32, 3, 2, True),
+    (16, 256, 256, 16, 2, 11, False),
+]
+
+
+def _fused_inputs(case, dtype, cuda):
+    b, h, w, c, r, n, bias_on = case
+    gen = torch.Generator(device=cuda).manual_seed(FUSED_CASES.index(case))
+    kn = 3 * r * r - 3 * r + 1
+    x = torch.rand((b, h, w, c), generator=gen, device=cuda).to(dtype)
+    ks = [(torch.randn((c, c, kn), generator=gen, device=cuda)
+           / math.sqrt(c * kn)).to(dtype) for _ in range(n)]
+    bs = ([0.1 * torch.randn((c,), generator=gen, device=cuda)
+           for _ in range(n)] if bias_on else [None] * n)
+    relus = [True] * (n - 1) + [n % 2 == 0]
+    return x, ks, bs, relus, r
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", FUSED_CASES)
+def test_fused_stack_matches_plain_and_chained_layers(cuda, case, dtype):
+    """One launch for the whole stack, within its bound of the plain
+    version and bit-equal to chained hex_conv_layer launches (the same
+    conv tile and accumulation order, the same rounding between layers)."""
+    x, ks, bs, relus, r = _fused_inputs(case, dtype, cuda)
+    before = (conv_stack.FUSED_LAUNCHES, conv_stack.LAUNCHES)
+    got = conv_stack.hex_conv_fused_stack(x, ks, bs, radius=r, relus=relus)
+    torch.cuda.synchronize()
+    assert (conv_stack.FUSED_LAUNCHES, conv_stack.LAUNCHES) == \
+        (before[0] + 1, before[1])
+    want = conv_stack.hex_conv_fused_stack_plain(x, ks, bs, radius=r,
+                                                 relus=relus)
+    chained = x
+    for k, b, relu in zip(ks, bs, relus):
+        chained = conv_stack.hex_conv_layer(chained, k, b, radius=r,
+                                            relu=relu)
+    assert got.shape == x.shape and got.dtype == dtype
+    assert _rel(got, want) <= (1e-4 if dtype == torch.float32 else 3e-2)
+    assert torch.equal(got, chained)
+
+
+def test_fused_stack_grads_match_chained_layers(cuda):
+    x, ks, bs, relus, r = _fused_inputs(FUSED_CASES[0], torch.float32, cuda)
+    g = torch.randn_like(x)
+    runs = []
+    for fused in (True, False):
+        leaves = [t.clone().requires_grad_() for t in (x, *ks, *bs)]
+        n = len(ks)
+        out = conv_stack.hex_conv_stack(
+            leaves[0], leaves[1:n + 1], leaves[n + 1:], radius=r,
+            final_activation=relus[-1], data_format="NHWC", fused=fused)
+        (out * g).sum().backward()
+        runs.append([t.grad for t in leaves])
+    for a, b in zip(*runs):
+        assert _rel(a, b) <= 1e-5
+
+
+def test_hex_conv_stack_fused_option_launches_once(cuda):
+    x, ks, _, _, r = _fused_inputs(FUSED_CASES[1], torch.bfloat16, cuda)
+    before = (conv_stack.FUSED_LAUNCHES, conv_stack.LAUNCHES)
+    fused = conv_stack.hex_conv_stack(x, ks, radius=r, data_format="NHWC",
+                                      final_activation=False, fused=True)
+    assert (conv_stack.FUSED_LAUNCHES, conv_stack.LAUNCHES) == \
+        (before[0] + 1, before[1])
+    chained = conv_stack.hex_conv_stack(x, ks, radius=r, data_format="NHWC",
+                                        final_activation=False)
+    banded = conv_stack.hex_conv_stack(x, ks, radius=r, data_format="NHWC",
+                                       final_activation=False, band_rows=4)
+    assert torch.equal(fused, chained) and torch.equal(banded, chained)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_plan_gather_at_the_4k_banded_plan(cuda, dtype):
+    """The 4K rect->hex plan, whose 16.6 MB bf16 source the TPU runs in row
+    bands (resample_pallas.py:374): plan_gather, not shift_resample."""
+    plan = geometry.rect_to_hex_plan(2160, 3840, 1080, 1920, "bilinear")
+    assert not sampling.takes_shift_route(plan, 2)
+    x = torch.rand((1, 3, 2160, 3840), device=cuda).to(dtype)
+    before = (resample.LAUNCHES, resample_shift.LAUNCHES)
+    got = sampling.apply_plan_auto(x, plan)
+    torch.cuda.synchronize()
+    assert (resample.LAUNCHES, resample_shift.LAUNCHES) == \
+        (before[0] + 1, before[1])
+    want = sampling.apply_plan(x, plan)
+    if dtype == torch.float32:
+        assert float((got - want).abs().max()) <= 1e-6
+    else:
+        assert _rel(got, want) <= 1e-2
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_hex_conv_layer_at_the_4k_stack_layer(cuda, dtype):
+    """The P-4K stack layer (1x1080x1920, 16->16, no norm, no bias, ReLU),
+    where the TPU runs its banded layer kernel (conv_pallas.py:374)."""
+    gen = torch.Generator(device=cuda).manual_seed(11)
+    x = torch.rand((1, 1080, 1920, 16), generator=gen, device=cuda).to(dtype)
+    k = (torch.randn((16, 16, 7), generator=gen, device=cuda) / 11).to(dtype)
+    got = conv_stack.hex_conv_layer(x, k, radius=2, relu=True)
+    want = conv_stack.hex_conv_layer_plain(x, k, radius=2, relu=True)
+    if dtype == torch.float32:
+        assert float((got - want).abs().max()) <= 1e-5
+    else:
+        assert _rel(got, want) <= 3e-2

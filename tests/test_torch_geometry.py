@@ -167,3 +167,22 @@ def test_wrong_source_shape_raises():
     plan = tgeo.rect_to_hex_plan(8, 8, 4, 4, "bilinear")
     with pytest.raises(ValueError, match="plan source"):
         tsamp.apply_plan(torch.zeros((3, 8, 9)), plan)
+
+
+@pytest.mark.parametrize("op", list(OPS.values()))
+def test_array_input_goes_to_the_device_asked_for(op):
+    """A numpy array lands on ``device`` (the card by default, as
+    hygrid_tpu puts it on JAX's default device); a tensor stays where it
+    is."""
+    args = {"rect_to_hex_resample": ((5, 4), "bilinear"),
+            "hex_to_rect_resample": ((9, 7), "linear"),
+            "hexresize": ((7, 6), "linear"),
+            "image_geometric_transformation": (H_SCALE, "linear")}[op]
+    img = np.random.default_rng(5).random((3, 8, 6)).astype(np.float32)
+    fn = getattr(pt, op)
+    got = fn(img, *args, device="cpu")
+    assert got.device.type == "cpu"
+    assert torch.equal(got, fn(torch.from_numpy(img), *args))
+    if not torch.cuda.is_available():
+        with pytest.raises((RuntimeError, AssertionError)):
+            fn(img, *args)

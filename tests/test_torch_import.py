@@ -2,6 +2,7 @@
 no kernel, and chip_smoke.py refuses to run without a GPU."""
 import ast
 import os
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -64,3 +65,18 @@ def test_chip_smoke_fails_without_gpu(tmp_path):
                               env=dict(os.environ, PYTHONPATH=""))
         assert proc.returncode != 0
         assert '"ok"' not in proc.stdout
+
+
+@pytest.mark.parametrize("path", sorted(
+    str(p.relative_to(ROOT)) for p in ROOT.glob("hygrid_tpu_torch/csrc/*.cu")))
+def test_c_entry_points_match_the_loader(path):
+    """Every extern "C" function of a CUDA source is declared to ctypes in
+    kernels/_build.py with as many arguments as it takes (a missing or
+    short declaration would pass pointers as 32-bit ints)."""
+    from hygrid_tpu_torch.kernels import _build
+    src = (ROOT / path).read_text()
+    entries = re.findall(r'extern "C" int (\w+)\(([^)]*)\)', src)
+    assert entries, f"{path} has no extern \"C\" entry point"
+    for name, params in entries:
+        assert name in _build._SIGNATURES, name
+        assert len(_build._SIGNATURES[name]) == len(params.split(",")), name

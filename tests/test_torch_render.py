@@ -53,7 +53,7 @@ def test_render_matches_jax(size, dtype):
     assert str(got.dtype) == f"torch.{dtype}"
     assert np.array_equal(got.numpy(), want)
     plan = trender._mosaic_sample_plan(h, w, oh, ow, 0, None)
-    assert sampling.takes_shift_route(plan) is (ow >= 640)
+    assert sampling.takes_shift_route(plan, 2) is (ow >= 640)
 
 
 def test_render_shift_route_counts_no_launch_on_cpu():

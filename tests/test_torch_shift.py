@@ -125,7 +125,7 @@ def test_decomposition_refuses_what_the_reference_refuses(build):
         (jrp.rowsep_decompose(ref) is None)
     assert jrs.shift_decompose(ref) is None
     assert trs.shift_decompose(port) is None
-    assert not tsamp.takes_shift_route(port)
+    assert not tsamp.takes_shift_route(port, 4)
 
 
 @pytest.mark.parametrize("force_banded", [False, True])
@@ -224,7 +224,7 @@ def test_route_follows_plan_structure(path, port_plan, ref_plan, shift):
     TPU routing takes its shift kernel (in bf16, the dtype of these
     paths)."""
     plan = port_plan()
-    assert tsamp.takes_shift_route(plan) is shift
+    assert tsamp.takes_shift_route(plan, 2) is shift
     assert jrs.shift_prefers(ref_plan(), 2) is shift
 
 
@@ -235,7 +235,7 @@ def test_route_skips_pure_row_downsample():
     _, port = _plans("rect-bilinear-128x128-64x128")
     geo = trs.shift_decompose_cached(port)
     assert geo.num == geo.den == 1
-    assert not tsamp.takes_shift_route(port)
+    assert not tsamp.takes_shift_route(port, 4)
 
 
 @pytest.mark.parametrize("name", ["hex-linear-96x128-96x128",
@@ -246,7 +246,7 @@ def test_route_keeps_unit_stride_plans_on_plan_gather(name):
     _, port = _plans(name)
     geo = trs.shift_decompose_cached(port)
     assert geo.num == geo.den == 1
-    assert not tsamp.takes_shift_route(port)
+    assert not tsamp.takes_shift_route(port, 4)
 
 
 def test_geometry_is_kept_on_its_plan():

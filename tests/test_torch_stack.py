@@ -164,8 +164,7 @@ def test_hexconvstack_parameters_and_generator():
         ["kernel_0", "gn_scale_0", "gn_bias_0"]
 
 
-@pytest.mark.parametrize("option", [dict(fused=True), dict(band_rows=8),
-                                    dict(packed_io=True),
+@pytest.mark.parametrize("option", [dict(packed_io=True),
                                     dict(extra_input=torch.zeros(1, 4, 4, 8))])
 def test_unported_stack_options_raise(option):
     k = torch.zeros((8, 8, 7))
@@ -183,3 +182,142 @@ def test_stack_argument_checks():
                            norms=[("gn", 3, torch.ones(8), torch.zeros(8))])
     with pytest.raises(ValueError, match="no kernel for device"):
         tcs.hex_conv_layer(x.to("meta"), k.to("meta"), radius=2)
+
+
+# ---- fused=True and band_rows against the reference's own kernels ---------
+
+FUSED_CASES = [(16, 2, 3, 16, 16, True), (16, 2, 4, 18, 13, False),
+               (32, 3, 2, 12, 10, True)]   # tests/test_kernels.py:194-199
+
+
+def _fused_inputs(C, r, L, h, w, bias_on):
+    """The reference test's draws (NCHW input, uniform weights)."""
+    rng = np.random.default_rng(C + L)
+    x = rng.random((2, C, h, w)).astype(np.float32)
+    ks = [(rng.random((C, C, hex_kernel_num(r))) - 0.5).astype(np.float32)
+          for _ in range(L)]
+    bs = ([rng.random(C).astype(np.float32) for _ in range(L)]
+          if bias_on else None)
+    return x, ks, bs
+
+
+@pytest.mark.parametrize("final_activation", [True, False])
+@pytest.mark.parametrize("case", FUSED_CASES)
+def test_fused_stack_matches_pallas_fused(case, final_activation):
+    """fused=True against hex_conv_stack_pallas(fused=True), whose
+    _fused_stack_kernel runs in interpret mode; float32, 1e-5 relative."""
+    C, r, L, h, w, bias_on = case
+    x, ks, bs = _fused_inputs(*case)
+    want = np.asarray(jcp.hex_conv_stack_pallas(
+        x, ks, bs, radius=r, fused=True, final_activation=final_activation))
+    tk, tb, _ = _to_torch(ks, bs, None)
+    got = tcs.hex_conv_stack(torch.from_numpy(x), tk, tb, radius=r,
+                             fused=True, final_activation=final_activation)
+    assert got.shape == want.shape
+    assert _rel_err(got.numpy(), want) <= 1e-5
+
+
+def test_fused_stack_grads_match_jax():
+    """Grads of sum(out * g) through fused=True against jax.grad through
+    the reference's fused stack (its VJP recomputes through _stack_xla),
+    at the first reference case (with biases); 1e-4 relative per leaf."""
+    r = FUSED_CASES[0][1]
+    x, ks, bs = _fused_inputs(*FUSED_CASES[0])
+    g = np.random.default_rng(9).normal(size=x.shape).astype(np.float32)
+
+    def loss(x, ks, bs):
+        return jax.numpy.sum(jcp.hex_conv_stack_pallas(
+            x, ks, bs, radius=r, fused=True) * g)
+
+    want = jax.jit(jax.grad(loss, argnums=(0, 1, 2)))(x, ks, bs)
+    tx = torch.from_numpy(x).requires_grad_()
+    tk = [torch.from_numpy(k).requires_grad_() for k in ks]
+    tb = [torch.from_numpy(b).requires_grad_() for b in bs]
+    out = tcs.hex_conv_stack(tx, tk, tb, radius=r, fused=True)
+    (out * torch.from_numpy(g)).sum().backward()
+    got = [tx.grad] + [k.grad for k in tk] + [b.grad for b in tb]
+    flat_want = jax.tree_util.tree_leaves(want)
+    assert len(got) == len(flat_want)
+    for a, b in zip(got, flat_want):
+        assert _rel_err(a.numpy(), np.asarray(b)) <= 1e-4
+
+
+@pytest.mark.parametrize("C,r,L,h,w,bg,brr,bias_on", [
+    (16, 2, 3, 16, 16, 2, 4, True),
+    (32, 3, 2, 12, 10, 1, 4, True),
+    (128, 2, 2, 12, 10, 1, 4, True),
+])   # tests/test_kernels.py:640-645 but the non-dividing band case
+def test_banded_stack_matches_pallas_banded(C, r, L, h, w, bg, brr, bias_on):
+    """band_rows against hex_conv_stack_pallas(band_rows=...), whose
+    _stack_layer_kernel_banded runs in interpret mode; 1e-5 relative."""
+    rng = np.random.default_rng(C * 7 + L)
+    x = rng.random((6, C, h, w)).astype(np.float32)
+    ks = [(rng.random((C, C, hex_kernel_num(r))) - 0.5).astype(np.float32)
+          for _ in range(L)]
+    bs = ([rng.random(C).astype(np.float32) for _ in range(L)]
+          if bias_on else None)
+    want = np.asarray(jcp.hex_conv_stack_pallas(
+        x, ks, bs, radius=r, batch_group=bg, band_rows=brr))
+    tk, tb, _ = _to_torch(ks, bs, None)
+    got = tcs.hex_conv_stack(torch.from_numpy(x), tk, tb, radius=r,
+                             band_rows=brr)
+    assert _rel_err(got.numpy(), want) <= 1e-5
+
+
+def _guard_args(kind):
+    c = 16
+    x = np.zeros((1, c, 8, 8), np.float32)
+    ks = [np.zeros((c, c, 7), np.float32)] * 2
+    gn = [("gn", 4, np.ones(c, np.float32), np.zeros(c, np.float32))] * 2
+    return x, ks, {
+        "fused+norms": dict(radius=2, fused=True, norms=gn),
+        "band+norms": dict(radius=2, band_rows=4, norms=gn),
+        "band+fused": dict(radius=2, band_rows=4, fused=True),
+        "band+margin": dict(radius=4, band_rows=4),
+    }[kind]
+
+
+@pytest.mark.parametrize("kind", ["fused+norms", "band+norms", "band+fused",
+                                  "band+margin"])
+def test_fused_and_band_guards_match_reference(kind):
+    x, ks, kw = _guard_args(kind)
+    if kw["radius"] == 4:
+        ks = [np.zeros((16, 16, hex_kernel_num(4)), np.float32)] * 2
+    with pytest.raises(ValueError) as ref:
+        jcp.hex_conv_stack_pallas(x, ks, None, **kw)
+    tn = None
+    if "norms" in kw:
+        kw = dict(kw)
+        tn = _to_torch(ks, None, kw.pop("norms"))[2]
+    tk = [torch.from_numpy(k) for k in ks]
+    with pytest.raises(ValueError) as got:
+        tcs.hex_conv_stack(torch.from_numpy(x), tk, norms=tn, **kw)
+    assert str(got.value) == str(ref.value)
+
+
+def test_band_margin_rule_matches_reference():
+    for r in range(1, 6):
+        for d in range(1, 4):
+            for q in (1, 2, 4, 8, 16, 32, 64, 128):
+                assert tcs._same_margin_feasible(r, d, q) == \
+                    jcp._same_meta_feasible(r, d, q), (r, d, q)
+
+
+def test_fused_stack_wrapper_refuses_other_devices_and_mixed_widths():
+    k = torch.zeros((8, 8, 7))
+    with pytest.raises(ValueError, match="no kernel for device"):
+        tcs.hex_conv_fused_stack(torch.zeros((1, 4, 4, 8), device="meta"),
+                                 [k.to("meta")] * 2, radius=2,
+                                 relus=[True, True])
+    with pytest.raises(ValueError, match="relus"):
+        tcs.hex_conv_fused_stack(torch.zeros((1, 4, 4, 8)), [k] * 2,
+                                 radius=2, relus=[True])
+    # a stack whose widths differ chains its layers under fused=True, as
+    # conv_pallas.py:1544 does
+    x = torch.rand((1, 6, 5, 3))
+    ks = [torch.rand((8, 3, 7)), torch.rand((8, 8, 7))]
+    before = tcs.FUSED_LAUNCHES
+    assert torch.equal(
+        tcs.hex_conv_stack(x, ks, radius=2, data_format="NHWC", fused=True),
+        tcs.hex_conv_stack(x, ks, radius=2, data_format="NHWC"))
+    assert tcs.FUSED_LAUNCHES == before

@@ -24,6 +24,7 @@ from hygrid_tpu_torch.models import video as tvideo
 from hygrid_tpu_torch.nn import HexConvStack
 from hygrid_tpu_torch.nn import filters
 from hygrid_tpu_torch.nn import functional as F
+from hygrid_tpu_torch.ops import geometry as tgeo
 from hygrid_tpu_torch.ops.geometry import rect_to_hex_resample
 from hygrid_tpu_torch.viz import render_mosaic
 
@@ -231,7 +232,9 @@ class TestVideo:
 
 ENTRY_POINTS = [HexCNN, hexcnn_small, hexcnn_tiny, HexConvStack,
                 tvideo.make_frame_processor, tvideo.make_batch_processor,
-                render_mosaic]
+                render_mosaic, tgeo.rect_to_hex_resample,
+                tgeo.hex_to_rect_resample, tgeo.hexresize,
+                tgeo.image_geometric_transformation]
 
 
 @pytest.mark.parametrize("entry", ENTRY_POINTS,
