@@ -67,7 +67,23 @@ Phases, each of which raises on failure (the script then exits non-zero):
     2160x3840): 8 calls on distinct inputs by CUDA events (Mpix/s of rect
     input, peak memory), launches per call (2 plan_gather, 0
     shift_resample, 11 hex_conv_layer or 1 fused stack), one call against
-    the plain float32 path, and a torch.profiler split of one P-4K call.
+    the plain float32 path, and a torch.profiler split of one P-4K call;
+14. the single-op conv (hex_conv_single, TPU kernels #7 and #8) against
+    its plain version at the per-module route's five kernel layers
+    (BN-512 float32 and bfloat16, BN-CIFAR float32), at odd parity,
+    dilation 2 and radius 3; at BN-512's first layer band_rows=32 and
+    hex_conv_layer on the same input must be bit-equal to it; cuDNN's
+    time (hex_conv2d(impl="direct")) beside the kernel's;
+15. the per-module route: HexCNN-small with BatchNorm (eval, running
+    statistics drawn from a seed), float32, at BN-512 (b=32 512^2 RGB)
+    and BN-CIFAR (b=256 32^2 RGB), one model served as users build it
+    (hexcnn_small(norm="BN"), convs impl="auto": cuDNN) and on the kernel
+    route (build_permodule_hexcnn: the same model, convs impl="pallas"):
+    on 4 distinct requests peak memory, launches per request (1
+    plan_gather; 5 hex_conv_single on the kernel route, none on the
+    other) and logits against the plain float32 path; images/s by CUDA
+    events, the median and spread of 3 windows of at least 1 s each, the
+    routes alternating; a torch.profiler split of one request.
 
 The last lines are the kernel summary (with each kernel's bound: the bytes
 it must move at 3.35 TB/s or its operations at the card's peak for their
@@ -765,6 +781,30 @@ def build_pipeline(shape, channels, layers, radius, dtype, *, fused=False,
     return pipeline, kernels
 
 
+def set_conv_impl(model, impl):
+    """Switch every ``HexConv2d`` of ``model`` to ``hex_conv2d(impl=impl)``:
+    the same layers ``HexConvModule(conv_cfg=dict(type="HexConv2d",
+    impl=impl))`` builds.  Returns ``model``."""
+    from hygrid_tpu_torch.nn import HexConv2d
+    for mod in model.modules():
+        if isinstance(mod, HexConv2d):
+            mod.impl = impl
+    return model
+
+
+def build_permodule_hexcnn(*, impl="pallas", device="cuda", generator=None,
+                           **kw):
+    """The per-module HexCNN route on the single-op conv kernel: the model
+    users build, ``hexcnn_small(norm="BN", **kw)`` (per stage ``depth``
+    ``HexConvModule`` conv -> BN -> ReLU bundles, a hex max-pool 2x2/2
+    between stages, global average pool, linear head), with each
+    ``HexConv2d`` on ``impl``.  Its forward is HexCNN's own, so it differs
+    from route (a) only in the conv."""
+    from hygrid_tpu_torch.models import hexcnn_small
+    return set_conv_impl(hexcnn_small(norm="BN", device=device,
+                                      generator=generator, **kw), impl)
+
+
 def check_tiers(torch, gen):
     """Phase 11: the TPU's banded and phased tiers, which compute what the
     port's kernels compute, checked at the shapes they served: the P-4K
@@ -1003,6 +1043,257 @@ def run_pipelines(torch):
             for name, batch, shape, fused in PIPELINES}
 
 
+# the per-module route: HexCNN-small with BN, served in float32.  The five
+# convs after the stem take hex_conv2d(impl="pallas")'s kernel; (Cin, Cout,
+# H, W) of their unpadded inputs (padding 1 each)
+PERMODULE = [("BN-512", 32, 512), ("BN-CIFAR", 256, 32)]
+SINGLE_LAYERS = {
+    "BN-512": [(32, 32, 256, 256), (32, 64, 128, 127), (64, 64, 128, 127),
+               (64, 128, 64, 63), (128, 128, 64, 63)],
+    "BN-CIFAR": [(32, 32, 16, 16), (32, 64, 8, 7), (64, 64, 8, 7),
+                 (64, 128, 4, 3), (128, 128, 4, 3)],
+}
+SINGLE_TOL = {"f32_rel": 1e-4, "bf16_rel": 3e-2, "logits_rel": 1e-3}
+# phase 15 times each route over windows of at least this many ms, the
+# routes alternating; the spread of the windows is printed
+PERMODULE_WINDOW_MS = 1000.0
+PERMODULE_WINDOWS = 3
+# hygrid_tpu's _CONV_BAND_THRESHOLD (conv_pallas.py:65): padded inputs of
+# more elements ran the banded TPU kernel (#8), others #7 (labels only)
+TPU_BAND_THRESHOLD = 2 ** 23
+
+
+def check_single(torch, gen):
+    """Phase 14: hex_conv_single against its plain version at the per-module
+    route's layer shapes (BN-512 in float32 and bfloat16, BN-CIFAR in
+    float32), at odd input parity, dilation 2 and radius 3; a band_rows=32
+    call and, on the input padded by r-1, hex_conv_layer (kernel B, no
+    norm, no ReLU), both bit for bit, at BN-512's first layer.  Beside each time: the plain version's
+    and cuDNN's (hex_conv2d(impl="direct") in the activations' dtype; the
+    plain version computes in float32).  Returns the BN-512 float32 summary
+    for the kernels line (the dtype phase 15 serves in)."""
+    from hygrid_tpu_torch.kernels import conv_single as cs
+    from hygrid_tpu_torch.kernels import conv_stack
+    from hygrid_tpu_torch.nn import functional as F
+    summary = dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0, cudnn_direct_ms=0.0)
+    bounds = []
+
+    def case(label, batch, cin, cout, h, w, dtype, radius=2, dilation=1,
+             offset=0, iters=5):
+        kn = F.hex_kernel_num(radius)
+        pad = dilation * (radius - 1)
+        x = torch.rand((batch, cin, h, w), generator=gen,
+                       device="cuda").to(dtype)
+        k = (torch.randn((cout, cin, kn), generator=gen, device="cuda")
+             / math.sqrt(cin * kn)).to(dtype)
+        kw = dict(even_odd_offset=offset, radius=radius, padding=pad,
+                  dilation=dilation)
+        got = cs.hex_conv_single(x, k, **kw)
+        want = cs.hex_conv_single_plain(x, k, **kw)
+        torch.cuda.synchronize()
+        require(got.shape == want.shape and got.dtype == dtype,
+                f"hex_conv_single {label}: {tuple(got.shape)} {got.dtype}")
+        err, rel = max_err(got, want)
+        tol = SINGLE_TOL["f32_rel" if dtype == torch.float32 else "bf16_rel"]
+        require(rel <= tol, f"hex_conv_single {label} {dtype}: relative err "
+                            f"{rel} > {tol}")
+        ms = cuda_ms(torch, lambda: cs.hex_conv_single(x, k, **kw),
+                     iters=iters)
+        pms = cuda_ms(torch, lambda: cs.hex_conv_single_plain(x, k, **kw),
+                      iters=iters)
+        dms = cuda_ms(torch, lambda: F.hex_conv2d(x, k, impl="direct", **kw),
+                      iters=iters)
+        ho, wo = got.shape[-2:]
+        n_in = batch * cin * (h + 2 * pad) * (w + 2 * pad)  # padded input
+        b_ms, b_by = bound(nbytes(x, k, got),
+                           2 * kn * batch * cin * cout * ho * wo,
+                           "bf16" if dtype == torch.bfloat16 else "f32")
+        log(f"hex_conv_single {label} {cin}->{cout} {h}x{w} b={batch} "
+            f"r={radius} d={dilation} offset={offset} {str(dtype)[6:]}: "
+            f"max_abs_err={err!r} rel={rel!r} kernel_ms={ms!r} "
+            f"plain_ms={pms!r} cudnn_direct_ms={dms!r} bound_ms={b_ms!r} "
+            f"({b_by}); TPU kernel "
+            f"{'#8' if n_in > TPU_BAND_THRESHOLD else '#7'}")
+        return x, k, kw, err, ms, pms, dms, (b_ms, b_by)
+
+    def cross_check(x, k, kw, dtype):
+        """band_rows=32 and kernel B on the 'same' conv of the same input."""
+        got = cs.hex_conv_single(x, k, **kw)
+        banded = cs.hex_conv_single(x, k, band_rows=32, **kw)
+        layer = conv_stack.hex_conv_layer(
+            x.permute(0, 2, 3, 1).contiguous(), k, radius=kw["radius"]
+        ).permute(0, 3, 1, 2)
+        torch.cuda.synchronize()
+        require(torch.equal(banded, got),
+                f"hex_conv_single band_rows=32 {dtype}: differs")
+        diff = (got.float() - layer.float()).abs().max().item()
+        log(f"hex_conv_single vs hex_conv_layer ('same' conv, the input "
+            f"padded by {kw['padding']}, {tuple(x.shape)}) {str(dtype)[6:]}: "
+            f"bit-equal={torch.equal(got, layer)} max_abs_diff={diff!r}; "
+            f"band_rows=32 bit-equal to unbanded")
+        require(torch.equal(got, layer),
+                f"hex_conv_single {dtype}: not bit-equal to hex_conv_layer "
+                f"(max abs diff {diff})")
+
+    for config, layers in SINGLE_LAYERS.items():
+        batch = dict((n, b) for n, b, _ in PERMODULE)[config]
+        dtypes = ((torch.float32, torch.bfloat16) if config == "BN-512"
+                  else (torch.float32,))
+        for li, (cin, cout, h, w) in enumerate(layers):
+            for dtype in dtypes:
+                x, k, kw, err, ms, pms, dms, b = case(
+                    f"{config} L{li + 1}", batch, cin, cout, h, w, dtype)
+                if config == "BN-512" and li == 0:
+                    cross_check(x, k, kw, dtype)
+                if config == "BN-512" and dtype == torch.float32:
+                    summary["max_abs_err"] = max(summary["max_abs_err"], err)
+                    summary["ms"] += ms
+                    summary["plain_ms"] += pms
+                    summary["cudnn_direct_ms"] += dms
+                    bounds.append(b)
+    for dtype in (torch.float32, torch.bfloat16):
+        case("odd parity", 8, 32, 64, 64, 63, dtype, offset=1)
+        case("dilation 2", 8, 32, 64, 64, 63, dtype, dilation=2)
+        case("radius 3", 8, 32, 64, 64, 63, dtype, radius=3, offset=1)
+    summary.update(summed_bound(bounds), library_ms=None)
+    return summary
+
+
+def _bn_stats(torch, model, gen):
+    """BN running statistics (and affine) drawn from ``gen``, variances
+    positive, so that no BN is the identity."""
+    with torch.no_grad():
+        for name, buf in model.named_buffers():
+            if name.endswith("running_mean"):
+                buf.copy_(0.1 * torch.randn(buf.shape, generator=gen,
+                                            device=buf.device))
+            elif name.endswith("running_var"):
+                buf.copy_(0.5 + torch.rand(buf.shape, generator=gen,
+                                           device=buf.device))
+        for name, p in model.named_parameters():
+            if ".norm." in name:
+                p.add_(0.1 * torch.randn(p.shape, generator=gen,
+                                         device=p.device))
+
+
+def _time_route(torch, serve, xs, n):
+    """Milliseconds a request, by CUDA events around ``n`` requests that
+    cycle over the distinct inputs ``xs``."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for i in range(n):
+        serve(xs[i % len(xs)])
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / n
+
+
+def _run_permodule(torch, config, batch, size):
+    """One configuration of phase 15: one ``hexcnn_small(norm="BN")``
+    served on route (a), its convs as users build them, and on route (b),
+    the same model with its convs on the single-op kernel.  Each route's
+    launches, logits and peak memory come from ``N_REQUESTS`` distinct
+    requests; its images/s from ``PERMODULE_WINDOWS`` windows of at least
+    ``PERMODULE_WINDOW_MS`` each, the routes alternating.  Returns the
+    launches per route."""
+    from hygrid_tpu_torch.kernels import conv_single as cs
+    from hygrid_tpu_torch.kernels import conv_stack, resample
+    from hygrid_tpu_torch.kernels import resample_shift as rs
+    from hygrid_tpu_torch.models import hexcnn_small, hexify_batch
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    model = hexcnn_small(norm="BN", device="cuda", generator=gen).eval()
+    _bn_stats(torch, model, gen)
+    impls = {"a": "auto", "b": "pallas"}
+
+    def serve(x):
+        return model(hexify_batch(x))
+
+    in_gen = torch.Generator(device="cuda").manual_seed(8)
+    xs = [torch.rand((batch, 3, size, size), generator=in_gen,
+                     device="cuda") for _ in range(N_REQUESTS + 1)]
+    counters = {"plan_gather": (resample, "LAUNCHES"),
+                "shift_resample": (rs, "LAUNCHES"),
+                "hex_conv_layer": (conv_stack, "LAUNCHES"),
+                "hex_conv_layer_dgrad": (conv_stack, "DGRAD_LAUNCHES"),
+                "hex_conv_wgrad": (conv_stack, "WGRAD_LAUNCHES"),
+                "hex_conv_fused_stack": (conv_stack, "FUSED_LAUNCHES"),
+                "hex_conv_single": (cs, "LAUNCHES")}
+    per_request = {"a": {"plan_gather": 1}, "b": {"plan_gather": 1,
+                                                  "hex_conv_single": 5}}
+    launches, first_ms, reports = {}, {}, {}
+    with torch.inference_mode():
+        set_conv_impl(model, "auto")
+        ref = model(hexify_batch(xs[1], plain=True))
+        for route, impl in impls.items():
+            set_conv_impl(model, impl)
+            serve(xs[0])
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            for mod, attr in counters.values():
+                setattr(mod, attr, 0)
+            t0 = time.perf_counter()
+            outs = [serve(x) for x in xs[1:]]
+            torch.cuda.synchronize()
+            first_ms[route] = (time.perf_counter() - t0) * 1e3 / N_REQUESTS
+            peak = torch.cuda.max_memory_allocated()
+            got = {name: getattr(mod, attr)
+                   for name, (mod, attr) in counters.items()}
+            want = {name: per_request[route].get(name, 0) * N_REQUESTS
+                    for name in counters}
+            require(got == want, f"{config} route ({route}): launches "
+                                 f"{got}, want {want}")
+            got = {k: v for k, v in got.items() if v}
+            for i, out in enumerate(outs):
+                require(out.shape == (batch, 10) and out.dtype == torch.float32
+                        and bool(torch.isfinite(out).all()),
+                        f"{config} ({route}) request {i}: "
+                        f"{tuple(out.shape)} {out.dtype} or non-finite")
+            require(not torch.equal(outs[0], outs[1]),
+                    f"{config} ({route}): distinct requests, equal logits")
+            err, rel = max_err(outs[0], ref)
+            require(rel <= SINGLE_TOL["logits_rel"],
+                    f"{config} ({route}) vs plain f32: relative err {rel}")
+            launches[f"{config} ({route})"] = got
+            reports[route] = (f"peak_mem_bytes={peak}; launches={got}; "
+                              f"logits vs plain f32 max_abs_err={err!r} "
+                              f"rel={rel!r}")
+        # requests per window: the faster route's lasts the window too
+        n = max(N_REQUESTS,
+                math.ceil(PERMODULE_WINDOW_MS / min(first_ms.values())))
+        times = {route: [] for route in impls}
+        for _ in range(PERMODULE_WINDOWS):
+            for route, impl in impls.items():
+                set_conv_impl(model, impl)
+                times[route].append(_time_route(torch, serve, xs[1:], n))
+        for route, impl in impls.items():
+            set_conv_impl(model, impl)
+            ms = sorted(times[route])
+            med = ms[len(ms) // 2]
+            log(f"per-module {config} route ({route}) HexCNN-small BN f32 "
+                f"b={batch} {size}^2: {med!r} ms a request, median of "
+                f"{PERMODULE_WINDOWS} windows of {n} requests cycling over "
+                f"{N_REQUESTS} distinct inputs (CUDA events; windows "
+                f"{[round(t * n) for t in times[route]]} ms), images/s="
+                f"{batch / (med / 1e3)!r} (windows {min(ms)!r}-{max(ms)!r} "
+                f"ms: {batch / (ms[-1] / 1e3)!r}-{batch / (ms[0] / 1e3)!r}); "
+                f"{reports[route]}")
+            split = _profile_split(torch, lambda: serve(xs[1]), med)
+            log(f"per-module {config} route ({route}) torch.profiler, one "
+                f"request: {split}")
+    return launches
+
+
+def run_permodule(torch):
+    """Phase 15: the per-module route, BN-512 and BN-CIFAR, each served as
+    users build it (a: hexcnn_small(norm="BN"), convs impl="auto") and on
+    the kernel route (b: build_permodule_hexcnn, impl="pallas")."""
+    launches = {}
+    for config, batch, size in PERMODULE:
+        launches.update(_run_permodule(torch, config, batch, size))
+    return launches
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -1061,6 +1352,11 @@ def main():
         fused = check_fused(torch, gen)
     paths.update(run_pipelines(torch))
     log(f"phases 11-13: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        single = check_single(torch, gen)
+    paths.update(run_permodule(torch))
+    log(f"phases 14-15: {time.perf_counter() - t0:.1f} s")
 
     def count(name):
         by_path = {p: n[name] for p, n in paths.items() if n.get(name)}
@@ -1096,6 +1392,11 @@ def main():
              source="hygrid_tpu_torch/csrc/hex_conv_fused_stack.cu",
              replaces="hygrid_tpu/kernels/conv_pallas.py:965",
              **count("hex_conv_fused_stack"), **fused),
+        dict(name="hex_conv_single", route="cuda",
+             source="hygrid_tpu_torch/csrc/hex_conv_single.cu",
+             replaces="hygrid_tpu/kernels/conv_pallas.py:106",
+             also_replaces="hygrid_tpu/kernels/conv_pallas.py:127",
+             **count("hex_conv_single"), **single),
     ]
     for k in kernels:
         require(k["launches"] > 0, f"{k['name']}: no launch on the main path")

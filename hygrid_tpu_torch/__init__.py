@@ -12,7 +12,8 @@ from .ops.geometry import (hex_to_rect_resample, hexresize,
 from .ops.sampling import SamplePlan, apply_plan, apply_plan_auto
 from .nn.functional import (hex_conv2d, hex_conv2d_output_shape,
                             hex_global_pool2d, hex_kernel_num, hex_pool2d)
-from .nn.layers import HexConvStack
+from .nn.layers import HexConv2d, HexConvStack
+from .nn.modules import HexConvModule
 from .models import (HexCNN, create_train_state, hexcnn_small, hexcnn_tiny,
                      hexify_batch, train_step)
 
@@ -34,6 +35,8 @@ __all__ = [
     "hex_global_pool2d",
     "hex_kernel_num",
     "hex_pool2d",
+    "HexConv2d",
+    "HexConvModule",
     "HexConvStack",
     "HexCNN",
     "hexcnn_small",

@@ -1,6 +1,7 @@
 // Shared by the hex conv kernels: the per-parity tap table passed by value
 // as a kernel parameter, float32 loads and stores of the working dtypes, and
-// the conv pass's tile (hex_conv_layer.cu, hex_conv_fused_stack.cu).
+// the conv pass's tile (hex_conv_layer.cu, hex_conv_fused_stack.cu,
+// hex_conv_single.cu).
 #pragma once
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -16,7 +17,8 @@ struct TapTable {
   int dc[2][kMaxTaps];
 };
 
-// taps_host: (2, kn, 2) int32, as nn/functional.py::hex_tap_table builds it.
+// taps_host: (2, kn, 2) int32, as nn/functional.py::hex_tap_table (or
+// hex_valid_tap_table) builds it.
 inline TapTable make_tap_table(const int* taps_host, int kn) {
   TapTable table{};
   for (int q = 0; q < 2; ++q)
@@ -43,7 +45,10 @@ __device__ __forceinline__ void store(__nv_bfloat16* p, float v) { *p = __float2
 // that share a channel read consecutive words (no bank conflicts); the
 // kChanT output channels come as one float4.  Every output accumulates over
 // input-channel chunks, then taps, then the chunk's channels, in that order,
-// whatever COB is: two kernels that share this tile agree bit for bit.
+// whatever COB and the input layout are: kernels that share this tile agree
+// bit for bit.  The tile reads NHWC (channel-fastest staging walk) or NCHW
+// (column-fastest walk), so that a warp's loads are consecutive in either
+// layout.
 constexpr int kTileP = 64;       // output pixels per tile
 constexpr int kChunkC = 16;      // input channels per stage
 constexpr int kChanT = 4;        // output channels per thread
@@ -91,10 +96,11 @@ inline size_t conv_tile_smem(const Geometry& g, int kn, int cob) {
 }
 
 // Accumulate the tile at output row o, pixels w0.., channels co0.. of the
-// sample xb (H, W, Cin) into acc.  w: (kn, Cin, Cout) float32.  smem holds
-// conv_tile_smem bytes.  With load_w false the weights staged by the last
-// call are used again (only valid when Cin <= kChunkC and co0 is the same).
-template <int COB, typename Tin>
+// sample xb ((H, W, Cin), or (Cin, H, W) when kNCHW) into acc.  w: (kn,
+// Cin, Cout) float32.  smem holds conv_tile_smem bytes.  With load_w false
+// the weights staged by the last call are used again (only valid when
+// Cin <= kChunkC and co0 is the same).
+template <int COB, bool kNCHW = false, typename Tin>
 __device__ __forceinline__ void conv_tile(
     const Tin* __restrict__ xb, const float* __restrict__ w, float* smem,
     int H, int W, int Cin, int Cout, int kn, const TapTable& taps, int r_lo,
@@ -115,16 +121,17 @@ __device__ __forceinline__ void conv_tile(
 
   for (int ci0 = 0; ci0 < Cin; ci0 += kChunkC) {
     __syncthreads();
-    // channel-fastest walk: consecutive threads read consecutive channels
+    // consecutive threads read consecutive channels (NHWC) or columns (NCHW)
     const int n_x = n_rows * n_cols * kChunkC;
     for (int e = tid; e < n_x; e += kConvThreads) {
-      const int ck = e % kChunkC;
-      const int c = (e / kChunkC) % n_cols;
+      const int ck = kNCHW ? (e / n_cols) % kChunkC : e % kChunkC;
+      const int c = kNCHW ? e % n_cols : (e / kChunkC) % n_cols;
       const int r = e / (kChunkC * n_cols);
       const int gi = o + r_lo + r, gj = w0 + c_lo + c, gc = ci0 + ck;
       float v = 0.f;
       if (gi >= 0 && gi < H && gj >= 0 && gj < W && gc < Cin)
-        v = to_f32(xb[((long long)gi * W + gj) * Cin + gc]);
+        v = to_f32(kNCHW ? xb[((long long)gc * H + gi) * W + gj]
+                         : xb[((long long)gi * W + gj) * Cin + gc]);
       xs[(r * kChunkC + ck) * n_cols + c] = v;
     }
     if (load_w) {

@@ -10,7 +10,12 @@
   ``conv_pallas.py::_stack_layer_bwd_kernel``;
 * ``resample_shift.shift_resample`` — ``csrc/shift_resample.cu`` (replaces
   ``hygrid_tpu/kernels/resample_shift.py::_shift_kernel_full`` and
-  ``::_shift_kernel_banded``).
+  ``::_shift_kernel_banded``);
+* ``conv_stack.hex_conv_fused_stack`` — ``csrc/hex_conv_fused_stack.cu``
+  (replaces ``conv_pallas.py::_fused_stack_kernel``);
+* ``conv_single.hex_conv_single`` — ``csrc/hex_conv_single.cu`` (replaces
+  ``conv_pallas.py::_conv_kernel`` and ``::_conv_kernel_banded``, the
+  single-op conv of ``hex_conv2d(impl="pallas")``).
 
 Importing these modules builds nothing: ``_build.load_library`` compiles
 the CUDA sources at the first kernel launch.  A wrapper given a CPU tensor

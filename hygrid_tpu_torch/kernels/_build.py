@@ -50,6 +50,8 @@ _SIGNATURES = {
                           _I, _I, _I, _P],
     "hg_hex_conv_fused_stack": [_P, _P, _P, _P, _P, _P, _ULL, _ULL, _I, _I,
                                 _I, _I, _I, _I, _I, _I, _P, _P],
+    "hg_hex_conv_single": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+                           _P, _P],
 }
 
 _lock = threading.Lock()

@@ -1,7 +1,8 @@
-"""Functional hex NN ops (layer L3 core), PyTorch port of the parts of
-``hygrid_tpu/nn/functional.py`` that the HexCNN inference path needs.
+"""Functional hex NN ops (layer L3 core), PyTorch port of
+``hygrid_tpu/nn/functional.py``'s convolution and pooling.
 
-Two interchangeable convolution implementations over brick-wall storage:
+Two interchangeable plain convolution implementations over brick-wall
+storage:
 
 * ``impl="type1"`` mirrors the reference algorithm: scatter the
   ``3r^2-3r+1`` hex weights into a sparse rect kernel, expand the input to
@@ -11,12 +12,16 @@ Two interchangeable convolution implementations over brick-wall storage:
   stride ``(2s, s)`` on the un-expanded image; the per-kernel-row column
   offsets ``c0`` fold the brick-wall parity.
 
-Both are plain PyTorch (``torch.nn.functional.conv2d``).  The Hopper
-kernel for chains of 'same' convs is ``kernels/conv_stack.py``; its tap
-table is derived from the same ``c0`` offsets (:func:`hex_tap_table`).
+Both are plain PyTorch (``torch.nn.functional.conv2d``; cuDNN on the
+card).  ``impl="pallas"`` runs the single-op conv kernel
+(``kernels/conv_single.py``) inside the reference's envelope.  The Hopper
+kernel for chains of 'same' convs is ``kernels/conv_stack.py``.  Both
+kernels' tap tables derive from the same ``c0`` offsets
+(:func:`hex_valid_tap_table`).
 """
 from __future__ import annotations
 
+import math
 from typing import Tuple
 
 import numpy as np
@@ -27,11 +32,14 @@ __all__ = [
     "pad2d",
     "hex_kernel_num",
     "scatter_hex_kernel",
+    "hex_valid_tap_table",
     "hex_tap_table",
     "hex_adjoint_tap_table",
     "hex_conv2d",
+    "hex_conv2d_adaptive_padding",
     "hex_conv2d_output_shape",
     "hex_pool2d",
+    "hex_adaptive_pool2d",
     "hex_global_pool2d",
     "max_pooling",
     "min_pooling",
@@ -47,8 +55,17 @@ _PAD_MODES = {
 }
 
 
-def _as_4d(x) -> torch.Tensor:
-    x = torch.as_tensor(x)
+def _input_device(x, kernel) -> torch.device:
+    """A tensor ``x`` stays on its device; other input follows the kernel
+    when it is a tensor, else goes to the card."""
+    return next((t.device for t in (x, kernel) if isinstance(t, torch.Tensor)),
+                torch.device("cuda"))
+
+
+def _as_4d(x, device="cuda") -> torch.Tensor:
+    """A tensor stays on its device; other input goes to ``device``."""
+    if not isinstance(x, torch.Tensor):
+        x = torch.as_tensor(x, device=device)
     while x.ndim < 4:
         x = x[None]
     return x
@@ -100,6 +117,29 @@ def _phase_offsets(radius: int, s: int, d: int, parity: int):
     return c0e, c0o
 
 
+def hex_valid_tap_table(radius: int, dilation: int = 1,
+                        parity: int = 0) -> np.ndarray:
+    """Source offsets of a stride-1 'valid' hex conv whose first input row
+    has parity ``parity``.
+
+    Returns int32 ``(2, kn, 2)``: for output-row parity ``q`` (even rows
+    are the even phase) and flat tap ``t``, output pixel ``(o, j)`` reads
+    input pixel ``(o + T[q, t, 0], j + T[q, t, 1])`` = ``(o + i*d,
+    j + c0_q[i] + d*k)`` for kernel row ``i``, cell ``k``, with ``c0e, c0o
+    = _phase_offsets(radius, 1, d, parity)``.  The output has
+    :func:`hex_conv2d_output_shape` rows and columns; reads past the last
+    column are zero.
+    """
+    d = dilation
+    c0e, c0o = _phase_offsets(radius, 1, d, parity % 2)
+    table = np.zeros((2, hex_kernel_num(radius), 2), np.int32)
+    for q, c0 in enumerate((c0e, c0o)):
+        for (i, t, ln, start) in _hex_kernel_rows(radius):
+            for k in range(ln):
+                table[q, start + k] = (i * d, c0[i] + d * k)
+    return table
+
+
 def hex_tap_table(radius: int, dilation: int = 1) -> np.ndarray:
     """Source offsets of a stride-1 'same' hex conv on offset-0 storage.
 
@@ -107,18 +147,11 @@ def hex_tap_table(radius: int, dilation: int = 1) -> np.ndarray:
     ``t``, output pixel ``(o, j)`` with ``o % 2 == q`` reads input pixel
     ``(o + T[q, t, 0], j + T[q, t, 1])`` (zero outside the image).  The
     'same' padding ``p = d*(r-1)`` flips the conv-internal parity to
-    ``p % 2`` (``hygrid_tpu/nn/functional.py:479``); padded row/col
-    ``o + i*d`` / ``j + c0[i] + d*k`` is original ``- p``.
+    ``p % 2`` (``hygrid_tpu/nn/functional.py:479``): it is the valid
+    conv's table on the padded image, shifted back by ``p``.
     """
-    d = dilation
-    p = d * (radius - 1)
-    c0e, c0o = _phase_offsets(radius, 1, d, p % 2)
-    table = np.zeros((2, hex_kernel_num(radius), 2), np.int32)
-    for q, c0 in enumerate((c0e, c0o)):
-        for (i, t, ln, start) in _hex_kernel_rows(radius):
-            for k in range(ln):
-                table[q, start + k] = (i * d - p, c0[i] + d * k - p)
-    return table
+    p = dilation * (radius - 1)
+    return hex_valid_tap_table(radius, dilation, p % 2) - np.int32(p)
 
 
 def hex_adjoint_tap_table(radius: int, dilation: int = 1) -> np.ndarray:
@@ -285,22 +318,47 @@ def hex_conv2d(x, kernel, bias=None, *, even_odd_offset: int = 0,
            cells left-to-right.  The reference (O, I, 1, kernelnum) layout
            is accepted too.
         even_odd_offset: parity of the FIRST input row; flips with padding.
-        impl: ``"direct"`` (default) or ``"type1"`` (reference-mirroring).
-           The other ``hygrid_tpu`` impls ("auto", "mxu", "packed",
-           "pallas") are TPU routings and are not ported.
+        impl: ``"direct"`` (default) or ``"type1"`` (reference-mirroring)
+           run plain PyTorch.  ``"pallas"`` runs the single-op conv kernel
+           (:func:`hygrid_tpu_torch.kernels.conv_single.hex_conv_single`)
+           inside the reference's envelope (stride 1, groups 1,
+           ``128 % C == 0``, ``Cout * 128 / C <= 512``, padded height at
+           least the kernel's plus 2) and ``"direct"`` outside it, where
+           ``hygrid_tpu`` runs its XLA packed conv.  ``"auto"``, ``"mxu"``
+           and ``"packed"`` are XLA formulations of the same function in
+           ``hygrid_tpu``; here they run ``"direct"`` (cuDNN on the card).
+           On an H100 ``"pallas"`` is slower than ``"direct"`` at
+           HexCNN-small's shapes (about 1.2x in float32, 2x in bfloat16)
+           and faster at odd parity, dilation 2 and radius 3 on narrower
+           inputs; ``chip_smoke.py`` phase 14 times both.
+
+    A tensor ``x`` stays on its device; other input goes to the kernel's
+    device when the kernel is a tensor, else to the card.
 
     Returns (B, O, H', W') with output offset 0, in the kernel's dtype.
     """
-    x = _as_4d(x)
-    kernel = torch.as_tensor(kernel)
+    device = _input_device(x, kernel)
+    x = _as_4d(torch.as_tensor(x, device=device))
+    kernel = torch.as_tensor(kernel, device=device)
     if kernel.ndim == 4:
         kernel = kernel[:, :, 0, :]
     x = x.to(kernel.dtype)
     if bias is not None:
-        bias = torch.as_tensor(bias).to(kernel.dtype)
+        bias = torch.as_tensor(bias, device=device).to(kernel.dtype)
     x = pad2d(x, padding, padding_mode, padding_value)
     parity = (even_odd_offset + padding) % 2
     s, d = stride, dilation
+    if impl == "pallas":
+        from ..kernels import conv_single
+        if conv_single.takes_single_route(x.shape[1], kernel.shape[0], s,
+                                          groups, x.shape[2], radius, d):
+            # padding already applied above; parity already folded
+            return conv_single.hex_conv_single(
+                x, kernel, bias, even_odd_offset=parity, radius=radius,
+                padding=0, dilation=d)
+        impl = "direct"
+    if impl in ("auto", "mxu", "packed"):
+        impl = "direct"
     if impl == "type1":
         ks = 2 * radius - 1
         k_h = (ks - 1) * d + 1
@@ -309,12 +367,32 @@ def hex_conv2d(x, kernel, bias=None, *, even_odd_offset: int = 0,
         return _hex_conv2d_type1(x, weight, bias, parity, s, groups, k_h, k_w)
     if impl == "direct":
         return _hex_conv2d_direct(x, kernel, bias, parity, radius, s, d, groups)
-    if impl in ("auto", "mxu", "packed", "pallas"):
-        raise NotImplementedError(
-            f"hex_conv2d impl={impl!r} is a TPU routing of hygrid_tpu; the "
-            "port has 'direct' and 'type1' (an H100-measured impl rule is "
-            "ROADMAP queue 1)")
     raise ValueError(f"unknown impl {impl!r}")
+
+
+def hex_conv2d_adaptive_padding(x, kernel, bias=None, *,
+                                even_odd_offset: int = 0, radius: int,
+                                stride: int = 1, dilation: int = 1,
+                                groups: int = 1, impl: str = "direct"):
+    """TF-"same"-style hex conv (``hygrid_tpu/nn/functional.py:530-554``).
+
+    Pads asymmetrically so ``output_h = ceil(h / stride)``; the reference's
+    width rule uses ``output_w``, not ``output_w - 1`` (kept), and the
+    row parity handed to the conv ignores the rows added on top (kept).
+    """
+    x = _as_4d(torch.as_tensor(x, device=_input_device(x, kernel)))
+    h, w = x.shape[-2:]
+    ks = 2 * radius - 1
+    out_h = math.ceil(h / stride)
+    out_w = math.ceil(w / stride)
+    pad_h = max((out_h - 1) * stride + (ks - 1) * dilation + 1 - h, 0)
+    pad_w = max(out_w * stride + (ks - 1) * dilation + 1 - w, 0)
+    if pad_h > 0 or pad_w > 0:
+        x = pad2d(x, (pad_w // 2, pad_w - pad_w // 2,
+                      pad_h // 2, pad_h - pad_h // 2))
+    return hex_conv2d(x, kernel, bias, even_odd_offset=even_odd_offset,
+                      radius=radius, stride=stride, padding=0,
+                      dilation=dilation, groups=groups, impl=impl)
 
 
 # --------------------- cell statistical properties ---------------------
@@ -350,13 +428,15 @@ def _reduction(method: str):
 def hex_pool2d(x, method: str, kernel_size=2, stride=None, padding: int = 0,
                even_odd_offset: int = 0, padding_mode: str = "constant",
                padding_value=0, ceil_mode: bool = False,
-               count_include_pad: bool = True, data_format: str = "NCHW"):
+               count_include_pad: bool = True, data_format: str = "NCHW",
+               device="cuda"):
     """Strided pooling on the brick lattice, incl. the reference's ceil-mode
     bookkeeping (whose ph/pw pads land on width/height respectively —
     replicated).  Window ``(gi, gj)`` covers rows ``sh*gi + [0, kh)`` and
     cols ``(gi % 2)*(sw//2) + sw*gj + [0, kw)``.  ``data_format="NHWC"``
-    pools (B, H, W, C) tensors with the same window math."""
-    x = _as_4d(x)
+    pools (B, H, W, C) tensors with the same window math.  A tensor pools
+    on its own device; other input is moved to ``device`` first."""
+    x = _as_4d(x, device)
     _reduction(method)  # validate method early (clear centroid/KeyError)
     if data_format not in ("NCHW", "NHWC"):
         raise ValueError(f"data_format must be NCHW or NHWC, got "
@@ -395,6 +475,14 @@ def hex_pool2d(x, method: str, kernel_size=2, stride=None, padding: int = 0,
             f"pooling window exceeds input: kernel {kernel_size}, stride "
             f"{stride} on ({h}, {w}) (the reference indexes out of bounds "
             "here as well, HexFrames.py:330-331)")
+    return _window_reduce(x, method, hn, wn, kh, kw, sh, sw, half, nhwc)
+
+
+def _window_reduce(x, method, hn, wn, kh, kw, sh, sw, half, nhwc=False):
+    """Reduce brick-lattice windows of NCHW ``x``: window ``(gi, gj)``
+    covers rows ``sh*gi + [0, kh)`` and cols ``(gi % 2)*half + sw*gj +
+    [0, kw)``, reduced in kh-major, kw-minor order.  ``nhwc`` returns
+    ``(B, hn, wn, C)`` instead of ``(B, C, hn, wn)``."""
     dev = x.device
     gi = torch.arange(hn, device=dev)
     gj = torch.arange(wn, device=dev)
@@ -409,9 +497,35 @@ def hex_pool2d(x, method: str, kernel_size=2, stride=None, padding: int = 0,
     return _REDUCTIONS[method](win.flatten(-2), axis=-1)
 
 
-def hex_global_pool2d(x, method: str, data_format: str = "NCHW"):
-    """Global pooling over the flattened spatial dims -> (B, C)."""
-    x = _as_4d(x)
+def hex_adaptive_pool2d(x, outsize, method: str, device="cuda"):
+    """Adaptive output-size pooling (``hygrid_tpu/nn/functional.py:837``,
+    ``HexFrames.py:344-401``): ``outsize`` is an int or ``(h, w)``; window
+    indices past the image are clipped to it, which equals edge
+    replication by the largest overrun.  A tensor pools on its own
+    device; other input is moved to ``device`` first."""
+    x = _as_4d(x, device)
+    _reduction(method)  # validate method early
+    if isinstance(outsize, int):
+        outsize = (outsize, outsize)
+    hn, wn = outsize
+    h, w = x.shape[-2:]
+    grid_h = int(h / hn)
+    grid_w = int(w / (wn + 0.5)) if grid_h > 1 else int(w / wn)
+    half = grid_w // 2
+    max_i = grid_h * (hn - 1) + grid_h - 1
+    max_j = (half if hn > 1 else 0) + grid_w * (wn - 1) + grid_w - 1
+    pad_b, pad_r = max(0, max_i - (h - 1)), max(0, max_j - (w - 1))
+    if pad_b or pad_r:
+        x = pad2d(x, (0, pad_r, 0, pad_b), "replicate")
+    return _window_reduce(x, method, hn, wn, grid_h, grid_w, grid_h, grid_w,
+                          half)
+
+
+def hex_global_pool2d(x, method: str, data_format: str = "NCHW",
+                      device="cuda"):
+    """Global pooling over the flattened spatial dims -> (B, C).  A tensor
+    pools on its own device; other input is moved to ``device`` first."""
+    x = _as_4d(x, device)
     if data_format == "NHWC":
         b, c = x.shape[0], x.shape[-1]
         return _reduction(method)(x.reshape(b, -1, c), axis=1)

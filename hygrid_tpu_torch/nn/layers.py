@@ -1,5 +1,7 @@
-"""``torch.nn.Module`` hex layers (layer L3), PyTorch port of the parts of
-``hygrid_tpu/nn/layers.py`` that the HexCNN inference path needs."""
+"""``torch.nn.Module`` hex layers (layer L3), PyTorch port of
+``hygrid_tpu/nn/layers.py``: the per-op conv layers, the conv stack and the
+pooling classes.  Each conv layer's parameters default to the card
+(``device="cuda"``) and take a ``generator`` for their init."""
 from __future__ import annotations
 
 import math
@@ -10,7 +12,8 @@ from torch import nn
 
 from . import functional as F
 
-__all__ = ["HexConvStack"]
+__all__ = ["HexConv2d", "HexConv2dAdaptivePadding", "HexConvStack",
+           "HexPool2d", "HexAdaptivePool2d", "HexGlobalPool2d"]
 
 
 def _kaiming_hex_init(tensor: torch.Tensor, fan_in: int,
@@ -22,10 +25,97 @@ def _kaiming_hex_init(tensor: torch.Tensor, fan_in: int,
         return tensor.uniform_(-bound, bound, generator=generator)
 
 
+class HexConv2d(nn.Module):
+    """Hexagonal convolution (``hygrid_tpu/nn/layers.py:38-101``,
+    ``HexFrames.py:22-185``).
+
+    The parameter is the flat hex kernel ``kernel`` ``(out_channels,
+    in_channels // groups, kernelnum)``, and ``bias`` ``(out_channels,)``
+    with ``use_bias`` (the reference's ``bias``), both initialised uniform
+    in ``+-1/sqrt(fan_in)``.  ``impl`` is :func:`F.hex_conv2d`'s (default
+    ``"auto"``); ``dtype`` casts the parameters for the conv (None keeps
+    ``param_dtype``, so the conv computes in it whatever the input's
+    dtype: ``hex_conv2d`` casts the input to the kernel's dtype).
+    """
+
+    def __init__(self, in_channels: int, out_channels: int,
+                 even_odd_offset: int, hexkernel_radius: int,
+                 stride: int = 1, padding: int = 0, dilation: int = 1,
+                 groups: int = 1, use_bias: bool = True,
+                 padding_mode: str = "constant", padding_value: float = 0.0,
+                 impl: str = "auto", param_dtype: torch.dtype = torch.float32,
+                 dtype: Optional[torch.dtype] = None, device="cuda",
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        if in_channels % groups:
+            raise ValueError("in_channels must be divisible by groups")
+        if out_channels % groups:
+            raise ValueError("out_channels must be divisible by groups")
+        self.in_channels, self.out_channels = in_channels, out_channels
+        self.even_odd_offset = even_odd_offset
+        self.hexkernel_radius = hexkernel_radius
+        self.stride, self.padding = stride, padding
+        self.dilation, self.groups = dilation, groups
+        self.padding_mode, self.padding_value = padding_mode, padding_value
+        self.impl, self.dtype = impl, dtype
+        fan_in = (in_channels // groups) * self.kernelnum
+        fkw = dict(device=device, dtype=param_dtype)
+        self.kernel = nn.Parameter(_kaiming_hex_init(
+            torch.empty((out_channels, in_channels // groups, self.kernelnum),
+                        **fkw), fan_in, generator))
+        self.bias = (nn.Parameter(_kaiming_hex_init(
+            torch.empty((out_channels,), **fkw), fan_in, generator))
+            if use_bias else None)
+
+    @property
+    def kernelnum(self) -> int:
+        return F.hex_kernel_num(self.hexkernel_radius)
+
+    @property
+    def out_even_odd_offset(self) -> int:
+        return 0  # HexFrames.py:56
+
+    def forward(self, x):
+        return self._conv(x, self.kernel, self.bias)
+
+    def _conv(self, x, kernel, bias):
+        """The conv with the given (possibly spectrally normalised)
+        parameters."""
+        if self.dtype is not None:
+            kernel = kernel.to(self.dtype)
+            bias = None if bias is None else bias.to(self.dtype)
+        return F.hex_conv2d(
+            x, kernel, bias, even_odd_offset=self.even_odd_offset,
+            radius=self.hexkernel_radius, stride=self.stride,
+            padding=self.padding, dilation=self.dilation, groups=self.groups,
+            padding_mode=self.padding_mode, padding_value=self.padding_value,
+            impl=self.impl)
+
+
+class HexConv2dAdaptivePadding(HexConv2d):
+    """TF-"same" adaptive padding variant (``hygrid_tpu/nn/layers.py:104-
+    119``, ``HexFrames.py:187-253``).
+
+    The reference's quirks are kept: ``padding`` is accepted and discarded,
+    the width rule makes stride-1 outputs one column wider than the input,
+    and ``dtype`` is not applied (the parameters enter in
+    ``param_dtype``).
+    """
+
+    def _conv(self, x, kernel, bias):
+        return F.hex_conv2d_adaptive_padding(
+            x, kernel, bias, even_odd_offset=self.even_odd_offset,
+            radius=self.hexkernel_radius, stride=self.stride,
+            dilation=self.dilation, groups=self.groups, impl=self.impl)
+
+
 class HexConvStack(nn.Module):
     """A uniform-width chain of 'same' hex conv (+ GroupNorm) (+ ReLU)
     layers, run by :func:`hygrid_tpu_torch.kernels.conv_stack.hex_conv_stack`
-    (the hex conv layer kernel on CUDA, its plain version on the CPU).
+    (the hex conv layer kernel on CUDA, its plain version on the CPU).  For
+    an input offset other than 0 it runs the reference's per-op chain
+    (``hygrid_tpu/nn/layers.py:306-323``): ``hex_conv2d(impl="auto")`` with
+    padding ``radius - 1``, GroupNorm, ReLU, layer by layer on NCHW.
 
     Layer 0 maps ``in_channels -> width``; later layers ``width -> width``.
     Parameters carry ``hygrid_tpu``'s names: ``kernel_{i}`` ``(width, cin,
@@ -62,10 +152,7 @@ class HexConvStack(nn.Module):
                 f"HexConvStack supports norm None or 'GN', got {norm!r}")
         if activation not in (None, "none", "relu"):
             raise ValueError("HexConvStack fuses only ReLU (or None)")
-        if even_odd_offset != 0:
-            raise NotImplementedError(
-                "HexConvStack runs offset-0 input only (the per-op chain for "
-                "other offsets is not ported yet)")
+        self.even_odd_offset = even_odd_offset
         self.in_channels, self.width, self.depth = in_channels, width, depth
         self.hexkernel_radius, self.dilation = hexkernel_radius, dilation
         self.norm, self.num_groups = norm, num_groups
@@ -108,9 +195,88 @@ class HexConvStack(nn.Module):
         if self.norm == "GN":
             norms = [("gn", self.gn_groups, p[f"gn_scale_{i}"],
                       p[f"gn_bias_{i}"]) for i in range(self.depth)]
+        if self.even_odd_offset != 0:
+            nhwc = self.data_format == "NHWC"
+            h = self._per_op_chain(x.permute(0, 3, 1, 2) if nhwc else x,
+                                   kernels, biases, norms)
+            return h.permute(0, 2, 3, 1) if nhwc else h
         return hex_conv_stack(
             x, kernels, biases, radius=self.hexkernel_radius,
             dilation=self.dilation,
             activation="relu" if self.activation == "relu" else None,
             final_activation=self.final_activation, norms=norms,
             data_format=self.data_format, plain=plain)
+
+    def _per_op_chain(self, h, kernels, biases, norms):
+        """The reference's per-op chain on NCHW ``h`` (offset != 0)."""
+        from ..kernels.conv_stack import _group_norm_nchw
+        relu = self.activation == "relu"
+        for li in range(self.depth):
+            h = F.hex_conv2d(
+                h, kernels[li], None if biases is None else biases[li],
+                even_odd_offset=self.even_odd_offset if li == 0 else 0,
+                radius=self.hexkernel_radius,
+                padding=self.hexkernel_radius - 1, dilation=self.dilation,
+                impl="auto")
+            if norms is not None:
+                _, groups, gamma, beta = norms[li]
+                h = _group_norm_nchw(h, groups, gamma.float(), beta.float())
+            if relu and (self.final_activation or li < self.depth - 1):
+                h = torch.relu(h)
+        return h
+
+
+class HexPool2d(nn.Module):
+    """Strided hex pooling (``hygrid_tpu/nn/layers.py:373-407``,
+    ``HexFrames.py:255-341``); parameter-free.  ``stride=None`` defaults to
+    ``kernel_size``, as documented (the reference crashes on it)."""
+
+    def __init__(self, method: str, kernel_size=2, stride=None, padding=0,
+                 even_odd_offset=0, padding_mode="constant", padding_value=0,
+                 ceil_mode: bool = False, count_include_pad: bool = True,
+                 divisor_override: Optional[int] = None):
+        super().__init__()
+        F._reduction(method)  # validate eagerly, like the reference ctor
+        self.method, self.kernel_size, self.stride = method, kernel_size, stride
+        self.padding, self.even_odd_offset = padding, even_odd_offset
+        self.padding_mode, self.padding_value = padding_mode, padding_value
+        self.ceil_mode, self.count_include_pad = ceil_mode, count_include_pad
+        self.out_offset = 0
+
+    def forward(self, x):
+        return F.hex_pool2d(
+            x, self.method, kernel_size=self.kernel_size, stride=self.stride,
+            padding=self.padding, even_odd_offset=self.even_odd_offset,
+            padding_mode=self.padding_mode, padding_value=self.padding_value,
+            ceil_mode=self.ceil_mode, count_include_pad=self.count_include_pad)
+
+    def extra_repr(self):
+        return (f"kernel_size={self.kernel_size}, stride={self.stride}, "
+                f"padding={self.padding}")
+
+
+class HexAdaptivePool2d(nn.Module):
+    """Adaptive output-size pooling (``hygrid_tpu/nn/layers.py:410-426``):
+    constructible, and ``(h, w)`` outsizes accepted, as documented."""
+
+    def __init__(self, outsize, method: str, padding=0,
+                 padding_mode="constant", padding_value=0):
+        super().__init__()
+        F._reduction(method)
+        self.outsize, self.method = outsize, method
+
+    def forward(self, x):
+        return F.hex_adaptive_pool2d(x, self.outsize, self.method)
+
+
+class HexGlobalPool2d(nn.Module):
+    """Global pooling over the flattened spatial dims
+    (``hygrid_tpu/nn/layers.py:429-438``)."""
+
+    def __init__(self, method: str):
+        super().__init__()
+        F._reduction(method)
+        self.method = method
+
+    def forward(self, x):
+        return F.hex_global_pool2d(x, self.method)

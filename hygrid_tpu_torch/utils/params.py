@@ -1,6 +1,6 @@
-"""Weight conversion from ``hygrid_tpu``'s flax parameters to the port's
+"""Weight conversion from ``hygrid_tpu``'s flax variables to the port's
 ``state_dict``s.  Takes plain nested dicts of numpy arrays (for example
-``jax.tree_util.tree_map(np.asarray, params)``) and imports no JAX."""
+``jax.tree_util.tree_map(np.asarray, variables)``) and imports no JAX."""
 from __future__ import annotations
 
 from collections import OrderedDict
@@ -9,31 +9,91 @@ from typing import Mapping
 import numpy as np
 import torch
 
-__all__ = ["hexcnn_state_dict_from_flax"]
+__all__ = ["hexcnn_state_dict_from_flax", "hexconvmodule_state_dict_from_flax"]
+
+# flax norm submodule (inside HexConvModule's "norm") -> torch names
+_NORM_LEAVES = {"scale": "weight", "bias": "bias"}
+_BN_STATS = {"mean": "running_mean", "var": "running_var"}
+
+
+def _t(value) -> torch.Tensor:
+    return torch.from_numpy(np.array(value, dtype=np.float32))
+
+
+def hexconvmodule_state_dict_from_flax(variables: Mapping, prefix: str = ""
+                                       ) -> "OrderedDict[str, torch.Tensor]":
+    """``state_dict`` of :class:`hygrid_tpu_torch.nn.modules.HexConvModule`
+    from the flax variables ``{"params": ..., "batch_stats": ...}`` of
+    ``hygrid_tpu.nn.modules.HexConvModule`` (``batch_stats`` optional),
+    each key prefixed by ``prefix``.
+
+    ``conv/kernel`` and ``conv/bias`` keep their names; under spectral norm
+    ``conv/layer_instance/*`` becomes ``conv.layer_instance.*`` and the
+    ``batch_stats`` ``conv/layer_instance/kernel/u`` and ``.../sigma``
+    become the buffers ``conv.kernel_u`` and ``conv.kernel_sigma``.  The
+    norm's ``scale``/``bias`` (under ``BatchNorm_0``, ``GroupNorm_0``,
+    ``LayerNorm_0`` or, for IN, directly under ``norm``) become
+    ``norm.weight``/``norm.bias``, BN's ``mean``/``var`` the buffers
+    ``norm.running_mean``/``norm.running_var``; PReLU's
+    ``activate/negative_slope`` keeps its name.
+    """
+    params = variables["params"]
+    stats = variables.get("batch_stats", {})
+    out: "OrderedDict[str, torch.Tensor]" = OrderedDict()
+    conv = params["conv"]
+    if "layer_instance" in conv:
+        for leaf, value in sorted(conv["layer_instance"].items()):
+            out[f"{prefix}conv.layer_instance.{leaf}"] = _t(value)
+        for key, value in sorted(stats["conv"].items()):
+            _, pname, what = key.split("/")      # layer_instance/kernel/u
+            out[f"{prefix}conv.{pname}_{what}"] = _t(value)
+    else:
+        for leaf, value in sorted(conv.items()):
+            out[f"{prefix}conv.{leaf}"] = _t(value)
+    if "norm" in params or "norm" in stats:
+        norm = params.get("norm", {})
+        inner = next((k for k in norm if isinstance(norm[k], Mapping)), None)
+        leaves = norm[inner] if inner else norm
+        for leaf, value in sorted(leaves.items()):
+            out[f"{prefix}norm.{_NORM_LEAVES[leaf]}"] = _t(value)
+        bn = stats.get("norm", {}).get("BatchNorm_0", {})
+        for leaf, value in sorted(bn.items()):
+            out[f"{prefix}norm.{_BN_STATS[leaf]}"] = _t(value)
+    if "activate" in params:
+        out[f"{prefix}activate.negative_slope"] = _t(
+            params["activate"]["negative_slope"])
+    return out
 
 
 def hexcnn_state_dict_from_flax(tree: Mapping) -> "OrderedDict[str, torch.Tensor]":
     """``state_dict`` of :class:`hygrid_tpu_torch.models.HexCNN` from the
-    flax ``params`` of ``hygrid_tpu.models.HexCNN`` (stacked GN/None route).
+    flax variables of ``hygrid_tpu.models.HexCNN``.
 
-    Accepts the ``params`` tree itself or ``{"params": tree}``.  Stage
-    leaves keep their names (``stage{s}/kernel_{i}`` -> ``stage{s}.kernel_{i}``,
-    likewise ``bias_{i}``, ``gn_scale_{i}``, ``gn_bias_{i}``); the Dense
-    ``head/kernel`` ``(in, out)`` becomes ``head.weight`` ``(out, in)``.
+    Accepts the ``params`` tree itself, ``{"params": tree}`` or
+    ``{"params": tree, "batch_stats": stats}``.  Stacked stages keep their
+    leaves' names (``stage{s}/kernel_{i}`` -> ``stage{s}.kernel_{i}``,
+    likewise ``bias_{i}``, ``gn_scale_{i}``, ``gn_bias_{i}``); a
+    ``HexConvModule`` bundle ``stage{s}_conv{d}`` goes through
+    :func:`hexconvmodule_state_dict_from_flax` with its ``batch_stats``;
+    the Dense ``head/kernel`` ``(in, out)`` becomes ``head.weight``
+    ``(out, in)``.
     """
-    if "params" in tree and len(tree) == 1:
+    stats: Mapping = {}
+    if "params" in tree and set(tree) <= {"params", "batch_stats"}:
+        stats = tree.get("batch_stats", {})
         tree = tree["params"]
     out: "OrderedDict[str, torch.Tensor]" = OrderedDict()
     for name in sorted(k for k in tree if k.startswith("stage")):
-        for leaf, value in sorted(tree[name].items()):
-            if isinstance(value, Mapping):
-                raise ValueError(
-                    f"{name}/{leaf} is a sub-module: only the stacked HexCNN "
-                    "route (HexConvStack stages) converts")
-            out[f"{name}.{leaf}"] = torch.from_numpy(
-                np.array(value, dtype=np.float32))
+        sub = tree[name]
+        if any(isinstance(v, Mapping) for v in sub.values()):
+            out.update(hexconvmodule_state_dict_from_flax(
+                {"params": sub, "batch_stats": stats.get(name, {})},
+                prefix=f"{name}."))
+            continue
+        for leaf, value in sorted(sub.items()):
+            out[f"{name}.{leaf}"] = _t(value)
     head = tree["head"]
     out["head.weight"] = torch.from_numpy(
         np.array(head["kernel"], dtype=np.float32).T.copy())
-    out["head.bias"] = torch.from_numpy(np.array(head["bias"], dtype=np.float32))
+    out["head.bias"] = _t(head["bias"])
     return out

@@ -14,7 +14,9 @@ sides from the same inputs: 1e-4 relative (summation order over many
 pixels).  Model grads in float32: 1e-3 relative per leaf (GN and the
 backward's chain rescale summation-order differences).  The shift
 resampler: float32 within 1e-6 absolute (fma against multiply-add),
-bfloat16 within 1e-2 relative, the exact-select mosaic bit-equal.
+bfloat16 within 1e-2 relative, the exact-select mosaic bit-equal.  The
+single-op conv: float32 within 1e-5 absolute, bfloat16 within 3e-2
+relative, and bit-equal to ``hex_conv_layer`` on the 'same' conv.
 """
 import math
 
@@ -23,12 +25,14 @@ import torch
 
 import numpy as np
 
-from hygrid_tpu_torch.kernels import (_build, conv_stack, resample,
-                                      resample_shift)
+from hygrid_tpu_torch.kernels import (_build, conv_single, conv_stack,
+                                      resample, resample_shift)
 from hygrid_tpu_torch.models import (HexCNN, create_train_state,
                                      dense_onehot_xent, hexcnn_tiny,
                                      hexify_batch, train_step)
 from hygrid_tpu_torch.models import video
+from hygrid_tpu_torch.nn import HexConvModule
+from hygrid_tpu_torch.nn import functional as F
 from hygrid_tpu_torch.ops import geometry, sampling
 from hygrid_tpu_torch.viz import render
 
@@ -515,3 +519,100 @@ def test_hex_conv_layer_at_the_4k_stack_layer(cuda, dtype):
         assert float((got - want).abs().max()) <= 1e-5
     else:
         assert _rel(got, want) <= 3e-2
+
+
+SINGLE_CASES = [  # (B, Cin, Cout, H, W, radius, dilation, offset, padding)
+    (2, 32, 32, 20, 19, 2, 1, 0, 1),     # a BN-512 layer, cut down
+    (3, 64, 128, 9, 7, 2, 1, 1, 1),      # odd parity, the BN-CIFAR width
+    (2, 16, 16, 17, 70, 2, 2, 1, 2),     # dilation 2, the 16-channel tile
+    (1, 5, 40, 13, 12, 3, 1, 0, 0),      # radius 3, Cin off the chunk
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", SINGLE_CASES)
+def test_hex_conv_single_matches_plain(cuda, case, dtype):
+    b, cin, cout, h, w, r, d, off, pad = case
+    gen = torch.Generator(device=cuda).manual_seed(SINGLE_CASES.index(case))
+    kn = F.hex_kernel_num(r)
+    x = torch.rand((b, cin, h, w), generator=gen, device=cuda).to(dtype)
+    k = (torch.randn((cout, cin, kn), generator=gen, device=cuda)
+         / math.sqrt(cin * kn)).to(dtype)
+    bias = torch.randn((cout,), generator=gen, device=cuda).to(dtype)
+    kw = dict(even_odd_offset=off, radius=r, padding=pad, dilation=d)
+    before = conv_single.LAUNCHES
+    got = conv_single.hex_conv_single(x, k, bias, **kw)
+    want = conv_single.hex_conv_single_plain(x, k, bias, **kw)
+    torch.cuda.synchronize()
+    assert conv_single.LAUNCHES == before + 1
+    assert got.dtype == dtype and tuple(got.shape) == (b, cout) + \
+        F.hex_conv2d_output_shape(h, w, r, 1, pad, d)
+    if dtype == torch.float32:
+        assert float((got - want).abs().max()) <= 1e-5
+    else:
+        assert _rel(got, want) <= 3e-2
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_hex_conv_single_equals_hex_conv_layer_on_the_padded_input(cuda,
+                                                                   dtype):
+    """The 'same' conv: the valid conv of the input padded by r-1 sums in
+    the layer kernel's order (the shared tile), so the two agree bit for
+    bit; band_rows computes the same function."""
+    gen = torch.Generator(device=cuda).manual_seed(9)
+    x = torch.rand((2, 32, 33, 70), generator=gen, device=cuda).to(dtype)
+    k = (torch.randn((48, 32, 7), generator=gen, device=cuda) / 15).to(dtype)
+    got = conv_single.hex_conv_single(x, k, radius=2, padding=1)
+    layer = conv_stack.hex_conv_layer(x.permute(0, 2, 3, 1).contiguous(), k,
+                                      radius=2).permute(0, 3, 1, 2)
+    assert torch.equal(got, layer)
+    assert torch.equal(got, conv_single.hex_conv_single(
+        x, k, radius=2, padding=1, band_rows=4))
+
+
+def test_hex_conv_single_refuses_what_it_does_not_take(cuda):
+    """An unsupported dtype raises; the plain version never runs instead."""
+    x = torch.rand((1, 16, 10, 10), device=cuda)
+    k = torch.rand((16, 16, 7), device=cuda)
+    before = conv_single.LAUNCHES
+    for dt in (torch.float16, torch.float64):
+        with pytest.raises(TypeError, match="float32 or bfloat16"):
+            conv_single.hex_conv_single(x, k.to(dt), radius=2)
+        with pytest.raises(TypeError, match="float32 or bfloat16"):
+            F.hex_conv2d(x, k.to(dt), radius=2, padding=1, impl="pallas")
+    with pytest.raises(ValueError, match="kernel must be"):
+        conv_single.hex_conv_single(x, k[:, :8], radius=2)
+    assert conv_single.LAUNCHES == before
+
+
+def test_hex_conv_single_grads_match_plain(cuda):
+    gen = torch.Generator(device=cuda).manual_seed(4)
+    x = torch.rand((2, 16, 12, 11), generator=gen, device=cuda)
+    k = torch.randn((24, 16, 7), generator=gen, device=cuda) / 10
+    bias = torch.randn((24,), generator=gen, device=cuda)
+    kw = dict(even_odd_offset=1, radius=2, padding=1)
+    grads = []
+    for fn in (conv_single.hex_conv_single, conv_single.hex_conv_single_plain):
+        leaves = [t.clone().requires_grad_() for t in (x, k, bias)]
+        out = fn(*leaves, **kw)
+        (out * torch.cos(out)).sum().backward()
+        grads.append([t.grad for t in leaves])
+    for a, b in zip(*grads):
+        assert _rel(a, b) <= 1e-5
+
+
+def test_hexconvmodule_pallas_launches_the_single_conv(cuda):
+    """HexConvModule(conv_cfg impl="pallas") with BN runs one kernel launch
+    and matches the same module on impl="direct" (cuDNN, TF32 off)."""
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    mods = [HexConvModule(32, 64, 0, 2, padding=1, norm_cfg=dict(type="BN"),
+                          conv_cfg=dict(type="HexConv2d", impl=impl),
+                          generator=gen).eval()
+            for impl in ("pallas", "direct")]
+    mods[1].load_state_dict(mods[0].state_dict())
+    x = torch.rand((4, 32, 24, 23), generator=gen, device=cuda)
+    before = conv_single.LAUNCHES
+    with torch.inference_mode():
+        got, want = mods[0](x), mods[1](x)
+    assert conv_single.LAUNCHES == before + 1
+    assert float((got - want).abs().max()) <= 1e-5

@@ -1,7 +1,15 @@
 """The HexCNN inference slice as a whole: hygrid_tpu's flax HexCNN and the
 port's HexCNN, the same weights carried by the converter, rect input ->
-hexify_batch -> logits.  Float32; relative max-abs error <= 1e-4 (GroupNorm
-rescales the convs' summation-order differences)."""
+hexify_batch -> logits.  Float32; relative max-abs error <= 1e-4 (the
+norms rescale the convs' summation-order differences).  The per-module
+route (BN and the other norms) runs its BN in eval mode on ``batch_stats``
+drawn from a seed (flax under ``jax.jit``);
+``chip_smoke.build_permodule_hexcnn`` (the kernel route) is held to
+``hexcnn_small(norm="BN")``."""
+import functools
+import importlib.util
+from pathlib import Path
+
 import jax
 import numpy as np
 import pytest
@@ -9,9 +17,12 @@ import torch
 
 from hygrid_tpu import models as jm
 from hygrid_tpu_torch import models as tm
+from hygrid_tpu_torch.nn import layers as TL
 from hygrid_tpu_torch.utils import hexcnn_state_dict_from_flax
+from test_torch_modules import random_flax_variables
 
 REL = 1e-4
+ROOT = Path(__file__).resolve().parents[1]
 
 # (name, flax constructor kwargs, port constructor kwargs, rect size)
 CONFIGS = [
@@ -86,10 +97,21 @@ def test_converter_maps_every_leaf():
 
 
 def test_converter_rejects_module_bundles():
-    tree = {"stage0_conv0": {"conv": {"kernel": np.zeros((2, 2, 7))}},
-            "head": {"kernel": np.zeros((2, 2)), "bias": np.zeros(2)}}
-    with pytest.raises(ValueError, match="sub-module"):
-        hexcnn_state_dict_from_flax(tree)
+    """Module bundles are no longer rejected: a BN HexCNN's params and
+    batch_stats map one to one onto the port's per-module route."""
+    model = jm.HexCNN(channels=(8, 16), depth=2, norm="BN")
+    hexed = jm.hexify_batch(np.zeros((1, 3, 32, 32), np.float32))
+    variables = random_flax_variables(model, hexed, 0)
+    sd = hexcnn_state_dict_from_flax(variables)
+    port = tm.HexCNN(channels=(8, 16), depth=2, norm="BN", device="cpu")
+    assert sorted(sd) == sorted(port.state_dict())
+    np.testing.assert_array_equal(
+        sd["stage1_conv1.conv.kernel"].numpy(),
+        variables["params"]["stage1_conv1"]["conv"]["kernel"])
+    np.testing.assert_array_equal(
+        sd["stage0_conv1.norm.running_var"].numpy(),
+        variables["batch_stats"]["stage0_conv1"]["norm"]["BatchNorm_0"]["var"])
+    port.load_state_dict(sd)  # strict
 
 
 def test_model_init_from_generator():
@@ -121,5 +143,107 @@ def test_bf16_model_runs_in_bf16_and_tracks_f32():
 
 
 def test_unported_norm_raises():
-    with pytest.raises(NotImplementedError, match="HexConvModule"):
-        tm.HexCNN()                      # hygrid_tpu's default norm is "BN"
+    """hygrid_tpu's default norm, "BN", builds the per-module route; a
+    norm neither package knows raises the reference's KeyError."""
+    model = tm.HexCNN(device="cpu")
+    assert not model.stacked
+    assert hasattr(model, "stage2_conv1")
+    assert isinstance(model.stage0_conv0.norm.running_var, torch.Tensor)
+    with pytest.raises(KeyError, match="Unrecognized norm type"):
+        tm.HexCNN(norm="XN", device="cpu")
+    with pytest.raises(KeyError, match="Unrecognized norm type"):
+        jm.HexCNN(norm="XN").init(jax.random.key(0),
+                                  np.zeros((1, 3, 8, 8), np.float32))
+
+
+PERMODULE = [("BN", True), ("SyncBN", True), ("LN", True), ("IN", True),
+             ("GN", False), (None, False)]
+
+
+@pytest.mark.parametrize("norm,use_stack", PERMODULE,
+                         ids=[f"{n}-stack{u}" for n, u in PERMODULE])
+def test_permodule_hexcnn_logits_match_jax(norm, use_stack):
+    rect = np.random.default_rng(7).random((2, 3, 32, 32)).astype(np.float32)
+    hexed = jm.hexify_batch(rect)
+    model = jm.HexCNN(channels=(8, 16), depth=2, norm=norm,
+                      use_stack=use_stack)
+    variables = random_flax_variables(model, hexed, 3)
+    want = np.asarray(jax.jit(model.apply)(variables, hexed))
+    port = tm.HexCNN(channels=(8, 16), depth=2, norm=norm,
+                     use_stack=use_stack, device="cpu")
+    assert not port.stacked
+    port.load_state_dict(hexcnn_state_dict_from_flax(variables))
+    with torch.no_grad():
+        got = port(tm.hexify_batch(torch.from_numpy(rect))).numpy()
+    assert got.shape == want.shape == (2, 10)
+    assert np.abs(got - want).max() / np.abs(want).max() <= REL
+
+
+def test_bn_hexcnn_train_mode_matches_jax():
+    """``train=True`` normalises with batch statistics and updates the
+    running statistics as flax's mutable ``batch_stats`` do."""
+    rect = np.random.default_rng(9).random((2, 3, 32, 32)).astype(np.float32)
+    hexed = jm.hexify_batch(rect)
+    model = jm.HexCNN(channels=(8, 16), depth=2, norm="BN")
+    variables = random_flax_variables(model, hexed, 5)
+    want, updates = jax.jit(functools.partial(
+        model.apply, train=True, mutable=["batch_stats"]))(variables, hexed)
+    port = tm.HexCNN(channels=(8, 16), depth=2, norm="BN", device="cpu")
+    port.load_state_dict(hexcnn_state_dict_from_flax(variables))
+    with torch.no_grad():
+        got = port(tm.hexify_batch(torch.from_numpy(rect)), train=True)
+    want = np.asarray(want)
+    assert np.abs(got.numpy() - want).max() / np.abs(want).max() <= REL
+    after = hexcnn_state_dict_from_flax(
+        {"params": variables["params"],
+         "batch_stats": jax.tree_util.tree_map(np.asarray,
+                                               updates["batch_stats"])})
+    state = port.state_dict()
+    stats = [k for k in after if ".running_" in k]
+    assert len(stats) == 8
+    for key in stats:
+        assert float((state[key] - after[key]).abs().max()) <= 1e-5, key
+
+
+def _chip_smoke():
+    spec = importlib.util.spec_from_file_location("chip_smoke",
+                                                  ROOT / "chip_smoke.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def test_permodule_kernel_route_matches_jax():
+    """chip_smoke's route (b): hexcnn_small(norm="BN") with every HexConv2d
+    on impl="pallas", against hygrid_tpu.models.hexcnn_small(norm="BN") at
+    a small size."""
+    rect = np.random.default_rng(8).random((2, 3, 32, 32)).astype(np.float32)
+    hexed = jm.hexify_batch(rect)
+    model = jm.hexcnn_small(norm="BN")
+    variables = random_flax_variables(model, hexed, 4)
+    want = np.asarray(jax.jit(model.apply)(variables, hexed))
+    port = _chip_smoke().build_permodule_hexcnn(device="cpu").eval()
+    convs = [m for m in port.modules() if isinstance(m, TL.HexConv2d)]
+    assert len(convs) == 6 and all(m.impl == "pallas" for m in convs)
+    port.load_state_dict(hexcnn_state_dict_from_flax(variables))
+    with torch.no_grad():
+        got = port(tm.hexify_batch(torch.from_numpy(rect))).numpy()
+    assert got.shape == want.shape == (2, 10)
+    assert np.abs(got - want).max() / np.abs(want).max() <= REL
+
+
+def test_bn_route_convs_run_in_float32_under_bf16():
+    """HexConvModule passes no dtype to its conv, so under dtype=bf16 the
+    convs and BN compute in float32 and only the head is bf16."""
+    model = tm.hexcnn_tiny(norm="BN", dtype=torch.bfloat16, device="cpu",
+                           generator=torch.Generator().manual_seed(0))
+    seen = []
+    for name, mod in model.named_modules():
+        if name.endswith(".conv") or name.endswith(".norm"):
+            mod.register_forward_hook(
+                lambda m, i, o: seen.append((i[0].dtype, o.dtype)))
+    with torch.no_grad():
+        out = model(torch.rand((2, 3, 16, 16)))
+    assert out.dtype == torch.bfloat16
+    assert len(seen) == 4
+    assert all(o == torch.float32 for _, o in seen)

@@ -16,7 +16,10 @@ MODULES = ["hygrid_tpu_torch", "hygrid_tpu_torch.kernels.resample",
            "hygrid_tpu_torch.models.train",
            "hygrid_tpu_torch.kernels.resample_shift",
            "hygrid_tpu_torch.nn.filters", "hygrid_tpu_torch.models.video",
-           "hygrid_tpu_torch.viz", "hygrid_tpu_torch.viz.render"]
+           "hygrid_tpu_torch.viz", "hygrid_tpu_torch.viz.render",
+           "hygrid_tpu_torch.kernels.conv_single",
+           "hygrid_tpu_torch.nn.layers", "hygrid_tpu_torch.nn.modules",
+           "hygrid_tpu_torch.models.hexcnn"]
 
 
 def _run(code, cwd=ROOT):

@@ -228,9 +228,14 @@ def test_scatter_hex_kernel_matches_jax(radius, dilation):
 
 
 def test_unported_impls_and_methods_raise():
-    x, k = torch.zeros((1, 1, 6, 6)), torch.zeros((1, 1, 7))
-    with pytest.raises(NotImplementedError, match="TPU routing"):
-        TF.hex_conv2d(x, k, radius=2, impl="auto")
+    """``auto``, ``mxu`` and ``packed`` (XLA formulations in hygrid_tpu) run
+    ``direct``; an unknown impl and the undefined centroid pooling raise."""
+    x = torch.rand((1, 2, 6, 6), generator=torch.Generator().manual_seed(0))
+    k = torch.rand((3, 2, 7), generator=torch.Generator().manual_seed(1))
+    want = TF.hex_conv2d(x, k, radius=2, padding=1, impl="direct")
+    for impl in ("auto", "mxu", "packed"):
+        assert torch.equal(TF.hex_conv2d(x, k, radius=2, padding=1,
+                                         impl=impl), want)
     with pytest.raises(ValueError, match="unknown impl"):
         TF.hex_conv2d(x, k, radius=2, impl="nope")
     with pytest.raises(NotImplementedError, match="centroid"):
