@@ -83,13 +83,29 @@ Phases, each of which raises on failure (the script then exits non-zero):
     plan_gather; 5 hex_conv_single on the kernel route, none on the
     other) and logits against the plain float32 path; images/s by CUDA
     events, the median and spread of 3 windows of at least 1 s each, the
-    routes alternating; a torch.profiler split of one request.
+    routes alternating; a torch.profiler split of one request;
+16. the split layer (hex_conv_layer_split, TPU kernel #10 with
+    split=True) against its plain version, float32 and bfloat16, at
+    HexUNet-small's two skip-join layers (dec0 8x128x127 64+64->64, dec1
+    8x256x256 32+32->32, GN(8) + ReLU) and at a split whose 16-channel
+    staging chunk straddles the two inputs (24+8->32, no norm); bit-equal
+    to hex_conv_layer on the torch.cat concatenation; its time beside
+    concat + kernel B's, the plain time and the bound;
+17. HexUNet-small serving (GN(8), widths 32/64/128, depth 1, bf16, random
+    weights from a seed) on distinct b=8 512^2 RGB batches, rect->hex
+    included: per request 1 plan_gather, 3 hex_conv_layer (the encoder)
+    and 2 split layers (the decoder), no other kernel; logits (8, 4, 256,
+    256) finite and within 5e-2 of the plain float32 path, the
+    pixel-shuffle decoder too; images/s by CUDA events, the median and
+    spread of 3 windows of at least 1 s; peak memory; a torch.profiler
+    split of one request by kernel group.
 
 The last lines are the kernel summary (with each kernel's bound: the bytes
 it must move at 3.35 TB/s or its operations at the card's peak for their
 type, whichever takes longer), the card's name and power limit, and
 ``{"ok": true, "device": {...}}``.
 """
+import functools
 import json
 import math
 import re
@@ -944,10 +960,9 @@ def check_fused(torch, gen):
     return summary
 
 
-def _profile_split(torch, fn, call_ms):
-    """Device time of one ``fn`` call by kernel, from torch.profiler, and
-    the share of ``call_ms`` (the call's time by CUDA events) that no
-    kernel ran."""
+def _profiled_kernels(torch, fn):
+    """``[(kernel name, device us)]`` of one ``fn`` call, from
+    torch.profiler, largest first."""
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -958,16 +973,34 @@ def _profile_split(torch, fn, call_ms):
         return getattr(e, "self_device_time_total", 0) or 0
 
     # kernels only: the CPU-side ops that launched them carry their time too
-    kernels = [e for e in prof.key_averages()
-               if str(e.device_type).endswith("CUDA") and dev(e) > 0]
-    total = sum(dev(e) for e in kernels)
+    return sorted(((e.key, dev(e)) for e in prof.key_averages()
+                   if str(e.device_type).endswith("CUDA") and dev(e) > 0),
+                  key=lambda kv: kv[1], reverse=True)
+
+
+def _profile_split(torch, fn, call_ms, groups=None):
+    """Device time of one ``fn`` call by kernel, from torch.profiler, and
+    the share of ``call_ms`` (the call's time by CUDA events) that no
+    kernel ran.  ``groups``, ``[(label, predicate on the kernel name)]``,
+    sums the kernels by the first group whose predicate holds ("other"
+    for none) before the six largest kernels are listed."""
+    kernels = _profiled_kernels(torch, fn)
+    total = sum(us for _, us in kernels)
     if not total:
         return "no device time in the profile"
-    top = sorted(kernels, key=dev, reverse=True)[:6]
-    return (f"kernels {total / 1e3!r} ms of {call_ms!r} ms a call (idle "
-            f"{100 * (1 - total / 1e3 / call_ms):.2f} %): " + ", ".join(
-                f"{e.key[:48]} {dev(e) / 1e3!r} ms "
-                f"({100 * dev(e) / total:.2f} %)" for e in top))
+    head = (f"kernels {total / 1e3!r} ms of {call_ms!r} ms a call (idle "
+            f"{100 * (1 - total / 1e3 / call_ms):.2f} %): ")
+    if groups:
+        sums = dict.fromkeys([label for label, _ in groups] + ["other"], 0)
+        for key, us in kernels:
+            sums[next((label for label, hit in groups if hit(key)),
+                      "other")] += us
+        head += ", ".join(f"{label} {us / 1e3!r} ms "
+                          f"({100 * us / total:.2f} %)"
+                          for label, us in sums.items()) + "; largest: "
+    return head + ", ".join(f"{key[:48]} {us / 1e3!r} ms "
+                            f"({100 * us / total:.2f} %)"
+                            for key, us in kernels[:6])
 
 
 def _run_pipeline(torch, name, batch, shape, fused):
@@ -1189,6 +1222,41 @@ def _time_route(torch, serve, xs, n):
     return start.elapsed_time(end) / n
 
 
+def _timed_windows(torch, routes, xs, first_ms):
+    """``(n, {route: [ms a request per window]})``: ``PERMODULE_WINDOWS``
+    windows of ``n`` requests per route by CUDA events, the routes
+    alternating.  ``routes`` maps a name to ``(prepare, serve)``;
+    ``prepare()`` runs before each of the route's windows, untimed.  ``n``
+    starts from ``first_ms`` (a request's time by the host clock) and
+    grows, and the windows are timed again, until every window lasts at
+    least ``PERMODULE_WINDOW_MS``."""
+    n = max(N_REQUESTS, math.ceil(PERMODULE_WINDOW_MS / first_ms))
+    while True:
+        times = {route: [] for route in routes}
+        for _ in range(PERMODULE_WINDOWS):
+            for route, (prepare, serve) in routes.items():
+                prepare()
+                times[route].append(_time_route(torch, serve, xs, n))
+        shortest = n * min(min(t) for t in times.values())
+        if shortest >= PERMODULE_WINDOW_MS:
+            return n, times
+        n = math.ceil(n * 1.1 * PERMODULE_WINDOW_MS / shortest)
+
+
+def _launch_counters():
+    """Every kernel's launch counter: ``{kernel name: (module, attribute)}``."""
+    from hygrid_tpu_torch.kernels import conv_single, conv_stack, resample
+    from hygrid_tpu_torch.kernels import resample_shift as rs
+    return {"plan_gather": (resample, "LAUNCHES"),
+            "shift_resample": (rs, "LAUNCHES"),
+            "hex_conv_layer": (conv_stack, "LAUNCHES"),
+            "hex_conv_layer_split": (conv_stack, "SPLIT_LAUNCHES"),
+            "hex_conv_layer_dgrad": (conv_stack, "DGRAD_LAUNCHES"),
+            "hex_conv_wgrad": (conv_stack, "WGRAD_LAUNCHES"),
+            "hex_conv_fused_stack": (conv_stack, "FUSED_LAUNCHES"),
+            "hex_conv_single": (conv_single, "LAUNCHES")}
+
+
 def _run_permodule(torch, config, batch, size):
     """One configuration of phase 15: one ``hexcnn_small(norm="BN")``
     served on route (a), its convs as users build them, and on route (b),
@@ -1197,9 +1265,6 @@ def _run_permodule(torch, config, batch, size):
     requests; its images/s from ``PERMODULE_WINDOWS`` windows of at least
     ``PERMODULE_WINDOW_MS`` each, the routes alternating.  Returns the
     launches per route."""
-    from hygrid_tpu_torch.kernels import conv_single as cs
-    from hygrid_tpu_torch.kernels import conv_stack, resample
-    from hygrid_tpu_torch.kernels import resample_shift as rs
     from hygrid_tpu_torch.models import hexcnn_small, hexify_batch
     gen = torch.Generator(device="cuda").manual_seed(7)
     model = hexcnn_small(norm="BN", device="cuda", generator=gen).eval()
@@ -1212,13 +1277,7 @@ def _run_permodule(torch, config, batch, size):
     in_gen = torch.Generator(device="cuda").manual_seed(8)
     xs = [torch.rand((batch, 3, size, size), generator=in_gen,
                      device="cuda") for _ in range(N_REQUESTS + 1)]
-    counters = {"plan_gather": (resample, "LAUNCHES"),
-                "shift_resample": (rs, "LAUNCHES"),
-                "hex_conv_layer": (conv_stack, "LAUNCHES"),
-                "hex_conv_layer_dgrad": (conv_stack, "DGRAD_LAUNCHES"),
-                "hex_conv_wgrad": (conv_stack, "WGRAD_LAUNCHES"),
-                "hex_conv_fused_stack": (conv_stack, "FUSED_LAUNCHES"),
-                "hex_conv_single": (cs, "LAUNCHES")}
+    counters = _launch_counters()
     per_request = {"a": {"plan_gather": 1}, "b": {"plan_gather": 1,
                                                   "hex_conv_single": 5}}
     launches, first_ms, reports = {}, {}, {}
@@ -1258,14 +1317,10 @@ def _run_permodule(torch, config, batch, size):
             reports[route] = (f"peak_mem_bytes={peak}; launches={got}; "
                               f"logits vs plain f32 max_abs_err={err!r} "
                               f"rel={rel!r}")
-        # requests per window: the faster route's lasts the window too
-        n = max(N_REQUESTS,
-                math.ceil(PERMODULE_WINDOW_MS / min(first_ms.values())))
-        times = {route: [] for route in impls}
-        for _ in range(PERMODULE_WINDOWS):
-            for route, impl in impls.items():
-                set_conv_impl(model, impl)
-                times[route].append(_time_route(torch, serve, xs[1:], n))
+        n, times = _timed_windows(
+            torch, {route: (functools.partial(set_conv_impl, model, impl),
+                            serve) for route, impl in impls.items()},
+            xs[1:], min(first_ms.values()))
         for route, impl in impls.items():
             set_conv_impl(model, impl)
             ms = sorted(times[route])
@@ -1291,6 +1346,187 @@ def run_permodule(torch):
     launches = {}
     for config, batch, size in PERMODULE:
         launches.update(_run_permodule(torch, config, batch, size))
+    return launches
+
+
+# HexUNet-small (benchmarks/suite.py::bench_hexunet): b=8 512^2 RGB -> 256^2
+# hex; the decoder's skip-join layers (name, B, H, W, Ca, Cb, Cout, GN);
+# the last case's 16-channel staging chunk straddles the two inputs
+UNET_BATCH = 8
+SPLIT_LAYERS = [("dec0", UNET_BATCH, 128, 127, 64, 64, 64, True),
+                ("dec1", UNET_BATCH, 256, 256, 32, 32, 32, True),
+                ("straddle", UNET_BATCH, 128, 127, 24, 8, 32, False)]
+
+
+def check_split(torch, gen):
+    """Phase 16: the split layer against its plain version and bit-equal
+    to kernel B on the concatenation.  Returns the bf16 summary over dec0
+    and dec1 (the serving path's layers) for the kernels line."""
+    from hygrid_tpu_torch.kernels import conv_stack as cs
+    from hygrid_tpu_torch.nn.functional import hex_kernel_num
+    kn = hex_kernel_num(2)
+    summary = dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0,
+                   concat_kernel_b_ms=0.0)
+    bounds = []
+    for name, b, h, w, ca, cb, cout, gn in SPLIT_LAYERS:
+        k = torch.randn((cout, ca + cb, kn), generator=gen, device="cuda") \
+            / math.sqrt((ca + cb) * kn)
+        a32 = torch.rand((b, h, w, ca), generator=gen, device="cuda")
+        b32 = torch.rand((b, h, w, cb), generator=gen, device="cuda")
+        bias = norm = None
+        if gn:
+            norm = ("gn", 8,
+                    1 + 0.1 * torch.rand((cout,), generator=gen,
+                                         device="cuda"),
+                    0.1 * torch.randn((cout,), generator=gen, device="cuda"))
+        else:
+            bias = 0.1 * torch.randn((cout,), generator=gen, device="cuda")
+        line = (f"hex_conv_layer_split {name} {ca}+{cb}->{cout} {h}x{w} "
+                f"b={b} {'GN(8)' if gn else 'bias'}+ReLU:")
+        for dtype in (torch.float32, torch.bfloat16):
+            xa, xb, kd = a32.to(dtype), b32.to(dtype), k.to(dtype)
+            kw = dict(radius=2, norm=norm, relu=True)
+
+            def kernel():
+                return cs.hex_conv_layer_split(xa, xb, kd, bias, **kw)
+
+            def concat():
+                return cs.hex_conv_layer(torch.cat([xa, xb], -1), kd, bias,
+                                         **kw)
+
+            def plain():
+                return cs.hex_conv_layer_split_plain(xa, xb, kd, bias, **kw)
+
+            got, cat, want = kernel(), concat(), plain()
+            torch.cuda.synchronize()
+            require(got.shape == want.shape and got.dtype == dtype,
+                    f"split {name}: {tuple(got.shape)} {got.dtype}")
+            equal = torch.equal(got, cat)
+            require(equal, f"split {name} {dtype}: differs from concat + "
+                           f"kernel B by {max_err(got, cat)[0]}")
+            err, rel = max_err(got, want)
+            tol = TOL["b_f32_rel" if dtype == torch.float32 else "b_bf16_rel"]
+            require(rel <= tol, f"split {name} {dtype}: relative err {rel} "
+                                f"> {tol}")
+            ms = cuda_ms(torch, kernel, iters=5)
+            cms = cuda_ms(torch, concat, iters=5)
+            pms = cuda_ms(torch, plain, iters=5)
+            params = [kd] + [t for t in (bias, *(norm or ())[2:])
+                             if t is not None]
+            b_ms, b_by = bound(nbytes(xa, xb, got, *params),
+                               2 * kn * (ca + cb) * cout * h * w * b,
+                               "bf16" if dtype == torch.bfloat16 else "f32")
+            line += (f" {str(dtype)[6:]} max_abs_err={err!r} rel={rel!r} "
+                     f"bit-equal to concat+kernel B={equal} "
+                     f"kernel_ms={ms!r} concat_kernel_b_ms={cms!r} "
+                     f"plain_ms={pms!r} bound_ms={b_ms!r} ({b_by});")
+            if dtype == torch.bfloat16 and name.startswith("dec"):
+                summary["max_abs_err"] = max(summary["max_abs_err"], err)
+                summary["ms"] += ms
+                summary["plain_ms"] += pms
+                summary["concat_kernel_b_ms"] += cms
+                bounds.append((b_ms, b_by))
+        log(line)
+    summary.update(summed_bound(bounds), library_ms=None)
+    return summary
+
+
+UNET_GROUPS = [
+    ("split layers", lambda k: "hex_conv_kernel" in k and "true>" in k),
+    ("kernel B conv", lambda k: "hex_conv_kernel" in k),
+    ("GN passes", lambda k: "gn_" in k),
+    ("plan_gather", lambda k: "plan_gather" in k),
+    ("cuDNN (transposed convs)", lambda k: any(
+        s in k.lower() for s in ("xmma", "cudnn", "conv", "gemm", "cutlass"))),
+    ("max-pool reductions", lambda k: "reduce_kernel" in k),
+    ("gathers (pool windows)", lambda k: "index" in k or "gather" in k),
+]
+
+
+def run_hexunet(torch):
+    """Phase 17: HexUNet-small serving.  Returns the launches of the
+    counted requests."""
+    from hygrid_tpu_torch.models import HexUNet, hexify_batch
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    kw = dict(num_classes=4, widths=(32, 64, 128), norm="GN")
+    model = HexUNet(dtype=torch.bfloat16, generator=gen, **kw).eval()
+    in_gen = torch.Generator(device="cuda").manual_seed(10)
+    xs = [torch.rand((UNET_BATCH, 3, 512, 512), generator=in_gen,
+                     device="cuda") for _ in range(N_REQUESTS + 1)]
+
+    def serve(x, m=model):
+        return m(hexify_batch(x.to(torch.bfloat16)))
+
+    counters = _launch_counters()
+    per_request = {"plan_gather": 1, "hex_conv_layer": 3,
+                   "hex_conv_layer_split": 2}
+
+    def counted(fn, n):
+        for mod, attr in counters.values():
+            setattr(mod, attr, 0)
+        out = fn()
+        got = {name: getattr(mod, attr)
+               for name, (mod, attr) in counters.items()}
+        want = {name: per_request.get(name, 0) * n for name in counters}
+        require(got == want, f"HexUNet: launches {got}, want {want}")
+        return out, {k: v for k, v in got.items() if v}
+
+    with torch.inference_mode():
+        serve(xs[0])
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        outs, launches = counted(lambda: [serve(x) for x in xs[1:]],
+                                 N_REQUESTS)
+        torch.cuda.synchronize()
+        first_ms = (time.perf_counter() - t0) * 1e3 / N_REQUESTS
+        peak = torch.cuda.max_memory_allocated()
+        for i, out in enumerate(outs):
+            require(out.shape == (UNET_BATCH, 4, 256, 256)
+                    and out.dtype == torch.bfloat16
+                    and bool(torch.isfinite(out).all()),
+                    f"HexUNet request {i}: {tuple(out.shape)} {out.dtype} "
+                    f"or non-finite")
+        require(not torch.equal(outs[0], outs[1]),
+                "HexUNet: distinct requests, equal logits")
+        ref_model = HexUNet(dtype=torch.float32, **kw)
+        ref_model.load_state_dict(model.state_dict())
+        ref = ref_model(hexify_batch(xs[1], plain=True), plain=True)
+        err, rel = max_err(outs[0], ref)
+        require(rel <= TOL["slice_rel"],
+                f"HexUNet vs plain f32: relative err {rel}")
+        del ref_model, ref
+
+        ps = HexUNet(upsample="pixelshuffle", dtype=torch.bfloat16,
+                     generator=gen, **kw).eval()
+        ps_ref = HexUNet(upsample="pixelshuffle", dtype=torch.float32, **kw)
+        ps_ref.load_state_dict(ps.state_dict())
+        ps_out, ps_launches = counted(lambda: serve(xs[1], ps), 1)
+        ps_err, ps_rel = max_err(ps_out, ps_ref(
+            hexify_batch(xs[1], plain=True), plain=True))
+        require(ps_rel <= TOL["slice_rel"],
+                f"HexUNet pixelshuffle vs plain f32: relative err {ps_rel}")
+        del ps, ps_ref, ps_out
+
+        n, times = _timed_windows(torch, {"transpose": (lambda: None,
+                                                         serve)},
+                                  xs[1:], first_ms)
+        times = sorted(times["transpose"])
+        med = times[len(times) // 2]
+        split = _profile_split(torch, lambda: serve(xs[1]), med,
+                               UNET_GROUPS)
+    log(f"HexUNet-small GN bf16 b={UNET_BATCH} 512^2 (transpose decoder): "
+        f"{med!r} ms a request, median of {PERMODULE_WINDOWS} windows of "
+        f"{n} requests cycling over {N_REQUESTS} distinct inputs (CUDA "
+        f"events; windows {[round(t * n) for t in times]} ms), "
+        f"images/s={UNET_BATCH / (med / 1e3)!r} (windows "
+        f"{UNET_BATCH / (times[-1] / 1e3)!r}-{UNET_BATCH / (times[0] / 1e3)!r}); "
+        f"peak_mem_bytes={peak} (the {N_REQUESTS + 1} inputs and "
+        f"{N_REQUESTS} outputs included); launches={launches} in "
+        f"{N_REQUESTS} requests; logits vs plain f32 max_abs_err={err!r} "
+        f"rel={rel!r}; pixelshuffle decoder: launches={ps_launches}, vs "
+        f"plain f32 max_abs_err={ps_err!r} rel={ps_rel!r}")
+    log(f"HexUNet-small torch.profiler, one request: {split}")
     return launches
 
 
@@ -1357,6 +1593,11 @@ def main():
         single = check_single(torch, gen)
     paths.update(run_permodule(torch))
     log(f"phases 14-15: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        split = check_split(torch, gen)
+    paths["hexunet"] = run_hexunet(torch)
+    log(f"phases 16-17: {time.perf_counter() - t0:.1f} s")
 
     def count(name):
         by_path = {p: n[name] for p, n in paths.items() if n.get(name)}
@@ -1397,6 +1638,11 @@ def main():
              replaces="hygrid_tpu/kernels/conv_pallas.py:106",
              also_replaces="hygrid_tpu/kernels/conv_pallas.py:127",
              **count("hex_conv_single"), **single),
+        dict(name="hex_conv_layer_split", route="cuda",
+             source="hygrid_tpu_torch/csrc/hex_conv_layer.cu",
+             replaces="hygrid_tpu/kernels/conv_pallas.py:807",
+             replaces_mode="split=True, conv_pallas.py:838-871",
+             **count("hex_conv_layer_split"), **split),
     ]
     for k in kernels:
         require(k["launches"] > 0, f"{k['name']}: no launch on the main path")

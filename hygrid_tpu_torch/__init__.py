@@ -14,8 +14,8 @@ from .nn.functional import (hex_conv2d, hex_conv2d_output_shape,
                             hex_global_pool2d, hex_kernel_num, hex_pool2d)
 from .nn.layers import HexConv2d, HexConvStack
 from .nn.modules import HexConvModule
-from .models import (HexCNN, create_train_state, hexcnn_small, hexcnn_tiny,
-                     hexify_batch, train_step)
+from .models import (HexCNN, HexUNet, create_train_state, hexcnn_small,
+                     hexcnn_tiny, hexify_batch, train_step)
 
 __version__ = "0.1.0"
 
@@ -39,6 +39,7 @@ __all__ = [
     "HexConvModule",
     "HexConvStack",
     "HexCNN",
+    "HexUNet",
     "hexcnn_small",
     "hexcnn_tiny",
     "hexify_batch",

@@ -100,12 +100,21 @@ inline size_t conv_tile_smem(const Geometry& g, int kn, int cob) {
 // Cin, Cout) float32.  smem holds conv_tile_smem bytes.  With load_w false
 // the weights staged by the last call are used again (only valid when
 // Cin <= kChunkC and co0 is the same).
-template <int COB, bool kNCHW = false, typename Tin>
+//
+// kSplit: the input is the channel concatenation of two NHWC samples, xb
+// (H, W, Ca) holding channels [0, Ca) and xb2 (H, W, Cin - Ca) the rest;
+// the concatenation is never built.  Only the staging load picks its
+// source, per element, so a chunk may straddle Ca, and the accumulation
+// order is the one over the concatenated channels: the result is bit-equal
+// to the unsplit tile on the materialised concatenation.
+template <int COB, bool kNCHW = false, bool kSplit = false, typename Tin>
 __device__ __forceinline__ void conv_tile(
     const Tin* __restrict__ xb, const float* __restrict__ w, float* smem,
     int H, int W, int Cin, int Cout, int kn, const TapTable& taps, int r_lo,
     int n_rows, int c_lo, int n_cols, int o, int w0, int co0, bool load_w,
-    float (&acc)[ConvTile<COB>::kPT][kChanT]) {
+    float (&acc)[ConvTile<COB>::kPT][kChanT],
+    const Tin* __restrict__ xb2 = nullptr, int Ca = 0) {
+  static_assert(!(kSplit && kNCHW), "the split input is NHWC");
   constexpr int PT = ConvTile<COB>::kPT;
   constexpr int kPixLanes = ConvTile<COB>::kPixLanes;
   float* xs = smem;                               // [n_rows][kChunkC][n_cols]
@@ -129,9 +138,16 @@ __device__ __forceinline__ void conv_tile(
       const int r = e / (kChunkC * n_cols);
       const int gi = o + r_lo + r, gj = w0 + c_lo + c, gc = ci0 + ck;
       float v = 0.f;
-      if (gi >= 0 && gi < H && gj >= 0 && gj < W && gc < Cin)
-        v = to_f32(kNCHW ? xb[((long long)gc * H + gi) * W + gj]
-                         : xb[((long long)gi * W + gj) * Cin + gc]);
+      if (gi >= 0 && gi < H && gj >= 0 && gj < W && gc < Cin) {
+        if constexpr (kSplit) {
+          const long long pix = (long long)gi * W + gj;
+          v = to_f32(gc < Ca ? xb[pix * Ca + gc]
+                             : xb2[pix * (Cin - Ca) + (gc - Ca)]);
+        } else {
+          v = to_f32(kNCHW ? xb[((long long)gc * H + gi) * W + gj]
+                           : xb[((long long)gi * W + gj) * Cin + gc]);
+        }
+      }
       xs[(r * kChunkC + ck) * n_cols + c] = v;
     }
     if (load_w) {

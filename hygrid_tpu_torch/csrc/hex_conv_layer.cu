@@ -35,6 +35,16 @@
 // Without GN, the conv pass applies bias, the per-channel affine and ReLU
 // in its epilogue and writes the working dtype directly.
 //
+// Split mode (x2 non-null) replaces _stack_layer_kernel with split=True
+// (conv_pallas.py:838-871), the first layer of a UNet decoder's skip-join
+// stage: conv(concat(A, B), K) = conv(A, Ka) + conv(B, Kb), then the same
+// bias / GN / affine / ReLU.  The TPU kernel runs two Kronecker matmul sets;
+// here the conv pass's staging load reads channel c from A when c < Ca and
+// from B otherwise, so the 2W-channel concatenation is never written and
+// every other part of the pass, the weights (kn, Ca+Cb, Cout) included, is
+// the unsplit layer's.  It moves A and B once each, as the unsplit layer
+// moves their concatenation, and is bit-equal to it.
+//
 // The backward's dL/dx (kernels/conv_stack.py::hex_conv_layer_dgrad) is
 // this conv pass alone, run with the adjoint tap table
 // (nn/functional.py::hex_adjoint_tap_table), the weights transposed to
@@ -56,9 +66,13 @@ constexpr int COB = 32;                              // output channels per bloc
 constexpr int PT = hg::ConvTile<COB>::kPT;           // 4 pixels per thread
 constexpr int kPixLanes = hg::ConvTile<COB>::kPixLanes;  // 16
 
-template <typename Tin, typename Tout>
+// kSplit: the layer's input is the channel concatenation of x (B, H, W, Ca)
+// and x2 (B, H, W, Cin - Ca) (see hg::conv_tile); otherwise x2 and Ca are
+// not read.
+template <typename Tin, typename Tout, bool kSplit>
 __global__ void __launch_bounds__(kConvThreads)
-hex_conv_kernel(const Tin* __restrict__ x, const float* __restrict__ w,
+hex_conv_kernel(const Tin* __restrict__ x, const Tin* __restrict__ x2, int Ca,
+                const float* __restrict__ w,
                 const float* __restrict__ bias, const float* __restrict__ scale,
                 const float* __restrict__ shift, Tout* __restrict__ out,
                 int H, int W, int Cin, int Cout, int kn,
@@ -74,9 +88,16 @@ hex_conv_kernel(const Tin* __restrict__ x, const float* __restrict__ w,
   const int tc = threadIdx.x / kPixLanes;
 
   float acc[PT][kChanT];
-  hg::conv_tile<COB>(x + (long long)b * H * W * Cin, w, smem, H, W, Cin, Cout,
-                     kn, taps, r_lo, n_rows, c_lo, n_cols, o, w0, co0, true,
-                     acc);
+  if constexpr (kSplit) {
+    const long long pix0 = (long long)b * H * W;   // the sample's first pixel
+    hg::conv_tile<COB, false, true>(
+        x + pix0 * Ca, w, smem, H, W, Cin, Cout, kn, taps, r_lo, n_rows,
+        c_lo, n_cols, o, w0, co0, true, acc, x2 + pix0 * (Cin - Ca), Ca);
+  } else {
+    hg::conv_tile<COB>(x + (long long)b * H * W * Cin, w, smem, H, W, Cin,
+                       Cout, kn, taps, r_lo, n_rows, c_lo, n_cols, o, w0, co0,
+                       true, acc);
+  }
 
 #pragma unroll
   for (int i = 0; i < PT; ++i) {
@@ -170,37 +191,41 @@ __global__ void gn_apply_kernel(const float* __restrict__ y,
   store(out + e, v);
 }
 
+// x2 non-null selects the split instantiation (input channels [0, Ca) from
+// x, [Ca, Cin) from x2).
 template <typename Tin, typename Tout>
-int launch_conv(const void* x, const float* w, const float* bias,
-                const float* scale, const float* shift, void* out, int B,
-                int H, int W, int Cin, int Cout, int kn, const Geometry& g,
-                int relu, cudaStream_t stream) {
+int launch_conv(const void* x, const void* x2, int Ca, const float* w,
+                const float* bias, const float* scale, const float* shift,
+                void* out, int B, int H, int W, int Cin, int Cout, int kn,
+                const Geometry& g, int relu, cudaStream_t stream) {
   const size_t smem = hg::conv_tile_smem(g, kn, COB);
-  auto kernel = hex_conv_kernel<Tin, Tout>;
+  auto kernel = x2 ? hex_conv_kernel<Tin, Tout, true>
+                   : hex_conv_kernel<Tin, Tout, false>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   const int n_cob = (Cout + COB - 1) / COB;
   dim3 grid((W + kTileP - 1) / kTileP, H, B * n_cob);
   kernel<<<grid, kConvThreads, smem, stream>>>(
-      static_cast<const Tin*>(x), w, bias, scale, shift,
-      static_cast<Tout*>(out), H, W, Cin, Cout, kn, g.taps, g.r_lo, g.n_rows,
-      g.c_lo, g.n_cols, relu);
+      static_cast<const Tin*>(x), static_cast<const Tin*>(x2), Ca, w, bias,
+      scale, shift, static_cast<Tout*>(out), H, W, Cin, Cout, kn, g.taps,
+      g.r_lo, g.n_rows, g.c_lo, g.n_cols, relu);
   return (int)cudaGetLastError();
 }
 
 template <typename T>
-int launch_layer(const void* x, const float* w, const float* bias,
-                 const float* scale, const float* shift, const float* gamma,
-                 const float* beta, int gn_groups, float eps, float* y,
-                 float* partial, float* stats, int n_chunks, void* out, int B,
-                 int H, int W, int Cin, int Cout, int kn, const Geometry& g,
-                 int relu, cudaStream_t stream) {
+int launch_layer(const void* x, const void* x2, int Ca, const float* w,
+                 const float* bias, const float* scale, const float* shift,
+                 const float* gamma, const float* beta, int gn_groups,
+                 float eps, float* y, float* partial, float* stats,
+                 int n_chunks, void* out, int B, int H, int W, int Cin,
+                 int Cout, int kn, const Geometry& g, int relu,
+                 cudaStream_t stream) {
   if (gn_groups == 0)
-    return launch_conv<T, T>(x, w, bias, scale, shift, out, B, H, W, Cin,
-                             Cout, kn, g, relu, stream);
-  int err = launch_conv<T, float>(x, w, bias, nullptr, nullptr, y, B, H, W,
-                                  Cin, Cout, kn, g, 0, stream);
+    return launch_conv<T, T>(x, x2, Ca, w, bias, scale, shift, out, B, H, W,
+                             Cin, Cout, kn, g, relu, stream);
+  int err = launch_conv<T, float>(x, x2, Ca, w, bias, nullptr, nullptr, y, B,
+                                  H, W, Cin, Cout, kn, g, 0, stream);
   if (err) return err;
   const long long HW = (long long)H * W;
   const int lanes = Cout >= 256 ? 1 : 256 / Cout;
@@ -228,17 +253,22 @@ int launch_layer(const void* x, const float* w, const float* bias,
 // (2, kn, 2) int32.  bias/scale/shift/gamma/beta: float32 (Cout,) or null.
 // gn_groups > 0 selects GroupNorm and needs the float32 scratch buffers
 // y (B, H, W, Cout), partial (B, n_chunks, gn_groups, 2) and
-// stats (B, gn_groups, 2).  Returns the first non-zero cudaGetLastError()
-// of its launches, or -1 for arguments the kernels do not take.
+// stats (B, gn_groups, 2).  x2 non-null is the split layer (the
+// counterpart of _stack_layer_kernel's split=True, conv_pallas.py:838-871):
+// x is (B, H, W, Ca) with input channels [0, Ca), x2 (B, H, W, Cin - Ca)
+// with [Ca, Cin), 0 < Ca < Cin, and w still the unsplit (kn, Cin, Cout).
+// Returns the first non-zero cudaGetLastError() of its launches, or -1 for
+// arguments the kernels do not take.
 extern "C" int hg_hex_conv_layer(
-    const void* x, const void* w, const void* bias, const void* scale,
-    const void* shift, const void* gamma, const void* beta, int gn_groups,
-    float eps, void* y, void* partial, void* stats, int n_chunks, void* out,
-    int dtype, int B, int H, int W, int Cin, int Cout, int kn,
-    const void* taps, int relu, void* stream) {
+    const void* x, const void* x2, int Ca, const void* w, const void* bias,
+    const void* scale, const void* shift, const void* gamma, const void* beta,
+    int gn_groups, float eps, void* y, void* partial, void* stats,
+    int n_chunks, void* out, int dtype, int B, int H, int W, int Cin,
+    int Cout, int kn, const void* taps, int relu, void* stream) {
   if (kn < 1 || kn > kMaxTaps || B < 1 || H < 1 || W < 1 || Cin < 1 ||
       Cout < 1 || H > 65535 || (long long)B * ((Cout + COB - 1) / COB) > 65535)
     return -1;
+  if (x2 && (Ca < 1 || Ca >= Cin)) return -1;
   if (gn_groups < 0 || (gn_groups > 0 && (Cout % gn_groups || Cout > 1024 ||
                                            n_chunks < 1 || !y || !partial ||
                                            !stats || !gamma || !beta)))
@@ -249,14 +279,14 @@ extern "C" int hg_hex_conv_layer(
   auto f = [](const void* p) { return static_cast<const float*>(p); };
   if (dtype == 0)
     return launch_layer<float>(
-        x, f(w), f(bias), f(scale), f(shift), f(gamma), f(beta), gn_groups,
-        eps, static_cast<float*>(y), static_cast<float*>(partial),
+        x, x2, Ca, f(w), f(bias), f(scale), f(shift), f(gamma), f(beta),
+        gn_groups, eps, static_cast<float*>(y), static_cast<float*>(partial),
         static_cast<float*>(stats), n_chunks, out, B, H, W, Cin, Cout, kn, g,
         relu, s);
   if (dtype == 1)
     return launch_layer<__nv_bfloat16>(
-        x, f(w), f(bias), f(scale), f(shift), f(gamma), f(beta), gn_groups,
-        eps, static_cast<float*>(y), static_cast<float*>(partial),
+        x, x2, Ca, f(w), f(bias), f(scale), f(shift), f(gamma), f(beta),
+        gn_groups, eps, static_cast<float*>(y), static_cast<float*>(partial),
         static_cast<float*>(stats), n_chunks, out, B, H, W, Cin, Cout, kn, g,
         relu, s);
   return -1;

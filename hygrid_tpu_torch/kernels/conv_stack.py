@@ -33,9 +33,12 @@ through ``_stack_xla``.
 ``band_rows`` selects the TPU's row-banded layer kernel, which exists only
 to fit planes larger than VMEM; the port computes the same function with
 :func:`hex_conv_layer` and keeps only the reference's argument checks.
-The TPU's lane packing, plane margins, in-place aliasing and split first
-layer are not ported: ``packed_io`` and ``extra_input`` raise
-``NotImplementedError``.
+The TPU's lane packing, plane margins and in-place aliasing are not
+ported: ``packed_io`` raises ``NotImplementedError``.  The split first
+layer of a skip-join stage (``extra_input``, ``_stack_layer_kernel`` with
+``split=True``) is :func:`hex_conv_layer_split`, the split mode of the
+same CUDA source: ``conv(concat(A, B), K)`` with the concatenation never
+built, forward only (under grad it raises ``NotImplementedError``).
 
 The plain version of a layer is :func:`hex_conv_layer_plain`
 (``hex_conv2d(impl="direct")`` + :func:`_group_norm_nchw`, computed in
@@ -61,7 +64,8 @@ from . import _build
 __all__ = ["hex_conv_layer", "hex_conv_layer_plain", "hex_conv_layer_dgrad",
            "hex_conv_layer_dgrad_plain", "hex_conv_layer_wgrad",
            "hex_conv_layer_wgrad_plain", "hex_conv_fused_stack",
-           "hex_conv_fused_stack_plain", "hex_conv_stack"]
+           "hex_conv_fused_stack_plain", "hex_conv_layer_split",
+           "hex_conv_layer_split_plain", "hex_conv_stack"]
 
 LAUNCHES = 0
 """Number of layers run by the kernel (one GN layer is four CUDA launches
@@ -73,6 +77,9 @@ WGRAD_LAUNCHES = 0
 each)."""
 FUSED_LAUNCHES = 0
 """Number of whole-stack launches (:func:`hex_conv_fused_stack`)."""
+SPLIT_LAUNCHES = 0
+"""Number of split layers run by the kernel (:func:`hex_conv_layer_split`;
+one GN layer is four CUDA launches and counts once)."""
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _EPS = 1e-5
@@ -213,11 +220,15 @@ def _ptr(t):
     return None if t is None else t.data_ptr()
 
 
-def _conv_launch(x, wt, cout, taps, what, bias=None, norm=None, relu=False):
+def _conv_launch(x, wt, cout, taps, what, bias=None, norm=None, relu=False,
+                 x2=None):
     """One ``hg_hex_conv_layer`` call on checked NHWC ``x`` with float32
-    weights ``wt`` ``(kn, Cin, Cout)``.  Returns ``(out, y)``: ``y`` is
-    the float32 pre-activation scratch of a GN layer, else None."""
-    b, h, w, cin = x.shape
+    weights ``wt`` ``(kn, Cin, Cout)``; with ``x2`` (checked, same batch,
+    spatial shape and dtype) the split layer on the channel concatenation
+    of ``x`` and ``x2``.  Returns ``(out, y)``: ``y`` is the float32
+    pre-activation scratch of a GN layer, else None."""
+    b, h, w, ca = x.shape
+    cin = ca + (0 if x2 is None else x2.shape[-1])
     kn = wt.shape[0]
     if h > 65535 or b * math.ceil(cout / 32) > 65535:
         raise ValueError(f"{what}: grid too large for H={h}, B={b}, "
@@ -247,10 +258,11 @@ def _conv_launch(x, wt, cout, taps, what, bias=None, norm=None, relu=False):
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         status = lib.hg_hex_conv_layer(
-            x.data_ptr(), wt.data_ptr(), _ptr(bias), _ptr(scale), _ptr(shift),
-            _ptr(gamma), _ptr(beta), groups, _EPS, _ptr(y), _ptr(partial),
-            _ptr(stats), n_chunks, out.data_ptr(), _DTYPES[x.dtype], b, h, w,
-            cin, cout, kn, taps.ctypes.data, int(relu), stream)
+            x.data_ptr(), _ptr(x2), ca, wt.data_ptr(), _ptr(bias),
+            _ptr(scale), _ptr(shift), _ptr(gamma), _ptr(beta), groups, _EPS,
+            _ptr(y), _ptr(partial), _ptr(stats), n_chunks, out.data_ptr(),
+            _DTYPES[x.dtype], b, h, w, cin, cout, kn, taps.ctypes.data,
+            int(relu), stream)
     _build.check(status, what)
     return out, y
 
@@ -343,6 +355,67 @@ def hex_conv_layer(x: torch.Tensor, kernel: torch.Tensor, bias=None, *,
     groups, gamma, beta = (0, None, None) if norm is None else norm[1:]
     return _HexConvLayer.apply(x, kernel, bias, gamma, beta, radius,
                                dilation, int(groups), bool(relu))
+
+
+def hex_conv_layer_split_plain(a: torch.Tensor, b: torch.Tensor,
+                               kernel: torch.Tensor, bias=None, *,
+                               radius: int, dilation: int = 1, norm=None,
+                               relu: bool = False) -> torch.Tensor:
+    """Plain version of :func:`hex_conv_layer_split`, on any device:
+    :func:`hex_conv_layer_plain` on the materialised concatenation
+    ``torch.cat([a, b], -1)``."""
+    return hex_conv_layer_plain(torch.cat([a, b], dim=-1), kernel, bias,
+                                radius=radius, dilation=dilation, norm=norm,
+                                relu=relu)
+
+
+def hex_conv_layer_split(a: torch.Tensor, b: torch.Tensor,
+                         kernel: torch.Tensor, bias=None, *, radius: int,
+                         dilation: int = 1, norm=None,
+                         relu: bool = False) -> torch.Tensor:
+    """The split layer: :func:`hex_conv_layer` on the channel concatenation
+    of NHWC ``a`` ``(B, H, W, Ca)`` and ``b`` ``(B, H, W, Cb)``, without
+    building it.  ``kernel`` is the unsplit ``(Cout, Ca + Cb, kn)``; bias,
+    norm and ReLU as for :func:`hex_conv_layer`.  Returns ``(B, H, W,
+    Cout)`` in the inputs' dtype.
+
+    A CPU tensor runs :func:`hex_conv_layer_split_plain`.  A CUDA tensor
+    (float32 or bfloat16, contiguous, both inputs alike) launches the split
+    mode of ``csrc/hex_conv_layer.cu`` (counted in ``SPLIT_LAUNCHES``);
+    anything else raises.  Forward only: under grad it raises
+    ``NotImplementedError`` on either device.
+    """
+    global SPLIT_LAUNCHES
+    if a.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"hex_conv_layer_split: no kernel for device "
+                         f"{a.device}")
+    extra = () if norm is None else norm[1:]
+    if torch.is_grad_enabled() and any(
+            isinstance(t, torch.Tensor) and t.requires_grad
+            for t in (a, b, kernel, bias, *extra)):
+        raise NotImplementedError(
+            "hex_conv_layer_split: the split layer has no backward in the "
+            "port yet (ROADMAP queue 2, item 12s); run it under "
+            "torch.no_grad() or torch.inference_mode()")
+    if a.device.type == "cpu":
+        return hex_conv_layer_split_plain(a, b, kernel, bias, radius=radius,
+                                          dilation=dilation, norm=norm,
+                                          relu=relu)
+    _check_activations(a, "hex_conv_layer_split")
+    _check_activations(b, "hex_conv_layer_split")
+    if (b.shape[:3] != a.shape[:3] or b.dtype != a.dtype
+            or b.device != a.device):
+        raise ValueError(f"hex_conv_layer_split: a {tuple(a.shape)} {a.dtype} "
+                         f"and b {tuple(b.shape)} {b.dtype} must share "
+                         "(B, H, W), dtype and device")
+    cin, cout = a.shape[-1] + b.shape[-1], kernel.shape[0]
+    _check_kernel(kernel, (cout, cin, F.hex_kernel_num(radius)), a.device,
+                  "hex_conv_layer_split")
+    wt = kernel.float().permute(2, 1, 0).contiguous()       # (kn, Cin, Cout)
+    out, _ = _conv_launch(a, wt, cout, _taps(radius, dilation),
+                          "hex_conv_layer_split", bias, norm, relu, x2=b)
+    SPLIT_LAUNCHES += 1
+    return out
 
 
 def hex_conv_layer_dgrad(gpre: torch.Tensor, kernel: torch.Tensor, *,
@@ -608,13 +681,22 @@ def hex_conv_stack(x: torch.Tensor, kernels, biases=None, *, radius: int,
     Both raise the reference's ``ValueError`` with norms, and together.
     ``plain=True`` runs the plain versions on any device (the reference a
     kernel run is compared with).
+
+    ``extra_input``, a second input with ``x``'s batch and spatial shape,
+    applies the chain to the channel concatenation ``concat([x,
+    extra_input])`` (``kernels[0]`` takes both inputs' channels) without
+    building it: layer 0 is :func:`hex_conv_layer_split`, for any split of
+    the channels (forward only).  It is incompatible with ``packed_io``,
+    ``fused`` and ``band_rows``, as in the reference.
     """
-    for name, val in (("packed_io", packed_io),
-                      ("extra_input", extra_input is not None)):
-        if val:
-            raise NotImplementedError(
-                f"hex_conv_stack: {name} is not ported yet (ROADMAP queue 1: "
-                "the TPU's packed-plane and split-layer stack kernels)")
+    split = extra_input is not None
+    if split and (packed_io or fused or band_rows is not None):
+        raise ValueError("extra_input is incompatible with packed_io/"
+                         "fused/band_rows")
+    if packed_io:
+        raise NotImplementedError(
+            "hex_conv_stack: packed_io is not ported (the TPU's packed-plane "
+            "layout; ROADMAP, not to port)")
     if data_format not in ("NCHW", "NHWC"):
         raise ValueError(f"data_format must be NCHW or NHWC, got "
                          f"{data_format!r}")
@@ -625,6 +707,15 @@ def hex_conv_stack(x: torch.Tensor, kernels, biases=None, *, radius: int,
         raise ValueError("supported fused activations: 'relu' or None")
     while x.ndim < 4:
         x = x[None]
+    if split:
+        x2 = extra_input
+        while x2.ndim < 4:
+            x2 = x2[None]
+        sp = slice(1, 3) if data_format == "NHWC" else slice(2, 4)
+        if x2.shape[0] != x.shape[0] or x2.shape[sp] != x.shape[sp]:
+            raise ValueError(
+                f"extra_input batch/spatial shape {tuple(x2.shape)} does not "
+                f"match x {tuple(x.shape)}")
     kernels = list(kernels)
     biases = [None] * len(kernels) if biases is None else list(biases)
     norms = _split_norms(norms, kernels)
@@ -645,8 +736,11 @@ def hex_conv_stack(x: torch.Tensor, kernels, biases=None, *, radius: int,
                 f"banded stack does not support radius={radius}, "
                 f"dilation={dilation} (the 'same' padding exceeds the "
                 f"banded plane margin)")
-    h = x.permute(0, 2, 3, 1) if data_format == "NCHW" else x
-    h = h.contiguous()
+    def nhwc(t):
+        return (t.permute(0, 2, 3, 1) if data_format == "NCHW" else t
+                ).contiguous()
+
+    h = nhwc(x)
     n = len(kernels)
     relus = [activation == "relu" and (final_activation or i < n - 1)
              for i in range(n)]
@@ -656,7 +750,12 @@ def hex_conv_stack(x: torch.Tensor, kernels, biases=None, *, radius: int,
                                  dilation=dilation, relus=relus)
     else:
         layer = hex_conv_layer_plain if plain else hex_conv_layer
-        for k, bs, nm, relu in zip(kernels, biases, norms, relus):
-            h = layer(h, k, bs, radius=radius, dilation=dilation, norm=nm,
-                      relu=relu)
+        for i, (k, bs, nm, relu) in enumerate(zip(kernels, biases, norms,
+                                                  relus)):
+            kw = dict(radius=radius, dilation=dilation, norm=nm, relu=relu)
+            if split and i == 0:
+                h = (hex_conv_layer_split_plain if plain
+                     else hex_conv_layer_split)(h, nhwc(x2), k, bs, **kw)
+            else:
+                h = layer(h, k, bs, **kw)
     return h.permute(0, 3, 1, 2) if data_format == "NCHW" else h

@@ -1,13 +1,15 @@
 """Built-in hex model families and training utilities of the PyTorch port."""
 from .fit import fit
 from .hexcnn import HexCNN, hexcnn_small, hexcnn_tiny
+from .hexunet import HexConvTranspose2d, HexPixelShuffleUpsample, HexUNet
 from .train import (TrainState, create_train_state, dense_onehot_xent,
                     eval_step, hexify_batch, mean_iou, synthetic_hex_cifar,
                     synthetic_hex_shapes, train_step)
 from .video import (StreamStats, make_batch_processor, make_frame_processor,
                     process_stream)
 
-__all__ = ["HexCNN", "hexcnn_small", "hexcnn_tiny", "fit", "TrainState",
+__all__ = ["HexCNN", "hexcnn_small", "hexcnn_tiny", "HexUNet",
+           "HexConvTranspose2d", "HexPixelShuffleUpsample", "fit", "TrainState",
            "create_train_state", "train_step", "eval_step",
            "dense_onehot_xent", "hexify_batch", "synthetic_hex_cifar",
            "synthetic_hex_shapes", "mean_iou", "make_frame_processor",

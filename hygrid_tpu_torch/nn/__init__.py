@@ -1,5 +1,5 @@
 """Hex NN layer of the PyTorch port: functional ops and modules."""
-from . import filters, functional, modules
+from . import experimental, filters, functional, modules
 from .functional import (hex_adaptive_pool2d, hex_conv2d,
                          hex_conv2d_adaptive_padding, hex_conv2d_output_shape,
                          hex_global_pool2d, hex_kernel_num, hex_pool2d)
@@ -10,6 +10,7 @@ from .modules import (CONV_LAYERS, HexConvModule, build_hexactivation_layer,
                       build_hexpadding_layer, register_conv_layer)
 
 __all__ = [
+    "experimental",
     "filters",
     "functional",
     "modules",

@@ -335,7 +335,12 @@ def hex_conv2d(x, kernel, bias=None, *, even_odd_offset: int = 0,
     A tensor ``x`` stays on its device; other input goes to the kernel's
     device when the kernel is a tensor, else to the card.
 
-    Returns (B, O, H', W') with output offset 0, in the kernel's dtype.
+    Returns (B, O, H', W') with output offset 0.  The conv computes in the
+    kernel's dtype; a bias is added after it in the promoted dtype (a
+    float32 bias on a bfloat16 conv gives float32, as JAX promotes in
+    ``hygrid_tpu``), except on the ``"pallas"`` kernel route, which rounds
+    the bias to the conv's dtype as the reference's
+    ``packed_hex_conv_pallas`` does (``conv_pallas.py:205-206``).
     """
     device = _input_device(x, kernel)
     x = _as_4d(torch.as_tensor(x, device=device))
@@ -344,7 +349,10 @@ def hex_conv2d(x, kernel, bias=None, *, even_odd_offset: int = 0,
         kernel = kernel[:, :, 0, :]
     x = x.to(kernel.dtype)
     if bias is not None:
-        bias = torch.as_tensor(bias, device=device).to(kernel.dtype)
+        from_host = not isinstance(bias, torch.Tensor)
+        bias = torch.as_tensor(bias, device=device)
+        if from_host and bias.dtype == torch.float64:
+            bias = bias.float()   # numpy or list input: JAX's float32
     x = pad2d(x, padding, padding_mode, padding_value)
     parity = (even_odd_offset + padding) % 2
     s, d = stride, dilation

@@ -116,6 +116,7 @@ class HexConvStack(nn.Module):
     an input offset other than 0 it runs the reference's per-op chain
     (``hygrid_tpu/nn/layers.py:306-323``): ``hex_conv2d(impl="auto")`` with
     padding ``radius - 1``, GroupNorm, ReLU, layer by layer on NCHW.
+    ``forward(x, extra=skip)`` is the skip-join stage of a UNet decoder.
 
     Layer 0 maps ``in_channels -> width``; later layers ``width -> width``.
     Parameters carry ``hygrid_tpu``'s names: ``kernel_{i}`` ``(width, cin,
@@ -181,11 +182,29 @@ class HexConvStack(nn.Module):
     def gn_groups(self) -> int:
         return math.gcd(self.num_groups, self.width)
 
-    def forward(self, x: torch.Tensor, *, plain: bool = False) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, *, extra: Optional[torch.Tensor] = None,
+                plain: bool = False) -> torch.Tensor:
         """Run the stack; ``plain=True`` uses the layers' plain versions on
-        any device."""
+        any device.
+
+        ``extra`` makes this a skip-join stage (``hygrid_tpu``'s
+        ``_call_split``, ``nn/layers.py:325-370``): the chain runs on the
+        channel concatenation ``concat([x, extra])``, and ``in_channels``
+        counts both inputs.  Layer 0 is then the split layer
+        (:func:`~hygrid_tpu_torch.kernels.conv_stack.hex_conv_layer_split`),
+        which never builds the concatenation; forward only.
+        """
         from ..kernels.conv_stack import hex_conv_stack
+        nhwc = self.data_format == "NHWC"
         dtype = self.dtype or x.dtype
+        if extra is not None:
+            cax = -1 if nhwc else 1
+            ca, cb = x.shape[cax], extra.shape[cax]
+            if ca + cb != self.in_channels:
+                raise ValueError(
+                    f"split inputs carry {ca}+{cb} channels; the stage was "
+                    f"built for in_channels={self.in_channels}")
+            extra = extra.to(dtype)
         x = x.to(dtype)
         p = dict(self.named_parameters())
         kernels = [p[f"kernel_{i}"].to(dtype) for i in range(self.depth)]
@@ -196,7 +215,8 @@ class HexConvStack(nn.Module):
             norms = [("gn", self.gn_groups, p[f"gn_scale_{i}"],
                       p[f"gn_bias_{i}"]) for i in range(self.depth)]
         if self.even_odd_offset != 0:
-            nhwc = self.data_format == "NHWC"
+            if extra is not None:
+                x = torch.cat([x, extra], dim=-1 if nhwc else 1)
             h = self._per_op_chain(x.permute(0, 3, 1, 2) if nhwc else x,
                                    kernels, biases, norms)
             return h.permute(0, 2, 3, 1) if nhwc else h
@@ -205,7 +225,7 @@ class HexConvStack(nn.Module):
             dilation=self.dilation,
             activation="relu" if self.activation == "relu" else None,
             final_activation=self.final_activation, norms=norms,
-            data_format=self.data_format, plain=plain)
+            data_format=self.data_format, extra_input=extra, plain=plain)
 
     def _per_op_chain(self, h, kernels, biases, norms):
         """The reference's per-op chain on NCHW ``h`` (offset != 0)."""

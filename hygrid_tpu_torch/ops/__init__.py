@@ -1,4 +1,7 @@
-"""Resampling engine and geometry ops of the PyTorch port."""
+"""Resampling engine, geometry ops and storage conversions of the PyTorch
+port."""
+from .convert import (heximage_to_type1, heximage_to_type2,
+                      type1_to_heximage, type2_to_heximage)
 from .geometry import (hex_to_rect_resample, hexresize,
                        image_geometric_transformation, rect_to_hex_resample,
                        warp_output_shape)
@@ -16,4 +19,8 @@ __all__ = [
     "image_geometric_transformation",
     "rect_to_hex_resample",
     "warp_output_shape",
+    "heximage_to_type1",
+    "heximage_to_type2",
+    "type1_to_heximage",
+    "type2_to_heximage",
 ]

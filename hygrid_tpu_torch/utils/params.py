@@ -9,7 +9,8 @@ from typing import Mapping
 import numpy as np
 import torch
 
-__all__ = ["hexcnn_state_dict_from_flax", "hexconvmodule_state_dict_from_flax"]
+__all__ = ["hexcnn_state_dict_from_flax", "hexconvmodule_state_dict_from_flax",
+           "hexunet_state_dict_from_flax"]
 
 # flax norm submodule (inside HexConvModule's "norm") -> torch names
 _NORM_LEAVES = {"scale": "weight", "bias": "bias"}
@@ -65,6 +66,36 @@ def hexconvmodule_state_dict_from_flax(variables: Mapping, prefix: str = ""
     return out
 
 
+def _dense(out, name, dense: Mapping) -> None:
+    """A flax ``Dense`` (``kernel`` ``(in, out)``, ``bias``) as torch
+    ``Linear`` leaves ``{name}.weight`` ``(out, in)`` and ``{name}.bias``."""
+    out[f"{name}.weight"] = torch.from_numpy(
+        np.array(dense["kernel"], dtype=np.float32).T.copy())
+    out[f"{name}.bias"] = _t(dense["bias"])
+
+
+def _split_variables(tree: Mapping):
+    """``(params, batch_stats)`` from the ``params`` tree itself,
+    ``{"params": tree}`` or ``{"params": tree, "batch_stats": stats}``."""
+    if "params" in tree and set(tree) <= {"params", "batch_stats"}:
+        return tree["params"], tree.get("batch_stats", {})
+    return tree, {}
+
+
+def _conv_stage(out, name, sub: Mapping, stats: Mapping) -> None:
+    """A stacked stage's leaves (``kernel_{i}``, ``bias_{i}``,
+    ``gn_scale_{i}``, ``gn_bias_{i}``) keep their names; a
+    ``HexConvModule`` bundle goes through
+    :func:`hexconvmodule_state_dict_from_flax` with its ``batch_stats``."""
+    if any(isinstance(v, Mapping) for v in sub.values()):
+        out.update(hexconvmodule_state_dict_from_flax(
+            {"params": sub, "batch_stats": stats.get(name, {})},
+            prefix=f"{name}."))
+        return
+    for leaf, value in sorted(sub.items()):
+        out[f"{name}.{leaf}"] = _t(value)
+
+
 def hexcnn_state_dict_from_flax(tree: Mapping) -> "OrderedDict[str, torch.Tensor]":
     """``state_dict`` of :class:`hygrid_tpu_torch.models.HexCNN` from the
     flax variables of ``hygrid_tpu.models.HexCNN``.
@@ -78,22 +109,41 @@ def hexcnn_state_dict_from_flax(tree: Mapping) -> "OrderedDict[str, torch.Tensor
     the Dense ``head/kernel`` ``(in, out)`` becomes ``head.weight``
     ``(out, in)``.
     """
-    stats: Mapping = {}
-    if "params" in tree and set(tree) <= {"params", "batch_stats"}:
-        stats = tree.get("batch_stats", {})
-        tree = tree["params"]
+    tree, stats = _split_variables(tree)
     out: "OrderedDict[str, torch.Tensor]" = OrderedDict()
     for name in sorted(k for k in tree if k.startswith("stage")):
+        _conv_stage(out, name, tree[name], stats)
+    _dense(out, "head", tree["head"])
+    return out
+
+
+def hexunet_state_dict_from_flax(tree: Mapping
+                                 ) -> "OrderedDict[str, torch.Tensor]":
+    """``state_dict`` of :class:`hygrid_tpu_torch.models.HexUNet` from the
+    flax variables of ``hygrid_tpu.models.HexUNet`` (its stage-wise and
+    packed routes share one tree).
+
+    Accepts what :func:`hexcnn_state_dict_from_flax` accepts.  Stacked
+    stages ``enc{i}`` / ``dec{i}`` keep their leaves' names; bundles
+    ``enc{i}_conv{d}`` / ``dec{i}_conv{d}`` go through
+    :func:`hexconvmodule_state_dict_from_flax` with their ``batch_stats``;
+    a transposed conv ``up{i}`` keeps ``kernel`` ``(O, C, kn)`` (and
+    ``bias``) as they are; a pixel-shuffle ``up{i}``'s ``Dense_0`` becomes
+    ``up{i}.expand`` and the ``head`` Dense ``head``, each ``kernel`` ``(in,
+    out)`` as ``weight`` ``(out, in)``.
+    """
+    tree, stats = _split_variables(tree)
+    out: "OrderedDict[str, torch.Tensor]" = OrderedDict()
+    for name in sorted(tree):
         sub = tree[name]
-        if any(isinstance(v, Mapping) for v in sub.values()):
-            out.update(hexconvmodule_state_dict_from_flax(
-                {"params": sub, "batch_stats": stats.get(name, {})},
-                prefix=f"{name}."))
-            continue
-        for leaf, value in sorted(sub.items()):
-            out[f"{name}.{leaf}"] = _t(value)
-    head = tree["head"]
-    out["head.weight"] = torch.from_numpy(
-        np.array(head["kernel"], dtype=np.float32).T.copy())
-    out["head.bias"] = _t(head["bias"])
+        if name == "head":
+            _dense(out, "head", sub)
+        elif name.startswith("up"):
+            if "Dense_0" in sub:
+                _dense(out, f"{name}.expand", sub["Dense_0"])
+            else:
+                for leaf, value in sorted(sub.items()):
+                    out[f"{name}.{leaf}"] = _t(value)
+        else:
+            _conv_stage(out, name, sub, stats)
     return out

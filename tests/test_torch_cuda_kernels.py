@@ -16,7 +16,9 @@ backward's chain rescale summation-order differences).  The shift
 resampler: float32 within 1e-6 absolute (fma against multiply-add),
 bfloat16 within 1e-2 relative, the exact-select mosaic bit-equal.  The
 single-op conv: float32 within 1e-5 absolute, bfloat16 within 3e-2
-relative, and bit-equal to ``hex_conv_layer`` on the 'same' conv.
+relative, and bit-equal to ``hex_conv_layer`` on the 'same' conv.  The
+split layer: the layer's tolerances against its plain version, and
+bit-equal to ``hex_conv_layer`` on the concatenation.
 """
 import math
 
@@ -616,3 +618,105 @@ def test_hexconvmodule_pallas_launches_the_single_conv(cuda):
         got, want = mods[0](x), mods[1](x)
     assert conv_single.LAUNCHES == before + 1
     assert float((got - want).abs().max()) <= 1e-5
+
+
+# ---- the split layer (TPU kernel #10 with split=True) -----------------------
+
+SPLIT_CASES = [  # (B, H, W, Ca, Cb, Cout, norm kind, relu)
+    (2, 16, 15, 32, 32, 32, "gn", True),     # dec1's split, small
+    (2, 12, 11, 64, 64, 64, "gn", True),     # dec0's split, small
+    (2, 10, 13, 24, 8, 16, None, True),      # a chunk straddles Ca
+    (1, 9, 70, 5, 11, 40, "affine", False),  # odd counts, two channel tiles
+]
+
+
+def _split_case(case, cuda, dtype):
+    b, h, w, ca, cb, cout, kind, relu = case
+    gen = torch.Generator(device=cuda).manual_seed(SPLIT_CASES.index(case))
+    xa = torch.rand((b, h, w, ca), generator=gen, device=cuda).to(dtype)
+    xb = torch.rand((b, h, w, cb), generator=gen, device=cuda).to(dtype)
+    k = (torch.randn((cout, ca + cb, 7), generator=gen, device=cuda)
+         / math.sqrt((ca + cb) * 7)).to(dtype)
+    bias = norm = None
+    if kind is None:
+        bias = 0.1 * torch.randn((cout,), generator=gen, device=cuda)
+    elif kind == "gn":
+        norm = ("gn", 8, 1 + 0.1 * torch.rand((cout,), generator=gen,
+                                              device=cuda),
+                0.1 * torch.randn((cout,), generator=gen, device=cuda))
+    else:
+        norm = ("affine",
+                1 + 0.1 * torch.rand((cout,), generator=gen, device=cuda),
+                0.1 * torch.randn((cout,), generator=gen, device=cuda))
+    return xa, xb, k, bias, dict(radius=2, norm=norm, relu=relu)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", SPLIT_CASES)
+def test_split_layer_matches_plain_and_concat(cuda, case, dtype):
+    """One split launch against its plain version (the layer's tolerances)
+    and bit-equal to kernel B on the materialised concatenation, whether
+    or not Ca is a multiple of the 16-channel staging chunk."""
+    xa, xb, k, bias, kw = _split_case(case, cuda, dtype)
+    before = (conv_stack.SPLIT_LAUNCHES, conv_stack.LAUNCHES)
+    with torch.inference_mode():
+        got = conv_stack.hex_conv_layer_split(xa, xb, k, bias, **kw)
+        assert (conv_stack.SPLIT_LAUNCHES, conv_stack.LAUNCHES) == \
+            (before[0] + 1, before[1])
+        want = conv_stack.hex_conv_layer_split_plain(xa, xb, k, bias, **kw)
+        cat = conv_stack.hex_conv_layer(torch.cat([xa, xb], -1), k, bias,
+                                        **kw)
+    torch.cuda.synchronize()
+    assert got.shape == want.shape and got.dtype == dtype
+    assert torch.equal(got, cat)
+    if dtype == torch.bfloat16:
+        assert _rel(got, want) <= 3e-2
+    elif kw["norm"] is not None and kw["norm"][0] == "gn":
+        assert _rel(got, want) <= 1e-4
+    else:
+        assert float((got - want).abs().max()) <= 1e-5
+
+
+def test_split_layer_refuses_what_it_does_not_take(cuda):
+    a = torch.zeros((1, 8, 8, 4), device=cuda)
+    k = torch.zeros((8, 8, 7), device=cuda)
+    with torch.inference_mode():
+        with pytest.raises(ValueError, match="must share"):
+            conv_stack.hex_conv_layer_split(a, a.bfloat16(), k, radius=2)
+        with pytest.raises(ValueError, match="must share"):
+            conv_stack.hex_conv_layer_split(a, a[:, :4].contiguous(), k,
+                                            radius=2)
+        with pytest.raises(ValueError, match="kernel must be"):
+            conv_stack.hex_conv_layer_split(a, a, k[:, :6], radius=2)
+        with pytest.raises(ValueError, match="contiguous"):
+            conv_stack.hex_conv_layer_split(a, a.permute(0, 2, 1, 3), k,
+                                            radius=2)
+    with pytest.raises(NotImplementedError, match="12s"):
+        conv_stack.hex_conv_layer_split(a, a, k.requires_grad_(), radius=2)
+
+
+def test_hexunet_on_cuda_goes_through_the_kernels(cuda):
+    """A small HexUNet (GN, bf16): one plan_gather, one kernel-B layer per
+    encoder stage and one split layer per decoder stage, logits within
+    5e-2 of the plain float32 path; the pixel-shuffle decoder too."""
+    from hygrid_tpu_torch.models import HexUNet
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    rect = torch.rand((2, 3, 64, 64), generator=gen, device=cuda)
+    for upsample in ("transpose", "pixelshuffle"):
+        model = HexUNet(num_classes=4, widths=(16, 32, 64), norm="GN",
+                        upsample=upsample, dtype=torch.bfloat16,
+                        generator=gen)
+        ref = HexUNet(num_classes=4, widths=(16, 32, 64), norm="GN",
+                      upsample=upsample)
+        ref.load_state_dict(model.state_dict())
+        resample.LAUNCHES = conv_stack.LAUNCHES = 0
+        conv_stack.SPLIT_LAUNCHES = 0
+        with torch.inference_mode():
+            out = model(hexify_batch(rect.to(torch.bfloat16)))
+            counts = (resample.LAUNCHES, conv_stack.LAUNCHES,
+                      conv_stack.SPLIT_LAUNCHES)
+            want = ref(hexify_batch(rect, plain=True), plain=True)
+        assert counts == (1, 3, 2)
+        assert out.dtype == torch.bfloat16 and out.shape == (2, 4, 32, 32)
+        assert bool(torch.isfinite(out).all())
+        assert _rel(out, want) <= 5e-2

@@ -19,7 +19,9 @@ MODULES = ["hygrid_tpu_torch", "hygrid_tpu_torch.kernels.resample",
            "hygrid_tpu_torch.viz", "hygrid_tpu_torch.viz.render",
            "hygrid_tpu_torch.kernels.conv_single",
            "hygrid_tpu_torch.nn.layers", "hygrid_tpu_torch.nn.modules",
-           "hygrid_tpu_torch.models.hexcnn"]
+           "hygrid_tpu_torch.models.hexcnn", "hygrid_tpu_torch.ops.convert",
+           "hygrid_tpu_torch.nn.experimental",
+           "hygrid_tpu_torch.models.hexunet"]
 
 
 def _run(code, cwd=ROOT):
@@ -32,7 +34,8 @@ def test_import_pulls_in_no_jax_and_builds_nothing():
     code = ("import sys, importlib\n"
             f"for m in {MODULES!r}: importlib.import_module(m)\n"
             "from hygrid_tpu_torch.kernels import _build\n"
-            "bad = [m for m in ('jax', 'flax', 'triton') if m in sys.modules]\n"
+            "bad = [m for m in ('jax', 'flax', 'triton', 'hygrid_tpu') "
+            "if m in sys.modules]\n"
             "assert not bad, bad\n"
             "assert _build._lib is None\n")
     proc = _run(code)

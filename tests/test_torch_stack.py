@@ -164,9 +164,10 @@ def test_hexconvstack_parameters_and_generator():
         ["kernel_0", "gn_scale_0", "gn_bias_0"]
 
 
-@pytest.mark.parametrize("option", [dict(packed_io=True),
-                                    dict(extra_input=torch.zeros(1, 4, 4, 8))])
+@pytest.mark.parametrize("option", [dict(packed_io=True)])
 def test_unported_stack_options_raise(option):
+    """packed_io (the TPU's packed planes) stays unported; extra_input now
+    runs the split layer (tests/test_torch_hexunet.py)."""
     k = torch.zeros((8, 8, 7))
     with pytest.raises(NotImplementedError, match="not ported"):
         tcs.hex_conv_stack(torch.zeros((1, 4, 4, 8)), [k], radius=2,
