@@ -2,6 +2,7 @@
 """Drive the PyTorch/CUDA port (``hygrid_tpu_torch``) on one NVIDIA GPU.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --kernel-times   # phases 1-2, then kernel_times()
 
 Phases, each of which raises on failure (the script then exits non-zero):
 
@@ -54,10 +55,10 @@ Phases, each of which raises on failure (the script then exits non-zero):
     launch per render, both bit-equal to the plain gather;
 11. the TPU's banded and phased tiers on the port's kernels, float32 and
     bfloat16, with kernel, plain and bound times: hex_conv_layer at the
-    P-4K stack layer (1x1080x1920, 16->16, no norm, ReLU; TPU kernel #9)
-    and plan_gather at the P-4K rect->hex plan (#2, with shift_resample
-    beside it), a 3-phase 512^2 plan (#3) and the 4K->4K resample4k plan
-    (#4, bfloat16);
+    P-4K stack layer (1x1080x1920, 16->16, no norm, ReLU; TPU kernel #9,
+    cuDNN's time beside it) and plan_gather at the P-4K rect->hex plan
+    (#2, with shift_resample beside it), a 3-phase 512^2 plan (#3) and
+    the 4K->4K resample4k plan (#4, bfloat16);
 12. the fused stack (hex_conv_fused_stack, TPU kernel #11) at the P-512
     stack (16x256x256x16, 11 layers), float32 and bfloat16: against its
     plain version and bit-equal to chained hex_conv_layer launches, with
@@ -98,9 +99,31 @@ Phases, each of which raises on failure (the script then exits non-zero):
     256) finite and within 5e-2 of the plain float32 path, the
     pixel-shuffle decoder too; images/s by CUDA events, the median and
     spread of 3 windows of at least 1 s; peak memory; a torch.profiler
-    split of one request by kernel group.
+    split of one request by kernel group;
+18. the split layer's backward (TPU kernel #12 on the split layer, 12s:
+    the dgrad pass on Ka and on Kb, the dW kernel on (A, g) and on (B, g))
+    at dec0, dec1 and two splits of uneven widths (24+8->32, 40+24->64),
+    b=8, float32 and bfloat16: split dgrad bit-equal to kernel B's dgrad
+    cut at Ca, split wgrad bit-equal to the dW kernel run on each input
+    and to a second launch, both against their plain versions; beside
+    each time the plain time, cuDNN's backward and the bound;
+19. HexUNet-small training (the serving model of phase 17, AdamW) on
+    distinct b=8 512^2 float32 batches with per-cell labels drawn as
+    benchmarks/suite.py draws them: per step 1 plan_gather, 3
+    hex_conv_layer, 2 split layers, 2 dgrad, 4 split dgrad, 3 wgrad and
+    4 split wgrad launches, no other kernel; finite losses; images/s by
+    CUDA events, the median and spread of 3 windows of at least 1 s;
+    peak memory; a torch.profiler split of one step by kernel group; one
+    step of the timed state, its loss, every grad and mean IoU against
+    the plain float32 path, the float32 kernel path beside it, and the
+    grads against the bfloat16 plain path; then 60 fit steps on
+    synthetic_hex_shapes(size=64) batches, whose loss must fall.
 
-The last lines are the kernel summary (with each kernel's bound: the bytes
+Beside kernel B, the backward kernels, the split layer and the single-op
+conv the kernels line carries cuDNN's time (``hex_conv2d(impl="direct")``
+in the activations' dtype, TF32 off; its autograd for the backward) as
+``library_ms``, the median of 5 timings of 10 calls each (their range is
+logged).  The last lines are the kernel summary (with each kernel's bound: the bytes
 it must move at 3.35 TB/s or its operations at the card's peak for their
 type, whichever takes longer), the card's name and power limit, and
 ``{"ok": true, "device": {...}}``.
@@ -213,6 +236,31 @@ def nbytes(*tensors):
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
+def cudnn_ms(torch, x, k, grad=None, repeats=5, iters=10):
+    """The library yardstick of a 'same' hex conv layer (radius 2): cuDNN
+    through ``hex_conv2d(impl="direct")`` in the activations' dtype (TF32
+    off), on NHWC ``x`` ``(B, H, W, Cin)`` and ``k`` ``(Cout, Cin, kn)``.
+    The forward's ms, or with ``grad`` "x" or "k" the ms of its backward to
+    that input alone (``torch.autograd.grad`` on a kept graph: the
+    forward is not timed).  Returns ``(median, (min, max))`` over
+    ``repeats`` timings of ``iters`` calls each."""
+    from hygrid_tpu_torch.nn.functional import hex_conv2d
+    xn = x.permute(0, 3, 1, 2).contiguous()
+    kw = dict(radius=2, padding=1, impl="direct")
+    if grad is None:
+        fn = functools.partial(hex_conv2d, xn, k, **kw)
+    else:
+        with torch.enable_grad():
+            leaf = (xn if grad == "x" else k).detach().requires_grad_()
+            y = (hex_conv2d(leaf, k, **kw) if grad == "x"
+                 else hex_conv2d(xn, leaf, **kw))
+        g = torch.randn_like(y)
+        fn = functools.partial(torch.autograd.grad, y, leaf, g,
+                               retain_graph=True)
+    times = sorted(cuda_ms(torch, fn, iters=iters) for _ in range(repeats))
+    return times[len(times) // 2], (times[0], times[-1])
+
+
 def check_kernel_a(torch, gen):
     from hygrid_tpu_torch.kernels import resample
     from hygrid_tpu_torch.ops import geometry, sampling
@@ -257,7 +305,7 @@ def check_kernel_b(torch, gen):
     from hygrid_tpu_torch.kernels import conv_stack
     from hygrid_tpu_torch.nn.functional import hex_kernel_num
     kn = hex_kernel_num(2)
-    errs, ms_sum, plain_sum, bounds = [], 0.0, 0.0, []
+    errs, ms_sum, plain_sum, lib_sum, bounds = [], 0.0, 0.0, 0.0, []
     for li, (cin, cout, h, w) in enumerate(LAYERS):
         groups = math.gcd(8, cout)
         k = torch.randn((cout, cin, kn), generator=gen, device="cuda") \
@@ -288,20 +336,24 @@ def check_kernel_b(torch, gen):
                                 f"err {rel} > {tol}")
             ms = cuda_ms(torch, kernel, iters=5)
             pms = cuda_ms(torch, plain, iters=5)
+            lms, lms_rng = cudnn_ms(torch, x, kd)
             b_ms, b_by = bound(nbytes(x, kd, gamma, beta, got),
                                2 * kn * BATCH * h * w * cin * cout,
                                "bf16" if dtype == torch.bfloat16 else "f32")
             line += (f" {str(dtype)[6:]} max_abs_err={err!r} rel={rel!r} "
                      f"kernel_ms={ms!r} plain_ms={pms!r} "
+                     f"cudnn_conv_ms={lms!r} (range {lms_rng}) "
                      f"bound_ms={b_ms!r} ({b_by});")
             if dtype == torch.bfloat16:
                 errs.append(err)
                 ms_sum += ms
                 plain_sum += pms
+                lib_sum += lms
                 bounds.append((b_ms, b_by))
         log(line)
+    # library: cuDNN's conv alone (the kernel adds bias, GN and ReLU)
     return dict(max_abs_err=max(errs), ms=ms_sum, plain_ms=plain_sum,
-                **summed_bound(bounds), library_ms=None)
+                **summed_bound(bounds), library_ms=lib_sum)
 
 
 def run_slice(torch):
@@ -371,7 +423,7 @@ def check_backward(torch, gen):
     from hygrid_tpu_torch.kernels import conv_stack as cs
     from hygrid_tpu_torch.nn.functional import hex_kernel_num
     kn = hex_kernel_num(2)
-    sums = {name: dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0)
+    sums = {name: dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0, library_ms=0.0)
             for name in ("dgrad", "wgrad")}
     bounds = {"dgrad": [], "wgrad": []}
     for li, (cin, cout, h, w) in enumerate(LAYERS):
@@ -405,6 +457,8 @@ def check_backward(torch, gen):
                                     f"{rel} > {tol}")
                 ms = cuda_ms(torch, kernel, iters=5)
                 pms = cuda_ms(torch, plain, iters=5)
+                lms, lms_rng = cudnn_ms(torch, x, kd,
+                               grad="x" if name == "dgrad" else "k")
                 b_ms, b_by = bound(
                     nbytes(g, kd, got) if name == "dgrad"
                     else nbytes(x, g, got),
@@ -412,16 +466,18 @@ def check_backward(torch, gen):
                     "bf16" if dtype == torch.bfloat16 else "f32")
                 line += (f" {name} {str(dtype)[6:]} max_abs_err={err!r} "
                          f"rel={rel!r} kernel_ms={ms!r} plain_ms={pms!r} "
+                         f"cudnn_bwd_ms={lms!r} (range {lms_rng}) "
                          f"bound_ms={b_ms!r} ({b_by});")
                 if dtype == torch.bfloat16 and (name == "wgrad" or li > 0):
                     acc = sums[name]
                     acc["max_abs_err"] = max(acc["max_abs_err"], err)
                     acc["ms"] += ms
                     acc["plain_ms"] += pms
+                    acc["library_ms"] += lms
                     bounds[name].append((b_ms, b_by))
         log(line)
     for name in sums:
-        sums[name].update(summed_bound(bounds[name]), library_ms=None)
+        sums[name].update(summed_bound(bounds[name]))
     return sums
 
 
@@ -852,11 +908,13 @@ def check_tiers(torch, gen):
         require(rel <= tol, f"tier #9 {dtype}: relative err {rel} > {tol}")
         ms = cuda_ms(torch, kernel, iters=5)
         pms = cuda_ms(torch, plain, iters=5)
+        lms, lms_rng = cudnn_ms(torch, x, k)
         b_ms, b_by = bound(nbytes(x, k, got), 2 * 7 * x.numel() * 16,
                            "bf16" if dtype == torch.bfloat16 else "f32")
         line += (f" {str(dtype)[6:]} max_abs_err={err!r} rel={rel!r} "
-                 f"kernel_ms={ms!r} plain_ms={pms!r} bound_ms={b_ms!r} "
-                 f"({b_by});")
+                 f"kernel_ms={ms!r} plain_ms={pms!r} cudnn_conv_ms={lms!r} "
+                 f"(range {lms_rng}) "
+                 f"bound_ms={b_ms!r} ({b_by});")
     log(line)
 
     t0 = time.perf_counter()
@@ -1188,7 +1246,8 @@ def check_single(torch, gen):
         case("odd parity", 8, 32, 64, 64, 63, dtype, offset=1)
         case("dilation 2", 8, 32, 64, 64, 63, dtype, dilation=2)
         case("radius 3", 8, 32, 64, 64, 63, dtype, radius=3, offset=1)
-    summary.update(summed_bound(bounds), library_ms=None)
+    summary.update(summed_bound(bounds),
+                   library_ms=summary["cudnn_direct_ms"])
     return summary
 
 
@@ -1253,6 +1312,9 @@ def _launch_counters():
             "hex_conv_layer_split": (conv_stack, "SPLIT_LAUNCHES"),
             "hex_conv_layer_dgrad": (conv_stack, "DGRAD_LAUNCHES"),
             "hex_conv_wgrad": (conv_stack, "WGRAD_LAUNCHES"),
+            "hex_conv_layer_split_dgrad": (conv_stack,
+                                           "SPLIT_DGRAD_LAUNCHES"),
+            "hex_conv_wgrad_split": (conv_stack, "SPLIT_WGRAD_LAUNCHES"),
             "hex_conv_fused_stack": (conv_stack, "FUSED_LAUNCHES"),
             "hex_conv_single": (conv_single, "LAUNCHES")}
 
@@ -1353,6 +1415,7 @@ def run_permodule(torch):
 # hex; the decoder's skip-join layers (name, B, H, W, Ca, Cb, Cout, GN);
 # the last case's 16-channel staging chunk straddles the two inputs
 UNET_BATCH = 8
+UNET_SIZE = 512    # phase 19's rect input
 SPLIT_LAYERS = [("dec0", UNET_BATCH, 128, 127, 64, 64, 64, True),
                 ("dec1", UNET_BATCH, 256, 256, 32, 32, 32, True),
                 ("straddle", UNET_BATCH, 128, 127, 24, 8, 32, False)]
@@ -1366,7 +1429,7 @@ def check_split(torch, gen):
     from hygrid_tpu_torch.nn.functional import hex_kernel_num
     kn = hex_kernel_num(2)
     summary = dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0,
-                   concat_kernel_b_ms=0.0)
+                   concat_kernel_b_ms=0.0, library_ms=0.0)
     bounds = []
     for name, b, h, w, ca, cb, cout, gn in SPLIT_LAYERS:
         k = torch.randn((cout, ca + cb, kn), generator=gen, device="cuda") \
@@ -1411,6 +1474,7 @@ def check_split(torch, gen):
             ms = cuda_ms(torch, kernel, iters=5)
             cms = cuda_ms(torch, concat, iters=5)
             pms = cuda_ms(torch, plain, iters=5)
+            lms, lms_rng = cudnn_ms(torch, torch.cat([xa, xb], -1), kd)
             params = [kd] + [t for t in (bias, *(norm or ())[2:])
                              if t is not None]
             b_ms, b_by = bound(nbytes(xa, xb, got, *params),
@@ -1419,15 +1483,18 @@ def check_split(torch, gen):
             line += (f" {str(dtype)[6:]} max_abs_err={err!r} rel={rel!r} "
                      f"bit-equal to concat+kernel B={equal} "
                      f"kernel_ms={ms!r} concat_kernel_b_ms={cms!r} "
-                     f"plain_ms={pms!r} bound_ms={b_ms!r} ({b_by});")
+                     f"plain_ms={pms!r} cudnn_conv_ms={lms!r} "
+                     f"(range {lms_rng}) "
+                     f"bound_ms={b_ms!r} ({b_by});")
             if dtype == torch.bfloat16 and name.startswith("dec"):
                 summary["max_abs_err"] = max(summary["max_abs_err"], err)
                 summary["ms"] += ms
                 summary["plain_ms"] += pms
                 summary["concat_kernel_b_ms"] += cms
+                summary["library_ms"] += lms
                 bounds.append((b_ms, b_by))
         log(line)
-    summary.update(summed_bound(bounds), library_ms=None)
+    summary.update(summed_bound(bounds))
     return summary
 
 
@@ -1530,6 +1597,349 @@ def run_hexunet(torch):
     return launches
 
 
+# phase 18's split layers (name, B, H, W, Ca, Cb, Cout): HexUNet-small's
+# dec0 and dec1, and two splits of uneven widths (Cb below the 16-channel
+# staging chunk; Ca not a multiple of the 32-channel output tile)
+SPLIT_BWD_LAYERS = [("dec0", UNET_BATCH, 128, 127, 64, 64, 64),
+                    ("dec1", UNET_BATCH, 256, 256, 32, 32, 32),
+                    ("uneven", UNET_BATCH, 128, 127, 24, 8, 32),
+                    ("uneven-out", UNET_BATCH, 128, 127, 40, 24, 64)]
+
+
+def check_split_backward(torch, gen):
+    """Phase 18: the split layer's backward against its plain versions:
+    split dgrad (the dgrad pass on Ka and on Kb) bit-equal to kernel B's
+    dgrad cut at Ca, split wgrad (the dW kernel on (A, g) and on (B, g))
+    bit-equal to hex_conv_layer_wgrad on each input and to a second
+    launch.  Beside each: the plain time and cuDNN's backward.  Returns the
+    bf16 summaries over dec0 and dec1 (the training path's layers) for the
+    kernels line."""
+    from hygrid_tpu_torch.kernels import conv_stack as cs
+    from hygrid_tpu_torch.nn.functional import hex_kernel_num
+    kn = hex_kernel_num(2)
+    sums = {name: dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0, library_ms=0.0)
+            for name in ("dgrad", "wgrad")}
+    bounds = {"dgrad": [], "wgrad": []}
+    for name, b, h, w, ca, cb, cout in SPLIT_BWD_LAYERS:
+        k = torch.randn((cout, ca + cb, kn), generator=gen, device="cuda") \
+            / math.sqrt((ca + cb) * kn)
+        a32 = torch.rand((b, h, w, ca), generator=gen, device="cuda")
+        b32 = torch.rand((b, h, w, cb), generator=gen, device="cuda")
+        g32 = torch.randn((b, h, w, cout), generator=gen, device="cuda")
+        line = f"split backward {name} {ca}+{cb}->{cout} {h}x{w} b={b}:"
+        for dtype in (torch.float32, torch.bfloat16):
+            xa, xb, g, kd = (t.to(dtype) for t in (a32, b32, g32, k))
+            xcat = torch.cat([xa, xb], -1)
+            tol = TOL["b_f32_rel" if dtype == torch.float32 else "b_bf16_rel"]
+            peak = "bf16" if dtype == torch.bfloat16 else "f32"
+            flops = 2 * kn * b * h * w * (ca + cb) * cout
+            cases = {
+                "dgrad": dict(
+                    kernel=lambda: cs.hex_conv_layer_split_dgrad(
+                        g, kd, ca, radius=2),
+                    plain=lambda: cs.hex_conv_layer_split_dgrad_plain(
+                        g, kd, ca, radius=2),
+                    library=lambda: cudnn_ms(torch, xcat, kd, grad="x")),
+                "wgrad": dict(
+                    kernel=lambda: cs.hex_conv_layer_split_wgrad(
+                        xa, xb, g, radius=2),
+                    plain=lambda: cs.hex_conv_layer_split_wgrad_plain(
+                        xa, xb, g, radius=2),
+                    library=lambda: cudnn_ms(torch, xcat, kd, grad="k")),
+            }
+            for kind, fns in cases.items():
+                got = fns["kernel"]()
+                if kind == "dgrad":
+                    dx = cs.hex_conv_layer_dgrad(g, kd, radius=2)
+                    want = torch.cat(fns["plain"](), -1)
+                    equal = (torch.equal(got[0], dx[..., :ca])
+                             and torch.equal(got[1], dx[..., ca:]))
+                    out = torch.cat(got, -1)
+                    require(got[0].shape == xa.shape and got[1].shape ==
+                            xb.shape and out.dtype == dtype,
+                            f"split dgrad {name}: {tuple(out.shape)}")
+                    b_ms, b_by = bound(nbytes(g, kd, *got), flops, peak)
+                else:
+                    halves = torch.cat(
+                        [cs.hex_conv_layer_wgrad(xa, g, radius=2),
+                         cs.hex_conv_layer_wgrad(xb, g, radius=2)], 1)
+                    again = fns["kernel"]()
+                    want = fns["plain"]()
+                    equal = torch.equal(got, halves)
+                    require(torch.equal(got, again),
+                            f"split wgrad {name} {dtype}: two launches differ")
+                    require(got.shape == k.shape, f"split wgrad {name}: "
+                                                  f"{tuple(got.shape)}")
+                    out = got
+                    b_ms, b_by = bound(nbytes(xa, xb, g, got), flops, peak)
+                torch.cuda.synchronize()
+                require(equal, f"split {kind} {name} {dtype}: not bit-equal "
+                               "to the unsplit kernel on each part")
+                err, rel = max_err(out, want)
+                require(rel <= tol, f"split {kind} {name} {dtype}: relative "
+                                    f"err {rel} > {tol}")
+                ms = cuda_ms(torch, fns["kernel"], iters=5)
+                pms = cuda_ms(torch, fns["plain"], iters=5)
+                lms, lms_rng = fns["library"]()
+                line += (f" {kind} {str(dtype)[6:]} max_abs_err={err!r} "
+                         f"rel={rel!r} bit-equal to unsplit parts={equal} "
+                         f"kernel_ms={ms!r} plain_ms={pms!r} "
+                         f"cudnn_bwd_ms={lms!r} (range {lms_rng}) "
+                         f"bound_ms={b_ms!r} ({b_by});")
+                if dtype == torch.bfloat16 and name.startswith("dec"):
+                    acc = sums[kind]
+                    acc["max_abs_err"] = max(acc["max_abs_err"], err)
+                    acc["ms"] += ms
+                    acc["plain_ms"] += pms
+                    acc["library_ms"] += lms
+                    bounds[kind].append((b_ms, b_by))
+        log(line)
+    for kind in sums:
+        sums[kind].update(summed_bound(bounds[kind]))
+    return sums
+
+
+UNET_TRAIN_GROUPS = [
+    ("split layers' conv", lambda k: "hex_conv_kernel" in k and "true>" in k),
+    ("kernel B conv", lambda k: "hex_conv_kernel" in k
+     and "float, false>" in k),
+    ("dgrad", lambda k: "hex_conv_kernel" in k),
+    ("wgrad", lambda k: "wgrad_" in k),
+    ("GN passes", lambda k: "gn_" in k),
+    ("plan_gather", lambda k: "plan_gather" in k),
+    ("cuDNN (transposed convs)", lambda k: any(
+        s in k.lower() for s in ("xmma", "cudnn", "conv", "gemm", "cutlass"))),
+    ("AdamW", lambda k: "adam" in k.lower() or "multi_tensor" in k),
+    ("reductions", lambda k: "reduce_kernel" in k),
+    ("gathers and scatters", lambda k: any(
+        s in k for s in ("index", "gather", "scatter"))),
+]
+FIT_STEPS, FIT_BATCH = 60, 8
+
+
+def _unet_step_vs_plain(torch, model, step, kw, batch, labels):
+    """One training step of the timed state (``step``, the bf16 kernel
+    path), and one forward and backward of copies of ``model``'s weights
+    before it on the float32 plain path (the reference), the float32
+    kernel path and the bf16 plain path.  Returns ``(loss rel err, {path:
+    {leaf: grad rel err}} against the float32 plain path, the bf16 kernel
+    path's largest leaf rel err against the bf16 plain path, a summary
+    line)``; mean IoU is read from each path's logits (the kernel path's
+    from a forward of the same weights without grad)."""
+    from hygrid_tpu_torch.models import (HexUNet, dense_onehot_xent,
+                                         hexify_batch, mean_iou)
+    snapshot = {k: v.clone() for k, v in model.state_dict().items()}
+    with torch.no_grad():
+        iou = float(mean_iou(model(hexify_batch(batch)), labels, 4))
+    loss = float(step((batch, labels))["loss"])
+    runs = {"bf16 kernel": (loss, {n: p.grad for n, p in
+                                   model.named_parameters()}, iou)}
+    for label, dtype, plain in (("f32 plain", torch.float32, True),
+                                ("f32 kernel", torch.float32, False),
+                                ("bf16 plain", torch.bfloat16, True)):
+        m = HexUNet(dtype=dtype, **kw)
+        m.load_state_dict(snapshot)
+        logits = m(hexify_batch(batch, plain=plain), plain=plain)
+        ref = dense_onehot_xent(torch.movedim(logits, 1, -1), labels)
+        ref.backward()
+        runs[label] = (float(ref.detach()),
+                       {n: p.grad for n, p in m.named_parameters()},
+                       float(mean_iou(logits.detach(), labels, 4)))
+        del m, logits, ref
+    ref_loss, ref_grads, ref_iou = runs.pop("f32 plain")
+    loss_rel = abs(loss - ref_loss) / abs(ref_loss)
+    rels = {label: {n: max_err(g[n], want)[1] if g[n] is not None else None
+                    for n, want in ref_grads.items()}
+            for label, (_, g, _) in runs.items()}
+    kernel_vs_plain = max(max_err(runs["bf16 kernel"][1][n], g)[1]
+                          for n, g in runs["bf16 plain"][1].items())
+    summary = (f"loss {loss!r} vs {ref_loss!r} (rel {loss_rel!r}); mean_iou "
+               + ", ".join(f"{label} {r[2]!r}" for label, r in runs.items())
+               + f", f32 plain {ref_iou!r}; bf16 kernel path vs bf16 plain "
+               f"path, largest leaf rel err {kernel_vs_plain!r}")
+    return loss_rel, rels, kernel_vs_plain, summary
+
+
+def run_hexunet_training(torch):
+    """Phase 19: HexUNet-small training.  Returns the launches of the
+    counted steps."""
+    from hygrid_tpu_torch.models import (HexUNet, create_train_state, fit,
+                                         hexify_batch, synthetic_hex_shapes,
+                                         train_step)
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    kw = dict(num_classes=4, widths=(32, 64, 128), norm="GN")
+    model = HexUNet(dtype=torch.bfloat16, generator=gen, **kw)
+    state = create_train_state(model)
+    in_gen = torch.Generator(device="cuda").manual_seed(13)
+    rng = np.random.default_rng(0)     # labels as suite.py draws them
+    size = UNET_SIZE
+    data = [(torch.rand((UNET_BATCH, 3, size, size), generator=in_gen,
+                        device="cuda"),
+             torch.as_tensor(rng.integers(0, 4, (UNET_BATCH, size // 2,
+                                                 size // 2)), device="cuda"))
+            for _ in range(N_STEPS + 2)]
+
+    def step(batch):
+        return train_step(state, hexify_batch(batch[0]), batch[1])[1]
+
+    counters = _launch_counters()
+    per_step = {"plan_gather": 1, "hex_conv_layer": 3,
+                "hex_conv_layer_split": 2, "hex_conv_layer_dgrad": 2,
+                "hex_conv_layer_split_dgrad": 4, "hex_conv_wgrad": 3,
+                "hex_conv_wgrad_split": 4}
+    step(data[0])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for mod, attr in counters.values():
+        setattr(mod, attr, 0)
+    t0 = time.perf_counter()
+    metrics = [step(b) for b in data[1:N_STEPS + 1]]
+    torch.cuda.synchronize()
+    first_ms = (time.perf_counter() - t0) * 1e3 / N_STEPS
+    got = {name: getattr(mod, attr) for name, (mod, attr) in counters.items()}
+    want = {name: per_step.get(name, 0) * N_STEPS for name in counters}
+    require(got == want, f"HexUNet training: launches {got}, want {want}")
+    launches = {k: v for k, v in got.items() if v}
+    peak = torch.cuda.max_memory_allocated()
+    losses = [float(m["loss"]) for m in metrics]
+    require(all(math.isfinite(v) for v in losses),
+            f"HexUNet training: non-finite losses {losses}")
+
+    # one more step of the timed state (after the warm-up and the counted
+    # steps, as in phase 7), against the plain path in float32.  On random
+    # per-cell labels the model soon sits at the class prior, its grads
+    # become sums that cancel, and bf16 rounding alone (the plain bf16
+    # path's too) moves them by tens of percent against float32 (PERF.md,
+    # §6); the bf16 plain path, which rounds as the kernel path does, holds
+    # the kernel path at any step
+    batch, labels = data[-1]
+    check_steps = state.step
+    check = _unet_step_vs_plain(torch, model, step, kw, batch, labels)
+
+    n, times = _timed_windows(torch, {"train": (lambda: None, step)},
+                              data[1:N_STEPS + 1], first_ms)
+    times = sorted(times["train"])
+    med = times[len(times) // 2]
+    split = _profile_split(torch, lambda: step(data[1]), med,
+                           UNET_TRAIN_GROUPS)
+
+    # fit: 60 steps on synthetic_hex_shapes batches, a fresh model
+    images, masks = synthetic_hex_shapes(np.random.default_rng(14),
+                                         FIT_STEPS * FIT_BATCH, size=64)
+    fit_data = [(images[i:i + FIT_BATCH], masks[i:i + FIT_BATCH])
+                for i in range(0, FIT_STEPS * FIT_BATCH, FIT_BATCH)]
+    fit_model = HexUNet(dtype=torch.bfloat16, generator=gen, **kw)
+    t0 = time.perf_counter()
+    _, history = fit(fit_model, fit_data, log_every=1)
+    fit_s = time.perf_counter() - t0
+    fit_losses = history["loss"]
+    first10 = float(np.mean(fit_losses[:10]))
+    last10 = float(np.mean(fit_losses[-10:]))
+
+    log(f"HexUNet-small GN bf16 AdamW training b={UNET_BATCH} {size}^2 "
+        f"(transpose decoder): {med!r} ms a step, median of "
+        f"{PERMODULE_WINDOWS} windows of {n} steps cycling over {N_STEPS} "
+        f"distinct batches (CUDA events; windows "
+        f"{[round(t * n) for t in times]} ms), "
+        f"images/s={UNET_BATCH / (med / 1e3)!r} (windows "
+        f"{UNET_BATCH / (times[-1] / 1e3)!r}-"
+        f"{UNET_BATCH / (times[0] / 1e3)!r}); peak_mem_bytes={peak}; "
+        f"launches={launches} in {N_STEPS} steps; losses={losses}")
+    log(f"HexUNet-small training torch.profiler, one step: {split}")
+    loss_rel, rels, kernel_vs_plain, summary = check
+    log(f"HexUNet training step after {check_steps} steps vs plain f32 on "
+        f"the card: {summary}")
+    for label, leaf in rels.items():
+        log(f"HexUNet training grads after {check_steps} steps, {label} path "
+            f"vs plain f32 (rel max-abs): "
+            + ", ".join(f"{k}={r!r}" for k, r in leaf.items()))
+    log(f"HexUNet fit: {FIT_STEPS} steps of b={FIT_BATCH} "
+        f"synthetic_hex_shapes(size=64) in {fit_s!r} s (host clock); mean "
+        f"loss of the first 10 steps {first10!r}, of the last 10 "
+        f"{last10!r}; losses={fit_losses}")
+    require(loss_rel <= TOL["loss_rel"],
+            f"HexUNet training loss vs plain f32: rel {loss_rel}")
+    for label in ("bf16 kernel", "f32 kernel"):
+        tol = TOL["grad_f32_rel" if label == "f32 kernel" else
+                  "grad_bf16_rel"]
+        for k, r in rels[label].items():
+            require(r is not None and r <= tol,
+                    f"HexUNet {label} path grad {k}: relative err {r} > {tol}")
+    require(kernel_vs_plain <= TOL["b_bf16_rel"],
+            f"HexUNet bf16 kernel path grads vs bf16 plain path: largest "
+            f"leaf relative err {kernel_vs_plain} > {TOL['b_bf16_rel']}")
+    require(len(fit_losses) == FIT_STEPS
+            and all(math.isfinite(v) for v in fit_losses),
+            f"HexUNet fit: losses {fit_losses}")
+    require(last10 < first10, f"HexUNet fit: the loss did not fall "
+                              f"({first10} -> {last10})")
+    return launches
+
+
+def kernel_times(torch):
+    """``python3 chip_smoke.py --kernel-times``: the bf16 times of the
+    kernels every earlier tree of the port shares (kernel B's six
+    HexCNN-small GN layers at b=32, the fused P-512 stack and the same
+    layers chained, the split layer at dec0 + dec1, dx of layers 1-5 and
+    dW of all six), through the public wrappers only, so that a copy of
+    this script in an older checkout times that checkout's kernels.  Each
+    sum is taken ``KERNEL_TIME_REPEATS`` times; one JSON line."""
+    from hygrid_tpu_torch.kernels import conv_stack as cs
+    from hygrid_tpu_torch.nn.functional import hex_kernel_num
+    gen = torch.Generator(device="cuda").manual_seed(21)
+    bf = torch.bfloat16
+    kn = hex_kernel_num(2)
+
+    def rand(*shape, scale=None):
+        t = torch.randn(shape, generator=gen, device="cuda")
+        return (t if scale is None else t * scale).to(bf)
+
+    def gn(cout):
+        return ("gn", math.gcd(8, cout), torch.ones(cout, device="cuda"),
+                torch.zeros(cout, device="cuda"))
+
+    calls = {"kernel_b": [], "dgrad": [], "wgrad": [], "split": [],
+             "fused": [], "chained": []}
+    for li, (cin, cout, h, w) in enumerate(LAYERS):
+        x, g = rand(BATCH, h, w, cin), rand(BATCH, h, w, cout)
+        k = rand(cout, cin, kn, scale=1 / math.sqrt(cin * kn))
+        calls["kernel_b"].append(functools.partial(
+            cs.hex_conv_layer, x, k, radius=2, norm=gn(cout), relu=True))
+        calls["wgrad"].append(functools.partial(
+            cs.hex_conv_layer_wgrad, x, g, radius=2))
+        if li:
+            calls["dgrad"].append(functools.partial(
+                cs.hex_conv_layer_dgrad, g, k, radius=2))
+    for _, b, h, w, ca, cb, cout, _ in SPLIT_LAYERS[:2]:
+        k = rand(cout, ca + cb, kn, scale=1 / math.sqrt((ca + cb) * kn))
+        calls["split"].append(functools.partial(
+            cs.hex_conv_layer_split, rand(b, h, w, ca), rand(b, h, w, cb),
+            k, radius=2, norm=gn(cout), relu=True))
+    _, ks = build_pipeline((512, 512), PIPE_CHANNELS, PIPE_LAYERS,
+                           PIPE_RADIUS, bf)
+    relus = [True] * (len(ks) - 1) + [False]
+    xs = rand(16, 256, 256, PIPE_CHANNELS)
+    calls["fused"].append(functools.partial(
+        cs.hex_conv_fused_stack, xs, ks, radius=PIPE_RADIUS, relus=relus))
+
+    def chained():
+        v = xs
+        for k, relu in zip(ks, relus):
+            v = cs.hex_conv_layer(v, k, radius=PIPE_RADIUS, relu=relu)
+        return v
+
+    calls["chained"].append(chained)
+    with torch.inference_mode():
+        times = {name: [sum(cuda_ms(torch, fn) for fn in fns)
+                        for _ in range(KERNEL_TIME_REPEATS)]
+                 for name, fns in calls.items()}
+    print(json.dumps({"kernel_times_ms": times, "root": str(ROOT)}))
+    return 0
+
+
+KERNEL_TIME_REPEATS = 3
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -1568,6 +1978,8 @@ def main():
                 "13__nv_bfloat16", "bf16")
         elif "spill" in line or "registers" in line:
             log(f"  ptxas {kernel}: {line.split(':', 1)[-1].strip()}")
+    if sys.argv[1:] == ["--kernel-times"]:
+        return kernel_times(torch)
 
     gen = torch.Generator(device="cuda").manual_seed(1234)
     with torch.inference_mode():
@@ -1598,6 +2010,10 @@ def main():
         split = check_split(torch, gen)
     paths["hexunet"] = run_hexunet(torch)
     log(f"phases 16-17: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    split_bwd = check_split_backward(torch, gen)
+    paths["hexunet_train"] = run_hexunet_training(torch)
+    log(f"phases 18-19: {time.perf_counter() - t0:.1f} s")
 
     def count(name):
         by_path = {p: n[name] for p, n in paths.items() if n.get(name)}
@@ -1643,6 +2059,18 @@ def main():
              replaces="hygrid_tpu/kernels/conv_pallas.py:807",
              replaces_mode="split=True, conv_pallas.py:838-871",
              **count("hex_conv_layer_split"), **split),
+        dict(name="hex_conv_layer_split_dgrad", route="cuda",
+             source="hygrid_tpu_torch/csrc/hex_conv_layer.cu",
+             replaces="hygrid_tpu/kernels/conv_pallas.py:1402",
+             replaces_mode="dx on the split layer, _stack_bwd_pallas "
+                           "conv_pallas.py:2050-2064",
+             **count("hex_conv_layer_split_dgrad"), **split_bwd["dgrad"]),
+        dict(name="hex_conv_wgrad_split", route="cuda",
+             source="hygrid_tpu_torch/csrc/hex_conv_wgrad.cu",
+             replaces="hygrid_tpu/kernels/conv_pallas.py:1402",
+             replaces_mode="dW on the split layer, _stack_bwd_pallas "
+                           "conv_pallas.py:2050-2064",
+             **count("hex_conv_wgrad_split"), **split_bwd["wgrad"]),
     ]
     for k in kernels:
         require(k["launches"] > 0, f"{k['name']}: no launch on the main path")

@@ -38,14 +38,22 @@ ported: ``packed_io`` raises ``NotImplementedError``.  The split first
 layer of a skip-join stage (``extra_input``, ``_stack_layer_kernel`` with
 ``split=True``) is :func:`hex_conv_layer_split`, the split mode of the
 same CUDA source: ``conv(concat(A, B), K)`` with the concatenation never
-built, forward only (under grad it raises ``NotImplementedError``).
+built.  It is the same ``torch.autograd.Function`` with a second input;
+its backward runs :func:`hex_conv_layer_split_dgrad` (dA and dB from the
+dgrad pass on ``Ka`` and on ``Kb``) and :func:`hex_conv_layer_split_wgrad`
+(the dW kernel on ``(A, gpre)`` and on ``(B, gpre)``, concatenated along
+Cin): the reference's own plan for ``_stack_layer_bwd_kernel`` on the
+split layer (``conv_pallas.py:2050-2064``), on the unsplit layer's
+kernels.
 
 The plain version of a layer is :func:`hex_conv_layer_plain`
 (``hex_conv2d(impl="direct")`` + :func:`_group_norm_nchw`, computed in
 float32); chained, it is the twin of ``conv_pallas._stack_xla``, and
 :func:`hex_conv_fused_stack_plain`.  The plain versions of the backward
 kernels are :func:`hex_conv_layer_dgrad_plain` and
-:func:`hex_conv_layer_wgrad_plain` (autograd of the plain conv).  Every
+:func:`hex_conv_layer_wgrad_plain` (autograd of the plain conv), and
+their split twins :func:`hex_conv_layer_split_dgrad_plain` and
+:func:`hex_conv_layer_split_wgrad_plain`.  Every
 wrapper runs its plain version for a CPU tensor, launches its kernel for a
 CUDA tensor and raises for anything else.
 """
@@ -65,7 +73,9 @@ __all__ = ["hex_conv_layer", "hex_conv_layer_plain", "hex_conv_layer_dgrad",
            "hex_conv_layer_dgrad_plain", "hex_conv_layer_wgrad",
            "hex_conv_layer_wgrad_plain", "hex_conv_fused_stack",
            "hex_conv_fused_stack_plain", "hex_conv_layer_split",
-           "hex_conv_layer_split_plain", "hex_conv_stack"]
+           "hex_conv_layer_split_plain", "hex_conv_layer_split_dgrad",
+           "hex_conv_layer_split_dgrad_plain", "hex_conv_layer_split_wgrad",
+           "hex_conv_layer_split_wgrad_plain", "hex_conv_stack"]
 
 LAUNCHES = 0
 """Number of layers run by the kernel (one GN layer is four CUDA launches
@@ -80,6 +90,12 @@ FUSED_LAUNCHES = 0
 SPLIT_LAUNCHES = 0
 """Number of split layers run by the kernel (:func:`hex_conv_layer_split`;
 one GN layer is four CUDA launches and counts once)."""
+SPLIT_DGRAD_LAUNCHES = 0
+"""Number of dgrad launches made by :func:`hex_conv_layer_split_dgrad`
+(two a split layer, one on each input's part of the kernel)."""
+SPLIT_WGRAD_LAUNCHES = 0
+"""Number of dW runs made by :func:`hex_conv_layer_split_wgrad` (two a
+split layer, one on each input; a run is two CUDA launches)."""
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _EPS = 1e-5
@@ -192,6 +208,26 @@ def hex_conv_layer_wgrad_plain(x: torch.Tensor, gpre: torch.Tensor, *,
     return dk
 
 
+def hex_conv_layer_split_dgrad_plain(gpre: torch.Tensor, kernel: torch.Tensor,
+                                     ca: int, *, radius: int,
+                                     dilation: int = 1):
+    """Plain version of :func:`hex_conv_layer_split_dgrad`:
+    :func:`hex_conv_layer_dgrad_plain` on the unsplit kernel, its
+    ``(B, H, W, Ca + Cb)`` result cut at channel ``ca``."""
+    dx = hex_conv_layer_dgrad_plain(gpre, kernel, radius=radius,
+                                    dilation=dilation)
+    return dx[..., :ca].contiguous(), dx[..., ca:].contiguous()
+
+
+def hex_conv_layer_split_wgrad_plain(a: torch.Tensor, b: torch.Tensor,
+                                     gpre: torch.Tensor, *, radius: int,
+                                     dilation: int = 1) -> torch.Tensor:
+    """Plain version of :func:`hex_conv_layer_split_wgrad`:
+    :func:`hex_conv_layer_wgrad_plain` on ``torch.cat([a, b], -1)``."""
+    return hex_conv_layer_wgrad_plain(torch.cat([a, b], dim=-1), gpre,
+                                      radius=radius, dilation=dilation)
+
+
 def _check_param(t, name, n, device):
     if t is None:
         return None
@@ -267,44 +303,68 @@ def _conv_launch(x, wt, cout, taps, what, bias=None, norm=None, relu=False,
     return out, y
 
 
-def _layer_forward(x, kernel, bias, radius, dilation, norm, relu):
-    """``(out, y)`` of one layer: ``y`` is its float32 NHWC pre-activation
-    where the device path has it (always on the CPU, GN layers on CUDA)."""
-    global LAUNCHES
+def _check_pair(a, b, what) -> None:
+    """Checked NHWC ``a`` and ``b`` sharing (B, H, W), dtype and device."""
+    _check_activations(a, what)
+    _check_activations(b, what)
+    if (b.shape[:3] != a.shape[:3] or b.dtype != a.dtype
+            or b.device != a.device):
+        raise ValueError(f"{what}: {tuple(a.shape)} {a.dtype} and "
+                         f"{tuple(b.shape)} {b.dtype} must share (B, H, W), "
+                         "dtype and device")
+
+
+def _layer_forward(x, kernel, bias, radius, dilation, norm, relu, x2=None):
+    """``(out, y)`` of one layer, or with ``x2`` of the split layer on the
+    channel concatenation of ``x`` and ``x2``: ``y`` is its float32 NHWC
+    pre-activation where the device path has it (always on the CPU, GN
+    layers on CUDA)."""
+    global LAUNCHES, SPLIT_LAUNCHES
     if x.device.type == "cpu":
-        y = _pre_plain(x, kernel, bias, radius, dilation)
-        return _post_plain(y, norm, relu, x.dtype), y
-    _check_activations(x, "hex_conv_layer")
-    cin, cout = x.shape[-1], kernel.shape[0]
+        xin = x if x2 is None else torch.cat([x, x2], dim=-1)
+        y = _pre_plain(xin, kernel, bias, radius, dilation)
+        return _post_plain(y, norm, relu, xin.dtype), y
+    what = "hex_conv_layer" if x2 is None else "hex_conv_layer_split"
+    if x2 is None:
+        _check_activations(x, what)
+    else:
+        _check_pair(x, x2, what)
+    cin = x.shape[-1] + (0 if x2 is None else x2.shape[-1])
+    cout = kernel.shape[0]
     _check_kernel(kernel, (cout, cin, F.hex_kernel_num(radius)), x.device,
-                  "hex_conv_layer")
+                  what)
     wt = kernel.float().permute(2, 1, 0).contiguous()       # (kn, Cin, Cout)
-    out, y = _conv_launch(x, wt, cout, _taps(radius, dilation),
-                          "hex_conv_layer", bias, norm, relu)
-    LAUNCHES += 1
+    out, y = _conv_launch(x, wt, cout, _taps(radius, dilation), what, bias,
+                          norm, relu, x2=x2)
+    if x2 is None:
+        LAUNCHES += 1
+    else:
+        SPLIT_LAUNCHES += 1
     return out, y
 
 
 class _HexConvLayer(torch.autograd.Function):
-    """One layer with GN (``groups > 0``) or without a norm; see the module
-    docstring for the backward."""
+    """One layer with GN (``groups > 0``) or without a norm, on ``x`` or,
+    with ``x2`` not None, on the concatenation of ``x`` and ``x2`` (the
+    split layer); see the module docstring for the backward."""
 
     @staticmethod
-    def forward(ctx, x, kernel, bias, gamma, beta, radius, dilation, groups,
-                relu):
+    def forward(ctx, x, x2, kernel, bias, gamma, beta, radius, dilation,
+                groups, relu):
         norm = ("gn", groups, gamma, beta) if groups else None
-        out, y = _layer_forward(x, kernel, bias, radius, dilation, norm, relu)
+        out, y = _layer_forward(x, kernel, bias, radius, dilation, norm, relu,
+                                x2)
         ctx.geometry = (radius, dilation, groups, relu)
         # GN layers pull back through their pre-activation; the others
         # through the ReLU mask of their output
-        ctx.save_for_backward(x, kernel, bias, gamma, beta,
+        ctx.save_for_backward(x, x2, kernel, bias, gamma, beta,
                               y if groups else out)
         return out
 
     @staticmethod
     @once_differentiable
     def backward(ctx, gout):
-        x, kernel, bias, gamma, beta, saved = ctx.saved_tensors
+        x, x2, kernel, bias, gamma, beta, saved = ctx.saved_tensors
         radius, dilation, groups, relu = ctx.geometry
         dgamma = dbeta = None
         if groups:
@@ -319,13 +379,34 @@ class _HexConvLayer(torch.autograd.Function):
             g32 = gout.float() * (saved > 0) if relu else gout.float()
         gpre = g32.to(x.dtype).contiguous()
         need = ctx.needs_input_grad
-        dx = (hex_conv_layer_dgrad(gpre, kernel, radius=radius,
-                                   dilation=dilation) if need[0] else None)
-        dk = (hex_conv_layer_wgrad(x, gpre, radius=radius, dilation=dilation
-                                   ).to(kernel.dtype) if need[1] else None)
+        kw = dict(radius=radius, dilation=dilation)
+        dx = dx2 = dk = None
+        if x2 is None:
+            if need[0]:
+                dx = hex_conv_layer_dgrad(gpre, kernel, **kw)
+            if need[2]:
+                dk = hex_conv_layer_wgrad(x, gpre, **kw)
+        else:
+            if need[0] or need[1]:
+                dx, dx2 = hex_conv_layer_split_dgrad(gpre, kernel,
+                                                     x.shape[-1], **kw)
+                dx, dx2 = (dx if need[0] else None,
+                           dx2 if need[1] else None)
+            if need[2]:
+                dk = hex_conv_layer_split_wgrad(x, x2, gpre, **kw)
         db = (g32.sum((0, 1, 2)).to(bias.dtype)
-              if bias is not None and need[2] else None)
-        return dx, dk, db, dgamma, dbeta, None, None, None, None
+              if bias is not None and need[3] else None)
+        return (dx, dx2, None if dk is None else dk.to(kernel.dtype), db,
+                dgamma, dbeta, None, None, None, None)
+
+
+def _affine_forward_only(what, tensors) -> None:
+    """Raise if an affine-norm layer is run where a grad is wanted."""
+    if torch.is_grad_enabled() and any(
+            isinstance(t, torch.Tensor) and t.requires_grad for t in tensors):
+        raise NotImplementedError(
+            f"{what}: an affine norm has no backward in the port "
+            "(the training path has none); use norm None or GN")
 
 
 def hex_conv_layer(x: torch.Tensor, kernel: torch.Tensor, bias=None, *,
@@ -344,16 +425,11 @@ def hex_conv_layer(x: torch.Tensor, kernel: torch.Tensor, bias=None, *,
     if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"hex_conv_layer: no kernel for device {x.device}")
     if norm is not None and norm[0] == "affine":
-        if torch.is_grad_enabled() and any(
-                isinstance(t, torch.Tensor) and t.requires_grad
-                for t in (x, kernel, bias, *norm[1:])):
-            raise NotImplementedError(
-                "hex_conv_layer: an affine norm has no backward in the port "
-                "(the training path has none); use norm None or GN")
+        _affine_forward_only("hex_conv_layer", (x, kernel, bias, *norm[1:]))
         return _layer_forward(x, kernel, bias, radius, dilation, norm,
                               relu)[0]
     groups, gamma, beta = (0, None, None) if norm is None else norm[1:]
-    return _HexConvLayer.apply(x, kernel, bias, gamma, beta, radius,
+    return _HexConvLayer.apply(x, None, kernel, bias, gamma, beta, radius,
                                dilation, int(groups), bool(relu))
 
 
@@ -377,45 +453,36 @@ def hex_conv_layer_split(a: torch.Tensor, b: torch.Tensor,
     of NHWC ``a`` ``(B, H, W, Ca)`` and ``b`` ``(B, H, W, Cb)``, without
     building it.  ``kernel`` is the unsplit ``(Cout, Ca + Cb, kn)``; bias,
     norm and ReLU as for :func:`hex_conv_layer`.  Returns ``(B, H, W,
-    Cout)`` in the inputs' dtype.
+    Cout)`` in the inputs' dtype, differentiable in a, b, kernel, bias,
+    gamma and beta.
 
-    A CPU tensor runs :func:`hex_conv_layer_split_plain`.  A CUDA tensor
-    (float32 or bfloat16, contiguous, both inputs alike) launches the split
-    mode of ``csrc/hex_conv_layer.cu`` (counted in ``SPLIT_LAUNCHES``);
-    anything else raises.  Forward only: under grad it raises
-    ``NotImplementedError`` on either device.
+    A CPU tensor runs the plain versions (forward and backward, as
+    :func:`hex_conv_layer_split_plain` on the concatenation).  A CUDA
+    tensor (float32 or bfloat16, contiguous, both inputs alike) launches
+    the split mode of ``csrc/hex_conv_layer.cu`` (counted in
+    ``SPLIT_LAUNCHES``), and its backward the split dgrad and wgrad
+    kernels; anything else raises.  An affine norm is forward-only.
     """
-    global SPLIT_LAUNCHES
     if a.device.type not in ("cpu", "cuda"):
         raise ValueError(f"hex_conv_layer_split: no kernel for device "
                          f"{a.device}")
-    extra = () if norm is None else norm[1:]
-    if torch.is_grad_enabled() and any(
-            isinstance(t, torch.Tensor) and t.requires_grad
-            for t in (a, b, kernel, bias, *extra)):
-        raise NotImplementedError(
-            "hex_conv_layer_split: the split layer has no backward in the "
-            "port yet (ROADMAP queue 2, item 12s); run it under "
-            "torch.no_grad() or torch.inference_mode()")
-    if a.device.type == "cpu":
-        return hex_conv_layer_split_plain(a, b, kernel, bias, radius=radius,
-                                          dilation=dilation, norm=norm,
-                                          relu=relu)
-    _check_activations(a, "hex_conv_layer_split")
-    _check_activations(b, "hex_conv_layer_split")
-    if (b.shape[:3] != a.shape[:3] or b.dtype != a.dtype
-            or b.device != a.device):
-        raise ValueError(f"hex_conv_layer_split: a {tuple(a.shape)} {a.dtype} "
-                         f"and b {tuple(b.shape)} {b.dtype} must share "
-                         "(B, H, W), dtype and device")
-    cin, cout = a.shape[-1] + b.shape[-1], kernel.shape[0]
-    _check_kernel(kernel, (cout, cin, F.hex_kernel_num(radius)), a.device,
-                  "hex_conv_layer_split")
-    wt = kernel.float().permute(2, 1, 0).contiguous()       # (kn, Cin, Cout)
-    out, _ = _conv_launch(a, wt, cout, _taps(radius, dilation),
-                          "hex_conv_layer_split", bias, norm, relu, x2=b)
-    SPLIT_LAUNCHES += 1
-    return out
+    if norm is not None and norm[0] == "affine":
+        _affine_forward_only("hex_conv_layer_split",
+                             (a, b, kernel, bias, *norm[1:]))
+        return _layer_forward(a, kernel, bias, radius, dilation, norm, relu,
+                              b)[0]
+    groups, gamma, beta = (0, None, None) if norm is None else norm[1:]
+    return _HexConvLayer.apply(a, b, kernel, bias, gamma, beta, radius,
+                               dilation, int(groups), bool(relu))
+
+
+def _dgrad_launch(gpre, kernel, radius, dilation, what):
+    """One adjoint conv pass on checked NHWC ``gpre`` with the kernel
+    ``(Cout, Cin, kn)`` transposed to ``(kn, Cout, Cin)``."""
+    wt = kernel.detach().float().permute(2, 0, 1).contiguous()  # (kn, Cout, Cin)
+    dx, _ = _conv_launch(gpre, wt, kernel.shape[1],
+                         _adjoint_taps(radius, dilation), what)
+    return dx
 
 
 def hex_conv_layer_dgrad(gpre: torch.Tensor, kernel: torch.Tensor, *,
@@ -438,37 +505,49 @@ def hex_conv_layer_dgrad(gpre: torch.Tensor, kernel: torch.Tensor, *,
     cout, cin = gpre.shape[-1], kernel.shape[1]
     _check_kernel(kernel, (cout, cin, F.hex_kernel_num(radius)), gpre.device,
                   "hex_conv_layer_dgrad")
-    wt = kernel.detach().float().permute(2, 0, 1).contiguous()  # (kn, Cout, Cin)
-    dx, _ = _conv_launch(gpre, wt, cin, _adjoint_taps(radius, dilation),
-                         "hex_conv_layer_dgrad")
+    dx = _dgrad_launch(gpre, kernel, radius, dilation, "hex_conv_layer_dgrad")
     DGRAD_LAUNCHES += 1
     return dx
 
 
-def hex_conv_layer_wgrad(x: torch.Tensor, gpre: torch.Tensor, *,
-                         radius: int, dilation: int = 1) -> torch.Tensor:
-    """dL/dW of one layer's conv, float32 ``(Cout, Cin, kn)``, from its input
-    ``x`` ``(B, H, W, Cin)`` and pre-activation cotangent ``gpre``
-    ``(B, H, W, Cout)`` of the same dtype.
+def hex_conv_layer_split_dgrad(gpre: torch.Tensor, kernel: torch.Tensor,
+                               ca: int, *, radius: int, dilation: int = 1):
+    """dL/dA and dL/dB of the split layer's conv, ``(B, H, W, ca)`` and
+    ``(B, H, W, Cin - ca)`` in ``gpre``'s dtype, for the pre-activation
+    cotangent ``gpre`` ``(B, H, W, Cout)`` and the unsplit kernel ``(Cout,
+    Cin, kn)``.
 
-    On CUDA it runs ``csrc/hex_conv_wgrad.cu`` (per-chunk partial sums,
-    then a fold in chunk order: deterministic).  A CPU tensor runs
-    :func:`hex_conv_layer_wgrad_plain`.
+    On CUDA it is :func:`hex_conv_layer_dgrad`'s pass launched on
+    ``kernel[:, :ca]`` and on ``kernel[:, ca:]`` (each launch counted in
+    ``SPLIT_DGRAD_LAUNCHES``).  An output channel's sum does not depend on
+    the other output channels, so the pair is bit-equal to the unsplit
+    dgrad cut at ``ca``.  A CPU tensor runs
+    :func:`hex_conv_layer_split_dgrad_plain`.
     """
-    global WGRAD_LAUNCHES
-    if x.device.type == "cpu":
-        return hex_conv_layer_wgrad_plain(x, gpre, radius=radius,
-                                          dilation=dilation)
-    if x.device.type != "cuda":
-        raise ValueError(f"hex_conv_layer_wgrad: no kernel for device "
-                         f"{x.device}")
-    _check_activations(x, "hex_conv_layer_wgrad")
-    _check_activations(gpre, "hex_conv_layer_wgrad")
-    if (gpre.shape[:3] != x.shape[:3] or gpre.dtype != x.dtype
-            or gpre.device != x.device):
-        raise ValueError(f"hex_conv_layer_wgrad: x {tuple(x.shape)} "
-                         f"{x.dtype} and gpre {tuple(gpre.shape)} "
-                         f"{gpre.dtype} must share (B, H, W), dtype and device")
+    global SPLIT_DGRAD_LAUNCHES
+    if gpre.device.type == "cpu":
+        return hex_conv_layer_split_dgrad_plain(gpre, kernel, ca,
+                                                radius=radius,
+                                                dilation=dilation)
+    if gpre.device.type != "cuda":
+        raise ValueError(f"hex_conv_layer_split_dgrad: no kernel for device "
+                         f"{gpre.device}")
+    what = "hex_conv_layer_split_dgrad"
+    _check_activations(gpre, what)
+    cout, cin = gpre.shape[-1], kernel.shape[1]
+    _check_kernel(kernel, (cout, cin, F.hex_kernel_num(radius)), gpre.device,
+                  what)
+    if not 0 < ca < cin:
+        raise ValueError(f"{what}: the split must be 0 < ca < {cin}, got {ca}")
+    out = []
+    for part in (kernel[:, :ca], kernel[:, ca:]):
+        out.append(_dgrad_launch(gpre, part, radius, dilation, what))
+        SPLIT_DGRAD_LAUNCHES += 1
+    return tuple(out)
+
+
+def _wgrad_launch(x, gpre, radius, dilation, what):
+    """One ``hg_hex_conv_wgrad`` run on checked NHWC ``x`` and ``gpre``."""
     b, h, w, cin = x.shape
     cout = gpre.shape[-1]
     kn = F.hex_kernel_num(radius)
@@ -488,9 +567,61 @@ def hex_conv_layer_wgrad(x: torch.Tensor, gpre: torch.Tensor, *,
             _DTYPES[x.dtype], b, h, w, cin, cout, kn,
             _taps(radius, dilation).ctypes.data, rows_per_chunk, n_chunks,
             stream)
-    _build.check(status, "hex_conv_layer_wgrad")
+    _build.check(status, what)
+    return dw
+
+
+def hex_conv_layer_wgrad(x: torch.Tensor, gpre: torch.Tensor, *,
+                         radius: int, dilation: int = 1) -> torch.Tensor:
+    """dL/dW of one layer's conv, float32 ``(Cout, Cin, kn)``, from its input
+    ``x`` ``(B, H, W, Cin)`` and pre-activation cotangent ``gpre``
+    ``(B, H, W, Cout)`` of the same dtype.
+
+    On CUDA it runs ``csrc/hex_conv_wgrad.cu`` (per-chunk partial sums,
+    then a fold in chunk order: deterministic).  A CPU tensor runs
+    :func:`hex_conv_layer_wgrad_plain`.
+    """
+    global WGRAD_LAUNCHES
+    if x.device.type == "cpu":
+        return hex_conv_layer_wgrad_plain(x, gpre, radius=radius,
+                                          dilation=dilation)
+    if x.device.type != "cuda":
+        raise ValueError(f"hex_conv_layer_wgrad: no kernel for device "
+                         f"{x.device}")
+    _check_pair(x, gpre, "hex_conv_layer_wgrad")
+    dw = _wgrad_launch(x, gpre, radius, dilation, "hex_conv_layer_wgrad")
     WGRAD_LAUNCHES += 1
     return dw
+
+
+def hex_conv_layer_split_wgrad(a: torch.Tensor, b: torch.Tensor,
+                               gpre: torch.Tensor, *, radius: int,
+                               dilation: int = 1) -> torch.Tensor:
+    """dL/dW of the split layer's conv, float32 ``(Cout, Ca + Cb, kn)``
+    (the unsplit kernel's), from its inputs ``a`` ``(B, H, W, Ca)`` and
+    ``b`` ``(B, H, W, Cb)`` and the pre-activation cotangent ``gpre``
+    ``(B, H, W, Cout)``, all of one dtype.
+
+    On CUDA it runs :func:`hex_conv_layer_wgrad`'s kernel on ``a`` and on
+    ``b`` (each run counted in ``SPLIT_WGRAD_LAUNCHES``) and concatenates
+    the two along Cin, as the reference does.  A CPU tensor runs
+    :func:`hex_conv_layer_split_wgrad_plain`.
+    """
+    global SPLIT_WGRAD_LAUNCHES
+    if a.device.type == "cpu":
+        return hex_conv_layer_split_wgrad_plain(a, b, gpre, radius=radius,
+                                                dilation=dilation)
+    if a.device.type != "cuda":
+        raise ValueError(f"hex_conv_layer_split_wgrad: no kernel for device "
+                         f"{a.device}")
+    what = "hex_conv_layer_split_wgrad"
+    _check_pair(a, b, what)
+    _check_pair(a, gpre, what)
+    out = []
+    for x in (a, b):
+        out.append(_wgrad_launch(x, gpre, radius, dilation, what))
+        SPLIT_WGRAD_LAUNCHES += 1
+    return torch.cat(out, dim=1)
 
 
 def hex_conv_fused_stack_plain(x: torch.Tensor, kernels, biases, *,
@@ -686,7 +817,8 @@ def hex_conv_stack(x: torch.Tensor, kernels, biases=None, *, radius: int,
     applies the chain to the channel concatenation ``concat([x,
     extra_input])`` (``kernels[0]`` takes both inputs' channels) without
     building it: layer 0 is :func:`hex_conv_layer_split`, for any split of
-    the channels (forward only).  It is incompatible with ``packed_io``,
+    the channels, differentiable in both inputs.  It is incompatible with
+    ``packed_io``,
     ``fused`` and ``band_rows``, as in the reference.
     """
     split = extra_input is not None

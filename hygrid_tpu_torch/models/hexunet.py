@@ -10,8 +10,9 @@ With ``norm`` "GN" or None (and ``use_stack``) each stage is one
 :class:`HexConvStack`, and each decoder stage is its skip-join form
 (``forward(x, extra=skip)``): layer 0 runs the split layer, ``conv(up,
 Ka) + conv(skip, Kb)`` without building the 2W-channel concatenation (on
-the card the split mode of ``csrc/hex_conv_layer.cu``, forward only).
-This route runs channels-last from the first stage to the head.  Other
+the card the split mode of ``csrc/hex_conv_layer.cu``; its backward the
+dgrad and dW kernels on each input's part, so the model trains).  This
+route runs channels-last from the first stage to the head.  Other
 norms ("BN", "LN", "IN"; BN in eval unless ``train=True``) chain
 :class:`HexConvModule` bundles ``enc{i}_conv{d}`` / ``dec{i}_conv{d}`` on
 NCHW, their convs in the parameters' float32 as in ``hygrid_tpu``.
@@ -219,9 +220,8 @@ class HexUNet(nn.Module):
         """Per-cell logits ``(B, num_classes, h, w)`` for hex images ``(B,
         C, h, w)``.  ``plain=True`` runs the conv stacks' plain versions
         (the reference a kernel run is compared with); ``train=True``
-        normalises BN bundles with batch statistics.  The stacked decoder's
-        split layers are forward only: run under ``torch.no_grad()`` or
-        ``torch.inference_mode()``."""
+        normalises BN bundles with batch statistics.  Differentiable in
+        the input and every parameter on both routes."""
         x = x.to(self.dtype)
         nhwc = self.stacked
         fmt = "NHWC" if nhwc else "NCHW"

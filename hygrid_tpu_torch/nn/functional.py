@@ -490,7 +490,13 @@ def _window_reduce(x, method, hn, wn, kh, kw, sh, sw, half, nhwc=False):
     """Reduce brick-lattice windows of NCHW ``x``: window ``(gi, gj)``
     covers rows ``sh*gi + [0, kh)`` and cols ``(gi % 2)*half + sw*gj +
     [0, kw)``, reduced in kh-major, kw-minor order.  ``nhwc`` returns
-    ``(B, hn, wn, C)`` instead of ``(B, C, hn, wn)``."""
+    ``(B, hn, wn, C)`` instead of ``(B, C, hn, wn)``.
+
+    Max and min over windows that do not overlap (``kh <= sh``, ``kw <=
+    sw``: the models' pools) reduce the rows first, then the columns, as
+    ``hygrid_tpu``'s ``_hex_window_reduce`` does: the same values, and a
+    tie's gradient split as ``jax.grad`` splits it (evenly at each stage,
+    so three tied cells of a 2x2 window get 1/4, 1/4 and 1/2)."""
     dev = x.device
     gi = torch.arange(hn, device=dev)
     gj = torch.arange(wn, device=dev)
@@ -498,11 +504,17 @@ def _window_reduce(x, method, hn, wn, kh, kw, sh, sw, half, nhwc=False):
     cols = ((gi % 2) * half)[:, None, None] + sw * gj[None, :, None] \
         + torch.arange(kw, device=dev)                           # (hn, wn, kw)
     ri, ci = rows[:, None, :, None], cols[:, :, None, :]        # (hn,wn,kh,kw)
+    reduce = _REDUCTIONS[method]
+    two_stage = method in ("max", "min") and kh <= sh and kw <= sw
     if nhwc:
         win = x.permute(0, 2, 3, 1)[:, ri, ci, :]        # (B,hn,wn,kh,kw,C)
-        return _REDUCTIONS[method](win.flatten(3, 4), axis=3)
+        if two_stage:
+            return reduce(reduce(win, axis=3), axis=3)
+        return reduce(win.flatten(3, 4), axis=3)
     win = x[:, :, ri, ci]                                  # (B,C,hn,wn,kh,kw)
-    return _REDUCTIONS[method](win.flatten(-2), axis=-1)
+    if two_stage:
+        return reduce(reduce(win, axis=-2), axis=-1)
+    return reduce(win.flatten(-2), axis=-1)
 
 
 def hex_adaptive_pool2d(x, outsize, method: str, device="cuda"):

@@ -192,7 +192,8 @@ class HexConvStack(nn.Module):
         channel concatenation ``concat([x, extra])``, and ``in_channels``
         counts both inputs.  Layer 0 is then the split layer
         (:func:`~hygrid_tpu_torch.kernels.conv_stack.hex_conv_layer_split`),
-        which never builds the concatenation; forward only.
+        which never builds the concatenation; the stage is differentiable
+        in both inputs.
         """
         from ..kernels.conv_stack import hex_conv_stack
         nhwc = self.data_format == "NHWC"

@@ -18,7 +18,9 @@ bfloat16 within 1e-2 relative, the exact-select mosaic bit-equal.  The
 single-op conv: float32 within 1e-5 absolute, bfloat16 within 3e-2
 relative, and bit-equal to ``hex_conv_layer`` on the 'same' conv.  The
 split layer: the layer's tolerances against its plain version, and
-bit-equal to ``hex_conv_layer`` on the concatenation.
+bit-equal to ``hex_conv_layer`` on the concatenation; its backward
+(split dgrad and wgrad) the unsplit kernels' tolerances, and bit-equal to
+the unsplit kernels on each input's part.
 """
 import math
 
@@ -691,8 +693,26 @@ def test_split_layer_refuses_what_it_does_not_take(cuda):
         with pytest.raises(ValueError, match="contiguous"):
             conv_stack.hex_conv_layer_split(a, a.permute(0, 2, 1, 3), k,
                                             radius=2)
-    with pytest.raises(NotImplementedError, match="12s"):
-        conv_stack.hex_conv_layer_split(a, a, k.requires_grad_(), radius=2)
+    # under grad it trains: grads of both inputs and the kernel through the
+    # split backward kernels, equal to autograd of the plain version
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    a, b = (torch.rand((1, 8, 8, 4), generator=gen, device=cuda)
+            for _ in range(2))
+    k = torch.randn((8, 8, 7), generator=gen, device=cuda) / 8
+    grads = []
+    for fn in (conv_stack.hex_conv_layer_split,
+               conv_stack.hex_conv_layer_split_plain):
+        leaves = [t.clone().requires_grad_() for t in (a, b, k)]
+        out = fn(*leaves, radius=2, relu=True)
+        (out * out.detach()).sum().backward()
+        grads.append([t.grad for t in leaves])
+    for got, want in zip(*grads):
+        assert got is not None and float((got - want).abs().max()) <= 1e-5
+    with pytest.raises(NotImplementedError, match="affine"):
+        conv_stack.hex_conv_layer_split(
+            a, b, k.requires_grad_(), radius=2,
+            norm=("affine", torch.ones(8, device=cuda),
+                  torch.zeros(8, device=cuda)))
 
 
 def test_hexunet_on_cuda_goes_through_the_kernels(cuda):
@@ -720,3 +740,132 @@ def test_hexunet_on_cuda_goes_through_the_kernels(cuda):
         assert out.dtype == torch.bfloat16 and out.shape == (2, 4, 32, 32)
         assert bool(torch.isfinite(out).all())
         assert _rel(out, want) <= 5e-2
+
+
+# ---- the split layer's backward (12s: split dgrad and split wgrad) ----------
+
+SPLIT_BWD_CASES = [  # (B, H, W, Ca, Cb, Cout)
+    (2, 12, 11, 64, 64, 64),     # dec0's split, small
+    (2, 16, 15, 32, 32, 32),     # dec1's split, small
+    (2, 10, 13, 24, 8, 32),      # Cb below a 16-channel staging chunk
+    (1, 9, 70, 40, 24, 16),      # Ca not a multiple of a 32-channel tile
+    (1, 7, 9, 5, 11, 40),        # odd counts
+]
+
+
+def _split_bwd_inputs(case, dtype, cuda):
+    b, h, w, ca, cb, cout = case
+    gen = torch.Generator(device=cuda).manual_seed(
+        SPLIT_BWD_CASES.index(case))
+    xa = torch.rand((b, h, w, ca), generator=gen, device=cuda).to(dtype)
+    xb = torch.rand((b, h, w, cb), generator=gen, device=cuda).to(dtype)
+    g = torch.randn((b, h, w, cout), generator=gen, device=cuda).to(dtype)
+    k = (torch.randn((cout, ca + cb, 7), generator=gen, device=cuda)
+         / math.sqrt((ca + cb) * 7)).to(dtype)
+    return xa, xb, g, k
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", SPLIT_BWD_CASES)
+def test_split_dgrad_matches_plain_and_unsplit(cuda, case, dtype):
+    """Two dgrad launches, on Ka and on Kb: dA and dB bit-equal to the
+    unsplit dgrad cut at Ca, and within the dgrad tolerances of the plain
+    version."""
+    xa, xb, g, k = _split_bwd_inputs(case, dtype, cuda)
+    ca = xa.shape[-1]
+    before = (conv_stack.SPLIT_DGRAD_LAUNCHES, conv_stack.DGRAD_LAUNCHES)
+    da, db = conv_stack.hex_conv_layer_split_dgrad(g, k, ca, radius=2)
+    assert (conv_stack.SPLIT_DGRAD_LAUNCHES, conv_stack.DGRAD_LAUNCHES) == \
+        (before[0] + 2, before[1])
+    dx = conv_stack.hex_conv_layer_dgrad(g, k, radius=2)
+    want = conv_stack.hex_conv_layer_split_dgrad_plain(g, k, ca, radius=2)
+    torch.cuda.synchronize()
+    assert da.shape == xa.shape and db.shape == xb.shape
+    assert da.dtype == db.dtype == dtype
+    assert torch.equal(da, dx[..., :ca]) and torch.equal(db, dx[..., ca:])
+    tol = 1e-5 if dtype == torch.float32 else 3e-2
+    assert _rel(torch.cat([da, db], -1), torch.cat(want, -1)) <= tol
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", SPLIT_BWD_CASES)
+def test_split_wgrad_matches_plain_and_unsplit(cuda, case, dtype):
+    """Two dW runs, on (A, g) and on (B, g): bit-equal to the unsplit wgrad
+    on each input concatenated along Cin and to a second launch, within
+    1e-4 of the plain version."""
+    xa, xb, g, k = _split_bwd_inputs(case, dtype, cuda)
+    before = (conv_stack.SPLIT_WGRAD_LAUNCHES, conv_stack.WGRAD_LAUNCHES)
+    got = conv_stack.hex_conv_layer_split_wgrad(xa, xb, g, radius=2)
+    assert (conv_stack.SPLIT_WGRAD_LAUNCHES, conv_stack.WGRAD_LAUNCHES) == \
+        (before[0] + 2, before[1])
+    parts = torch.cat([conv_stack.hex_conv_layer_wgrad(xa, g, radius=2),
+                       conv_stack.hex_conv_layer_wgrad(xb, g, radius=2)], 1)
+    again = conv_stack.hex_conv_layer_split_wgrad(xa, xb, g, radius=2)
+    want = conv_stack.hex_conv_layer_split_wgrad_plain(xa, xb, g, radius=2)
+    torch.cuda.synchronize()
+    assert got.shape == k.shape and got.dtype == torch.float32
+    assert torch.equal(got, parts) and torch.equal(got, again)
+    assert _rel(got, want) <= 1e-4
+
+
+def test_split_backward_refuses_what_it_does_not_take(cuda):
+    xa, xb, g, k = _split_bwd_inputs(SPLIT_BWD_CASES[2], torch.float32, cuda)
+    with pytest.raises(ValueError, match="0 < ca"):
+        conv_stack.hex_conv_layer_split_dgrad(g, k, 0, radius=2)
+    with pytest.raises(ValueError, match="0 < ca"):
+        conv_stack.hex_conv_layer_split_dgrad(g, k, k.shape[1], radius=2)
+    with pytest.raises(ValueError, match="kernel must be"):
+        conv_stack.hex_conv_layer_split_dgrad(g, k[:4], 2, radius=2)
+    with pytest.raises(ValueError, match="must share"):
+        conv_stack.hex_conv_layer_split_wgrad(xa, xb.bfloat16(), g, radius=2)
+    with pytest.raises(ValueError, match="must share"):
+        conv_stack.hex_conv_layer_split_wgrad(xa, xb, g[:, :5].contiguous(),
+                                              radius=2)
+
+
+def test_hexunet_train_step_on_cuda_goes_through_the_kernels(cuda):
+    """A small HexUNet (GN, float32 and bfloat16) trains on the kernels: per
+    step 1 plan_gather, 3 kernel-B layers, 2 split layers, 2 dgrad, 4 split
+    dgrad, 3 wgrad and 4 split wgrad launches, and no other kernel; the
+    float32 step's loss and every grad within 1e-3 of the plain path, the
+    bfloat16 step's loss finite."""
+    from hygrid_tpu_torch.models import HexUNet
+    gen = torch.Generator(device=cuda).manual_seed(6)
+    kw = dict(num_classes=4, widths=(16, 32, 64), norm="GN")
+    rect = torch.rand((2, 3, 64, 64), generator=gen, device=cuda)
+    labels = torch.randint(0, 4, (2, 32, 32), generator=gen, device=cuda)
+    counters = {"plan_gather": (resample, "LAUNCHES"),
+                "shift_resample": (resample_shift, "LAUNCHES"),
+                "hex_conv_layer": (conv_stack, "LAUNCHES"),
+                "split": (conv_stack, "SPLIT_LAUNCHES"),
+                "dgrad": (conv_stack, "DGRAD_LAUNCHES"),
+                "split_dgrad": (conv_stack, "SPLIT_DGRAD_LAUNCHES"),
+                "wgrad": (conv_stack, "WGRAD_LAUNCHES"),
+                "split_wgrad": (conv_stack, "SPLIT_WGRAD_LAUNCHES"),
+                "fused": (conv_stack, "FUSED_LAUNCHES"),
+                "single": (conv_single, "LAUNCHES")}
+    want_counts = {"plan_gather": 1, "hex_conv_layer": 3, "split": 2,
+                   "dgrad": 2, "split_dgrad": 4, "wgrad": 3,
+                   "split_wgrad": 4}
+    for dtype in (torch.float32, torch.bfloat16):
+        model = HexUNet(dtype=dtype, generator=gen, **kw)
+        ref = HexUNet(**kw)
+        ref.load_state_dict(model.state_dict())
+        for mod, attr in counters.values():
+            setattr(mod, attr, 0)
+        _, m = train_step(create_train_state(model), hexify_batch(rect),
+                          labels)
+        counts = {name: getattr(mod, attr)
+                  for name, (mod, attr) in counters.items()}
+        assert counts == {name: want_counts.get(name, 0)
+                          for name in counters}
+        assert math.isfinite(float(m["loss"]))
+        if dtype == torch.bfloat16:
+            continue
+        _, ref_m = train_step(create_train_state(_Plain(ref)),
+                              hexify_batch(rect, plain=True), labels)
+        assert abs(float(m["loss"]) - float(ref_m["loss"])) \
+            <= 1e-3 * abs(float(ref_m["loss"]))
+        for (name, p), q in zip(model.named_parameters(), ref.parameters()):
+            assert p.grad is not None, name
+            assert _rel(p.grad, q.grad) <= 1e-3, name

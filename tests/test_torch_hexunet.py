@@ -141,24 +141,48 @@ def test_extra_input_argument_checks_match_reference(kind):
 
 
 def test_split_layer_is_forward_only():
-    """Under grad the split layer raises, naming ROADMAP item 12s; under
-    no_grad it runs."""
-    xa, xb, ks, _, ns = _split_inputs(4, 1, 4, 4, 8, 8, 8, 1, "gn")
-    tk, _, tn = _torch_args(ks, None, ns)
-    k = tk[0].requires_grad_()
-    with pytest.raises(NotImplementedError, match="12s"):
-        tcs.hex_conv_stack(_t(xa), [k], radius=2, norms=tn,
-                           data_format="NHWC", extra_input=_t(xb))
-    with pytest.raises(NotImplementedError, match="12s"):
-        tcs.hex_conv_layer_split(_t(xa).requires_grad_(), _t(xb), tk[0],
-                                 radius=2)
+    """With an affine norm (the per-module route's eval BN) the split layer
+    is forward only: under grad it raises, under no_grad it runs; an
+    unknown device raises.  GN and no norm train (the next test)."""
+    xa, xb, ks, _, _ = _split_inputs(4, 1, 4, 4, 8, 8, 8, 1, None)
+    norm = ("affine", torch.ones(8), torch.zeros(8))
+    with pytest.raises(NotImplementedError, match="affine"):
+        tcs.hex_conv_layer_split(_t(xa), _t(xb), _t(ks[0]).requires_grad_(),
+                                 radius=2, norm=norm)
     with torch.no_grad():
-        out = tcs.hex_conv_stack(_t(xa), [k], radius=2, norms=tn,
-                                 data_format="NHWC", extra_input=_t(xb))
+        out = tcs.hex_conv_layer_split(_t(xa), _t(xb),
+                                       _t(ks[0]).requires_grad_(), radius=2,
+                                       norm=norm)
     assert out.shape == (1, 4, 4, 8)
     with pytest.raises(ValueError, match="no kernel for device"):
         tcs.hex_conv_layer_split(_t(xa).to("meta"), _t(xb).to("meta"),
-                                 tk[0].to("meta"), radius=2)
+                                 _t(ks[0]).to("meta"), radius=2)
+
+
+def test_split_layer_grads_match_plain_autograd():
+    """Under grad the stack's split layer gives grads to both inputs, the
+    kernel and the GN parameters, equal (1e-4 relative) to torch autograd
+    through its plain version; under no_grad it runs."""
+    xa, xb, ks, _, ns = _split_inputs(4, 1, 4, 4, 8, 8, 8, 1, "gn")
+    grads = []
+    for plain in (False, True):
+        tk, _, tn = _torch_args(ks, None, ns)
+        a, b, k = _t(xa).requires_grad_(), _t(xb).requires_grad_(), tk[0]
+        k.requires_grad_()
+        tn[0][2].requires_grad_()
+        out = tcs.hex_conv_stack(a, [k], radius=2, norms=tn,
+                                 data_format="NHWC", extra_input=b,
+                                 plain=plain)
+        (out * out.detach()).sum().backward()
+        grads.append([a.grad, b.grad, k.grad, tn[0][2].grad])
+    for got, want in zip(*grads):
+        assert got is not None and _rel_err(got, want) <= REL
+    tk, _, tn = _torch_args(ks, None, ns)
+    with torch.no_grad():
+        out = tcs.hex_conv_stack(_t(xa), [tk[0].requires_grad_()], radius=2,
+                                 norms=tn, data_format="NHWC",
+                                 extra_input=_t(xb))
+    assert out.shape == (1, 4, 4, 8)
 
 
 # ---- HexConvStack(extra=) ---------------------------------------------------
@@ -309,8 +333,9 @@ def test_hexunet_init_from_generator_and_parameter_shapes():
 
 def test_hexunet_small_shapes_and_bf16():
     """HexUNet-small's stages at a small input: bf16 logits track the f32
-    model (same weights) within 5e-2, and the stacked decoder under grad
-    raises (the split layer is forward only)."""
+    model (same weights) within 5e-2, and the stacked decoder trains: the
+    f32 model's grads (the split layers' included) equal, 1e-4 relative
+    per leaf, those of its plain path."""
     gen = torch.Generator().manual_seed(0)
     model = tm.HexUNet(num_classes=4, dtype=torch.bfloat16, device="cpu",
                        generator=gen)
@@ -322,5 +347,12 @@ def test_hexunet_small_shapes_and_bf16():
         want = ref(tm.hexify_batch(rect), plain=True)
     assert out.dtype == torch.bfloat16 and out.shape == (2, 4, 16, 16)
     assert float((out.float() - want).abs().max() / want.abs().max()) <= 5e-2
-    with pytest.raises(NotImplementedError, match="12s"):
-        ref(tm.hexify_batch(rect))
+    grads = []
+    for plain in (False, True):
+        ref.zero_grad(set_to_none=True)
+        logits = ref(tm.hexify_batch(rect), plain=plain)
+        (logits * want).sum().backward()
+        grads.append({n: p.grad for n, p in ref.named_parameters()})
+    assert all(g is not None for g in grads[0].values())
+    for name, g in grads[0].items():
+        assert _rel_err(g, grads[1][name]) <= REL, name
