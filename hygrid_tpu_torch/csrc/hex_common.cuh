@@ -1,8 +1,10 @@
 // Shared by the hex conv kernels: the per-parity tap table passed by value
-// as a kernel parameter, float32 loads and stores of the working dtypes, and
-// the conv pass's tile (hex_conv_layer.cu, hex_conv_fused_stack.cu,
-// hex_conv_single.cu).
+// as a kernel parameter, float32 loads and stores of the working dtypes, the
+// conv pass's CUDA-core tile (conv_tile: hex_conv_layer.cu in float32,
+// hex_conv_fused_stack.cu, hex_conv_single.cu) and its bf16 tensor-core
+// tile (conv_tile_mma: hex_conv_layer.cu in bfloat16).
 #pragma once
+#include <cstdint>
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 
@@ -34,7 +36,13 @@ __device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162flo
 __device__ __forceinline__ void store(float* p, float v) { *p = v; }
 __device__ __forceinline__ void store(__nv_bfloat16* p, float v) { *p = __float2bfloat16(v); }
 
-// ---- the conv pass's tile -------------------------------------------------
+// ---- the conv pass's CUDA-core tile ---------------------------------------
+//
+// The float32 tile of every conv kernel, and the bfloat16 tile of
+// hex_conv_fused_stack.cu and hex_conv_single.cu (hex_conv_layer.cu's
+// bfloat16 conv pass is conv_tile_mma below).  It replaces the Kronecker
+// matmuls of conv_pallas.py's _conv_kernel, _stack_layer_kernel and
+// _fused_stack_kernel with f32 FMAs on the CUDA cores.
 //
 // One tile is kTileP consecutive output pixels of one output row and COB
 // output channels.  The block (kConvThreads threads) stages the input patch
@@ -179,6 +187,335 @@ __device__ __forceinline__ void conv_tile(
         }
       }
     }
+  }
+}
+
+// ---- the conv pass's bf16 tensor-core tile --------------------------------
+//
+// hex_conv_layer.cu's bfloat16 conv pass (TPU kernels #9, #10 and its split
+// mode, and the dx half of #12), as an implicit GEMM on Hopper's warpgroup
+// MMA.  One block (one warpgroup, kConvThreads = 128 threads) computes one
+// output row o, which fixes the row parity q = o & 1 and so the tap table:
+// M = kTileP = 64 consecutive output pixels, N output channels (16, 32, 64
+// or 128: conv_tile_mma_n) and K = kn x Cin, walked as (16-channel chunk,
+// tap) in that order, the 16 channels of a chunk inside one MMA.
+//
+//   A: the input patch of the chunk, the rows the taps reach x (64 + tap
+//      width) columns x 16 channels, in bf16, as [row][channel group of 8]
+//      [column][8 channels]: each 16-byte unit is 8 channels of one pixel.
+//      wgmma's K-major operand without swizzle is a grid of 8-row x 16-byte
+//      core matrices, 8 rows 16 bytes apart, the next 8 rows SBO bytes on,
+//      the next 8 K values LBO bytes on.  Here 8 consecutive pixels of a
+//      patch row are such a core matrix wherever the window starts, so the
+//      A tile of tap (dr, dc) is the same patch seen from the unit at row
+//      dr - r_lo, column dc - c_lo (SBO 128 bytes, LBO one channel group's
+//      plane, n_cols x 16 bytes): a descriptor per tap, nothing re-staged.
+//   B: the chunk's weights, [tap][channel group][N][8 channels], K-major
+//      the same way (SBO 128, LBO N x 16); the wrapper packs them once a
+//      call into (chunks, kn, 2, Cout, 8) bf16 (conv_stack.py::
+//      _pack_mma_weights), so that a block's slab is a plain copy.
+//   D: f32 in registers, N / 2 a thread: wgmma.mma_async m64nNk16
+//      (bf16 x bf16 -> f32), kn of them a chunk, committed as one group.
+//
+// Copies: the next chunk's patch and weights are staged with cp.async (16
+// bytes a thread) into the other of two buffers while the tensor cores work
+// on this one.  Rows and columns outside the image and channels past Cin
+// come from the same 16-byte copy with a source size of 0 (zero fill).
+// Where a 16-byte unit does not lie whole in one input (Cin, or the split's
+// Ca, not a multiple of 8, or an input not 16-byte aligned), the same loop
+// stages it element by element into the same layout; the MMAs are the
+// same.  The split input (kSplit) picks A or B per unit or per element, so
+// the concatenation is never built and the tile is bit-equal to the
+// unsplit one on the materialised concatenation.
+//
+// Why wgmma and not mma.sync: the shifted windows are exact descriptors in
+// the no-swizzle layout, so the warpgroup MMA reads both operands straight
+// from shared memory with no ldmatrix or register staging, and only the
+// warpgroup MMA reaches the card's full bf16 tensor rate.  The
+// no-swizzle layout costs shared-memory bank conflicts that a swizzled one
+// would not, but a swizzled window could not start at every column.
+//
+// An output channel's sum is the same whatever N is (the MMA sums each
+// output column alone, in the same K order), so a split dgrad cut at Ca
+// equals the unsplit one bit for bit.  The order differs from conv_tile's,
+// so in bfloat16 this tile and conv_tile agree only to rounding.
+constexpr int kMmaMaxSmem = 232448;  // shared memory a block may use (H100)
+
+template <int N>
+struct Wgmma;
+
+template <>
+struct Wgmma<16> {
+  __device__ __forceinline__ static void mma(float (&d)[8], uint64_t a,
+                                             uint64_t b) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7"
+        "}, %8, %9, p, 1, 1, 0, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+        : "l"(a), "l"(b), "r"(1));
+  }
+};
+
+template <>
+struct Wgmma<32> {
+  __device__ __forceinline__ static void mma(float (&d)[16], uint64_t a,
+                                             uint64_t b) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, "
+        "%8, %9, %10, %11, %12, %13, %14, %15"
+        "}, %16, %17, p, 1, 1, 0, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+        : "l"(a), "l"(b), "r"(1));
+  }
+};
+
+template <>
+struct Wgmma<64> {
+  __device__ __forceinline__ static void mma(float (&d)[32], uint64_t a,
+                                             uint64_t b) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, "
+        "%8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, "
+        "%24, %25, %26, %27, %28, %29, %30, %31"
+        "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+          "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+        : "l"(a), "l"(b), "r"(1));
+  }
+};
+
+template <>
+struct Wgmma<128> {
+  __device__ __forceinline__ static void mma(float (&d)[64], uint64_t a,
+                                             uint64_t b) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, "
+        "%8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, "
+        "%24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35, %36, %37, %38, %39, "
+        "%40, %41, %42, %43, %44, %45, %46, %47, "
+        "%48, %49, %50, %51, %52, %53, %54, %55, "
+        "%56, %57, %58, %59, %60, %61, %62, %63"
+        "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+          "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+          "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+          "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+          "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+          "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+          "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+        : "l"(a), "l"(b), "r"(1));
+  }
+};
+
+// A wgmma shared-memory descriptor for a K-major operand without swizzle:
+// start address, leading (K) and stride (M/N) byte offsets, in 16 bytes.
+__device__ __forceinline__ uint64_t mma_desc(const void* p, uint32_t lbo,
+                                             uint32_t sbo) {
+  const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(p));
+  return (uint64_t)((a & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
+         ((uint64_t)(sbo >> 4) << 32);
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           int src_bytes) {
+  const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(d), "l"(src), "r"(src_bytes) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int kPending>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(kPending) : "memory");
+}
+
+// the accumulators are not read or written across a wgmma in flight
+template <int R>
+__device__ __forceinline__ void fence_acc(float (&d)[R]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i]) :: "memory");
+}
+
+// 16-byte units of one stage's patch.
+__host__ __device__ inline int mma_patch_units(int n_rows, int n_cols) {
+  return n_rows * 2 * n_cols;
+}
+
+// Shared memory of conv_tile_mma, in bytes: two stages (one when a single
+// 16-channel chunk covers Cin).
+inline size_t conv_tile_mma_smem(const Geometry& g, int kn, int n, int cin) {
+  const size_t stages = cin > kChunkC ? 2 : 1;
+  return stages * 16 *
+         ((size_t)mma_patch_units(g.n_rows, g.n_cols) + (size_t)kn * 2 * n);
+}
+
+// The tile's N for Cout: the least of 16, 32, 64, 128 that covers it (128
+// above), halved while the stages do not fit in shared memory, down to 16
+// (where they need less than the float32 tile, conv_tile_smem, does).
+// kernels/conv_stack.py::_tile_n mirrors it.
+inline int conv_tile_mma_n(const Geometry& g, int kn, int cin, int cout) {
+  int n = cout <= 16 ? 16 : cout <= 32 ? 32 : cout <= 64 ? 64 : 128;
+  while (n > 16 && conv_tile_mma_smem(g, kn, n, cin) > (size_t)kMmaMaxSmem)
+    n /= 2;
+  return n;
+}
+
+// One chunk's patch (input channels ci0 .. ci0 + 15) into xs, laid out
+// [row][group][column] in 16-byte units.  Consecutive threads take the two
+// groups of a pixel, then the next pixel: consecutive 16-byte global reads
+// when Cin = 16.
+template <bool kSplit>
+__device__ __forceinline__ void stage_patch(
+    uint4* xs, const __nv_bfloat16* __restrict__ xb,
+    const __nv_bfloat16* __restrict__ xb2, int Ca, int H, int W, int Cin,
+    int r_lo, int n_rows, int c_lo, int n_cols, int o, int w0, int ci0,
+    bool vec) {
+  const int n_units = mma_patch_units(n_rows, n_cols);
+  for (int e = threadIdx.x; e < n_units; e += kConvThreads) {
+    const int grp = e & 1;
+    const int c = (e >> 1) % n_cols;
+    const int r = (e >> 1) / n_cols;
+    const int gi = o + r_lo + r, gj = w0 + c_lo + c, gc = ci0 + 8 * grp;
+    const bool inside = gi >= 0 && gi < H && gj >= 0 && gj < W;
+    const long long pix = (long long)gi * W + gj;
+    uint4* dst = xs + (r * 2 + grp) * n_cols + c;
+    if (vec) {
+      const __nv_bfloat16* src = xb;   // not read when nothing is copied
+      int bytes = 0;
+      if (inside && gc < Cin) {
+        bytes = 16;
+        if constexpr (kSplit)
+          src = gc < Ca ? xb + pix * Ca + gc
+                        : xb2 + pix * (Cin - Ca) + (gc - Ca);
+        else
+          src = xb + pix * Cin + gc;
+      }
+      cp_async16(dst, src, bytes);
+    } else {
+      __align__(16) __nv_bfloat16 v[8];
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int cc = gc + j;
+        v[j] = __float2bfloat16(0.f);
+        if (inside && cc < Cin) {
+          if constexpr (kSplit)
+            v[j] = cc < Ca ? xb[pix * Ca + cc]
+                           : xb2[pix * (Cin - Ca) + (cc - Ca)];
+          else
+            v[j] = xb[pix * Cin + cc];
+        }
+      }
+      *dst = *reinterpret_cast<const uint4*>(v);
+    }
+  }
+}
+
+// One chunk's weights for output channels co0 .. co0 + N - 1 into ws,
+// [tap][group][N] in 16-byte units, from the packed (chunks, kn, 2, Cout,
+// 8) bf16 weights; channels past Cout are zero-filled.
+template <int N>
+__device__ __forceinline__ void stage_weights(
+    uint4* ws, const __nv_bfloat16* __restrict__ w, int chunk, int kn,
+    int Cout, int co0) {
+  const uint4* wc = reinterpret_cast<const uint4*>(w) +
+                    (long long)chunk * kn * 2 * Cout;
+  const int n_units = kn * 2 * N;
+  for (int e = threadIdx.x; e < n_units; e += kConvThreads) {
+    const int co = co0 + e % N;
+    const int tg = e / N;                 // tap * 2 + group
+    cp_async16(ws + e, co < Cout ? wc + (long long)tg * Cout + co : wc,
+               co < Cout ? 16 : 0);
+  }
+}
+
+// Accumulate the tile at output row o, pixels w0 .. w0 + 63, output
+// channels co0 .. co0 + N - 1 of the NHWC sample xb (H, W, Cin) (kSplit:
+// channels [0, Ca) from xb (H, W, Ca), the rest from xb2 (H, W, Cin - Ca))
+// into acc, in wgmma's accumulator layout: thread t of warp t / 32, lane
+// l = t % 32, holds acc[4 i + 2 h + j] = pixel w0 + 16 (t / 32) + l / 4 +
+// 8 h, channel co0 + 8 i + 2 (l % 4) + j.  w: the packed weights; smem
+// holds conv_tile_mma_smem bytes, 16-byte aligned; vec: every 16-byte unit
+// of the inputs is one aligned copy (see stage_patch).
+template <int N, bool kSplit>
+__device__ __forceinline__ void conv_tile_mma(
+    const __nv_bfloat16* __restrict__ xb,
+    const __nv_bfloat16* __restrict__ xb2, int Ca,
+    const __nv_bfloat16* __restrict__ w, uint4* smem, int H, int W,
+    int Cin, int Cout, int kn, const TapTable& taps, int r_lo, int n_rows,
+    int c_lo, int n_cols, int o, int w0, int co0, bool vec,
+    float (&acc)[N / 2]) {
+  const int q = o & 1;
+  const int n_chunks = (Cin + kChunkC - 1) / kChunkC;
+  const int x_units = mma_patch_units(n_rows, n_cols);
+  const int stage_units = x_units + kn * 2 * N;
+#pragma unroll
+  for (int i = 0; i < N / 2; ++i) acc[i] = 0.f;
+
+  auto stage = [&](int chunk) {
+    uint4* xs = smem + (chunk & 1) * stage_units;
+    stage_patch<kSplit>(xs, xb, xb2, Ca, H, W, Cin, r_lo, n_rows, c_lo,
+                        n_cols, o, w0, chunk * kChunkC, vec);
+    stage_weights<N>(xs + x_units, w, chunk, kn, Cout, co0);
+    cp_async_commit();
+  };
+  stage(0);
+  for (int chunk = 0; chunk < n_chunks; ++chunk) {
+    if (chunk + 1 < n_chunks) {
+      stage(chunk + 1);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    // this thread's copies and stores, seen by the tensor cores' proxy
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    __syncthreads();
+    const uint4* xs = smem + (chunk & 1) * stage_units;
+    const uint4* ws = xs + x_units;
+    fence_acc(acc);
+    asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+    for (int t = 0; t < kn; ++t) {
+      const uint4* a = xs + (taps.dr[q][t] - r_lo) * 2 * n_cols +
+                       (taps.dc[q][t] - c_lo);
+      Wgmma<N>::mma(acc, mma_desc(a, n_cols * 16, 128),
+                    mma_desc(ws + t * 2 * N, N * 16, 128));
+    }
+    asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+    asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+    fence_acc(acc);
+    __syncthreads();   // the buffer is free for the chunk after next
   }
 }
 

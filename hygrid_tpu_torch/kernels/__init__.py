@@ -3,7 +3,8 @@
 * ``resample.plan_gather`` — ``csrc/plan_gather.cu`` (replaces
   ``hygrid_tpu/kernels/resample_pallas.py::_resample_kernel``);
 * ``conv_stack.hex_conv_layer`` — ``csrc/hex_conv_layer.cu`` (replaces
-  ``hygrid_tpu/kernels/conv_pallas.py::_stack_layer_kernel``);
+  ``hygrid_tpu/kernels/conv_pallas.py::_stack_layer_kernel`` and
+  ``::_stack_layer_kernel_banded``; bfloat16 on the tensor cores);
 * ``conv_stack.hex_conv_layer_dgrad`` (the same conv pass on the adjoint
   tap table) and ``conv_stack.hex_conv_layer_wgrad``
   (``csrc/hex_conv_wgrad.cu``) — together they replace

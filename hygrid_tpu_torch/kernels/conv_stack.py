@@ -30,6 +30,12 @@ to the activation dtype, and runs :func:`hex_conv_layer_dgrad` (dL/dx) and
 chained :func:`hex_conv_layer` calls, as the reference's VJP recomputes
 through ``_stack_xla``.
 
+On CUDA the conv pass runs on the tensor cores in bfloat16
+(``hex_common.cuh::conv_tile_mma``, ``wgmma``: the weights rounded to
+bf16 and packed by :func:`_pack_mma_weights`, as the TPU kernel rounds
+them, the tile's output channels chosen by :func:`_tile_n`) and on the
+CUDA cores in float32.
+
 ``band_rows`` selects the TPU's row-banded layer kernel, which exists only
 to fit planes larger than VMEM; the port computes the same function with
 :func:`hex_conv_layer` and keeps only the reference's argument checks.
@@ -105,6 +111,13 @@ _WGRAD_BLOCKS = 2048  # target blocks of the dW partial-sum pass
 # holds at most this many bytes, so both stay in the card's 50 MB L2
 _FUSED_GROUP_BYTES = 16 * 2 ** 20
 _FUSED_MAX_LAYERS = 64
+# kernel B's conv tiles (csrc/hex_common.cuh): output pixels and staged input
+# channels per block, the float32 tile's output channels, and the shared
+# memory a block may use on the H100 (the bf16 tile's N is chosen under it)
+_TILE_P = 64
+_CHUNK_C = 16
+_COB = 32
+_MMA_MAX_SMEM = 232448
 
 
 def _frozen(table: np.ndarray) -> np.ndarray:
@@ -121,6 +134,53 @@ def _taps(radius: int, dilation: int) -> np.ndarray:
 @functools.lru_cache(maxsize=None)
 def _adjoint_taps(radius: int, dilation: int) -> np.ndarray:
     return _frozen(F.hex_adjoint_tap_table(radius, dilation))
+
+
+@functools.lru_cache(maxsize=None)
+def _patch_shape(radius: int, dilation: int, adjoint: bool
+                 ) -> tuple[int, int]:
+    """Rows and columns of the input patch one 64-pixel tile reads for the
+    (adjoint) tap table (``hex_common.cuh::make_geometry``)."""
+    table = (_adjoint_taps if adjoint else _taps)(radius, dilation)
+    dr, dc = table[..., 0], table[..., 1]
+    return (int(dr.max() - dr.min()) + 1,
+            _TILE_P + int(dc.max() - dc.min()))
+
+
+def _mma_smem(cin: int, kn: int, n: int, n_rows: int, n_cols: int) -> int:
+    """Shared memory of the bf16 tile (``conv_tile_mma_smem``): two stages
+    of patch and weights, one when Cin fits in one 16-channel chunk."""
+    stages = 2 if cin > _CHUNK_C else 1
+    return stages * 16 * (n_rows * 2 * n_cols + kn * 2 * n)
+
+
+def _tile_n(dtype: torch.dtype, cin: int, cout: int, kn: int, n_rows: int,
+            n_cols: int) -> int:
+    """Output channels one block of kernel B's conv pass covers, as the
+    C entry chooses them: 32 in float32; in bfloat16 the least of 16, 32,
+    64, 128 that covers Cout (128 above), halved while the tile's stages
+    do not fit in shared memory (``hex_common.cuh::conv_tile_mma_n``)."""
+    if dtype != torch.bfloat16:
+        return _COB
+    n = next((n for n in (16, 32, 64) if cout <= n), 128)
+    while n > 16 and _mma_smem(cin, kn, n, n_rows, n_cols) > _MMA_MAX_SMEM:
+        n //= 2
+    return n
+
+
+def _pack_mma_weights(wt: torch.Tensor) -> torch.Tensor:
+    """The bf16 tile's weights: ``(kn, Cin, Cout)`` rounded to bf16 and
+    packed as ``(ceil(Cin / 16), kn, 2, Cout, 8)``: unit ``[c, t, g, co]``
+    holds input channels ``16 c + 8 g .. + 7`` of tap t for output channel
+    co (zero past Cin), the K-major 16-byte rows the tensor cores read, so
+    that a block stages its slab of one chunk with plain copies."""
+    kn, cin, cout = wt.shape
+    chunks = -(-cin // _CHUNK_C)
+    packed = torch.zeros((kn, chunks * _CHUNK_C, cout), dtype=torch.bfloat16,
+                         device=wt.device)
+    packed[:, :cin] = wt
+    return packed.view(kn, chunks, 2, 8, cout).permute(1, 0, 2, 4, 3) \
+        .contiguous()
 
 
 def _group_norm_nchw(v: torch.Tensor, groups: int, gamma, beta,
@@ -256,19 +316,29 @@ def _ptr(t):
     return None if t is None else t.data_ptr()
 
 
-def _conv_launch(x, wt, cout, taps, what, bias=None, norm=None, relu=False,
-                 x2=None):
-    """One ``hg_hex_conv_layer`` call on checked NHWC ``x`` with float32
-    weights ``wt`` ``(kn, Cin, Cout)``; with ``x2`` (checked, same batch,
-    spatial shape and dtype) the split layer on the channel concatenation
-    of ``x`` and ``x2``.  Returns ``(out, y)``: ``y`` is the float32
-    pre-activation scratch of a GN layer, else None."""
+def _conv_launch(x, wt, cout, taps_key, what, bias=None, norm=None,
+                 relu=False, x2=None):
+    """One ``hg_hex_conv_layer`` call on checked NHWC ``x`` with weights
+    ``wt`` ``(kn, Cin, Cout)`` (any float dtype; passed as float32 for
+    float32 ``x``, packed by :func:`_pack_mma_weights` for bfloat16) and
+    the tap table of ``taps_key`` ``(radius, dilation, adjoint)``; with
+    ``x2`` (checked, same batch, spatial shape and dtype) the split layer
+    on the channel concatenation of ``x`` and ``x2``.  Returns ``(out,
+    y)``: ``y`` is the float32 pre-activation scratch of a GN layer, else
+    None."""
     b, h, w, ca = x.shape
     cin = ca + (0 if x2 is None else x2.shape[-1])
     kn = wt.shape[0]
-    if h > 65535 or b * math.ceil(cout / 32) > 65535:
+    n = _tile_n(x.dtype, cin, cout, kn, *_patch_shape(*taps_key))
+    if h > 65535 or b * math.ceil(cout / n) > 65535:
         raise ValueError(f"{what}: grid too large for H={h}, B={b}, "
                          f"Cout={cout}")
+    if x.dtype == torch.bfloat16:
+        wt = _pack_mma_weights(wt)
+    else:
+        wt = wt.float().contiguous()
+    radius, dilation, adjoint = taps_key
+    taps = (_adjoint_taps if adjoint else _taps)(radius, dilation)
     bias = _check_param(bias, "bias", cout, x.device)
     scale = shift = gamma = beta = y = partial = stats = None
     groups = n_chunks = 0
@@ -333,8 +403,8 @@ def _layer_forward(x, kernel, bias, radius, dilation, norm, relu, x2=None):
     cout = kernel.shape[0]
     _check_kernel(kernel, (cout, cin, F.hex_kernel_num(radius)), x.device,
                   what)
-    wt = kernel.float().permute(2, 1, 0).contiguous()       # (kn, Cin, Cout)
-    out, y = _conv_launch(x, wt, cout, _taps(radius, dilation), what, bias,
+    wt = kernel.permute(2, 1, 0)                            # (kn, Cin, Cout)
+    out, y = _conv_launch(x, wt, cout, (radius, dilation, False), what, bias,
                           norm, relu, x2=x2)
     if x2 is None:
         LAUNCHES += 1
@@ -419,8 +489,9 @@ def hex_conv_layer(x: torch.Tensor, kernel: torch.Tensor, bias=None, *,
     dtype, differentiable in x, kernel, bias, gamma and beta.
 
     A CPU tensor runs the plain versions (forward and backward).  A CUDA
-    tensor (float32 or bfloat16, contiguous) launches the kernels; anything
-    else raises.  An affine norm is forward-only.
+    tensor (float32 or bfloat16, contiguous) launches the kernels (for
+    bfloat16 on the tensor cores, with the kernel rounded to bf16);
+    anything else raises.  An affine norm is forward-only.
     """
     if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"hex_conv_layer: no kernel for device {x.device}")
@@ -479,9 +550,9 @@ def hex_conv_layer_split(a: torch.Tensor, b: torch.Tensor,
 def _dgrad_launch(gpre, kernel, radius, dilation, what):
     """One adjoint conv pass on checked NHWC ``gpre`` with the kernel
     ``(Cout, Cin, kn)`` transposed to ``(kn, Cout, Cin)``."""
-    wt = kernel.detach().float().permute(2, 0, 1).contiguous()  # (kn, Cout, Cin)
-    dx, _ = _conv_launch(gpre, wt, kernel.shape[1],
-                         _adjoint_taps(radius, dilation), what)
+    wt = kernel.detach().permute(2, 0, 1)                   # (kn, Cout, Cin)
+    dx, _ = _conv_launch(gpre, wt, kernel.shape[1], (radius, dilation, True),
+                         what)
     return dx
 
 
