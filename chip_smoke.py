@@ -12,8 +12,9 @@ Phases, each of which raises on failure (the script then exits non-zero):
    logs each kernel's registers and spills, and counts the tensor-core
    instructions (HGMMA/HMMA, ``cuobjdump -sass``) in every bf16
    instantiation of kernel B's conv kernel, ``hex_conv_kernel<N, bf16,
-   out, split>``: each must have some (bf16 runs on the tensor cores,
-   float32 on the CUDA cores);
+   out, split>``, of ``hex_conv_single_mma_kernel<N>`` and of the dW
+   GEMM, ``wgrad_mma_kernel<N>``: each must have some (bf16 runs on the
+   tensor cores, float32 on the CUDA cores);
 3. kernel A (plan_gather) against its plain version on the rect->hex
    512^2->256^2 bilinear plan and the hex->rect 256^2->512^2 linear plan,
    b=32, C=3, float32 and bfloat16, with kernel and plain times;
@@ -32,8 +33,8 @@ Phases, each of which raises on failure (the script then exits non-zero):
    shapes, b=32, float32 and bfloat16: dL/dx (the conv pass on the
    adjoint tap table) and dL/dW (``hex_conv_wgrad``), with kernel and
    plain times, cuDNN's backward, the bound and the achieved TFLOP/s (dx
-   in bf16 with its tile's N and HGMMA/HMMA count); two dW launches must
-   be bit-equal;
+   and dW in bf16 with their tile's N and HGMMA/HMMA count, dW with its
+   row chunks); two dW launches must be bit-equal;
 7. the training slice: HexCNN-small (norm="GN", bf16 compute, float32
    parameters) with AdamW takes one warm-up and 4 timed steps on distinct
    b=32 512^2 float32 batches (rect->hex, forward, one-hot cross-entropy,
@@ -88,9 +89,10 @@ Phases, each of which raises on failure (the script then exits non-zero):
     (BN-512 float32 and bfloat16, BN-CIFAR float32), at odd parity,
     dilation 2 and radius 3; at BN-512's first layer band_rows=32 must be
     bit-equal to it, and hex_conv_layer on the same input bit-equal in
-    float32, within 2**-6 of max|out| in bfloat16 (each within its
-    tolerance of the plain version); cuDNN's time
-    (hex_conv2d(impl="direct")) beside the kernel's;
+    both dtypes (each within its tolerance of the plain version); cuDNN's
+    time (hex_conv2d(impl="direct")), the bound, TFLOP/s and (bf16) the
+    tile's N and HGMMA/HMMA count beside the kernel's, and the sums over
+    each configuration's five layers;
 15. the per-module route: HexCNN-small with BatchNorm (eval, running
     statistics drawn from a seed), float32, at BN-512 (b=32 512^2 RGB)
     and BN-CIFAR (b=256 32^2 RGB), one model served as users build it
@@ -124,7 +126,7 @@ Phases, each of which raises on failure (the script then exits non-zero):
     cut at Ca, split wgrad bit-equal to the dW kernel run on each input
     and to a second launch, both against their plain versions; beside
     each time the plain time, cuDNN's backward, the bound, TFLOP/s and
-    (split dgrad, bf16) each launch's tile N and HGMMA/HMMA count;
+    (bf16) each launch's tile N and HGMMA/HMMA count;
 19. HexUNet-small training (the serving model of phase 17, AdamW) on
     distinct b=8 512^2 float32 batches with per-cell labels drawn as
     benchmarks/suite.py draws them: per step 1 plan_gather, 3
@@ -177,12 +179,12 @@ VIDEO_FRAMES, VIDEO_TIMED, MICROBATCH, MOSAIC_RENDERS = 64, 32, 8, 20
 # kernel path; PERF.md, findings on the training step), so the bound is
 # 1e-1; the float32 kernel path is held to 1e-3.  cross_bf16_rel: two conv
 # kernels on other tiles (kernel B's bf16 tensor-core tile against the
-# CUDA-core tile of hex_conv_single and the fused stack) sum in other
-# orders, so a bf16 output may round one way in one and the other way in
-# the other: one ulp, up to 2**-7 of max|out| for an element in max|out|'s
-# binade; over the 11 layers of the P-512 stack the flips propagate.  The
-# bound is two such ulps, 2**-6 of max|out| (PERF.md, the findings on the
-# tensor-core tile).
+# fused stack's CUDA-core tile) sum in other orders, so a bf16 output may
+# round one way in one and the other way in the other: one ulp, up to
+# 2**-7 of max|out| for an element in max|out|'s binade; over the 11
+# layers of the P-512 stack the flips propagate.  The bound is two such
+# ulps, 2**-6 of max|out| (PERF.md, the findings on the tensor-core
+# tile).
 
 
 def log(msg):
@@ -241,33 +243,55 @@ def require(ok, what):
         raise AssertionError(what)
 
 
-# HGMMA/HMMA instructions in each bf16 instantiation of kernel B's conv
-# kernel, (N, GN scratch out, split) -> count; filled by mma_instructions()
+# HGMMA/HMMA instructions in each bf16 instantiation of the tensor-core
+# kernels, filled by mma_instructions(): kernel B's conv kernel, (N, GN
+# scratch out, split) -> count; hex_conv_single's and the dW GEMM's, N ->
+# count
 MMA_COUNTS = {}
+SINGLE_MMA_COUNTS = {}
+WGRAD_MMA_COUNTS = {}
+# the instantiations: hex_conv_kernel<N, bf16, bf16 or float, split> for N
+# in 16-128, hex_conv_single_mma_kernel<N> for N in 16-128,
+# wgrad_mma_kernel<N> for N in 8-32
+MMA_INSTANTIATIONS = (16, 4, 3)
 
 
 def mma_instructions(lib_path):
     """Count the tensor-core instructions (HGMMA, HMMA) in the SASS of every
-    bf16 instantiation of ``hex_conv_kernel`` in the built library, by
-    ``cuobjdump -sass``; fills ``MMA_COUNTS``."""
+    bf16 instantiation of ``hex_conv_kernel``, ``hex_conv_single_mma_kernel``
+    and ``wgrad_mma_kernel`` in the built library, by ``cuobjdump -sass``;
+    fills the three count dicts."""
     import shutil
     exe = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     sass = subprocess.run([exe, "-sass", str(lib_path)], capture_output=True,
                           text=True, check=True).stdout
-    key = None
+    counts = key = None
     for line in sass.splitlines():
         fn = re.search(r"Function : (\S+)", line)
         if fn:
+            name = fn.group(1)
             # mangled: hex_conv_kernel<N, __nv_bfloat16, Tout, split>
             m = re.search(r"hex_conv_kernelILi(\d+)E13__nv_bfloat16(S1_|f)"
-                          r"Lb([01])E", fn.group(1))
-            key = m and (int(m.group(1)), m.group(2) == "f", m.group(3) == "1")
-            if key:
-                MMA_COUNTS[key] = 0
-        elif key and ("HGMMA" in line or "HMMA" in line):
-            MMA_COUNTS[key] += 1
-    require(len(MMA_COUNTS) == 16 and all(MMA_COUNTS.values()),
-            f"hex_conv_kernel<bf16>: tensor-core instructions {MMA_COUNTS}")
+                          r"Lb([01])E", name)
+            s = re.search(r"hex_conv_single_mma_kernelILi(\d+)E", name)
+            w = re.search(r"wgrad_mma_kernelILi(\d+)E", name)
+            counts, key = (
+                (MMA_COUNTS, (int(m.group(1)), m.group(2) == "f",
+                              m.group(3) == "1")) if m
+                else (SINGLE_MMA_COUNTS, int(s.group(1))) if s
+                else (WGRAD_MMA_COUNTS, int(w.group(1))) if w
+                else (None, None))
+            if counts is not None:
+                counts[key] = 0
+        elif counts is not None and ("HGMMA" in line or "HMMA" in line):
+            counts[key] += 1
+    for what, found, n in zip(
+            ("hex_conv_kernel<bf16>", "hex_conv_single_mma_kernel",
+             "wgrad_mma_kernel"),
+            (MMA_COUNTS, SINGLE_MMA_COUNTS, WGRAD_MMA_COUNTS),
+            MMA_INSTANTIATIONS):
+        require(len(found) == n and all(found.values()),
+                f"{what}: tensor-core instructions {found}")
 
 
 def mma_note(cin, cout, gn=False, split=False, radius=2, adjoint=False,
@@ -281,6 +305,29 @@ def mma_note(cin, cout, gn=False, split=False, radius=2, adjoint=False,
     return (f"tile N={n}, HGMMA/HMMA in hex_conv_kernel<{n}, bf16, "
             f"{'float' if gn else 'bf16'}, {str(split).lower()}>="
             f"{MMA_COUNTS[(n, gn, split)]}")
+
+
+def single_mma_note(cin, cout, radius=2, dilation=1):
+    """The tile N of a bf16 ``hex_conv_single`` launch and the HGMMA/HMMA
+    count of ``hex_conv_single_mma_kernel<N>``."""
+    import torch
+    from hygrid_tpu_torch.kernels import conv_stack as cs
+    n = cs._tile_n(torch.bfloat16, cin, cout, 3 * radius * (radius - 1) + 1,
+                   *cs._patch_shape(radius, dilation, False))
+    return (f"tile N={n}, HGMMA/HMMA in hex_conv_single_mma_kernel<{n}>="
+            f"{SINGLE_MMA_COUNTS[n]}")
+
+
+def wgrad_mma_note(cin, cout, rows):
+    """The tile of a bf16 dW launch (N input channels, 64 output channels,
+    7 taps a block), its row chunks, and the HGMMA/HMMA count of
+    ``wgrad_mma_kernel<N>``."""
+    import torch
+    from hygrid_tpu_torch.kernels import conv_stack as cs
+    n, _, _ = cs._wgrad_tile(torch.bfloat16, cin, cout, 7)
+    rpc, chunks = cs._wgrad_chunks(torch.bfloat16, rows, cin, cout, 7)
+    return (f"tile N={n} x M=64, {chunks} chunks of {rpc} rows, HGMMA/HMMA "
+            f"in wgrad_mma_kernel<{n}>={WGRAD_MMA_COUNTS[n]}")
 
 
 def tflops(flops, ms):
@@ -578,6 +625,8 @@ def check_backward(torch, gen):
                          f"bound_ms={b_ms!r} ({b_by});")
                 if dtype == torch.bfloat16 and name == "dgrad":
                     line += f" {mma_note(cout, cin, adjoint=True)};"
+                if dtype == torch.bfloat16 and name == "wgrad":
+                    line += f" {wgrad_mma_note(cin, cout, BATCH * h)};"
                 if dtype == torch.bfloat16 and (name == "wgrad" or li > 0):
                     acc = sums[name]
                     acc["max_abs_err"] = max(acc["max_abs_err"], err)
@@ -1288,12 +1337,13 @@ def check_single(torch, gen):
     route's layer shapes (BN-512 in float32 and bfloat16, BN-CIFAR in
     float32), at odd input parity, dilation 2 and radius 3; at BN-512's
     first layer a band_rows=32 call bit for bit, and on the input padded by
-    r-1 hex_conv_layer (kernel B, no norm, no ReLU): bit for bit in
-    float32, within 2**-6 of max|out| in bfloat16, where kernel B runs the
-    tensor-core tile.  Beside each time: the plain version's and cuDNN's
-    (hex_conv2d(impl="direct") in the activations' dtype; the plain version
-    computes in float32).  Returns the BN-512 float32 summary for the
-    kernels line (the dtype phase 15 serves in)."""
+    r-1 hex_conv_layer (kernel B, no norm, no ReLU) bit for bit in both
+    dtypes (bfloat16: both on the tensor-core tile).  Beside each time: the
+    plain version's and cuDNN's (hex_conv2d(impl="direct") in the
+    activations' dtype; the plain version computes in float32), the bound,
+    TFLOP/s and, in bfloat16, the tile's N and HGMMA/HMMA count; then the
+    sums over each configuration's five layers.  Returns the BN-512 float32
+    summary for the kernels line (the dtype phase 15 serves in)."""
     from hygrid_tpu_torch.kernels import conv_single as cs
     from hygrid_tpu_torch.kernels import conv_stack
     from hygrid_tpu_torch.nn import functional as F
@@ -1327,14 +1377,17 @@ def check_single(torch, gen):
                       iters=iters)
         ho, wo = got.shape[-2:]
         n_in = batch * cin * (h + 2 * pad) * (w + 2 * pad)  # padded input
-        b_ms, b_by = bound(nbytes(x, k, got),
-                           2 * kn * batch * cin * cout * ho * wo,
+        flops = 2 * kn * batch * cin * cout * ho * wo
+        b_ms, b_by = bound(nbytes(x, k, got), flops,
                            "bf16" if dtype == torch.bfloat16 else "f32")
+        note = (f" {single_mma_note(cin, cout, radius, dilation)};"
+                if dtype == torch.bfloat16 else "")
         log(f"hex_conv_single {label} {cin}->{cout} {h}x{w} b={batch} "
             f"r={radius} d={dilation} offset={offset} {str(dtype)[6:]}: "
             f"max_abs_err={err!r} rel={rel!r} kernel_ms={ms!r} "
+            f"({tflops(flops, ms)!r} TFLOP/s) "
             f"plain_ms={pms!r} cudnn_direct_ms={dms!r} bound_ms={b_ms!r} "
-            f"({b_by}); TPU kernel "
+            f"({b_by});{note} TPU kernel "
             f"{'#8' if n_in > TPU_BAND_THRESHOLD else '#7'}")
         return x, k, kw, err, ms, pms, dms, (b_ms, b_by)
 
@@ -1360,13 +1413,12 @@ def check_single(torch, gen):
             f"bit-equal={torch.equal(got, layer)} "
             f"{cross_kernel_note(got, layer)}; hex_conv_layer vs plain "
             f"rel={layer_rel!r}; band_rows=32 bit-equal to unbanded")
-        # float32: the shared CUDA-core tile, bit for bit; bfloat16: kernel
-        # B runs the tensor-core tile
-        require(torch.equal(got, layer) if dtype == torch.float32
-                else diff_rel <= TOL["cross_bf16_rel"],
+        # one tile and one K order in each dtype: bit for bit
+        require(torch.equal(got, layer),
                 f"hex_conv_single {dtype}: differs from hex_conv_layer by "
                 f"{diff} ({diff_rel} of max|out|)")
 
+    sums = {}     # (config, dtype) -> [ms, plain ms, cuDNN ms, bounds]
     for config, layers in SINGLE_LAYERS.items():
         batch = dict((n, b) for n, b, _ in PERMODULE)[config]
         dtypes = ((torch.float32, torch.bfloat16) if config == "BN-512"
@@ -1377,12 +1429,22 @@ def check_single(torch, gen):
                     f"{config} L{li + 1}", batch, cin, cout, h, w, dtype)
                 if config == "BN-512" and li == 0:
                     cross_check(x, k, kw, dtype)
+                acc = sums.setdefault((config, str(dtype)[6:]),
+                                      [0.0, 0.0, 0.0, []])
+                acc[0] += ms
+                acc[1] += pms
+                acc[2] += dms
+                acc[3].append(b)
                 if config == "BN-512" and dtype == torch.float32:
                     summary["max_abs_err"] = max(summary["max_abs_err"], err)
                     summary["ms"] += ms
                     summary["plain_ms"] += pms
                     summary["cudnn_direct_ms"] += dms
                     bounds.append(b)
+    for (config, dt), (ms, pms, dms, bs) in sums.items():
+        log(f"hex_conv_single {config} {dt}, five layers: kernel_ms={ms!r} "
+            f"plain_ms={pms!r} cudnn_direct_ms={dms!r} "
+            f"bound_ms={summed_bound(bs)['bound_ms']!r}")
     for dtype in (torch.float32, torch.bfloat16):
         case("odd parity", 8, 32, 64, 64, 63, dtype, offset=1)
         case("dilation 2", 8, 32, 64, 64, 63, dtype, dilation=2)
@@ -1834,6 +1896,9 @@ def check_split_backward(torch, gen):
                 if dtype == torch.bfloat16 and kind == "dgrad":
                     line += (f" Ka: {mma_note(cout, ca, adjoint=True)}, Kb: "
                              f"{mma_note(cout, cb, adjoint=True)};")
+                if dtype == torch.bfloat16 and kind == "wgrad":
+                    line += (f" A: {wgrad_mma_note(ca, cout, b * h)}, B: "
+                             f"{wgrad_mma_note(cb, cout, b * h)};")
                 if dtype == torch.bfloat16 and name.startswith("dec"):
                     acc = sums[kind]
                     acc["max_abs_err"] = max(acc["max_abs_err"], err)
@@ -2025,13 +2090,17 @@ def run_hexunet_training(torch):
 
 
 def kernel_times(torch):
-    """``python3 chip_smoke.py --kernel-times``: the bf16 times of the
-    kernels every earlier tree of the port shares (kernel B's six
+    """``python3 chip_smoke.py --kernel-times``: the times of the kernels
+    every tree of the port with the split layer's backward shares, through
+    the public wrappers only, so that a copy of this script in an older
+    checkout times that checkout's kernels.  In bf16: kernel B's six
     HexCNN-small GN layers at b=32, the fused P-512 stack and the same
-    layers chained, the split layer at dec0 + dec1, dx of layers 1-5 and
-    dW of all six), through the public wrappers only, so that a copy of
-    this script in an older checkout times that checkout's kernels.  Each
-    sum is taken ``KERNEL_TIME_REPEATS`` times; one JSON line."""
+    layers chained, the split layer at dec0 + dec1, dx of layers 1-5, dW
+    of all six and the split layer's dW at dec0 + dec1; hex_conv_single
+    at the per-module route's five layers, BN-512 in bf16 and in f32 and
+    BN-CIFAR in f32.  Each sum is taken ``KERNEL_TIME_REPEATS`` times;
+    one JSON line."""
+    from hygrid_tpu_torch.kernels import conv_single
     from hygrid_tpu_torch.kernels import conv_stack as cs
     from hygrid_tpu_torch.nn.functional import hex_kernel_num
     gen = torch.Generator(device="cuda").manual_seed(21)
@@ -2047,7 +2116,9 @@ def kernel_times(torch):
                 torch.zeros(cout, device="cuda"))
 
     calls = {"kernel_b": [], "dgrad": [], "wgrad": [], "split": [],
-             "fused": [], "chained": []}
+             "fused": [], "chained": [], "split_wgrad": [],
+             "single_bf16": [], "single_f32_512": [],
+             "single_f32_cifar": []}
     for li, (cin, cout, h, w) in enumerate(LAYERS):
         x, g = rand(BATCH, h, w, cin), rand(BATCH, h, w, cout)
         k = rand(cout, cin, kn, scale=1 / math.sqrt(cin * kn))
@@ -2060,9 +2131,26 @@ def kernel_times(torch):
                 cs.hex_conv_layer_dgrad, g, k, radius=2))
     for _, b, h, w, ca, cb, cout, _ in SPLIT_LAYERS[:2]:
         k = rand(cout, ca + cb, kn, scale=1 / math.sqrt((ca + cb) * kn))
+        xa, xb = rand(b, h, w, ca), rand(b, h, w, cb)
         calls["split"].append(functools.partial(
-            cs.hex_conv_layer_split, rand(b, h, w, ca), rand(b, h, w, cb),
-            k, radius=2, norm=gn(cout), relu=True))
+            cs.hex_conv_layer_split, xa, xb, k, radius=2, norm=gn(cout),
+            relu=True))
+        calls["split_wgrad"].append(functools.partial(
+            cs.hex_conv_layer_split_wgrad, xa, xb, rand(b, h, w, cout),
+            radius=2))
+    for config, layers in SINGLE_LAYERS.items():
+        batch = dict((n, b) for n, b, _ in PERMODULE)[config]
+        for cin, cout, h, w in layers:
+            x = torch.rand((batch, cin, h, w), generator=gen, device="cuda")
+            k = torch.randn((cout, cin, kn), generator=gen, device="cuda") \
+                / math.sqrt(cin * kn)
+            names = (["single_bf16", "single_f32_512"] if config == "BN-512"
+                     else ["single_f32_cifar"])
+            for name in names:
+                dt = bf if name == "single_bf16" else torch.float32
+                calls[name].append(functools.partial(
+                    conv_single.hex_conv_single, x.to(dt), k.to(dt),
+                    radius=2, padding=1))
     _, ks = build_pipeline((512, 512), PIPE_CHANNELS, PIPE_LAYERS,
                            PIPE_RADIUS, bf)
     relus = [True] * (len(ks) - 1) + [False]
@@ -2124,7 +2212,7 @@ def main():
         if entry:  # mangled: <length><name>I<template args>E
             kernel = entry.group(1) + (entry.group(2) or "").replace(
                 "13__nv_bfloat16", "bf16")
-        elif "spill" in line or "registers" in line:
+        elif "spill" in line or "Used" in line:
             log(f"  ptxas {kernel}: {line.split(':', 1)[-1].strip()}")
     if sys.argv[1:] == ["--kernel-times"]:
         return kernel_times(torch)
@@ -2132,7 +2220,11 @@ def main():
     log("tensor-core instructions (HGMMA/HMMA, cuobjdump -sass) in "
         "hex_conv_kernel<N, bf16, out, split>: " + ", ".join(
             f"<{n}, {'float' if f else 'bf16'}, {str(sp).lower()}> {c}"
-            for (n, f, sp), c in sorted(MMA_COUNTS.items())))
+            for (n, f, sp), c in sorted(MMA_COUNTS.items()))
+        + "; hex_conv_single_mma_kernel<N>: " + ", ".join(
+            f"<{n}> {c}" for n, c in sorted(SINGLE_MMA_COUNTS.items()))
+        + "; wgrad_mma_kernel<N>: " + ", ".join(
+            f"<{n}> {c}" for n, c in sorted(WGRAD_MMA_COUNTS.items())))
 
     gen = torch.Generator(device="cuda").manual_seed(1234)
     with torch.inference_mode():

@@ -1,8 +1,9 @@
 // Shared by the hex conv kernels: the per-parity tap table passed by value
 // as a kernel parameter, float32 loads and stores of the working dtypes, the
 // conv pass's CUDA-core tile (conv_tile: hex_conv_layer.cu in float32,
-// hex_conv_fused_stack.cu, hex_conv_single.cu) and its bf16 tensor-core
-// tile (conv_tile_mma: hex_conv_layer.cu in bfloat16).
+// hex_conv_fused_stack.cu) and its bf16 tensor-core tile (conv_tile_mma:
+// hex_conv_layer.cu in bfloat16; conv_tile_mma_nchw, the same tile staged
+// from NCHW input: hex_conv_single.cu in bfloat16).
 #pragma once
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -38,11 +39,12 @@ __device__ __forceinline__ void store(__nv_bfloat16* p, float v) { *p = __float2
 
 // ---- the conv pass's CUDA-core tile ---------------------------------------
 //
-// The float32 tile of every conv kernel, and the bfloat16 tile of
-// hex_conv_fused_stack.cu and hex_conv_single.cu (hex_conv_layer.cu's
-// bfloat16 conv pass is conv_tile_mma below).  It replaces the Kronecker
-// matmuls of conv_pallas.py's _conv_kernel, _stack_layer_kernel and
-// _fused_stack_kernel with f32 FMAs on the CUDA cores.
+// The float32 tile of hex_conv_layer.cu and hex_conv_fused_stack.cu, and
+// the fused stack's bfloat16 tile (hex_conv_layer.cu's bfloat16 conv pass
+// is conv_tile_mma below; hex_conv_single.cu's float32 tile is its own and
+// sums in this tile's order).  It replaces the Kronecker matmuls of
+// conv_pallas.py's _stack_layer_kernel and _fused_stack_kernel with f32
+// FMAs on the CUDA cores.
 //
 // One tile is kTileP consecutive output pixels of one output row and COB
 // output channels.  The block (kConvThreads threads) stages the input patch
@@ -53,10 +55,9 @@ __device__ __forceinline__ void store(__nv_bfloat16* p, float v) { *p = __float2
 // that share a channel read consecutive words (no bank conflicts); the
 // kChanT output channels come as one float4.  Every output accumulates over
 // input-channel chunks, then taps, then the chunk's channels, in that order,
-// whatever COB and the input layout are: kernels that share this tile agree
-// bit for bit.  The tile reads NHWC (channel-fastest staging walk) or NCHW
-// (column-fastest walk), so that a warp's loads are consecutive in either
-// layout.
+// whatever COB is: kernels that share this tile agree bit for bit.  The
+// tile reads NHWC with a channel-fastest staging walk, so that a warp's
+// loads are consecutive.
 constexpr int kTileP = 64;       // output pixels per tile
 constexpr int kChunkC = 16;      // input channels per stage
 constexpr int kChanT = 4;        // output channels per thread
@@ -104,10 +105,10 @@ inline size_t conv_tile_smem(const Geometry& g, int kn, int cob) {
 }
 
 // Accumulate the tile at output row o, pixels w0.., channels co0.. of the
-// sample xb ((H, W, Cin), or (Cin, H, W) when kNCHW) into acc.  w: (kn,
-// Cin, Cout) float32.  smem holds conv_tile_smem bytes.  With load_w false
-// the weights staged by the last call are used again (only valid when
-// Cin <= kChunkC and co0 is the same).
+// sample xb (H, W, Cin) into acc.  w: (kn, Cin, Cout) float32.  smem holds
+// conv_tile_smem bytes.  With load_w false the weights staged by the last
+// call are used again (only valid when Cin <= kChunkC and co0 is the
+// same).
 //
 // kSplit: the input is the channel concatenation of two NHWC samples, xb
 // (H, W, Ca) holding channels [0, Ca) and xb2 (H, W, Cin - Ca) the rest;
@@ -115,6 +116,9 @@ inline size_t conv_tile_smem(const Geometry& g, int kn, int cob) {
 // source, per element, so a chunk may straddle Ca, and the accumulation
 // order is the one over the concatenated channels: the result is bit-equal
 // to the unsplit tile on the materialised concatenation.
+//
+// kNCHW must be false (the tile reads NHWC); the parameter is kept so that
+// hex_conv_layer.cu's conv_tile<COB, false, true> names kSplit.
 template <int COB, bool kNCHW = false, bool kSplit = false, typename Tin>
 __device__ __forceinline__ void conv_tile(
     const Tin* __restrict__ xb, const float* __restrict__ w, float* smem,
@@ -122,7 +126,7 @@ __device__ __forceinline__ void conv_tile(
     int n_rows, int c_lo, int n_cols, int o, int w0, int co0, bool load_w,
     float (&acc)[ConvTile<COB>::kPT][kChanT],
     const Tin* __restrict__ xb2 = nullptr, int Ca = 0) {
-  static_assert(!(kSplit && kNCHW), "the split input is NHWC");
+  static_assert(!kNCHW, "the tile reads NHWC");
   constexpr int PT = ConvTile<COB>::kPT;
   constexpr int kPixLanes = ConvTile<COB>::kPixLanes;
   float* xs = smem;                               // [n_rows][kChunkC][n_cols]
@@ -138,11 +142,11 @@ __device__ __forceinline__ void conv_tile(
 
   for (int ci0 = 0; ci0 < Cin; ci0 += kChunkC) {
     __syncthreads();
-    // consecutive threads read consecutive channels (NHWC) or columns (NCHW)
+    // consecutive threads read consecutive channels
     const int n_x = n_rows * n_cols * kChunkC;
     for (int e = tid; e < n_x; e += kConvThreads) {
-      const int ck = kNCHW ? (e / n_cols) % kChunkC : e % kChunkC;
-      const int c = kNCHW ? e % n_cols : (e / kChunkC) % n_cols;
+      const int ck = e % kChunkC;
+      const int c = (e / kChunkC) % n_cols;
       const int r = e / (kChunkC * n_cols);
       const int gi = o + r_lo + r, gj = w0 + c_lo + c, gc = ci0 + ck;
       float v = 0.f;
@@ -152,8 +156,7 @@ __device__ __forceinline__ void conv_tile(
           v = to_f32(gc < Ca ? xb[pix * Ca + gc]
                              : xb2[pix * (Cin - Ca) + (gc - Ca)]);
         } else {
-          v = to_f32(kNCHW ? xb[((long long)gc * H + gi) * W + gj]
-                           : xb[((long long)gi * W + gj) * Cin + gc]);
+          v = to_f32(xb[((long long)gi * W + gj) * Cin + gc]);
         }
       }
       xs[(r * kChunkC + ck) * n_cols + c] = v;
@@ -516,6 +519,88 @@ __device__ __forceinline__ void conv_tile_mma(
     asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
     fence_acc(acc);
     __syncthreads();   // the buffer is free for the chunk after next
+  }
+}
+
+
+// ---- the same tensor-core tile on NCHW input (hex_conv_single.cu) --------
+//
+// conv_tile_mma's patch layout filled from an NCHW sample (Cin, H, W): a
+// 16-byte unit is 8 channels of one pixel, which NCHW holds one plane
+// apart, so no copy engine can move it whole.  Each thread gathers the 8
+// channels of one unit (8 loads, consecutive threads on consecutive
+// columns, so each load is coalesced across the warp) and stores the unit
+// in one 16-byte write (consecutive threads on consecutive units: no bank
+// conflicts).  It is the transposing twin of stage_patch's element-wise
+// branch: the same units, the same zeros outside the image and past Cin.
+__device__ __forceinline__ void stage_patch_nchw(
+    uint4* xs, const __nv_bfloat16* __restrict__ xb, int H, int W, int Cin,
+    int r_lo, int n_rows, int c_lo, int n_cols, int o, int w0, int ci0) {
+  const int n_units = mma_patch_units(n_rows, n_cols);
+  const long long plane = (long long)H * W;
+  for (int e = threadIdx.x; e < n_units; e += kConvThreads) {
+    const int c = e % n_cols;
+    const int rg = e / n_cols;            // row * 2 + group
+    const int gi = o + r_lo + (rg >> 1), gj = w0 + c_lo + c;
+    const int gc = ci0 + 8 * (rg & 1);
+    const bool inside = gi >= 0 && gi < H && gj >= 0 && gj < W;
+    const __nv_bfloat16* src = xb + ((long long)gc * H + gi) * W + gj;
+    __align__(16) __nv_bfloat16 v[8];
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+      v[j] = inside && gc + j < Cin ? src[j * plane] : __float2bfloat16(0.f);
+    xs[rg * n_cols + c] = *reinterpret_cast<const uint4*>(v);
+  }
+}
+
+// conv_tile_mma on the NCHW sample xb (Cin, H, W): the same units, weights,
+// K order and MMAs, so the result is bit-equal to conv_tile_mma's on the
+// same values in NHWC.  The staging is synchronous, so it runs while the
+// tensor cores work: chunk c's MMAs are issued, chunk c + 1's patch is
+// gathered into the other buffer (its weights by cp.async), then the MMAs
+// are waited on.
+template <int N>
+__device__ __forceinline__ void conv_tile_mma_nchw(
+    const __nv_bfloat16* __restrict__ xb, const __nv_bfloat16* __restrict__ w,
+    uint4* smem, int H, int W, int Cin, int Cout, int kn,
+    const TapTable& taps, int r_lo, int n_rows, int c_lo, int n_cols, int o,
+    int w0, int co0, float (&acc)[N / 2]) {
+  const int q = o & 1;
+  const int n_chunks = (Cin + kChunkC - 1) / kChunkC;
+  const int x_units = mma_patch_units(n_rows, n_cols);
+  const int stage_units = x_units + kn * 2 * N;
+#pragma unroll
+  for (int i = 0; i < N / 2; ++i) acc[i] = 0.f;
+
+  auto stage = [&](int chunk) {
+    uint4* xs = smem + (chunk & 1) * stage_units;
+    stage_patch_nchw(xs, xb, H, W, Cin, r_lo, n_rows, c_lo, n_cols, o, w0,
+                     chunk * kChunkC);
+    stage_weights<N>(xs + x_units, w, chunk, kn, Cout, co0);
+    cp_async_commit();
+  };
+  stage(0);
+  for (int chunk = 0; chunk < n_chunks; ++chunk) {
+    cp_async_wait<0>();
+    // this thread's copies and stores, seen by the tensor cores' proxy
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    __syncthreads();
+    const uint4* xs = smem + (chunk & 1) * stage_units;
+    const uint4* ws = xs + x_units;
+    fence_acc(acc);
+    asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+    for (int t = 0; t < kn; ++t) {
+      const uint4* a = xs + (taps.dr[q][t] - r_lo) * 2 * n_cols +
+                       (taps.dc[q][t] - c_lo);
+      Wgmma<N>::mma(acc, mma_desc(a, n_cols * 16, 128),
+                    mma_desc(ws + t * 2 * N, N * 16, 128));
+    }
+    asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+    // the other buffer was last read by chunk - 1's MMAs, which every
+    // thread waited on before the barrier above
+    if (chunk + 1 < n_chunks) stage(chunk + 1);
+    asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+    fence_acc(acc);
   }
 }
 

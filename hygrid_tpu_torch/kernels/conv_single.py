@@ -18,6 +18,13 @@ conv), as the reference pulls back through XLA's packed conv
 (``conv_pallas.py:210-229``).  On a CPU tensor it runs the plain version;
 anything else raises.
 
+The kernel runs bfloat16 on kernel B's tensor-core tile (the weights
+packed by ``conv_stack._pack_mma_weights``, the tile's output channels
+chosen by ``conv_stack._tile_n``), bit-equal to ``hex_conv_layer`` on the
+padded input, and float32 on a CUDA-core tile that packs output rows
+shorter than 64 pixels into one block (:func:`_f32_plan` mirrors the C
+entry's choice), bit-equal to ``hex_conv_layer`` in float32.
+
 :func:`takes_single_route` is ``hex_conv2d(impl="pallas")``'s gate: the
 reference's envelope (``pallas_conv_applicable``) and height check
 (``hygrid_tpu/nn/functional.py:519-521``).  Both are TPU facts, copied only
@@ -27,14 +34,13 @@ so that each call runs the counterpart of its TPU kernel; outside them
 from __future__ import annotations
 
 import functools
-import math
 
 import numpy as np
 import torch
 from torch.autograd.function import once_differentiable
 
 from ..nn import functional as F
-from . import _build
+from . import _build, conv_stack
 
 __all__ = ["hex_conv_single", "hex_conv_single_plain",
            "pallas_conv_applicable", "takes_single_route"]
@@ -66,6 +72,74 @@ def _valid_taps(radius: int, dilation: int, parity: int) -> np.ndarray:
                                                        parity))
     table.setflags(write=False)
     return table
+
+
+# the float32 tile (csrc/hex_conv_single.cu): output pixels a block, staged
+# input channels, and the shared memory a block may use on the H100
+_TILE_P = 64
+_CHUNK_C = 16
+_MAX_SMEM = 232448
+
+
+def _patch(table: np.ndarray) -> tuple[int, int]:
+    """Rows and columns of the patch one 64-pixel tile reads
+    (``hex_common.cuh::make_geometry``)."""
+    dr, dc = table[..., 0], table[..., 1]
+    return (int(dr.max() - dr.min()) + 1,
+            _TILE_P + int(dc.max() - dc.min()))
+
+
+def _f32_smem(cob: int, n_rows: int, kn: int, nv: int) -> int:
+    """Shared memory of the float32 tile: the patch and the weights of one
+    16-channel chunk in float32, and the staging table (an 8- and a 4-byte
+    entry per staged column)."""
+    return 4 * (n_rows * _CHUNK_C * nv + kn * _CHUNK_C * cob) + 12 * nv
+
+
+def _f32_plan(b: int, cin: int, cout: int, ho: int, wo: int, kn: int,
+              n_rows: int, n_cols: int):
+    """How the float32 kernel covers the output, as the C entry chooses it
+    (``hex_conv_single.cu::f32_packing``): ``cob`` output channels a block
+    (16, 32 or 64 from Cout); ``S`` output rows of one parity a block
+    (``64 // Wo`` where Wo < 64, each ``sw = Wo`` pixels, else one row's
+    64-pixel tile, ``sw = 64``); ``ncs = sw + tap width`` staged columns
+    each, ``nv = S * ncs`` in all; where shared memory is short, half the
+    channels, else half the rows; ``tiles0`` tiles of even rows and
+    ``tiles`` in all.  None where nothing fits."""
+    cob = 16 if cout <= 16 else 32 if cout <= 32 else 64
+    s = _TILE_P // wo if wo < _TILE_P else 1
+    tap_width = n_cols - _TILE_P
+    while True:
+        sw = wo if s > 1 else _TILE_P
+        nv = s * (sw + tap_width)
+        if _f32_smem(cob, n_rows, kn, nv) <= _MAX_SMEM:
+            break
+        if cob > 16:
+            cob //= 2
+        elif s > 1:
+            s //= 2
+        else:
+            return None
+    rows = [b * ((ho + 1 - q) // 2) for q in (0, 1)]
+    per_row = 1 if s > 1 else -(-wo // _TILE_P)
+    tiles = [-(-r // s) if s > 1 else r * per_row for r in rows]
+    return dict(cob=cob, S=s, sw=sw, ncs=sw + tap_width, nv=nv,
+                tiles0=tiles[0], tiles=sum(tiles))
+
+
+def _grid(dtype, b: int, cin: int, cout: int, ho: int, wo: int, kn: int,
+          table: np.ndarray):
+    """The kernel's grid for these shapes, as the C entry launches it:
+    float32, ``(tiles, ceil(Cout / cob))`` of :func:`_f32_plan`; bfloat16,
+    ``(ceil(Wo / 64), Ho, B * ceil(Cout / N))`` with kernel B's N
+    (``conv_stack._tile_n``).  None where the float32 tile does not fit."""
+    n_rows, n_cols = _patch(table)
+    if dtype == torch.bfloat16:
+        n = conv_stack._tile_n(dtype, cin, cout, kn, n_rows, n_cols)
+        return (-(-wo // _TILE_P), ho, b * -(-cout // n))
+    plan = _f32_plan(b, cin, cout, ho, wo, kn, n_rows, n_cols)
+    return None if plan is None else (plan["tiles"],
+                                      -(-cout // plan["cob"]))
 
 
 def _prepare(x, kernel, even_odd_offset, padding, band_rows):
@@ -129,19 +203,23 @@ def _launch(x, kernel, parity, radius, dilation):
     if ho < 1 or wo < 1:
         raise ValueError(f"hex_conv_single: input ({h}, {w}) too small for "
                          f"radius {radius}, dilation {dilation}")
-    if ho > 65535 or b * math.ceil(cout / (16 if cout <= 16 else 32)) > 65535:
-        raise ValueError(f"hex_conv_single: grid too large for Ho={ho}, "
-                         f"B={b}, Cout={cout}")
+    table = _valid_taps(radius, dilation, parity)
+    grid = _grid(x.dtype, b, cin, cout, ho, wo, kn, table)
+    if grid is None or grid[0] > 2 ** 31 - 1 or max(grid[1:]) > 65535:
+        raise ValueError(f"hex_conv_single: no grid for Ho={ho}, Wo={wo}, "
+                         f"B={b}, Cin={cin}, Cout={cout}, radius {radius}, "
+                         f"dilation {dilation}")
     x = x.contiguous()
-    wt = kernel.detach().float().permute(2, 1, 0).contiguous()  # (kn, Cin, Cout)
+    wt = kernel.detach().permute(2, 1, 0)                # (kn, Cin, Cout)
+    wt = (conv_stack._pack_mma_weights(wt) if x.dtype == torch.bfloat16
+          else wt.float().contiguous())
     out = torch.empty((b, cout, ho, wo), dtype=x.dtype, device=x.device)
     lib = _build.load_library()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         status = lib.hg_hex_conv_single(
             x.data_ptr(), wt.data_ptr(), out.data_ptr(), _DTYPES[x.dtype], b,
-            h, w, cin, ho, wo, cout, kn,
-            _valid_taps(radius, dilation, parity).ctypes.data, stream)
+            h, w, cin, ho, wo, cout, kn, table.ctypes.data, stream)
     _build.check(status, "hex_conv_single")
     LAUNCHES += 1
     return out
@@ -184,7 +262,8 @@ def hex_conv_single(x, kernel, bias=None, *, even_odd_offset: int = 0,
 
     A CPU tensor runs :func:`hex_conv_single_plain`.  A CUDA tensor
     launches ``csrc/hex_conv_single.cu`` (float32 or bfloat16 activations,
-    any channel counts); anything the kernel does not take raises.
+    any channel counts; bfloat16 on the tensor cores with the kernel
+    rounded to bf16); anything the kernel does not take raises.
     ``band_rows`` (the TPU's row band) computes the same function.
     """
     x, kernel, parity = _prepare(x, kernel, even_odd_offset, padding,

@@ -34,7 +34,8 @@ On CUDA the conv pass runs on the tensor cores in bfloat16
 (``hex_common.cuh::conv_tile_mma``, ``wgmma``: the weights rounded to
 bf16 and packed by :func:`_pack_mma_weights`, as the TPU kernel rounds
 them, the tile's output channels chosen by :func:`_tile_n`) and on the
-CUDA cores in float32.
+CUDA cores in float32; so does dL/dW (``wgmma`` GEMMs per tap over the
+pixels, in the fixed row chunks of :func:`_wgrad_chunks`).
 
 ``band_rows`` selects the TPU's row-banded layer kernel, which exists only
 to fit planes larger than VMEM; the port computes the same function with
@@ -106,7 +107,11 @@ split layer, one on each input; a run is two CUDA launches)."""
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _EPS = 1e-5
 _GN_BLOCKS = 2048     # target (sample, pixel-chunk) blocks of the GN stats pass
-_WGRAD_BLOCKS = 2048  # target blocks of the dW partial-sum pass
+# target blocks of the dW partial-sum pass: float32 (CUDA cores), and
+# bfloat16 (tensor cores: fewer, longer blocks, so the f32 partial sums each
+# chunk writes and the fold reads stay few)
+_WGRAD_BLOCKS = 2048
+_WGRAD_MMA_BLOCKS = 792
 # batch elements of one fused-stack group: each of its two scratch buffers
 # holds at most this many bytes, so both stay in the card's 50 MB L2
 _FUSED_GROUP_BYTES = 16 * 2 ** 20
@@ -617,16 +622,41 @@ def hex_conv_layer_split_dgrad(gpre: torch.Tensor, kernel: torch.Tensor,
     return tuple(out)
 
 
+def _wgrad_tile(dtype: torch.dtype, cin: int, cout: int, kn: int
+                ) -> tuple[int, int, int]:
+    """``(input channels, output channels, taps)`` one block of the dW
+    partial pass covers, as the chunking counts it: float32, one tap and
+    64 x 64 channels (the kernel's tile is 4, 32 or 64 of Cin by 32 or 64
+    of Cout); bfloat16, as the C entry chooses it, N = 8, 16 or 32 input
+    channels from Cin, 64 output channels (wgmma's M) and 7 taps
+    (``hex_conv_wgrad.cu::wgrad_mma_n``)."""
+    if dtype != torch.bfloat16:
+        return 64, 64, 1
+    return (8 if cin <= 8 else 16 if cin <= 16 else 32), 64, 7
+
+
+def _wgrad_chunks(dtype: torch.dtype, rows: int, cin: int, cout: int,
+                  kn: int) -> tuple[int, int]:
+    """``(rows_per_chunk, n_chunks)`` of the dW partial pass over ``rows``
+    image rows (B x H): as many chunks as bring the blocks (chunks x
+    channel tiles x tap groups) to the dtype's target, at least one row a
+    chunk, the rows spread evenly, from the shapes alone (so every card
+    folds the same partial sums).  The partial scratch is ``(n_chunks,
+    kn, Cin, Cout)`` float32."""
+    ci, co, taps = _wgrad_tile(dtype, cin, cout, kn)
+    tiles = -(-cin // ci) * -(-cout // co) * -(-kn // taps)
+    target = _WGRAD_MMA_BLOCKS if dtype == torch.bfloat16 else _WGRAD_BLOCKS
+    n_chunks = max(1, min(rows, -(-target // tiles)))
+    rows_per_chunk = -(-rows // n_chunks)
+    return rows_per_chunk, -(-rows // rows_per_chunk)
+
+
 def _wgrad_launch(x, gpre, radius, dilation, what):
     """One ``hg_hex_conv_wgrad`` run on checked NHWC ``x`` and ``gpre``."""
     b, h, w, cin = x.shape
     cout = gpre.shape[-1]
     kn = F.hex_kernel_num(radius)
-    rows = b * h
-    tiles = math.ceil(cin / 64) * math.ceil(cout / 64)
-    n_chunks = max(1, min(rows, -(-_WGRAD_BLOCKS // (kn * tiles))))
-    rows_per_chunk = -(-rows // n_chunks)
-    n_chunks = -(-rows // rows_per_chunk)
+    rows_per_chunk, n_chunks = _wgrad_chunks(x.dtype, b * h, cin, cout, kn)
     partial = torch.empty((n_chunks, kn, cin, cout), dtype=torch.float32,
                           device=x.device)
     dw = torch.empty((cout, cin, kn), dtype=torch.float32, device=x.device)
@@ -649,8 +679,8 @@ def hex_conv_layer_wgrad(x: torch.Tensor, gpre: torch.Tensor, *,
     ``(B, H, W, Cout)`` of the same dtype.
 
     On CUDA it runs ``csrc/hex_conv_wgrad.cu`` (per-chunk partial sums,
-    then a fold in chunk order: deterministic).  A CPU tensor runs
-    :func:`hex_conv_layer_wgrad_plain`.
+    on the tensor cores in bfloat16, then a fold in chunk order:
+    deterministic).  A CPU tensor runs :func:`hex_conv_layer_wgrad_plain`.
     """
     global WGRAD_LAUNCHES
     if x.device.type == "cpu":

@@ -16,11 +16,11 @@ backward's chain rescale summation-order differences).  The shift
 resampler: float32 within 1e-6 absolute (fma against multiply-add),
 bfloat16 within 1e-2 relative, the exact-select mosaic bit-equal.  The
 single-op conv: float32 within 1e-5 absolute, bfloat16 within 3e-2
-relative; in float32 bit-equal to ``hex_conv_layer`` on the 'same' conv,
-in bfloat16 within ``2**-6 * max|out|`` of it (kernel B's bf16 conv pass
-runs on the tensor cores, the single-op conv and the fused stack keep the
-CUDA-core tile, so their bf16 sums are taken in other orders; the same
-holds for the fused stack against chained layers).  The split layer: the
+relative; bit-equal to ``hex_conv_layer`` on the 'same' conv in both
+dtypes (the same tile and K order: the CUDA-core order in float32, the
+tensor-core tile in bfloat16).  The fused stack keeps the CUDA-core tile,
+so in bfloat16 it agrees with chained layers (kernel B's tensor-core
+tile) within ``2**-6 * max|out|``.  The split layer: the
 layer's tolerances against its plain version, and bit-equal to
 ``hex_conv_layer`` on the concatenation; its backward (split dgrad and
 wgrad) the unsplit kernels' tolerances, and bit-equal to the unsplit
@@ -249,6 +249,35 @@ def test_wgrad_is_deterministic(cuda):
     x, g, _, kw = _bwd_inputs(BWD_CASES[5], torch.bfloat16, cuda)
     first = conv_stack.hex_conv_layer_wgrad(x, g, **kw)
     assert torch.equal(first, conv_stack.hex_conv_layer_wgrad(x, g, **kw))
+
+
+WGRAD_MMA_CASES = [  # (B, H, W, Cin, Cout): the bf16 GEMM's edges
+    (2, 9, 65, 3, 24),      # the stem's 3 channels, a ragged step
+    (3, 7, 1, 24, 48),      # one pixel a row, Cin off N = 32
+    (2, 6, 65, 40, 24),     # two N tiles, the second of 8 channels
+    (1, 11, 1, 40, 48),
+    (2, 5, 65, 24, 48),
+]
+
+
+@pytest.mark.parametrize("case", WGRAD_MMA_CASES)
+def test_bf16_wgrad_gemm_matches_plain_and_a_second_launch(cuda, case):
+    """bf16 dW on the tensor cores at the channel counts and widths where
+    its tiles are ragged: within 1e-4 of the plain version, bit-equal to a
+    second launch (fixed chunks folded in order, no atomics)."""
+    b, h, w, cin, cout = case
+    gen = torch.Generator(device=cuda).manual_seed(
+        300 + WGRAD_MMA_CASES.index(case))
+    bf = torch.bfloat16
+    x = torch.rand((b, h, w, cin), generator=gen, device=cuda).to(bf)
+    g = torch.randn((b, h, w, cout), generator=gen, device=cuda).to(bf)
+    got = conv_stack.hex_conv_layer_wgrad(x, g, radius=2)
+    again = conv_stack.hex_conv_layer_wgrad(x, g, radius=2)
+    want = conv_stack.hex_conv_layer_wgrad_plain(x, g, radius=2)
+    torch.cuda.synchronize()
+    assert got.shape == (cout, cin, 7) and got.dtype == torch.float32
+    assert torch.equal(got, again)
+    assert _rel(got, want) <= 1e-4
 
 
 @pytest.mark.parametrize("name", ["r2h-61x47-nearest", "h2r-33x29-linear",
@@ -669,12 +698,12 @@ def test_hex_conv_single_matches_plain(cuda, case, dtype):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_hex_conv_single_equals_hex_conv_layer_on_the_padded_input(cuda,
                                                                    dtype):
-    """The 'same' conv: the valid conv of the input padded by r-1.  In
-    float32 it sums in the layer kernel's order (the shared CUDA-core
-    tile), so the two agree bit for bit; in bfloat16 the layer runs the
-    tensor-core tile, and each side holds its tolerance against the plain
-    version and the two agree within 2**-6 * max|out|.  band_rows computes
-    the same function, bit for bit."""
+    """The 'same' conv: the valid conv of the input padded by r-1.  It sums
+    in the layer kernel's order on the same tile (float32: the CUDA-core
+    order; bfloat16: the tensor-core tile with the same packed weights and
+    K order), so the two agree bit for bit, and each holds its tolerance
+    against the plain version.  band_rows computes the same function, bit
+    for bit."""
     gen = torch.Generator(device=cuda).manual_seed(9)
     x = torch.rand((2, 32, 33, 70), generator=gen, device=cuda).to(dtype)
     k = (torch.randn((48, 32, 7), generator=gen, device=cuda) / 15).to(dtype)
@@ -684,9 +713,47 @@ def test_hex_conv_single_equals_hex_conv_layer_on_the_padded_input(cuda,
     if dtype == torch.bfloat16:
         want = conv_single.hex_conv_single_plain(x, k, radius=2, padding=1)
         assert _rel(got, want) <= 3e-2 and _rel(layer, want) <= 3e-2
-    assert _agree(got, layer, dtype)
+    assert torch.equal(got, layer)
     assert torch.equal(got, conv_single.hex_conv_single(
         x, k, radius=2, padding=1, band_rows=4))
+
+
+SHORT_ROWS = [  # (B, Cin, Cout, H, W, radius, dilation, offset): BN-CIFAR's
+    (5, 32, 32, 16, 16, 2, 1, 0),    # rows of 16, 7 and 3 output pixels,
+    (7, 32, 64, 8, 7, 2, 1, 0),      # packed several to a block, batches
+    (3, 64, 128, 4, 3, 2, 1, 0),     # that do not divide the pack
+    (3, 16, 40, 9, 7, 2, 2, 1),      # dilation 2, Cout off the tile
+    (2, 24, 16, 11, 3, 3, 1, 0),     # radius 3, Cin off the chunk
+]
+
+
+@pytest.mark.parametrize("case", SHORT_ROWS)
+def test_hex_conv_single_packs_short_rows_bit_equal_to_kernel_b(cuda, case):
+    """float32 on rows shorter than a block: several output rows of one
+    parity share a block, each pixel reading its own row's patch.  The sum
+    keeps kernel B's order, so the result is bit-equal to
+    ``hex_conv_layer``'s 'same' conv on the unpadded input, and within
+    1e-5 of the plain version."""
+    b, cin, cout, h, w, r, d, off = case
+    gen = torch.Generator(device=cuda).manual_seed(
+        200 + SHORT_ROWS.index(case))
+    kn = F.hex_kernel_num(r)
+    x = torch.rand((b, cin, h, w), generator=gen, device=cuda)
+    k = torch.randn((cout, cin, kn), generator=gen, device=cuda) \
+        / math.sqrt(cin * kn)
+    kw = dict(even_odd_offset=off, radius=r, padding=d * (r - 1), dilation=d)
+    before = conv_single.LAUNCHES
+    got = conv_single.hex_conv_single(x, k, **kw)
+    assert conv_single.LAUNCHES == before + 1
+    want = conv_single.hex_conv_single_plain(x, k, **kw)
+    torch.cuda.synchronize()
+    assert got.shape == (b, cout, h, w)
+    assert float((got - want).abs().max()) <= 1e-5
+    if off == 0:       # kernel B's 'same' conv has even rows even
+        layer = conv_stack.hex_conv_layer(
+            x.permute(0, 2, 3, 1).contiguous(), k, radius=r,
+            dilation=d).permute(0, 3, 1, 2)
+        assert torch.equal(got, layer)
 
 
 def test_hex_conv_single_refuses_what_it_does_not_take(cuda):
