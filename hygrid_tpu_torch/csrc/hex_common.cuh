@@ -1,9 +1,10 @@
 // Shared by the hex conv kernels: the per-parity tap table passed by value
 // as a kernel parameter, float32 loads and stores of the working dtypes, the
-// conv pass's CUDA-core tile (conv_tile: hex_conv_layer.cu in float32,
-// hex_conv_fused_stack.cu) and its bf16 tensor-core tile (conv_tile_mma:
-// hex_conv_layer.cu in bfloat16; conv_tile_mma_nchw, the same tile staged
-// from NCHW input: hex_conv_single.cu in bfloat16).
+// conv pass's CUDA-core tile (conv_tile: hex_conv_layer.cu and
+// hex_conv_fused_stack.cu in float32) and its bf16 tensor-core tile
+// (conv_tile_mma: hex_conv_layer.cu in bfloat16; conv_tile_mma_nchw, the
+// same tile staged from NCHW input: hex_conv_single.cu in bfloat16;
+// hex_conv_fused_stack.cu runs its units, weights and MMAs on row bands).
 #pragma once
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -39,10 +40,9 @@ __device__ __forceinline__ void store(__nv_bfloat16* p, float v) { *p = __float2
 
 // ---- the conv pass's CUDA-core tile ---------------------------------------
 //
-// The float32 tile of hex_conv_layer.cu and hex_conv_fused_stack.cu, and
-// the fused stack's bfloat16 tile (hex_conv_layer.cu's bfloat16 conv pass
-// is conv_tile_mma below; hex_conv_single.cu's float32 tile is its own and
-// sums in this tile's order).  It replaces the Kronecker matmuls of
+// The float32 tile of hex_conv_layer.cu and hex_conv_fused_stack.cu (the
+// bfloat16 conv passes are conv_tile_mma below; hex_conv_single.cu's
+// float32 tile is its own and sums in this tile's order).  It replaces the Kronecker matmuls of
 // conv_pallas.py's _stack_layer_kernel and _fused_stack_kernel with f32
 // FMAs on the CUDA cores.
 //

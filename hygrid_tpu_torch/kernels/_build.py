@@ -46,10 +46,10 @@ _SIGNATURES = {
                           _P, _I, _P, _I, _I, _I, _I, _I, _I, _I, _P, _I, _P],
     "hg_hex_conv_wgrad": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _I,
                           _I, _P],
-    "hg_shift_resample": [_P, _P, _P, _P, _P, _P, _P, _I, _LL, _I, _I, _I, _I,
-                          _I, _I, _I, _P],
+    "hg_shift_resample": [_P, _P, _P, _P, _P, _I, _P, _P, _I, _LL, _I, _I,
+                          _I, _I, _I, _I, _I, _P],
     "hg_hex_conv_fused_stack": [_P, _P, _P, _P, _P, _P, _ULL, _ULL, _I, _I,
-                                _I, _I, _I, _I, _I, _I, _P, _P],
+                                _I, _I, _I, _I, _I, _I, _P, _P, _P],
     "hg_hex_conv_single": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
                            _P, _P],
 }

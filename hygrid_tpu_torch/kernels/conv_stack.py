@@ -35,7 +35,11 @@ On CUDA the conv pass runs on the tensor cores in bfloat16
 bf16 and packed by :func:`_pack_mma_weights`, as the TPU kernel rounds
 them, the tile's output channels chosen by :func:`_tile_n`) and on the
 CUDA cores in float32; so does dL/dW (``wgmma`` GEMMs per tap over the
-pixels, in the fixed row chunks of :func:`_wgrad_chunks`).
+pixels, in the fixed row chunks of :func:`_wgrad_chunks`), and so does the
+fused stack, with the same sums on bands of output rows (its tile chosen
+by the C side and reported in ``LAST_FUSED_PLAN``, its weights packed by
+:func:`_fused_weights`), so that it equals chained layers bit for bit in
+both dtypes.
 
 ``band_rows`` selects the TPU's row-banded layer kernel, which exists only
 to fit planes larger than VMEM; the port computes the same function with
@@ -94,6 +98,11 @@ WGRAD_LAUNCHES = 0
 each)."""
 FUSED_LAUNCHES = 0
 """Number of whole-stack launches (:func:`hex_conv_fused_stack`)."""
+LAST_FUSED_PLAN: dict = {}
+"""The tile the C side chose for the last fused-stack launch: ``n`` (the
+tile's output channels), ``rows`` (band rows), ``threads`` a block,
+``weights`` ("layer" or "chunk"), ``smem`` bytes, ``grid``,
+``blocks_per_sm`` and the batch ``group``."""
 SPLIT_LAUNCHES = 0
 """Number of split layers run by the kernel (:func:`hex_conv_layer_split`;
 one GN layer is four CUDA launches and counts once)."""
@@ -116,6 +125,8 @@ _WGRAD_MMA_BLOCKS = 792
 # holds at most this many bytes, so both stay in the card's 50 MB L2
 _FUSED_GROUP_BYTES = 16 * 2 ** 20
 _FUSED_MAX_LAYERS = 64
+# the fused stack's weights modes, as the C side numbers them
+_FUSED_WEIGHTS = ("layer", "chunk")
 # kernel B's conv tiles (csrc/hex_common.cuh): output pixels and staged input
 # channels per block, the float32 tile's output channels, and the shared
 # memory a block may use on the H100 (the bf16 tile's N is chosen under it)
@@ -178,14 +189,26 @@ def _pack_mma_weights(wt: torch.Tensor) -> torch.Tensor:
     packed as ``(ceil(Cin / 16), kn, 2, Cout, 8)``: unit ``[c, t, g, co]``
     holds input channels ``16 c + 8 g .. + 7`` of tap t for output channel
     co (zero past Cin), the K-major 16-byte rows the tensor cores read, so
-    that a block stages its slab of one chunk with plain copies."""
-    kn, cin, cout = wt.shape
+    that a block stages its slab of one chunk with plain copies.  Leading
+    dimensions (the fused stack's layers) are kept in front."""
+    *lead, kn, cin, cout = wt.shape
     chunks = -(-cin // _CHUNK_C)
-    packed = torch.zeros((kn, chunks * _CHUNK_C, cout), dtype=torch.bfloat16,
-                         device=wt.device)
-    packed[:, :cin] = wt
-    return packed.view(kn, chunks, 2, 8, cout).permute(1, 0, 2, 4, 3) \
-        .contiguous()
+    packed = torch.zeros((*lead, kn, chunks * _CHUNK_C, cout),
+                         dtype=torch.bfloat16, device=wt.device)
+    packed[..., :cin, :] = wt
+    d = len(lead)
+    return packed.view(*lead, kn, chunks, 2, 8, cout).permute(
+        *range(d), d + 1, d, d + 2, d + 4, d + 3).contiguous()
+
+
+def _fused_weights(kernels, dtype) -> torch.Tensor:
+    """The fused stack's weights: float32 ``(L, kn, C, C)``; for bfloat16
+    every layer packed by :func:`_pack_mma_weights` in one pass, ``(L,
+    ceil(C / 16), kn, 2, C, 8)``."""
+    wt = torch.stack([k.detach() for k in kernels]).permute(0, 3, 2, 1)
+    if dtype == torch.bfloat16:
+        return _pack_mma_weights(wt)
+    return wt.float().contiguous()                      # (L, kn, Cin, Cout)
 
 
 def _group_norm_nchw(v: torch.Tensor, groups: int, gamma, beta,
@@ -749,8 +772,7 @@ def _fused_launch(x, kernels, biases, radius, dilation, relus):
                          f"layers, got {n}")
     for k in kernels:
         _check_kernel(k, (c, c, kn), x.device, "hex_conv_fused_stack")
-    w_all = torch.stack([k.detach().float().permute(2, 1, 0)
-                         for k in kernels]).contiguous()   # (L, kn, C, C)
+    w_all = _fused_weights(kernels, x.dtype)
     bias_bits = sum(1 << i for i, bs in enumerate(biases) if bs is not None)
     bias_all = None
     if bias_bits:
@@ -763,6 +785,7 @@ def _fused_launch(x, kernels, biases, radius, dilation, relus):
     out = torch.empty_like(x)
     bufs = [torch.empty((group, h, w, c), dtype=x.dtype, device=x.device)
             for _ in range(2)]
+    plan = np.zeros(7, np.int32)
     lib = _build.load_library()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
@@ -770,9 +793,15 @@ def _fused_launch(x, kernels, biases, radius, dilation, relus):
             x.data_ptr(), out.data_ptr(), bufs[0].data_ptr(),
             bufs[1].data_ptr(), w_all.data_ptr(),
             _ptr(bias_all), bias_bits, relu_bits, _DTYPES[x.dtype], n, b,
-            group, h, w, c, kn, _taps(radius, dilation).ctypes.data, stream)
+            group, h, w, c, kn, _taps(radius, dilation).ctypes.data,
+            plan.ctypes.data, stream)
     _build.check(status, "hex_conv_fused_stack")
     FUSED_LAUNCHES += 1
+    LAST_FUSED_PLAN.clear()
+    LAST_FUSED_PLAN.update(zip(
+        ("n", "rows", "threads", "weights", "smem", "grid", "blocks_per_sm"),
+        plan.tolist()))
+    LAST_FUSED_PLAN.update(weights=_FUSED_WEIGHTS[plan[3]], group=group)
     return out
 
 
@@ -827,9 +856,11 @@ def hex_conv_fused_stack(x: torch.Tensor, kernels, biases=None, *,
 
     A CPU tensor runs :func:`hex_conv_fused_stack_plain`.  A CUDA tensor
     (float32 or bfloat16, contiguous, 2 to 64 layers) runs the whole stack
-    in one cooperative launch of ``csrc/hex_conv_fused_stack.cu``; a device
-    that cannot run the launch raises ``RuntimeError``.  Anything else
-    raises.
+    in one cooperative launch of ``csrc/hex_conv_fused_stack.cu``, bit-equal
+    to chained :func:`hex_conv_layer` launches (kernel B's tensor-core sums
+    on bands of output rows in bfloat16, its CUDA-core tile in float32); a
+    device that cannot run the launch raises ``RuntimeError``.  Anything
+    else raises.
     """
     kernels = list(kernels)
     biases = [None] * len(kernels) if biases is None else list(biases)

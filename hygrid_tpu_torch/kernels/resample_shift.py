@@ -11,8 +11,17 @@ weights per slot ``(d, s)``; then
     out[n, r, j] = sum_i  W[i, r, j] * src[n, rowbase[r] + d_i, (num*j)//den + s_i]
 
 over the slots ``i`` in the order of ``geo.slots``, with a source column
-outside ``[0, W)`` reading 0.  ``W`` is ``wphase[phase_idx[r], i, j]`` in
-phase mode and ``wplanes[i, r, j]`` otherwise (the same numbers).
+outside ``[0, W)`` reading 0.  ``W`` is ``wplanes[i, r, j]``; the kernel
+reads it from the smallest exact form :func:`shift_decompose` finds
+(``geo.form``), each indexed by the row's phase ``phase_idx[r]``:
+
+* ``"select"``: every weight is 0 or 1 with at most one 1 a pixel (the
+  mosaic): one uint8 slot index a (phase, column), 255 for none;
+* ``"phase"``: ``wphase`` (at most 64 phases and 4 MiB, the reference's
+  phase mode), or ``"dense"``: ``(h1, n_slots, w1)`` indexed by r.
+
+Each form expands to the same float32 numbers bit for bit
+(:func:`expand_weights`).
 
 The reference stores slot ``i`` as ``(d, u, a)``, with ``a`` relative to a
 pre-stretched (``den > 1``) or de-interleaved (``num > 1``) copy of the
@@ -40,7 +49,7 @@ from torch.autograd.function import once_differentiable
 from ..ops.sampling import SamplePlan
 from . import _build
 
-__all__ = ["rowsep_decompose", "ShiftGeometry",
+__all__ = ["rowsep_decompose", "ShiftGeometry", "expand_weights",
            "shift_decompose", "shift_decompose_cached", "slot_shifts",
            "shift_resample", "shift_resample_plain"]
 
@@ -51,6 +60,10 @@ _MAX_SHIFTS = 8
 _MAX_SLOTS = 10
 _STRIDES = ((1, 1), (1, 2), (1, 4), (1, 8), (2, 1), (4, 1), (1, 3), (3, 1))
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+# the weight table's forms, as csrc/shift_resample.cu numbers them
+_FORMS = {"dense": 0, "phase": 1, "select": 2}
+_SELECT_NONE = 255     # a select table's "no slot": the pixel reads 0
+_ONE_BITS = 0x3F800000
 
 
 def rowsep_decompose(plan: SamplePlan):
@@ -130,30 +143,65 @@ class ShiftGeometry:
     n_phases: int
     phase_mode: bool
     wphase: np.ndarray            # (n_phases, n_slots, w1) f32 (phase mode)
+    form: str = "dense"           # the kernel's table: see the module note
+    table: np.ndarray = None      # "select": uint8 (n_phases, w1)
     _device_copies: Dict[str, dict] = dataclasses.field(
         default_factory=dict, repr=False, compare=False)
 
     def tensors(self, device) -> dict:
         """The kernel's tables on ``device``, uploaded once per geometry
         and device: ``rowbase`` (h1,) int32, ``phase_idx`` (h1,) int32 or
-        None (dense mode), ``wtab`` float32 ``(n_phases, n_slots, w1)`` in
-        phase mode and ``(h1, n_slots, w1)`` otherwise, and the slots'
-        row parts and raw column shifts as host int32 arrays."""
+        None (dense), ``wtab`` (``geo.form``'s table: uint8 ``(n_phases,
+        w1)`` for "select", float32 ``(n_phases, n_slots, w1)`` for
+        "phase", ``(h1, n_slots, w1)`` for "dense"), ``table_bytes`` (its
+        size), and
+        the slots' row parts and raw column shifts as host int32
+        arrays."""
         key = str(torch.device(device))
         tabs = self._device_copies.get(key)
         if tabs is None:
-            wtab = (self.wphase if self.phase_mode
-                    else self.wplanes.transpose(1, 0, 2))
+            wtab = {"select": self.table,
+                    "phase": self.wphase}.get(self.form)
+            if wtab is None:
+                wtab = self.wplanes.transpose(1, 0, 2)
+            wtab = torch.from_numpy(np.ascontiguousarray(wtab)).to(device)
             shifts = slot_shifts(self)
             tabs = dict(
                 rowbase=torch.from_numpy(self.rowbase).to(device),
-                phase_idx=(torch.from_numpy(self.phase_idx).to(device)
-                           if self.phase_mode else None),
-                wtab=torch.from_numpy(np.ascontiguousarray(wtab)).to(device),
+                phase_idx=(None if self.form == "dense" else
+                           torch.from_numpy(self.phase_idx).to(device)),
+                wtab=wtab, table_bytes=wtab.numel() * wtab.element_size(),
                 slot_d=np.array([d for d, _ in shifts], np.int32),
                 slot_s=np.array([s for _, s in shifts], np.int32))
             self._device_copies[key] = tabs
         return tabs
+
+
+def _select_table(wplanes: np.ndarray, first_rows):
+    """The "select" table of the slot weights ``wplanes`` at the phases'
+    first rows, uint8 ``(n_phases, w1)``, where every weight is 0.0 or 1.0
+    with at most one 1.0 a pixel (compared bit for bit); else None."""
+    bits = np.ascontiguousarray(wplanes[:, first_rows, :]).view(np.uint32)
+    one = bits == _ONE_BITS                                  # (S, P, w1)
+    if (len(bits) >= _SELECT_NONE or not np.all(one | (bits == 0))
+            or one.sum(axis=0).max() > 1):
+        return None
+    sel = np.where(one.any(axis=0), one.argmax(axis=0), _SELECT_NONE)
+    return sel.astype(np.uint8)
+
+
+def expand_weights(geo: ShiftGeometry, tabs: dict) -> torch.Tensor:
+    """The float32 ``(h1, n_slots, w1)`` weights that ``geo.form``'s table
+    ``tabs["wtab"]`` (from :meth:`ShiftGeometry.tensors`) encodes, on its
+    device: bit-equal to ``geo.wplanes.transpose(1, 0, 2)``."""
+    wtab = tabs["wtab"]
+    if geo.form == "dense":
+        return wtab
+    rows = wtab[tabs["phase_idx"].long()]
+    if geo.form == "select":                           # (h1, w1) uint8
+        slots = torch.arange(len(geo.slots), device=rows.device)
+        return (rows[:, None, :].long() == slots[None, :, None]).float()
+    return rows
 
 
 def shift_decompose(plan: SamplePlan, max_shifts: int = _MAX_SHIFTS):
@@ -217,11 +265,16 @@ def shift_decompose(plan: SamplePlan, max_shifts: int = _MAX_SHIFTS):
         n_phases * len(slots) * w1 * 4 <= 4 * 2**20
     wphase = (wplanes[:, np.asarray(first_rows), :].transpose(1, 0, 2).copy()
               if phase_mode else np.zeros((0,), np.float32))
+    # the kernel's table: a slot index a (phase, column) where the plan only
+    # selects, else the phase or dense table
+    table = _select_table(wplanes, np.asarray(first_rows))
+    form = ("select" if table is not None else
+            "phase" if phase_mode else "dense")
     return ShiftGeometry(
         num=num if den == 1 else 1, den=den, slots=tuple(slots),
         wplanes=wplanes, rowbase=rowbase.astype(np.int32),
         phase_idx=phase_idx, n_phases=n_phases, phase_mode=phase_mode,
-        wphase=wphase)
+        wphase=wphase, form=form, table=table)
 
 
 def shift_decompose_cached(plan: SamplePlan):
@@ -264,9 +317,7 @@ def shift_resample_plain(image: torch.Tensor, plan: SamplePlan,
     acc_dtype = (torch.float64 if image.dtype == torch.float64
                  else torch.float32)
     tabs = geo.tensors(dev)
-    wtab = tabs["wtab"]
-    if geo.phase_mode:
-        wtab = wtab[tabs["phase_idx"].long()]            # (h1, n_slots, w1)
+    wtab = expand_weights(geo, tabs)                     # (h1, n_slots, w1)
     rowbase = tabs["rowbase"].long()
     base = (geo.num * torch.arange(w1, device=dev)) // geo.den
     acc = torch.zeros((x.shape[0], h1, w1), dtype=acc_dtype, device=dev)
@@ -341,9 +392,10 @@ def _launch(image: torch.Tensor, plan: SamplePlan,
         status = lib.hg_shift_resample(
             image.data_ptr(), out.data_ptr(), tabs["rowbase"].data_ptr(),
             None if phase_idx is None else phase_idx.data_ptr(),
-            tabs["wtab"].data_ptr(), tabs["slot_d"].ctypes.data,
-            tabs["slot_s"].ctypes.data, len(geo.slots), n_planes, h, w, h1,
-            w1, geo.num, geo.den, _DTYPES[image.dtype], stream)
+            tabs["wtab"].data_ptr(), _FORMS[geo.form],
+            tabs["slot_d"].ctypes.data, tabs["slot_s"].ctypes.data,
+            len(geo.slots), n_planes, h, w, h1, w1, geo.num, geo.den,
+            _DTYPES[image.dtype], stream)
     _build.check(status, "shift_resample")
     LAUNCHES += 1
     return out

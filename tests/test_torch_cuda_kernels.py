@@ -18,9 +18,11 @@ bfloat16 within 1e-2 relative, the exact-select mosaic bit-equal.  The
 single-op conv: float32 within 1e-5 absolute, bfloat16 within 3e-2
 relative; bit-equal to ``hex_conv_layer`` on the 'same' conv in both
 dtypes (the same tile and K order: the CUDA-core order in float32, the
-tensor-core tile in bfloat16).  The fused stack keeps the CUDA-core tile,
-so in bfloat16 it agrees with chained layers (kernel B's tensor-core
-tile) within ``2**-6 * max|out|``.  The split layer: the
+tensor-core tile in bfloat16).  The fused stack runs the same tiles
+(kernel B's tensor-core tile on row bands in bfloat16), so it is
+bit-equal to chained layers in both dtypes, whichever way it stages its
+weights.  The shift resampler's compact tables leave every output bit as
+it was.  The split layer: the
 layer's tolerances against its plain version, and bit-equal to
 ``hex_conv_layer`` on the concatenation; its backward (split dgrad and
 wgrad) the unsplit kernels' tolerances, and bit-equal to the unsplit
@@ -59,16 +61,6 @@ def cuda():
 def _rel(got, want):
     return float((got.float() - want.float()).abs().max()
                  / want.float().abs().max())
-
-
-def _agree(got, want, dtype):
-    """float32: bit-equal; bfloat16: within 2**-6 * max|want| (two conv
-    tiles that sum in other orders, each output rounded to bf16: a rounding
-    flip is one ulp, up to 2**-7 of max|want|, and the fused stack's flips
-    propagate through its layers)."""
-    if dtype == torch.float32:
-        return torch.equal(got, want)
-    return _rel(got, want) <= 2 ** -6
 
 
 PLANS = {
@@ -449,15 +441,25 @@ def test_video_stream_matches_per_frame(cuda):
 
 
 def test_mosaic_render_launches_once_and_is_bit_exact(cuda):
+    """One launch a render, reading the mosaic's select table (a uint8
+    slot index a phase and column, under 4 MB), bit-equal to the plain
+    gather in uint8 and (through bf16) float32."""
     img = (torch.rand((3, 540, 960), device=cuda) * 255).to(torch.uint8)
+    plan = render._mosaic_sample_plan(540, 960, 2160, 3840, 0, None)
+    geo = resample_shift.shift_decompose_cached(plan)
+    assert geo.form == "select"
+    assert geo.tensors(cuda)["table_bytes"] < 4 * 2 ** 20
     render.render_mosaic(img, (2160, 3840))
     resample.LAUNCHES = resample_shift.LAUNCHES = 0
     out = render.render_mosaic(img, (2160, 3840))
     torch.cuda.synchronize()
     assert (resample_shift.LAUNCHES, resample.LAUNCHES) == (1, 0)
-    plan = render._mosaic_sample_plan(540, 960, 2160, 3840, 0, None)
     assert out.dtype == torch.uint8
     assert torch.equal(out, sampling.apply_plan(img, plan))
+    f32 = img.float()
+    out = render.render_mosaic(f32, (2160, 3840))
+    assert torch.equal(out, sampling.apply_plan(
+        f32.to(torch.bfloat16), plan).float())
 
 
 FUSED_CASES = [  # (B, H, W, C, radius, layers, bias): the reference's fused
@@ -465,6 +467,12 @@ FUSED_CASES = [  # (B, H, W, C, radius, layers, bias): the reference's fused
     (2, 18, 13, 16, 2, 4, False),
     (2, 12, 10, 32, 3, 2, True),
     (16, 256, 256, 16, 2, 11, False),
+    # radius 3 with two chunks; C=128, whose one bf16 layer does not fit in
+    # shared memory, so it stages one chunk of weights at a time; and C
+    # off the 8-channel unit (element-wise staging, odd channel pairs)
+    (1, 9, 70, 32, 3, 6, True),
+    (1, 7, 40, 128, 2, 2, False),
+    (2, 10, 20, 13, 2, 3, True),
 ]
 
 
@@ -485,10 +493,12 @@ def _fused_inputs(case, dtype, cuda):
 @pytest.mark.parametrize("case", FUSED_CASES)
 def test_fused_stack_matches_plain_and_chained_layers(cuda, case, dtype):
     """One launch for the whole stack, within its bound of the plain
-    version and agreeing with chained hex_conv_layer launches: bit-equal
-    in float32 (the same conv tile and accumulation order, the same
-    rounding between layers), within 2**-6 * max|out| in bfloat16, where
-    the chained layers run the tensor-core tile."""
+    version and bit-equal to chained hex_conv_layer launches in both
+    dtypes (the same conv tile and accumulation order, the same rounding
+    between layers).  In bfloat16 the tile the C side reports holds its
+    invariants: N covers C, the band is warpgroups x RW rows (RW = 4, 2, 1
+    for N = 16, 32, 64 and up), shared memory within a block's 227 KB, one
+    layer's weights staged a block unless they do not fit."""
     x, ks, bs, relus, r = _fused_inputs(case, dtype, cuda)
     before = (conv_stack.FUSED_LAUNCHES, conv_stack.LAUNCHES)
     got = conv_stack.hex_conv_fused_stack(x, ks, bs, radius=r, relus=relus)
@@ -504,7 +514,16 @@ def test_fused_stack_matches_plain_and_chained_layers(cuda, case, dtype):
     assert got.shape == x.shape and got.dtype == dtype
     assert _rel(got, want) <= (1e-4 if dtype == torch.float32 else 3e-2)
     assert _rel(chained, want) <= (1e-4 if dtype == torch.float32 else 3e-2)
-    assert _agree(got, chained, dtype)
+    assert torch.equal(got, chained)
+    if dtype == torch.bfloat16:
+        c, plan = x.shape[-1], conv_stack.LAST_FUSED_PLAN
+        assert plan["n"] == next(n for n in (16, 32, 64, 128)
+                                 if c <= n or n == 128)
+        assert plan["threads"] in (128, 256)
+        assert plan["rows"] == plan["threads"] // 128 * \
+            {16: 4, 32: 2}.get(plan["n"], 1)
+        assert plan["smem"] <= conv_stack._MMA_MAX_SMEM
+        assert plan["weights"] == ("chunk" if c == 128 else "layer")
 
 
 def test_fused_stack_grads_match_chained_layers(cuda):
@@ -534,7 +553,7 @@ def test_hex_conv_stack_fused_option_launches_once(cuda):
                                         final_activation=False)
     banded = conv_stack.hex_conv_stack(x, ks, radius=r, data_format="NHWC",
                                        final_activation=False, band_rows=4)
-    assert _agree(fused, chained, x.dtype) and torch.equal(banded, chained)
+    assert torch.equal(fused, chained) and torch.equal(banded, chained)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
