@@ -12,7 +12,8 @@ Phases, each of which raises on failure (the script then exits non-zero):
    logs each kernel's registers and spills, and counts the tensor-core
    instructions (HGMMA/HMMA, ``cuobjdump -sass``) in every bf16
    instantiation of kernel B's conv kernel, ``hex_conv_kernel<N, bf16,
-   out, split>``, of ``hex_conv_single_mma_kernel<N>``, of the dW GEMM,
+   out, split, stats>``, of ``hex_conv_single_mma_kernel<N>``, of the dW
+   GEMM,
    ``wgrad_mma_kernel<N>``, and of the fused stack,
    ``fused_stack_mma_kernel<N>``: each must have some (bf16 runs on the
    tensor cores, float32 on the CUDA cores);
@@ -21,9 +22,14 @@ Phases, each of which raises on failure (the script then exits non-zero):
    b=32, C=3, float32 and bfloat16, with kernel and plain times;
 4. kernel B (hex_conv_layer) against its plain version at the six
    HexCNN-small layer shapes, b=32, GroupNorm(8) + ReLU, float32 and
-   bfloat16, with kernel and plain times, cuDNN's conv, the bound, the
-   achieved TFLOP/s and, in bf16, the tile's N and the HGMMA/HMMA count
-   of the instantiation the layer launches;
+   bfloat16, two launches bit-equal, with kernel and plain times, cuDNN's
+   conv, the bound, the achieved TFLOP/s and, in bf16, the tile's N and
+   the HGMMA/HMMA count of the instantiation the layer launches, and the
+   layer split by torch.profiler into the conv pass (its epilogue sums the
+   GN statistics) and the GN half after it, beside the GN tail's bound
+   (read the float32 pre-activation, write the output) and the library's
+   tail (``torch.nn.functional.group_norm`` on the same pre-activation,
+   NHWC viewed as NCHW, then ReLU and the cast);
 5. the serving slice: HexCNN-small (norm="GN", bf16, random weights from a
    seed) serves distinct b=32 batches of 512^2 RGB images, rect->hex
    included; the launch counters must show one kernel-A launch and six
@@ -36,11 +42,18 @@ Phases, each of which raises on failure (the script then exits non-zero):
    plain times, cuDNN's backward, the bound and the achieved TFLOP/s (dx
    and dW in bf16 with their tile's N and HGMMA/HMMA count, dW with its
    row chunks); two dW launches must be bit-equal;
+6b. the GN/ReLU tail's backward (``gn_relu_backward``,
+   ``csrc/gn_backward.cu``) against its plain version at HexCNN-small's six
+   GN layers (b=32) and HexUNet-small's five (b=8), float32 and bfloat16:
+   gpre, dgamma, dbeta and dbias, two launches bit-equal, with the plain
+   time, the library's (the ReLU mask and
+   ``aten.native_group_norm_backward`` on NCHW float32) and the bound;
 7. the training slice: HexCNN-small (norm="GN", bf16 compute, float32
    parameters) with AdamW takes one warm-up and 4 timed steps on distinct
    b=32 512^2 float32 batches (rect->hex, forward, one-hot cross-entropy,
    backward, update); per step the counters must show 1 kernel-A launch,
-   6 kernel-B layers, 5 dL/dx and 6 dL/dW launches; losses must be
+   6 kernel-B layers, 5 dL/dx, 6 dL/dW and 6 GN backward launches (no
+   autograd of the plain GN tail); losses must be
    finite; a torch.profiler split of one step by kernel group; one step's
    loss and every parameter's grad must agree with the plain path run in
    float32 on the card (and, tighter, the float32 kernel path with it);
@@ -134,8 +147,8 @@ Phases, each of which raises on failure (the script then exits non-zero):
 19. HexUNet-small training (the serving model of phase 17, AdamW) on
     distinct b=8 512^2 float32 batches with per-cell labels drawn as
     benchmarks/suite.py draws them: per step 1 plan_gather, 3
-    hex_conv_layer, 2 split layers, 2 dgrad, 4 split dgrad, 3 wgrad and
-    4 split wgrad launches, no other kernel; finite losses; images/s by
+    hex_conv_layer, 2 split layers, 2 dgrad, 4 split dgrad, 3 wgrad, 4
+    split wgrad and 5 GN backward launches, no other kernel; finite losses; images/s by
     CUDA events, the median and spread of 3 windows of at least 1 s;
     peak memory; a torch.profiler split of one step by kernel group; one
     step of the timed state, its loss, every grad and mean IoU against
@@ -241,14 +254,14 @@ def require(ok, what):
 
 # HGMMA/HMMA instructions in each bf16 instantiation of the tensor-core
 # kernels, filled by mma_instructions(): kernel B's conv kernel, (N, GN
-# scratch out, split) -> count; hex_conv_single's, the dW GEMM's and the
-# fused stack's, N -> count
+# pre-activation out with the stats epilogue, split) -> count;
+# hex_conv_single's, the dW GEMM's and the fused stack's, N -> count
 MMA_COUNTS = {}
 SINGLE_MMA_COUNTS = {}
 WGRAD_MMA_COUNTS = {}
 FUSED_MMA_COUNTS = {}
-# the instantiations: hex_conv_kernel<N, bf16, bf16 or float, split> for N
-# in 16-128, hex_conv_single_mma_kernel<N> for N in 16-128,
+# the instantiations: hex_conv_kernel<N, bf16, bf16, split, false> and
+# <N, bf16, float, split, true> (GN) for N in 16-128, hex_conv_single_mma_kernel<N> for N in 16-128,
 # wgrad_mma_kernel<N> for N in 8-32, fused_stack_mma_kernel<N> for N in
 # 16-128
 MMA_INSTANTIATIONS = (16, 4, 3, 4)
@@ -268,12 +281,17 @@ def mma_instructions(lib_path):
         fn = re.search(r"Function : (\S+)", line)
         if fn:
             name = fn.group(1)
-            # mangled: hex_conv_kernel<N, __nv_bfloat16, Tout, split>
+            # mangled: hex_conv_kernel<N, __nv_bfloat16, Tout, split,
+            # stats>; float Tout comes with the stats epilogue only
             m = re.search(r"hex_conv_kernelILi(\d+)E13__nv_bfloat16(S1_|f)"
-                          r"Lb([01])E", name)
+                          r"Lb([01])ELb([01])E", name)
             s = re.search(r"hex_conv_single_mma_kernelILi(\d+)E", name)
             w = re.search(r"wgrad_mma_kernelILi(\d+)E", name)
             f = re.search(r"fused_stack_mma_kernelILi(\d+)E", name)
+            if m:
+                require((m.group(2) == "f") == (m.group(4) == "1"),
+                        f"{name}: a float32 output without the stats "
+                        "epilogue, or the reverse")
             counts, key = (
                 (MMA_COUNTS, (int(m.group(1)), m.group(2) == "f",
                               m.group(3) == "1")) if m
@@ -304,8 +322,8 @@ def mma_note(cin, cout, gn=False, split=False, radius=2, adjoint=False,
     n = cs._tile_n(torch.bfloat16, cin, cout, 3 * radius * (radius - 1) + 1,
                    *cs._patch_shape(radius, dilation, adjoint))
     return (f"tile N={n}, HGMMA/HMMA in hex_conv_kernel<{n}, bf16, "
-            f"{'float' if gn else 'bf16'}, {str(split).lower()}>="
-            f"{MMA_COUNTS[(n, gn, split)]}")
+            f"{'float' if gn else 'bf16'}, {str(split).lower()}, "
+            f"{str(gn).lower()}>={MMA_COUNTS[(n, gn, split)]}")
 
 
 def single_mma_note(cin, cout, radius=2, dilation=1):
@@ -436,11 +454,25 @@ def check_kernel_a(torch, gen):
     return summary
 
 
+def _gn_half(torch, fn, calls=5):
+    """Device ms a call of kernel B's conv pass, of its GN passes after it,
+    and of the statistics fold among them, from torch.profiler over
+    ``calls`` calls of ``fn``."""
+    kernels = _profiled_kernels(torch, lambda: [fn() for _ in range(calls)])
+    conv = sum(us for k, us in kernels if _conv_args(k) is not None)
+    gn = sum(us for k, us in kernels if _is_gn_pass(k))
+    fold = sum(us for k, us in kernels
+               if re.search(r"\bgn_(stats|finalize)_kernel", k))
+    return conv / 1e3 / calls, gn / 1e3 / calls, fold / 1e3 / calls
+
+
 def check_kernel_b(torch, gen):
     from hygrid_tpu_torch.kernels import conv_stack
     from hygrid_tpu_torch.nn.functional import hex_kernel_num
     kn = hex_kernel_num(2)
     errs, ms_sum, plain_sum, lib_sum, bounds = [], 0.0, 0.0, 0.0, []
+    gn = dict(conv_pass_ms=0.0, gn_half_ms=0.0, gn_fold_ms=0.0,
+              gn_half_bound_ms=0.0, gn_library_ms=0.0)
     for li, (cin, cout, h, w) in enumerate(LAYERS):
         groups = math.gcd(8, cout)
         k = torch.randn((cout, cin, kn), generator=gen, device="cuda") \
@@ -461,10 +493,12 @@ def check_kernel_b(torch, gen):
                 return conv_stack.hex_conv_layer_plain(x, kd, radius=2,
                                                        norm=norm, relu=True)
 
-            got, want = kernel(), plain()
+            got, again, want = kernel(), kernel(), plain()
             torch.cuda.synchronize()
             require(got.shape == want.shape and got.dtype == dtype,
                     f"hex_conv_layer L{li}: shape/dtype {got.shape} {got.dtype}")
+            require(torch.equal(got, again),
+                    f"hex_conv_layer L{li} {dtype}: two launches differ")
             err, rel = max_err(got, want)
             tol = TOL["b_f32_rel" if dtype == torch.float32 else "b_bf16_rel"]
             require(rel <= tol, f"hex_conv_layer L{li} {dtype}: relative "
@@ -482,6 +516,31 @@ def check_kernel_b(torch, gen):
                      f"bound_ms={b_ms!r} ({b_by});")
             if dtype == torch.bfloat16:
                 line += f" {mma_note(cin, cout, gn=True)};"
+                # the GN half: the passes after the conv, the tail's bound
+                # (read y, write out) and the library's tail on the same
+                # float32 pre-activation
+                conv_ms, gn_ms, fold_ms = _gn_half(torch, kernel)
+                y = conv_stack._layer_forward(x, kd, None, 2, 1, norm,
+                                              True)[1]
+                tail_ms, _ = bound(nbytes(y, got), 0, "f32")
+                fgn = torch.nn.functional.group_norm
+
+                def library_tail():
+                    return torch.relu(fgn(y.permute(0, 3, 1, 2), groups,
+                                          gamma, beta, eps=1e-5)).to(dtype)
+
+                gn_lms = cuda_ms(torch, library_tail, iters=5)
+                line += (f" conv pass {conv_ms!r} ms + GN half {gn_ms!r} ms "
+                         f"(profiler; the statistics fold {fold_ms!r} ms of "
+                         f"it), GN tail bound {tail_ms!r} ms, library "
+                         f"tail {gn_lms!r} ms (group_norm on the NHWC "
+                         "pre-activation viewed as NCHW, relu, the cast);")
+                gn["conv_pass_ms"] += conv_ms
+                gn["gn_half_ms"] += gn_ms
+                gn["gn_fold_ms"] += fold_ms
+                gn["gn_half_bound_ms"] += tail_ms
+                gn["gn_library_ms"] += gn_lms
+                del y
             if dtype == torch.bfloat16:
                 errs.append(err)
                 ms_sum += ms
@@ -489,9 +548,10 @@ def check_kernel_b(torch, gen):
                 lib_sum += lms
                 bounds.append((b_ms, b_by))
         log(line)
+    log(f"hex_conv_layer six GN layers bf16: {gn}")
     # library: cuDNN's conv alone (the kernel adds bias, GN and ReLU)
     return dict(max_abs_err=max(errs), ms=ms_sum, plain_ms=plain_sum,
-                **summed_bound(bounds), library_ms=lib_sum)
+                **summed_bound(bounds), library_ms=lib_sum, **gn)
 
 
 def run_slice(torch):
@@ -556,14 +616,45 @@ def run_slice(torch):
     return launches
 
 
+def _conv_args(k):
+    """The template arguments of a ``hex_conv_kernel`` launch in a profiler
+    kernel name (``<N, Tin, Tout, split, stats>``; four before the stats
+    epilogue), or None for another kernel."""
+    m = re.search(r"hex_conv_kernel<([^>]*)>", k)
+    return None if m is None else [a.strip() for a in m.group(1).split(",")]
+
+
+def _is_gn_conv(k):
+    """Kernel B's conv pass of a GN layer (float32 pre-activation out),
+    not split."""
+    a = _conv_args(k)
+    return a is not None and a[2] == "float" and a[3] == "false"
+
+
+def _is_split_conv(k):
+    a = _conv_args(k)
+    return a is not None and a[3] == "true"
+
+
+def _is_gn_pass(k):
+    """The port's GN passes after the conv (this tree's stats fold and
+    apply; an older tree's partial, finalize and apply)."""
+    return re.search(r"\bgn_(stats|apply|partial|finalize)_kernel", k) \
+        is not None
+
+
+def _is_gn_bwd(k):
+    return re.search(r"\bgn_bwd_\w+_kernel", k) is not None
+
+
 # kernel groups of a HexCNN-small request and training step (GN layers: the
 # forward conv pass writes the float32 pre-activation, dx writes bf16)
 HEXCNN_GROUPS = [
-    ("kernel B conv", lambda k: "hex_conv_kernel" in k
-     and "float, false>" in k),
+    ("kernel B conv", _is_gn_conv),
     ("dgrad", lambda k: "hex_conv_kernel" in k),
     ("wgrad", lambda k: "wgrad_" in k),
-    ("GN passes", lambda k: "gn_" in k),
+    ("GN passes", _is_gn_pass),
+    ("GN backward", _is_gn_bwd),
     ("plan_gather", lambda k: "plan_gather" in k),
     ("AdamW", lambda k: "adam" in k.lower() or "multi_tensor" in k),
     ("reductions", lambda k: "reduce_kernel" in k),
@@ -641,6 +732,95 @@ def check_backward(torch, gen):
     return sums
 
 
+def check_gn_backward(torch, gen):
+    """Phase 6b: the GN/ReLU tail's backward (``gn_relu_backward``) against
+    its plain version at HexCNN-small's six GN layers (b=32) and
+    HexUNet-small's five (b=8: the encoder's three, the decoder's two
+    split layers), GN(8) + ReLU, gout float32 and bfloat16: gpre within the
+    layer's tolerance, dgamma, dbeta and dbias within the float32 one, two
+    launches bit-equal.  Beside each time: the plain time, the library's
+    (the ReLU mask and ``aten.native_group_norm_backward``) and the bound
+    (y, gout and gpre once each).  Returns the bf16 summaries over each
+    model's layers for the kernels line."""
+    from hygrid_tpu_torch.kernels import conv_stack as cs
+    aten = torch.ops.aten
+    layers = ([("HexCNN-small", f"L{i}", BATCH, cout, h, w)
+               for i, (_, cout, h, w) in enumerate(LAYERS)]
+              + [("HexUNet-small", name, UNET_BATCH, c, h, w)
+                 for name, c, h, w in UNET_GN_LAYERS])
+    sums = {m: dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0, library_ms=0.0)
+            for m in ("HexCNN-small", "HexUNet-small")}
+    bounds = {m: [] for m in sums}
+    for model, name, b, c, h, w in layers:
+        groups = math.gcd(8, c)
+        y = 1.5 * torch.randn((b, h, w, c), generator=gen, device="cuda") \
+            + 0.2
+        gamma = 1 + 0.1 * torch.rand((c,), generator=gen, device="cuda")
+        beta = 0.1 * torch.randn((c,), generator=gen, device="cuda")
+        g32 = torch.randn((b, h, w, c), generator=gen, device="cuda")
+        mean, rstd = cs.gn_stats_plain(y, groups)
+        yn = y.permute(0, 3, 1, 2).contiguous()
+        mask = torch.nn.functional.group_norm(yn, groups, gamma, beta) > 0
+        line = (f"gn_relu_backward {model} {name} b={b} {c}x{h}x{w} "
+                f"GN({groups})+ReLU:")
+        for dtype in (torch.float32, torch.bfloat16):
+            gout = g32.to(dtype)
+            args = (y, mean, rstd, gamma, beta, gout, groups, True)
+            kernel = functools.partial(cs.gn_relu_backward, *args)
+            plain = functools.partial(cs.gn_relu_backward_plain, *args)
+            got, again, want = kernel(), kernel(), plain()
+            torch.cuda.synchronize()
+            require(all(torch.equal(u, v) for u, v in zip(got, again)),
+                    f"gn_relu_backward {model} {name} {dtype}: two launches "
+                    "differ")
+            require(got[0].shape == y.shape and got[0].dtype == dtype,
+                    f"gn_relu_backward {name}: {tuple(got[0].shape)} "
+                    f"{got[0].dtype}")
+            err, rel = max_err(got[0], want[0])
+            tol = TOL["b_f32_rel" if dtype == torch.float32 else "b_bf16_rel"]
+            require(rel <= tol, f"gn_relu_backward {model} {name} {dtype}: "
+                                f"gpre relative err {rel} > {tol}")
+            sum_rels = [max_err(u, v)[1] for u, v in zip(got[1:], want[1:])]
+            require(max(sum_rels) <= TOL["b_f32_rel"],
+                    f"gn_relu_backward {model} {name} {dtype}: dgamma, "
+                    f"dbeta, dbias relative errs {sum_rels}")
+            ms = cuda_ms(torch, kernel, iters=5)
+            pms = cuda_ms(torch, plain, iters=5)
+            gn = gout.float().permute(0, 3, 1, 2).contiguous()
+
+            def library():
+                return aten.native_group_norm_backward(
+                    gn * mask, yn, mean, rstd, gamma, b, c, h * w, groups,
+                    [True, True, True])
+
+            lms = cuda_ms(torch, library, iters=5)
+            del gn
+            b_ms, b_by = bound(nbytes(y, gout, got[0]), 12 * y.numel(),
+                               "f32")
+            line += (f" {str(dtype)[6:]} max_abs_err={err!r} rel={rel!r} "
+                     f"(dgamma, dbeta, dbias rel {sum_rels}) "
+                     f"kernel_ms={ms!r} plain_ms={pms!r} library_ms={lms!r} "
+                     f"(mask + native_group_norm_backward on NCHW float32) "
+                     f"bound_ms={b_ms!r} ({b_by});")
+            if dtype == torch.bfloat16:
+                acc = sums[model]
+                acc["max_abs_err"] = max(acc["max_abs_err"], err)
+                acc["ms"] += ms
+                acc["plain_ms"] += pms
+                acc["library_ms"] += lms
+                bounds[model].append((b_ms, b_by))
+        log(line)
+        del y, yn, mask, g32
+    for model in sums:
+        sums[model].update(summed_bound(bounds[model]))
+    log(f"gn_relu_backward bf16 sums: {sums}")
+    unet = sums.pop("HexUNet-small")
+    return dict(sums["HexCNN-small"], hexunet_ms=unet["ms"],
+                hexunet_plain_ms=unet["plain_ms"],
+                hexunet_library_ms=unet["library_ms"],
+                hexunet_bound_ms=unet["bound_ms"])
+
+
 def run_training(torch):
     """Phase 7: the training slice.  Returns the per-kernel launches."""
     from hygrid_tpu_torch.kernels import conv_stack as cs, resample
@@ -663,7 +843,7 @@ def run_training(torch):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     resample.LAUNCHES = cs.LAUNCHES = 0
-    cs.DGRAD_LAUNCHES = cs.WGRAD_LAUNCHES = 0
+    cs.DGRAD_LAUNCHES = cs.WGRAD_LAUNCHES = cs.GN_BWD_LAUNCHES = 0
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     t0 = time.perf_counter()
@@ -675,11 +855,13 @@ def run_training(torch):
     launches = {"plan_gather": resample.LAUNCHES,
                 "hex_conv_layer": cs.LAUNCHES,
                 "hex_conv_layer_dgrad": cs.DGRAD_LAUNCHES,
-                "hex_conv_wgrad": cs.WGRAD_LAUNCHES}
+                "hex_conv_wgrad": cs.WGRAD_LAUNCHES,
+                "gn_relu_backward": cs.GN_BWD_LAUNCHES}
     peak = torch.cuda.max_memory_allocated()
     dev_ms = start.elapsed_time(end)
     per_step = {"plan_gather": 1, "hex_conv_layer": 6,
-                "hex_conv_layer_dgrad": 5, "hex_conv_wgrad": 6}
+                "hex_conv_layer_dgrad": 5, "hex_conv_wgrad": 6,
+                "gn_relu_backward": 6}
     for name, n in per_step.items():
         require(launches[name] == n * N_STEPS,
                 f"training: {name} launched {launches[name]} times in "
@@ -1222,9 +1404,11 @@ def check_fused(torch, gen):
     return summary
 
 
-def _profiled_kernels(torch, fn):
+def _profiled_kernels(torch, fn, ops=False):
     """``[(kernel name, device us)]`` of one ``fn`` call, from
-    torch.profiler, largest first."""
+    torch.profiler, largest first; with ``ops``, the host-side ops (aten
+    ops, autograd nodes) by the device time of the kernels each launched
+    itself."""
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -1234,9 +1418,10 @@ def _profiled_kernels(torch, fn):
     def dev(e):
         return getattr(e, "self_device_time_total", 0) or 0
 
-    # kernels only: the CPU-side ops that launched them carry their time too
+    # kernels only, or ops only: an op carries its kernels' time too
     return sorted(((e.key, dev(e)) for e in prof.key_averages()
-                   if str(e.device_type).endswith("CUDA") and dev(e) > 0),
+                   if str(e.device_type).endswith("CUDA") != ops
+                   and dev(e) > 0),
                   key=lambda kv: kv[1], reverse=True)
 
 
@@ -1544,6 +1729,7 @@ def _launch_counters():
             "hex_conv_layer_split_dgrad": (conv_stack,
                                            "SPLIT_DGRAD_LAUNCHES"),
             "hex_conv_wgrad_split": (conv_stack, "SPLIT_WGRAD_LAUNCHES"),
+            "gn_relu_backward": (conv_stack, "GN_BWD_LAUNCHES"),
             "hex_conv_fused_stack": (conv_stack, "FUSED_LAUNCHES"),
             "hex_conv_single": (conv_single, "LAUNCHES")}
 
@@ -1648,6 +1834,11 @@ UNET_SIZE = 512    # phase 19's rect input
 SPLIT_LAYERS = [("dec0", UNET_BATCH, 128, 127, 64, 64, 64, True),
                 ("dec1", UNET_BATCH, 256, 256, 32, 32, 32, True),
                 ("straddle", UNET_BATCH, 128, 127, 24, 8, 32, False)]
+# HexUNet-small's GN layers (name, Cout, H, W): the encoder's three and
+# the decoder's two split layers
+UNET_GN_LAYERS = [("enc0", 32, 256, 256), ("enc1", 64, 128, 127),
+                  ("enc2", 128, 64, 63), ("dec0", 64, 128, 127),
+                  ("dec1", 32, 256, 256)]
 
 
 def check_split(torch, gen):
@@ -1731,9 +1922,9 @@ def check_split(torch, gen):
 
 
 UNET_GROUPS = [
-    ("split layers", lambda k: "hex_conv_kernel" in k and "true>" in k),
+    ("split layers", _is_split_conv),
     ("kernel B conv", lambda k: "hex_conv_kernel" in k),
-    ("GN passes", lambda k: "gn_" in k),
+    ("GN passes", _is_gn_pass),
     ("plan_gather", lambda k: "plan_gather" in k),
     ("cuDNN (transposed convs)", lambda k: any(
         s in k.lower() for s in ("xmma", "cudnn", "conv", "gemm", "cutlass"))),
@@ -1939,12 +2130,12 @@ def check_split_backward(torch, gen):
 
 
 UNET_TRAIN_GROUPS = [
-    ("split layers' conv", lambda k: "hex_conv_kernel" in k and "true>" in k),
-    ("kernel B conv", lambda k: "hex_conv_kernel" in k
-     and "float, false>" in k),
+    ("split layers' conv", _is_split_conv),
+    ("kernel B conv", _is_gn_conv),
     ("dgrad", lambda k: "hex_conv_kernel" in k),
     ("wgrad", lambda k: "wgrad_" in k),
-    ("GN passes", lambda k: "gn_" in k),
+    ("GN passes", _is_gn_pass),
+    ("GN backward", _is_gn_bwd),
     ("plan_gather", lambda k: "plan_gather" in k),
     ("cuDNN (transposed convs)", lambda k: any(
         s in k.lower() for s in ("xmma", "cudnn", "conv", "gemm", "cutlass"))),
@@ -2025,7 +2216,7 @@ def run_hexunet_training(torch):
     per_step = {"plan_gather": 1, "hex_conv_layer": 3,
                 "hex_conv_layer_split": 2, "hex_conv_layer_dgrad": 2,
                 "hex_conv_layer_split_dgrad": 4, "hex_conv_wgrad": 3,
-                "hex_conv_wgrad_split": 4}
+                "hex_conv_wgrad_split": 4, "gn_relu_backward": 5}
     step(data[0])
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -2124,10 +2315,22 @@ def kernel_times(torch):
     layers chained, the split layer at dec0 + dec1, dx of layers 1-5, dW
     of all six and the split layer's dW at dec0 + dec1; hex_conv_single
     at the per-module route's five layers, BN-512 in bf16 and in f32 and
-    BN-CIFAR in f32; the fused P-512 stack in f32 too; and on the device
+    BN-CIFAR in f32; the fused P-512 stack in f32 too; #9's P-4K stack
+    layer (``p4k_layer``, 1x1080x1920, 16->16, ReLU); and on the device
     alone (CUDA-graph replay) shift_resample and plan_gather at the 4K
     mosaic's plan (C=3) and the 720p rect->hex plan at b=8, f32 and bf16.
-    Each sum is taken ``KERNEL_TIME_REPEATS`` times; one JSON line."""
+    Kernel B's six GN layers split by torch.profiler into the conv pass and
+    the GN passes after it (``kernel_b_conv_pass``, ``kernel_b_gn_half``),
+    and the same six layers forward and backward through
+    ``hex_conv_layer`` (``gn_fwd_bwd``, bf16 activations and weights,
+    float32 GN parameters, as the training step runs them).  End to end
+    (``e2e_ms``, ms a call, and ``images_s``): HexCNN-small (GN, bf16, b=32
+    512^2) and HexUNet-small (b=8) serving a request and taking an AdamW
+    training step; and one HexCNN-small step's kernels by name from
+    torch.profiler (``train_by_op``, ms: the 16 largest kernels, the 24
+    largest host ops by the device time of the kernels they launched, and
+    the sum of torch's own kernels).  Each sum is taken ``KERNEL_TIME_REPEATS``
+    times; one JSON line."""
     from hygrid_tpu_torch.kernels import conv_single, resample
     from hygrid_tpu_torch.kernels import conv_stack as cs
     from hygrid_tpu_torch.kernels import resample_shift as rs
@@ -2146,10 +2349,11 @@ def kernel_times(torch):
         return ("gn", math.gcd(8, cout), torch.ones(cout, device="cuda"),
                 torch.zeros(cout, device="cuda"))
 
+    fwd_bwd = []
     calls = {"kernel_b": [], "dgrad": [], "wgrad": [], "split": [],
              "fused": [], "chained": [], "split_wgrad": [],
              "single_bf16": [], "single_f32_512": [],
-             "single_f32_cifar": [], "fused_f32": []}
+             "single_f32_cifar": [], "fused_f32": [], "p4k_layer": []}
     # on the device alone: name -> fn
     device_calls = {}
     for li, (cin, cout, h, w) in enumerate(LAYERS):
@@ -2157,6 +2361,20 @@ def kernel_times(torch):
         k = rand(cout, cin, kn, scale=1 / math.sqrt(cin * kn))
         calls["kernel_b"].append(functools.partial(
             cs.hex_conv_layer, x, k, radius=2, norm=gn(cout), relu=True))
+        leaves = [t.detach().requires_grad_() for t in
+                  (x, k, *gn(cout)[2:])]
+        if not li:
+            leaves[0].requires_grad_(False)
+
+        def layer_fwd_bwd(leaves=leaves, g=g):
+            x, k, gamma, beta = leaves
+            out = cs.hex_conv_layer(x, k, radius=2, relu=True,
+                                    norm=("gn", math.gcd(8, k.shape[0]),
+                                          gamma, beta))
+            return torch.autograd.grad(
+                out, [t for t in leaves if t.requires_grad], g)
+
+        fwd_bwd.append(layer_fwd_bwd)
         calls["wgrad"].append(functools.partial(
             cs.hex_conv_layer_wgrad, x, g, radius=2))
         if li:
@@ -2184,6 +2402,11 @@ def kernel_times(torch):
                 calls[name].append(functools.partial(
                     conv_single.hex_conv_single, x.to(dt), k.to(dt),
                     radius=2, padding=1))
+    # #9's P-4K stack layer (phase 11's), norm-free
+    calls["p4k_layer"].append(functools.partial(
+        cs.hex_conv_layer, rand(1, 1080, 1920, 16),
+        rand(16, 16, kn, scale=1 / math.sqrt(16 * kn)), radius=2,
+        relu=True))
     _, ks = build_pipeline((512, 512), PIPE_CHANNELS, PIPE_LAYERS,
                            PIPE_RADIUS, bf)
     relus = [True] * (len(ks) - 1) + [False]
@@ -2223,8 +2446,71 @@ def kernel_times(torch):
             fn()                  # the plan's tables, outside the capture
             times[name] = [graph_ms(torch, fn)
                            for _ in range(KERNEL_TIME_REPEATS)]
-    print(json.dumps({"kernel_times_ms": times, "root": str(ROOT)}))
+        halves = [[_gn_half(torch, fn) for fn in calls["kernel_b"]]
+                  for _ in range(KERNEL_TIME_REPEATS)]
+    times["kernel_b_conv_pass"] = [sum(c for c, _, _ in h) for h in halves]
+    times["kernel_b_gn_half"] = [sum(g for _, g, _ in h) for h in halves]
+    times["kernel_b_gn_fold"] = [sum(f for _, _, f in h) for h in halves]
+    times["gn_fwd_bwd"] = [sum(cuda_ms(torch, fn) for fn in fwd_bwd)
+                           for _ in range(KERNEL_TIME_REPEATS)]
+    del calls, device_calls, fwd_bwd
+    e2e, images, by_op = _e2e_times(torch, gen)
+    print(json.dumps({"kernel_times_ms": times, "e2e_ms": e2e,
+                      "images_s": images, "train_by_op": by_op,
+                      "root": str(ROOT)}))
     return 0
+
+
+def _e2e_times(torch, gen):
+    """``kernel_times``' end-to-end part: ``({name: [ms a call]}, {name:
+    [images/s]}, HexCNN-small's training step by kernel)``, through the
+    public model API only, as users call it."""
+    from hygrid_tpu_torch.models import (HexUNet, create_train_state,
+                                         hexcnn_small, hexify_batch,
+                                         train_step)
+    bf = torch.bfloat16
+    unet_kw = dict(num_classes=4, widths=(32, 64, 128), norm="GN")
+    x_cnn = torch.rand((BATCH, 3, 512, 512), generator=gen, device="cuda")
+    x_unet = torch.rand((UNET_BATCH, 3, 512, 512), generator=gen,
+                        device="cuda")
+    cnn_labels = torch.arange(BATCH, device="cuda") % 10
+    unet_labels = torch.randint(0, 4, (UNET_BATCH, 256, 256), generator=gen,
+                                device="cuda")
+    cnn = hexcnn_small(norm="GN", dtype=bf, device="cuda", generator=gen)
+    unet = HexUNet(dtype=bf, generator=gen, **unet_kw)
+    cnn_state, unet_state = create_train_state(cnn), create_train_state(unet)
+    serve_cnn = hexcnn_small(norm="GN", dtype=bf, device="cuda",
+                             generator=gen).eval()
+    serve_unet = HexUNet(dtype=bf, generator=gen, **unet_kw).eval()
+    runs = {
+        "serve_hexcnn": (BATCH, True,
+                         lambda: serve_cnn(hexify_batch(x_cnn.to(bf)))),
+        "train_hexcnn": (BATCH, False, lambda: train_step(
+            cnn_state, hexify_batch(x_cnn), cnn_labels)),
+        "serve_hexunet": (UNET_BATCH, True,
+                          lambda: serve_unet(hexify_batch(x_unet.to(bf)))),
+        "train_hexunet": (UNET_BATCH, False, lambda: train_step(
+            unet_state, hexify_batch(x_unet), unet_labels)),
+    }
+    e2e, images = {}, {}
+    for name, (batch, serving, fn) in runs.items():
+        with torch.inference_mode(serving):
+            e2e[name] = [cuda_ms(torch, fn)
+                         for _ in range(KERNEL_TIME_REPEATS)]
+        images[name] = [batch / (ms / 1e3) for ms in e2e[name]]
+    kernels = _profiled_kernels(torch, runs["train_hexcnn"][2])
+    ops = _profiled_kernels(torch, runs["train_hexcnn"][2], ops=True)
+
+    def ported(k):
+        return (_conv_args(k) is not None or _is_gn_pass(k) or _is_gn_bwd(k)
+                or "wgrad_" in k or "plan_gather" in k)
+
+    by_op = {"torch_kernels_ms": sum(us for k, us in kernels
+                                     if not ported(k)) / 1e3,
+             "all_kernels_ms": sum(us for _, us in kernels) / 1e3,
+             "largest": [[k[:100], us / 1e3] for k, us in kernels[:16]],
+             "by_op": [[k, us / 1e3] for k, us in ops[:24]]}
+    return e2e, images, by_op
 
 
 KERNEL_TIME_REPEATS = 3
@@ -2272,8 +2558,9 @@ def main():
         return kernel_times(torch)
     mma_instructions(_build.build_info["path"])
     log("tensor-core instructions (HGMMA/HMMA, cuobjdump -sass) in "
-        "hex_conv_kernel<N, bf16, out, split>: " + ", ".join(
-            f"<{n}, {'float' if f else 'bf16'}, {str(sp).lower()}> {c}"
+        "hex_conv_kernel<N, bf16, out, split, stats>: " + ", ".join(
+            f"<{n}, {'float' if f else 'bf16'}, {str(sp).lower()}, "
+            f"{str(f).lower()}> {c}"
             for (n, f, sp), c in sorted(MMA_COUNTS.items()))
         + "; hex_conv_single_mma_kernel<N>: " + ", ".join(
             f"<{n}> {c}" for n, c in sorted(SINGLE_MMA_COUNTS.items()))
@@ -2288,6 +2575,7 @@ def main():
         b = check_kernel_b(torch, gen)
     paths = {"serve": run_slice(torch)}
     bwd = check_backward(torch, gen)
+    gn_bwd = check_gn_backward(torch, gen)
     paths["train"] = run_training(torch)
     t0 = time.perf_counter()
     with torch.inference_mode():
@@ -2372,6 +2660,12 @@ def main():
              replaces_mode="dW on the split layer, _stack_bwd_pallas "
                            "conv_pallas.py:2050-2064",
              **count("hex_conv_wgrad_split"), **split_bwd["wgrad"]),
+        dict(name="gn_relu_backward", route="cuda",
+             source="hygrid_tpu_torch/csrc/gn_backward.cu",
+             replaces="hygrid_tpu/kernels/conv_pallas.py:2023-2029",
+             replaces_mode="jax.vjp of _make_post (conv_pallas.py:1752-1800) "
+                           "under XLA, not a Pallas kernel",
+             **count("gn_relu_backward"), **gn_bwd),
     ]
     for k in kernels:
         require(k["launches"] > 0, f"{k['name']}: no launch on the main path")

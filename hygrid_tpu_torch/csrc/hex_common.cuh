@@ -4,9 +4,12 @@
 // hex_conv_fused_stack.cu in float32) and its bf16 tensor-core tile
 // (conv_tile_mma: hex_conv_layer.cu in bfloat16; conv_tile_mma_nchw, the
 // same tile staged from NCHW input: hex_conv_single.cu in bfloat16;
-// hex_conv_fused_stack.cu runs its units, weights and MMAs on row bands).
+// hex_conv_fused_stack.cu runs its units, weights and MMAs on row bands),
+// and the GN passes' vector loads and stores and thread layout
+// (hex_conv_layer.cu, gn_backward.cu).
 #pragma once
 #include <cstdint>
+#include <type_traits>
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 
@@ -37,6 +40,107 @@ __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
 __device__ __forceinline__ void store(float* p, float v) { *p = v; }
 __device__ __forceinline__ void store(__nv_bfloat16* p, float v) { *p = __float2bfloat16(v); }
+
+// ---- V consecutive channels of one pixel (the GN passes) -----------------
+//
+// V = 8 or 4 need the address aligned to V elements of a 16-byte aligned
+// tensor (8 bf16 = one 16-byte access, 8 float32 = two); V = 1 is scalar.
+template <int V>
+__device__ __forceinline__ void load_vec(const float* __restrict__ p,
+                                         float (&v)[V]) {
+  if constexpr (V % 4 == 0) {
+#pragma unroll
+    for (int i = 0; i < V; i += 4) {
+      const float4 q = *reinterpret_cast<const float4*>(p + i);
+      v[i] = q.x, v[i + 1] = q.y, v[i + 2] = q.z, v[i + 3] = q.w;
+    }
+  } else {
+#pragma unroll
+    for (int i = 0; i < V; ++i) v[i] = p[i];
+  }
+}
+
+template <int V>
+__device__ __forceinline__ void load_vec(const __nv_bfloat16* __restrict__ p,
+                                         float (&v)[V]) {
+  if constexpr (V % 4 == 0) {
+    __align__(16) __nv_bfloat162 h[V / 2];
+    if constexpr (V == 8)
+      *reinterpret_cast<uint4*>(h) = *reinterpret_cast<const uint4*>(p);
+    else
+      *reinterpret_cast<uint2*>(h) = *reinterpret_cast<const uint2*>(p);
+#pragma unroll
+    for (int i = 0; i < V / 2; ++i) {
+      const float2 f = __bfloat1622float2(h[i]);
+      v[2 * i] = f.x, v[2 * i + 1] = f.y;
+    }
+  } else {
+#pragma unroll
+    for (int i = 0; i < V; ++i) v[i] = __bfloat162float(p[i]);
+  }
+}
+
+template <int V>
+__device__ __forceinline__ void store_vec(float* __restrict__ p,
+                                          const float (&v)[V]) {
+  if constexpr (V % 4 == 0) {
+#pragma unroll
+    for (int i = 0; i < V; i += 4)
+      *reinterpret_cast<float4*>(p + i) =
+          make_float4(v[i], v[i + 1], v[i + 2], v[i + 3]);
+  } else {
+#pragma unroll
+    for (int i = 0; i < V; ++i) p[i] = v[i];
+  }
+}
+
+template <int V>
+__device__ __forceinline__ void store_vec(__nv_bfloat16* __restrict__ p,
+                                          const float (&v)[V]) {
+  if constexpr (V % 4 == 0) {
+    __align__(16) __nv_bfloat162 h[V / 2];
+#pragma unroll
+    for (int i = 0; i < V / 2; ++i)
+      h[i] = __floats2bfloat162_rn(v[2 * i], v[2 * i + 1]);
+    if constexpr (V == 8)
+      *reinterpret_cast<uint4*>(p) = *reinterpret_cast<const uint4*>(h);
+    else
+      *reinterpret_cast<uint2*>(p) = *reinterpret_cast<const uint2*>(h);
+  } else {
+#pragma unroll
+    for (int i = 0; i < V; ++i) p[i] = __float2bfloat16(v[i]);
+  }
+}
+
+// The thread layout of the GN passes over NHWC (pixels, C): a block of
+// cvs x k threads, cvs = C / V vectors a pixel; thread t holds channels
+// (t % cvs) V .. + V - 1 for its whole run, pixel rows t / cvs, + k, ...,
+// so that no element pays an integer divide.  V: 8 where C % 8 == 0 and
+// every tensor is 16-byte aligned, else 4 where C % 4 == 0, else 1.
+struct GnLayout {
+  int V, cvs, k;
+  int threads() const { return cvs * k; }
+};
+
+inline GnLayout gn_layout(int C, bool aligned) {
+  const int V = aligned && C % 8 == 0 ? 8 : aligned && C % 4 == 0 ? 4 : 1;
+  const int cvs = C / V;
+  return {V, cvs, cvs >= 256 ? 1 : 256 / cvs};
+}
+
+// f(std::integral_constant<int, V>{}) for the layout's V: the launch of a
+// GN pass's instantiation.
+template <typename F>
+int dispatch_v(int V, F&& f) {
+  switch (V) {
+    case 8:
+      return f(std::integral_constant<int, 8>{});
+    case 4:
+      return f(std::integral_constant<int, 4>{});
+    default:
+      return f(std::integral_constant<int, 1>{});
+  }
+}
 
 // ---- the conv pass's CUDA-core tile ---------------------------------------
 //

@@ -32,16 +32,30 @@
 // x 32 output channels, each of 128 threads accumulating 4 x 4 in f32
 // FMAs): TF32 would not hold the 1e-5 agreement with the reference.
 //
-// GroupNorm (norm "gn"), in three more passes of the same simple kind:
-//   1. the conv pass writes the f32 pre-activation (+bias) to scratch;
-//   2. gn_partial_kernel sums x and x^2 per (sample, chunk of pixels, group);
-//      gn_finalize_kernel folds the chunks into mean and rstd, as the TPU
-//      kernel does: E[x^2] - mean^2 clamped at 0, over the valid pixels x
-//      channels-per-group only, eps added before rsqrt;
-//   3. gn_apply_kernel writes act(x * scale + shift) in the working dtype,
-//      scale = rstd * gamma, shift = beta - mean * scale.
-// Without GN, the conv pass applies bias, the per-channel affine and ReLU
-// in its epilogue and writes the working dtype directly.
+// GroupNorm (norm "gn"): the TPU kernel holds the layer's pre-activations
+// in VMEM and normalises them in place; here they do not fit in a block, so
+// the conv pass writes them, once, and two small passes follow:
+//   1. the conv pass's epilogue writes the f32 pre-activation y (+bias) and,
+//      from the same registers, the block's sums of y and y^2 per segment of
+//      seg = gcd(Cout / G, N) output channels (a segment lies in one group and
+//      one block) over its valid pixels only: a tree over the thread's
+//      pixels, the lanes of a warp (shuffles), the warps and the segment's
+//      channels (shared memory), written to a fixed place per (sample,
+//      output row, column tile, segment): no atomics, so repeated launches
+//      and the split layer (the same block geometry) are bit-equal;
+//   2. gn_stats_kernel folds a (sample, group)'s sums in a fixed order into
+//      mean and rstd as the TPU kernel does (conv_pallas.py:1774-1786):
+//      E[y^2] - mean^2 clamped at 0, over the valid pixels x channels per
+//      group only, eps added before rsqrt;
+//   3. gn_apply_kernel reads y once more, 16 bytes a load, and writes
+//      act(fmaf(y, scale, shift)) in the working dtype in 16- or 8-byte
+//      stores, scale = rstd * gamma and shift = beta - mean * scale held in
+//      registers for the thread's fixed channels (hg::GnLayout).
+// So y crosses device memory twice (written, read), where it crossed three
+// times with a separate statistics pass.  Without GN, the conv pass applies
+// bias, the per-channel affine and ReLU in its epilogue and writes the
+// working dtype directly (the kStats = false instantiations).  The GN
+// layer's backward is gn_backward.cu.
 //
 // Split mode (x2 non-null) replaces _stack_layer_kernel with split=True
 // (conv_pallas.py:838-871), the first layer of a UNet decoder's skip-join
@@ -60,6 +74,7 @@
 // (kn, Cout, Cin), no bias, norm or ReLU: it replaces the dx half of
 // conv_pallas.py::_stack_layer_bwd_kernel, and in bfloat16 it runs on the
 // same tensor-core tile.  The dW half is hex_conv_wgrad.cu.
+#include <numeric>
 #include <type_traits>
 
 #include "hex_common.cuh"
@@ -95,13 +110,43 @@ __device__ __forceinline__ void store2(__nv_bfloat16* p, float a, float b) {
   *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
 }
 
+// The stats epilogue's last steps: red holds the block's per-channel sums
+// of y (red[0, kN)) and y^2 (red[kN, 2 kN)); each segment of seg (a power
+// of 2) consecutive channels is folded as a tree, and the segment sums of
+// the channels below Cout go to part, the block's (sample, row, tile) row of
+// (Cout / seg) pairs.
+template <int kN>
+__device__ __forceinline__ void gn_segment_sums(float* red, int seg, int co0,
+                                                int Cout,
+                                                float* __restrict__ part) {
+  for (int st = seg / 2; st > 0; st /= 2) {
+    __syncthreads();
+    for (int ch = threadIdx.x; ch < kN; ch += kConvThreads)
+      if ((ch & (seg - 1)) < st) {
+        red[ch] += red[ch + st];
+        red[kN + ch] += red[kN + ch + st];
+      }
+  }
+  __syncthreads();
+  for (int k = threadIdx.x; k * seg < kN; k += kConvThreads) {
+    const int c = co0 + k * seg;
+    if (c < Cout) {
+      part[2 * (c / seg)] = red[k * seg];
+      part[2 * (c / seg) + 1] = red[kN + k * seg];
+    }
+  }
+}
+
 // kN output channels per block: COB for float32 (hg::conv_tile), the
 // tensor-core tile's N for bfloat16 (hg::conv_tile_mma).  kSplit: the
 // layer's input is the channel concatenation of x (B, H, W, Ca) and x2
 // (B, H, W, Cin - Ca); otherwise x2 and Ca are not read.  w: float32
 // (kn, Cin, Cout), or for bfloat16 the packed weights; vec: see
-// hg::stage_patch (bfloat16 only).
-template <int kN, typename Tin, typename Tout, bool kSplit>
+// hg::stage_patch (bfloat16 only).  kStats (GN layers: Tout float32, no
+// scale or ReLU): the epilogue also writes the block's segment sums of y and
+// y^2 to gn_part (B, H, tiles, Cout / seg, 2); otherwise gn_part and seg
+// are not read.
+template <int kN, typename Tin, typename Tout, bool kSplit, bool kStats>
 __global__ void __launch_bounds__(kConvThreads)
 hex_conv_kernel(const Tin* __restrict__ x, const Tin* __restrict__ x2, int Ca,
                 const Tin* __restrict__ w,
@@ -109,13 +154,18 @@ hex_conv_kernel(const Tin* __restrict__ x, const Tin* __restrict__ x2, int Ca,
                 const float* __restrict__ shift, Tout* __restrict__ out,
                 int H, int W, int Cin, int Cout, int kn,
                 const __grid_constant__ hg::TapTable taps, int r_lo, int n_rows,
-                int c_lo, int n_cols, int relu, int vec) {
+                int c_lo, int n_cols, int relu, int vec,
+                float* __restrict__ gn_part, int seg) {
   extern __shared__ __align__(16) float smem[];
   const int n_cob = (Cout + kN - 1) / kN;
   const int b = blockIdx.z / n_cob;
   const int co0 = (blockIdx.z % n_cob) * kN;
   const int o = blockIdx.y;
   const int w0 = blockIdx.x * kTileP;
+  float* part = nullptr;   // this block's row of segment sums
+  if constexpr (kStats)
+    part = gn_part + (((long long)b * H + o) * gridDim.x + blockIdx.x) * 2 *
+                         (Cout / seg);
 
   if constexpr (std::is_same<Tin, __nv_bfloat16>::value) {
     const long long pix0 = (long long)b * H * W;   // the sample's first pixel
@@ -151,6 +201,47 @@ hex_conv_kernel(const Tin* __restrict__ x, const Tin* __restrict__ x2, int Ca,
         }
       }
     }
+    if constexpr (kStats) {
+      // per channel: the thread's two pixels, then the 8 lanes that share
+      // lane % 4 (shuffles), then the four warps ([2][4 warps][kN] in the
+      // free staging buffers: conv_tile_mma ends on a barrier)
+      float* red = smem;
+      const int warp = threadIdx.x / 32;
+#pragma unroll
+      for (int i = 0; i < kN / 8; ++i)
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          const int co = co0 + 8 * i + 2 * (lane % 4) + j;
+          const float bv = bias && co < Cout ? bias[co] : 0.f;
+          float s = 0.f, ss = 0.f;
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int pix = w0 + 16 * warp + lane / 4 + 8 * h;
+            const float v = pix < W ? acc[4 * i + 2 * h + j] + bv : 0.f;
+            s += v;
+            ss = fmaf(v, v, ss);
+          }
+#pragma unroll
+          for (int off = 4; off < 32; off *= 2) {
+            s += __shfl_xor_sync(0xffffffffu, s, off);
+            ss += __shfl_xor_sync(0xffffffffu, ss, off);
+          }
+          if (lane < 4) {
+            red[warp * kN + 8 * i + 2 * lane + j] = s;
+            red[(4 + warp) * kN + 8 * i + 2 * lane + j] = ss;
+          }
+        }
+      __syncthreads();
+      for (int ch = threadIdx.x; ch < kN; ch += kConvThreads) {
+        const float s = (red[ch] + red[kN + ch]) +
+                        (red[2 * kN + ch] + red[3 * kN + ch]);
+        const float ss = (red[4 * kN + ch] + red[5 * kN + ch]) +
+                         (red[6 * kN + ch] + red[7 * kN + ch]);
+        red[ch] = s;               // this thread's column only
+        red[kN + ch] = ss;
+      }
+      gn_segment_sums<kN>(red, seg, co0, Cout, part);
+    }
   } else {
     const int tp = threadIdx.x % kPixLanes;
     const int tc = threadIdx.x / kPixLanes;
@@ -178,91 +269,117 @@ hex_conv_kernel(const Tin* __restrict__ x, const Tin* __restrict__ x2, int Ca,
         store(op + co, epilogue(acc[i][j], co, bias, scale, shift, relu));
       }
     }
-  }
-}
-
-// Per (chunk of pixels, sample): sums of y and y^2 for each channel group.
-// Block (C, lanes): thread (c, l) walks pixels l, l + lanes, ... of the
-// chunk at channel c, so a warp reads consecutive channels of a pixel.
-__global__ void gn_partial_kernel(const float* __restrict__ y,
-                                  float* __restrict__ partial, long long HW,
-                                  int C, int G, int n_chunks) {
-  extern __shared__ float red[];             // [2][lanes][C]
-  const int c = threadIdx.x, l = threadIdx.y, lanes = blockDim.y;
-  const int chunk = blockIdx.x, b = blockIdx.y;
-  const long long per = (HW + n_chunks - 1) / n_chunks;
-  const long long p0 = chunk * per;
-  const long long p1 = p0 + per < HW ? p0 + per : HW;
-  const float* yb = y + (long long)b * HW * C;
-  float s = 0.f, ss = 0.f;
-  for (long long p = p0 + l; p < p1; p += lanes) {
-    const float v = yb[p * C + c];
-    s += v;
-    ss = fmaf(v, v, ss);
-  }
-  red[l * C + c] = s;
-  red[(lanes + l) * C + c] = ss;
-  __syncthreads();
-  const int tid = l * C + c;
-  if (tid < G) {
-    const int cpg = C / G;
-    float gs = 0.f, gss = 0.f;
-    for (int k = 0; k < lanes; ++k)
-      for (int cc = tid * cpg; cc < (tid + 1) * cpg; ++cc) {
-        gs += red[k * C + cc];
-        gss += red[(lanes + k) * C + cc];
+    if constexpr (kStats) {
+      // per channel: the thread's PT = 4 pixels as a tree, then the 16
+      // lanes of its pixel run (shuffles); [2][COB] in shared memory once
+      // every thread is done with the tile's staging buffers
+      static_assert(PT == 4, "the tree below");
+      float* red = smem;
+      __syncthreads();
+#pragma unroll
+      for (int j = 0; j < kChanT; ++j) {
+        const int co = co0 + tc * kChanT + j;
+        const float bv = bias && co < Cout ? bias[co] : 0.f;
+        float v[PT];
+#pragma unroll
+        for (int i = 0; i < PT; ++i)
+          v[i] = w0 + tp + i * kPixLanes < W ? acc[i][j] + bv : 0.f;
+        float s = (v[0] + v[1]) + (v[2] + v[3]);
+        float ss = fmaf(v[0], v[0], v[1] * v[1]) + fmaf(v[2], v[2], v[3] * v[3]);
+#pragma unroll
+        for (int off = 1; off < kPixLanes; off *= 2) {
+          s += __shfl_xor_sync(0xffffffffu, s, off);
+          ss += __shfl_xor_sync(0xffffffffu, ss, off);
+        }
+        if (tp == 0) {
+          red[tc * kChanT + j] = s;
+          red[COB + tc * kChanT + j] = ss;
+        }
       }
-    float* pp = partial + (((long long)b * n_chunks + chunk) * G + tid) * 2;
-    pp[0] = gs;
-    pp[1] = gss;
+      gn_segment_sums<COB>(red, seg, co0, Cout, part);
+    }
   }
 }
 
-__global__ void gn_finalize_kernel(const float* __restrict__ partial,
-                                   float* __restrict__ stats, int B, int G,
-                                   int n_chunks, float count, float eps) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= B * G) return;
-  const int b = i / G, g = i % G;
+// Per (sample, group), one block: the fold of the conv epilogue's segment
+// sums into stats (B, G, 2) = (mean, rstd).  Thread t sums the (row, tile)
+// entries t, t + 256, ... in order, the group's segments each, then a tree;
+// count = valid pixels x channels per group.
+__global__ void __launch_bounds__(256)
+gn_stats_kernel(const float* __restrict__ part, float* __restrict__ stats,
+                int n_tiles, int n_seg, int seg_per_group, int G, float count,
+                float eps) {
+  __shared__ float red[2][256];
+  const int b = blockIdx.x / G, g = blockIdx.x % G, t = threadIdx.x;
   float s = 0.f, ss = 0.f;
-  for (int k = 0; k < n_chunks; ++k) {
-    const float* pp = partial + (((long long)b * n_chunks + k) * G + g) * 2;
-    s += pp[0];
-    ss += pp[1];
+  for (int e = t; e < n_tiles; e += 256) {
+    const float* p = part + (((long long)b * n_tiles + e) * n_seg +
+                             (long long)g * seg_per_group) * 2;
+    for (int k = 0; k < seg_per_group; ++k) {
+      s += p[2 * k];
+      ss += p[2 * k + 1];
+    }
   }
-  const float mean = s / count;
-  const float var = fmaxf(ss / count - mean * mean, 0.f);
-  stats[2 * i] = mean;
-  stats[2 * i + 1] = rsqrtf(var + eps);
+  red[0][t] = s;
+  red[1][t] = ss;
+  for (int st = 128; st > 0; st /= 2) {
+    __syncthreads();
+    if (t < st) {
+      red[0][t] += red[0][t + st];
+      red[1][t] += red[1][t + st];
+    }
+  }
+  if (t == 0) {
+    const float mean = red[0][0] / count;
+    const float var = fmaxf(red[1][0] / count - mean * mean, 0.f);
+    stats[2 * blockIdx.x] = mean;
+    stats[2 * blockIdx.x + 1] = rsqrtf(var + eps);
+  }
 }
 
-template <typename Tout>
-__global__ void gn_apply_kernel(const float* __restrict__ y,
-                                const float* __restrict__ stats,
-                                const float* __restrict__ gamma,
-                                const float* __restrict__ beta,
-                                Tout* __restrict__ out, long long HW, int C,
-                                int G, long long total, int relu) {
-  const long long e = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (e >= total) return;
-  const int c = (int)(e % C);
-  const long long b = e / (HW * C);
-  const long long bg = b * G + c / (C / G);
-  const float sc = stats[2 * bg + 1] * gamma[c];
-  const float sh = beta[c] - stats[2 * bg] * sc;
-  float v = fmaf(y[e], sc, sh);
-  if (relu) v = fmaxf(v, 0.f);
-  store(out + e, v);
+// Block (chunk, sample) in hg::GnLayout: out = act(fmaf(y, scale, shift))
+// over the chunk's px pixels of NHWC y (B, HW, C).
+template <int V, typename Tout>
+__global__ void __launch_bounds__(V == 1 ? 1024 : 256)
+gn_apply_kernel(const float* __restrict__ y, const float* __restrict__ stats,
+                const float* __restrict__ gamma,
+                const float* __restrict__ beta, Tout* __restrict__ out,
+                long long HW, int C, int G, int px, int relu) {
+  const int cvs = C / V, k = blockDim.x / cvs;
+  const int c = (threadIdx.x % cvs) * V;
+  const int b = blockIdx.y, cpg = C / G;
+  float sc[V], sh[V];
+#pragma unroll
+  for (int i = 0; i < V; ++i) {
+    const float* st = stats + 2 * ((long long)b * G + (c + i) / cpg);
+    sc[i] = st[1] * gamma[c + i];
+    // rounded twice, not fused, so that the backward's ReLU mask
+    // (gn_backward.cu) and the plain versions rebuild the same shift
+    sh[i] = __fsub_rn(beta[c + i], __fmul_rn(st[0], sc[i]));
+  }
+  const long long p0 = (long long)blockIdx.x * px;
+  const long long p1 = p0 + px < HW ? p0 + px : HW;
+  const long long base = (long long)b * HW * C + c;
+  for (long long p = p0 + threadIdx.x / cvs; p < p1; p += k) {
+    float v[V];
+    hg::load_vec<V>(y + base + p * C, v);
+#pragma unroll
+    for (int i = 0; i < V; ++i) {
+      v[i] = fmaf(v[i], sc[i], sh[i]);
+      if (relu) v[i] = fmaxf(v[i], 0.f);
+    }
+    hg::store_vec<V>(out + base + p * C, v);
+  }
 }
 
-template <int kN, typename Tin, typename Tout>
+template <int kN, typename Tin, typename Tout, bool kStats>
 int launch_conv_n(const void* x, const void* x2, int Ca, const void* w,
                   const float* bias, const float* scale, const float* shift,
                   void* out, int B, int H, int W, int Cin, int Cout, int kn,
                   const Geometry& g, int relu, int vec, size_t smem,
-                  cudaStream_t stream) {
-  auto kernel = x2 ? hex_conv_kernel<kN, Tin, Tout, true>
-                   : hex_conv_kernel<kN, Tin, Tout, false>;
+                  float* gn_part, int seg, cudaStream_t stream) {
+  auto kernel = x2 ? hex_conv_kernel<kN, Tin, Tout, true, kStats>
+                   : hex_conv_kernel<kN, Tin, Tout, false, kStats>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
@@ -272,7 +389,7 @@ int launch_conv_n(const void* x, const void* x2, int Ca, const void* w,
       static_cast<const Tin*>(x), static_cast<const Tin*>(x2), Ca,
       static_cast<const Tin*>(w), bias, scale, shift, static_cast<Tout*>(out),
       H, W, Cin, Cout, kn, g.taps, g.r_lo, g.n_rows, g.c_lo, g.n_cols, relu,
-      vec);
+      vec, gn_part, seg);
   return (int)cudaGetLastError();
 }
 
@@ -281,16 +398,18 @@ bool aligned16(const void* p) {
 }
 
 // x2 non-null selects the split instantiation (input channels [0, Ca) from
-// x, [Ca, Cin) from x2).  n: the bfloat16 tile's N.
-template <typename Tin, typename Tout>
+// x, [Ca, Cin) from x2).  n: the bfloat16 tile's N.  kStats: the GN
+// layer's conv pass (Tout float32), writing segment sums to gn_part.
+template <typename Tin, typename Tout, bool kStats>
 int launch_conv(const void* x, const void* x2, int Ca, const void* w,
                 const float* bias, const float* scale, const float* shift,
                 void* out, int B, int H, int W, int Cin, int Cout, int kn,
-                const Geometry& g, int relu, int n, cudaStream_t stream) {
+                const Geometry& g, int relu, int n, float* gn_part, int seg,
+                cudaStream_t stream) {
   if constexpr (std::is_same<Tin, float>::value) {
-    return launch_conv_n<COB, Tin, Tout>(
+    return launch_conv_n<COB, Tin, Tout, kStats>(
         x, x2, Ca, w, bias, scale, shift, out, B, H, W, Cin, Cout, kn, g,
-        relu, 0, hg::conv_tile_smem(g, kn, COB), stream);
+        relu, 0, hg::conv_tile_smem(g, kn, COB), gn_part, seg, stream);
   } else {
     // 16-byte copies where every unit of 8 channels lies whole in one
     // aligned input
@@ -300,9 +419,9 @@ int launch_conv(const void* x, const void* x2, int Ca, const void* w,
     switch (n) {
 #define HG_CONV_N(N)                                                        \
   case N:                                                                   \
-    return launch_conv_n<N, Tin, Tout>(x, x2, Ca, w, bias, scale, shift,    \
-                                       out, B, H, W, Cin, Cout, kn, g, relu, \
-                                       vec, smem, stream);
+    return launch_conv_n<N, Tin, Tout, kStats>(                             \
+        x, x2, Ca, w, bias, scale, shift, out, B, H, W, Cin, Cout, kn, g,   \
+        relu, vec, smem, gn_part, seg, stream);
       HG_CONV_N(16)
       HG_CONV_N(32)
       HG_CONV_N(64)
@@ -314,37 +433,43 @@ int launch_conv(const void* x, const void* x2, int Ca, const void* w,
   }
 }
 
+// the GN pass's pixels a block: 8 rows of the thread layout
+constexpr int kApplyPasses = 8;
+
 template <typename T>
 int launch_layer(const void* x, const void* x2, int Ca, const void* w,
                  const float* bias, const float* scale, const float* shift,
                  const float* gamma, const float* beta, int gn_groups,
-                 float eps, float* y, float* partial, float* stats,
-                 int n_chunks, void* out, int B, int H, int W, int Cin,
+                 float eps, float* y, float* part, long long n_part,
+                 float* stats, void* out, int B, int H, int W, int Cin,
                  int Cout, int kn, const Geometry& g, int relu, int n,
                  cudaStream_t stream) {
   if (gn_groups == 0)
-    return launch_conv<T, T>(x, x2, Ca, w, bias, scale, shift, out, B, H, W,
-                             Cin, Cout, kn, g, relu, n, stream);
-  int err = launch_conv<T, float>(x, x2, Ca, w, bias, nullptr, nullptr, y, B,
-                                  H, W, Cin, Cout, kn, g, 0, n, stream);
+    return launch_conv<T, T, false>(x, x2, Ca, w, bias, scale, shift, out, B,
+                                    H, W, Cin, Cout, kn, g, relu, n, nullptr,
+                                    0, stream);
+  const int cpg = Cout / gn_groups;
+  const int seg = std::gcd(cpg, n);
+  const int tiles = (W + kTileP - 1) / kTileP;
+  if (n_part != 2LL * B * H * tiles * (Cout / seg)) return -1;
+  int err = launch_conv<T, float, true>(x, x2, Ca, w, bias, nullptr, nullptr,
+                                        y, B, H, W, Cin, Cout, kn, g, 0, n,
+                                        part, seg, stream);
   if (err) return err;
   const long long HW = (long long)H * W;
-  const int lanes = Cout >= 256 ? 1 : 256 / Cout;
-  dim3 pblock(Cout, lanes);
-  gn_partial_kernel<<<dim3(n_chunks, B), pblock,
-                      sizeof(float) * 2 * lanes * Cout, stream>>>(
-      y, partial, HW, Cout, gn_groups, n_chunks);
+  gn_stats_kernel<<<B * gn_groups, 256, 0, stream>>>(
+      part, stats, H * tiles, Cout / seg, cpg / seg, gn_groups,
+      (float)(HW * cpg), eps);
   if ((err = (int)cudaGetLastError())) return err;
-  const int bg = B * gn_groups;
-  gn_finalize_kernel<<<(bg + 255) / 256, 256, 0, stream>>>(
-      partial, stats, B, gn_groups, n_chunks,
-      (float)HW * (float)(Cout / gn_groups), eps);
-  if ((err = (int)cudaGetLastError())) return err;
-  const long long total = (long long)B * HW * Cout;
-  gn_apply_kernel<T><<<(unsigned)((total + 255) / 256), 256, 0, stream>>>(
-      y, stats, gamma, beta, static_cast<T*>(out), HW, Cout, gn_groups, total,
-      relu);
-  return (int)cudaGetLastError();
+  const hg::GnLayout lay = hg::gn_layout(Cout, aligned16(y) && aligned16(out));
+  const int px = lay.k * kApplyPasses;
+  const dim3 grid((unsigned)((HW + px - 1) / px), B);
+  return hg::dispatch_v(lay.V, [&](auto v) {
+    gn_apply_kernel<decltype(v)::value, T><<<grid, lay.threads(), 0, stream>>>(
+        y, stats, gamma, beta, static_cast<T*>(out), HW, Cout, gn_groups, px,
+        relu);
+    return (int)cudaGetLastError();
+  });
 }
 
 }  // namespace
@@ -356,9 +481,11 @@ int launch_layer(const void* x, const void* x2, int Ca, const void* w,
 // input channels 16 c + 8 g .. + 7 of tap t for output channel co, zero
 // past Cin; conv_stack.py::_pack_mma_weights), 16-byte aligned; taps: host
 // (2, kn, 2) int32.  bias/scale/shift/gamma/beta: float32 (Cout,) or null.
-// gn_groups > 0 selects GroupNorm and needs the float32 scratch buffers
-// y (B, H, W, Cout), partial (B, n_chunks, gn_groups, 2) and
-// stats (B, gn_groups, 2).  x2 non-null is the split layer (the
+// gn_groups > 0 selects GroupNorm and needs the float32 buffers y (B, H, W,
+// Cout), the pre-activation (kept for the backward), part (B, H,
+// ceil(W / 64), Cout / seg, 2) with seg = gcd(Cout / gn_groups, N), n_part
+// its floats, and stats (B, gn_groups, 2), mean and rstd (kept for the
+// backward).  x2 non-null is the split layer (the
 // counterpart of _stack_layer_kernel's split=True, conv_pallas.py:838-871):
 // x is (B, H, W, Ca) with input channels [0, Ca), x2 (B, H, W, Cin - Ca)
 // with [Ca, Cin), 0 < Ca < Cin, and w still the unsplit layer's.  The grid
@@ -370,16 +497,16 @@ int launch_layer(const void* x, const void* x2, int Ca, const void* w,
 extern "C" int hg_hex_conv_layer(
     const void* x, const void* x2, int Ca, const void* w, const void* bias,
     const void* scale, const void* shift, const void* gamma, const void* beta,
-    int gn_groups, float eps, void* y, void* partial, void* stats,
-    int n_chunks, void* out, int dtype, int B, int H, int W, int Cin,
+    int gn_groups, float eps, void* y, void* part, void* stats,
+    long long n_part, void* out, int dtype, int B, int H, int W, int Cin,
     int Cout, int kn, const void* taps, int relu, void* stream) {
   if (kn < 1 || kn > kMaxTaps || B < 1 || H < 1 || W < 1 || Cin < 1 ||
       Cout < 1 || H > 65535 || (dtype != 0 && dtype != 1))
     return -1;
   if (x2 && (Ca < 1 || Ca >= Cin)) return -1;
   if (gn_groups < 0 || (gn_groups > 0 && (Cout % gn_groups || Cout > 1024 ||
-                                           n_chunks < 1 || !y || !partial ||
-                                           !stats || !gamma || !beta)))
+                                           !y || !part || !stats || !gamma ||
+                                           !beta)))
     return -1;
   if ((scale == nullptr) != (shift == nullptr)) return -1;
   if (dtype == 1 && !aligned16(w)) return -1;
@@ -391,12 +518,12 @@ extern "C" int hg_hex_conv_layer(
   if (dtype == 0)
     return launch_layer<float>(
         x, x2, Ca, w, f(bias), f(scale), f(shift), f(gamma), f(beta),
-        gn_groups, eps, static_cast<float*>(y), static_cast<float*>(partial),
-        static_cast<float*>(stats), n_chunks, out, B, H, W, Cin, Cout, kn, g,
+        gn_groups, eps, static_cast<float*>(y), static_cast<float*>(part),
+        n_part, static_cast<float*>(stats), out, B, H, W, Cin, Cout, kn, g,
         relu, n, s);
   return launch_layer<__nv_bfloat16>(
       x, x2, Ca, w, f(bias), f(scale), f(shift), f(gamma), f(beta),
-      gn_groups, eps, static_cast<float*>(y), static_cast<float*>(partial),
-      static_cast<float*>(stats), n_chunks, out, B, H, W, Cin, Cout, kn, g,
+      gn_groups, eps, static_cast<float*>(y), static_cast<float*>(part),
+      n_part, static_cast<float*>(stats), out, B, H, W, Cin, Cout, kn, g,
       relu, n, s);
 }

@@ -4,7 +4,11 @@
   ``hygrid_tpu/kernels/resample_pallas.py::_resample_kernel``);
 * ``conv_stack.hex_conv_layer`` — ``csrc/hex_conv_layer.cu`` (replaces
   ``hygrid_tpu/kernels/conv_pallas.py::_stack_layer_kernel`` and
-  ``::_stack_layer_kernel_banded``; bfloat16 on the tensor cores);
+  ``::_stack_layer_kernel_banded``; bfloat16 on the tensor cores; GN
+  statistics summed in the conv pass's epilogue);
+* ``conv_stack.gn_relu_backward`` — ``csrc/gn_backward.cu``, the GN/ReLU
+  tail's backward of a GN layer (the counterpart of the reference's
+  ``jax.vjp`` of ``conv_pallas.py::_make_post`` under XLA);
 * ``conv_stack.hex_conv_layer_dgrad`` (the same conv pass on the adjoint
   tap table) and ``conv_stack.hex_conv_layer_wgrad``
   (``csrc/hex_conv_wgrad.cu``) — together they replace

@@ -20,12 +20,14 @@ ReLU, as ``_stack_layer_kernel`` computes it:
 :func:`hex_conv_layer` is a ``torch.autograd.Function`` (the counterpart of
 the stack's ``custom_vjp``, ``conv_pallas.py:1266-1362``).  Its forward
 keeps the layer input and, for GN layers, the float32 pre-activation the
-conv pass writes anyway.  Its backward pulls the output cotangent back
-through ReLU / GN / bias in plain PyTorch (``torch.autograd.grad`` of
-:func:`_post_plain`, as JAX takes ``jax.vjp`` of ``_make_post``), rounds it
-to the activation dtype, and runs :func:`hex_conv_layer_dgrad` (dL/dx) and
-:func:`hex_conv_layer_wgrad` (dL/dW): the two halves of
-``_stack_layer_bwd_kernel``.  Each grad comes back in its input's dtype.
+conv pass writes anyway and the (sample, group) mean and rstd.  Its
+backward pulls the output cotangent back through ReLU / GN / bias, for GN
+layers with :func:`gn_relu_backward` (``csrc/gn_backward.cu``: the
+closed-form vjp of the reference's tail, where JAX takes ``jax.vjp`` of
+``_make_post`` under XLA), in the activation dtype, and runs
+:func:`hex_conv_layer_dgrad` (dL/dx) and :func:`hex_conv_layer_wgrad`
+(dL/dW): the two halves of ``_stack_layer_bwd_kernel``.  Each grad comes
+back in its input's dtype.
 :func:`hex_conv_fused_stack`'s backward recomputes the stack through
 chained :func:`hex_conv_layer` calls, as the reference's VJP recomputes
 through ``_stack_xla``.
@@ -64,7 +66,9 @@ float32); chained, it is the twin of ``conv_pallas._stack_xla``, and
 kernels are :func:`hex_conv_layer_dgrad_plain` and
 :func:`hex_conv_layer_wgrad_plain` (autograd of the plain conv), and
 their split twins :func:`hex_conv_layer_split_dgrad_plain` and
-:func:`hex_conv_layer_split_wgrad_plain`.  Every
+:func:`hex_conv_layer_split_wgrad_plain`; of the GN tail's backward,
+:func:`gn_relu_backward_plain` on the statistics of :func:`gn_stats_plain`.
+Every
 wrapper runs its plain version for a CPU tensor, launches its kernel for a
 CUDA tensor and raises for anything else.
 """
@@ -86,10 +90,11 @@ __all__ = ["hex_conv_layer", "hex_conv_layer_plain", "hex_conv_layer_dgrad",
            "hex_conv_fused_stack_plain", "hex_conv_layer_split",
            "hex_conv_layer_split_plain", "hex_conv_layer_split_dgrad",
            "hex_conv_layer_split_dgrad_plain", "hex_conv_layer_split_wgrad",
-           "hex_conv_layer_split_wgrad_plain", "hex_conv_stack"]
+           "hex_conv_layer_split_wgrad_plain", "gn_stats_plain",
+           "gn_relu_backward", "gn_relu_backward_plain", "hex_conv_stack"]
 
 LAUNCHES = 0
-"""Number of layers run by the kernel (one GN layer is four CUDA launches
+"""Number of layers run by the kernel (one GN layer is three CUDA launches
 and counts once)."""
 DGRAD_LAUNCHES = 0
 """Number of dL/dx launches (:func:`hex_conv_layer_dgrad`)."""
@@ -105,17 +110,20 @@ tile's output channels), ``rows`` (band rows), ``threads`` a block,
 ``blocks_per_sm`` and the batch ``group``."""
 SPLIT_LAUNCHES = 0
 """Number of split layers run by the kernel (:func:`hex_conv_layer_split`;
-one GN layer is four CUDA launches and counts once)."""
+one GN layer is three CUDA launches and counts once)."""
 SPLIT_DGRAD_LAUNCHES = 0
 """Number of dgrad launches made by :func:`hex_conv_layer_split_dgrad`
 (two a split layer, one on each input's part of the kernel)."""
 SPLIT_WGRAD_LAUNCHES = 0
 """Number of dW runs made by :func:`hex_conv_layer_split_wgrad` (two a
 split layer, one on each input; a run is two CUDA launches)."""
+GN_BWD_LAUNCHES = 0
+"""Number of GN/ReLU tail backward runs (:func:`gn_relu_backward`, one a GN
+layer's backward; a run is four CUDA launches)."""
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _EPS = 1e-5
-_GN_BLOCKS = 2048     # target (sample, pixel-chunk) blocks of the GN stats pass
+_GN_BLOCKS = 2048     # target (sample, pixel-chunk) blocks of the GN backward
 # target blocks of the dW partial-sum pass: float32 (CUDA cores), and
 # bfloat16 (tensor cores: fewer, longer blocks, so the f32 partial sums each
 # chunk writes and the fold reads stay few)
@@ -255,6 +263,114 @@ def _post_plain(y, norm, relu: bool, dtype) -> torch.Tensor:
     return h.permute(0, 2, 3, 1).to(dtype).contiguous()
 
 
+def gn_stats_plain(y: torch.Tensor, groups: int, eps: float = _EPS):
+    """``(mean, rstd)``, float32 ``(B, G)``, of the NHWC pre-activation
+    ``y`` per (sample, group), as the reference's in-kernel GN computes them
+    (``conv_pallas.py:1774-1786``) and kernel B's stats fold does: ``var =
+    E[y^2] - mean^2`` clamped at 0, eps added before rsqrt.  The statistics
+    the CPU forward saves for :func:`gn_relu_backward`."""
+    b, c = y.shape[0], y.shape[-1]
+    g = y.float().reshape(b, -1, groups, c // groups)
+    n = g.shape[1] * g.shape[3]
+    mean = g.sum((1, 3)) / n
+    var = torch.clamp_min((g * g).sum((1, 3)) / n - mean * mean, 0.0)
+    return mean, torch.rsqrt(var + eps)
+
+
+def gn_relu_backward_plain(y, mean, rstd, gamma, beta, gout, groups: int,
+                           relu: bool, eps: float = _EPS):
+    """Plain version of :func:`gn_relu_backward`, on any device: the
+    closed-form vjp of ``act(GroupNorm(y))`` (``E[y^2] - mean^2`` with its
+    clamp, the reference's ``_make_post``) at the saved statistics, in
+    float32.  Returns ``(gpre, dgamma, dbeta, dbias)``: the pre-activation
+    cotangent in gout's dtype, and float32 ``(C,)`` sums (``dbias`` from
+    the float32 ``gpre``).
+
+    With ``scale = rstd gamma``, ``shift = beta - mean scale``, ``dz =
+    gout`` where ``fmaf(y, scale, shift) > 0``, the kernel's forward output
+    (all of it without ReLU) and ``yhat
+    = (y - mean) rstd``: ``gpre = scale dz - rstd (A + f Bs yhat) / n``,
+    ``A`` and ``Bs`` the group's sums of ``gamma dz`` and ``gamma dz yhat``,
+    ``n`` its pixels x channels and ``f`` 0 where the variance sat at the
+    clamp (``rstd`` equal to ``eps**-0.5``), else 1."""
+    b, h, w, c = y.shape
+    cpg = c // groups
+    n = float(h * w * cpg)
+    yg = y.float().reshape(b, h * w, groups, cpg)
+    gam = gamma.float().reshape(groups, cpg)
+    m = mean.float()[:, None, :, None]
+    r = rstd.float()[:, None, :, None]
+    scale = r * gam
+    shift = beta.float().reshape(groups, cpg) - m * scale
+    d = gout.float().reshape(b, h * w, groups, cpg)
+    if relu:
+        # the sign of fmaf(y, scale, shift), the kernel's: the float32
+        # product is exact in float64, and the float64 sum has the sign of
+        # the exact one
+        pre = yg.double() * scale.double() + shift.double()
+        d = torch.where(pre > 0, d, torch.zeros_like(d))
+    yhat = (yg - m) * r
+    sd, sdy = d.sum(1), (d * yhat).sum(1)                   # (B, G, cpg)
+    f = (rstd.float() < torch.rsqrt(torch.tensor(eps))).float()
+    a1 = rstd.float() * (gam * sd).sum(-1) / n              # (B, G)
+    a2 = f * rstd.float() * (gam * sdy).sum(-1) / n
+    gpre = scale * d - (a1[:, None, :, None] + a2[:, None, :, None] * yhat)
+    return (gpre.reshape(b, h, w, c).to(gout.dtype), sdy.sum(0).reshape(c),
+            sd.sum(0).reshape(c), gpre.sum((0, 1)).reshape(c))
+
+
+def gn_relu_backward(y, mean, rstd, gamma, beta, gout, groups: int,
+                     relu: bool):
+    """The backward of a GN layer's tail ``act(GroupNorm(y))``: NHWC float32
+    pre-activation ``y`` ``(B, H, W, C)``, its saved float32 ``mean`` and
+    ``rstd`` ``(B, G)``, ``gamma`` and ``beta`` ``(C,)``, and the output
+    cotangent ``gout`` ``(B, H, W, C)``.  Returns ``(gpre, dgamma, dbeta,
+    dbias)`` as :func:`gn_relu_backward_plain` does.
+
+    A CPU tensor runs :func:`gn_relu_backward_plain`.  A CUDA tensor (gout
+    float32 or bfloat16, C <= 1024) launches ``csrc/gn_backward.cu`` (a
+    reduction pass and an elementwise pass over ``(y, gout)`` with fixed-
+    order folds, counted once in ``GN_BWD_LAUNCHES``); anything else
+    raises."""
+    global GN_BWD_LAUNCHES
+    if y.device.type == "cpu":
+        return gn_relu_backward_plain(y, mean, rstd, gamma, beta, gout,
+                                      groups, relu)
+    what = "gn_relu_backward"
+    if y.device.type != "cuda":
+        raise ValueError(f"{what}: no kernel for device {y.device}")
+    _check_activations(gout, what)
+    b, h, w, c = gout.shape
+    if (y.dtype != torch.float32 or y.shape != gout.shape
+            or not y.is_contiguous() or y.device != gout.device):
+        raise ValueError(f"{what}: y must be a contiguous float32 "
+                         f"{tuple(gout.shape)} tensor on {gout.device}")
+    if c % groups or c > 1024:
+        raise ValueError(f"{what}: GroupNorm needs groups | C <= 1024, got "
+                         f"{groups} groups, C={c}")
+    if mean.shape != (b, groups) or rstd.shape != (b, groups):
+        raise ValueError(f"{what}: mean and rstd must be ({b}, {groups})")
+    stats = torch.stack([mean.float(), rstd.float()], -1).contiguous()
+    gamma = _check_param(gamma, "gamma", c, y.device)
+    beta = _check_param(beta, "beta", c, y.device)
+    n_chunks = max(1, min(h * w, -(-_GN_BLOCKS // b)))
+    n_scratch = 3 * b * n_chunks * c + 2 * b * c + 2 * b * groups
+    scratch = torch.empty(n_scratch, dtype=torch.float32, device=y.device)
+    gpre = torch.empty_like(gout)
+    grads = torch.empty((3, c), dtype=torch.float32, device=y.device)
+    lib = _build.load_library()
+    with torch.cuda.device(y.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        status = lib.hg_gn_relu_backward(
+            y.data_ptr(), gout.data_ptr(), stats.data_ptr(),
+            gamma.data_ptr(), beta.data_ptr(), scratch.data_ptr(), n_scratch,
+            gpre.data_ptr(), grads.data_ptr(), _DTYPES[gout.dtype], b, h * w,
+            c, groups, n_chunks, int(relu), _EPS, stream)
+    _build.check(status, what)
+    GN_BWD_LAUNCHES += 1
+    return gpre, grads[0], grads[1], grads[2]
+
+
 def hex_conv_layer_plain(x: torch.Tensor, kernel: torch.Tensor, bias=None, *,
                          radius: int, dilation: int = 1, norm=None,
                          relu: bool = False) -> torch.Tensor:
@@ -351,9 +467,9 @@ def _conv_launch(x, wt, cout, taps_key, what, bias=None, norm=None,
     float32 ``x``, packed by :func:`_pack_mma_weights` for bfloat16) and
     the tap table of ``taps_key`` ``(radius, dilation, adjoint)``; with
     ``x2`` (checked, same batch, spatial shape and dtype) the split layer
-    on the channel concatenation of ``x`` and ``x2``.  Returns ``(out,
-    y)``: ``y`` is the float32 pre-activation scratch of a GN layer, else
-    None."""
+    on the channel concatenation of ``x`` and ``x2``.  Returns ``(out, y,
+    stats)``: for a GN layer the float32 pre-activation and ``(B, G, 2)``
+    mean and rstd the kernel computed, else None."""
     b, h, w, ca = x.shape
     cin = ca + (0 if x2 is None else x2.shape[-1])
     kn = wt.shape[0]
@@ -368,8 +484,8 @@ def _conv_launch(x, wt, cout, taps_key, what, bias=None, norm=None,
     radius, dilation, adjoint = taps_key
     taps = (_adjoint_taps if adjoint else _taps)(radius, dilation)
     bias = _check_param(bias, "bias", cout, x.device)
-    scale = shift = gamma = beta = y = partial = stats = None
-    groups = n_chunks = 0
+    scale = shift = gamma = beta = y = part = stats = None
+    groups = n_part = 0
     if norm is not None and norm[0] == "gn":
         _, groups, gamma, beta = norm
         if cout % groups or cout > 1024:
@@ -377,10 +493,12 @@ def _conv_launch(x, wt, cout, taps_key, what, bias=None, norm=None,
                              f"got {groups} groups, Cout={cout}")
         gamma = _check_param(gamma, "gamma", cout, x.device)
         beta = _check_param(beta, "beta", cout, x.device)
-        n_chunks = max(1, min(h * w, -(-_GN_BLOCKS // b)))
         y = torch.empty((b, h, w, cout), dtype=torch.float32, device=x.device)
-        partial = torch.empty((b, n_chunks, groups, 2), dtype=torch.float32,
-                              device=x.device)
+        # the conv epilogue's sums: one pair per (sample, row, 64-pixel
+        # tile, segment of gcd(Cout / G, N) channels)
+        seg = math.gcd(cout // groups, n)
+        n_part = 2 * b * h * -(-w // _TILE_P) * (cout // seg)
+        part = torch.empty(n_part, dtype=torch.float32, device=x.device)
         stats = torch.empty((b, groups, 2), dtype=torch.float32,
                             device=x.device)
     elif norm is not None:
@@ -394,11 +512,11 @@ def _conv_launch(x, wt, cout, taps_key, what, bias=None, norm=None,
         status = lib.hg_hex_conv_layer(
             x.data_ptr(), _ptr(x2), ca, wt.data_ptr(), _ptr(bias),
             _ptr(scale), _ptr(shift), _ptr(gamma), _ptr(beta), groups, _EPS,
-            _ptr(y), _ptr(partial), _ptr(stats), n_chunks, out.data_ptr(),
+            _ptr(y), _ptr(part), _ptr(stats), n_part, out.data_ptr(),
             _DTYPES[x.dtype], b, h, w, cin, cout, kn, taps.ctypes.data,
             int(relu), stream)
     _build.check(status, what)
-    return out, y
+    return out, y, stats
 
 
 def _check_pair(a, b, what) -> None:
@@ -413,15 +531,21 @@ def _check_pair(a, b, what) -> None:
 
 
 def _layer_forward(x, kernel, bias, radius, dilation, norm, relu, x2=None):
-    """``(out, y)`` of one layer, or with ``x2`` of the split layer on the
-    channel concatenation of ``x`` and ``x2``: ``y`` is its float32 NHWC
-    pre-activation where the device path has it (always on the CPU, GN
-    layers on CUDA)."""
+    """``(out, y, stats)`` of one layer, or with ``x2`` of the split layer
+    on the channel concatenation of ``x`` and ``x2``: ``y`` is its float32
+    NHWC pre-activation where the device path has it (always on the CPU,
+    GN layers on CUDA), ``stats`` a GN layer's float32 ``(B, G, 2)`` mean
+    and rstd (None without GN)."""
     global LAUNCHES, SPLIT_LAUNCHES
     if x.device.type == "cpu":
         xin = x if x2 is None else torch.cat([x, x2], dim=-1)
         y = _pre_plain(xin, kernel, bias, radius, dilation)
-        return _post_plain(y, norm, relu, xin.dtype), y
+        stats = None
+        if norm is not None and norm[0] == "gn":
+            # the output is the plain version's (hex_conv_layer_plain, bit
+            # for bit); the saved statistics are the kernel's formula
+            stats = torch.stack(gn_stats_plain(y, norm[1]), -1)
+        return _post_plain(y, norm, relu, xin.dtype), y, stats
     what = "hex_conv_layer" if x2 is None else "hex_conv_layer_split"
     if x2 is None:
         _check_activations(x, what)
@@ -432,13 +556,13 @@ def _layer_forward(x, kernel, bias, radius, dilation, norm, relu, x2=None):
     _check_kernel(kernel, (cout, cin, F.hex_kernel_num(radius)), x.device,
                   what)
     wt = kernel.permute(2, 1, 0)                            # (kn, Cin, Cout)
-    out, y = _conv_launch(x, wt, cout, (radius, dilation, False), what, bias,
-                          norm, relu, x2=x2)
+    out, y, stats = _conv_launch(x, wt, cout, (radius, dilation, False),
+                                 what, bias, norm, relu, x2=x2)
     if x2 is None:
         LAUNCHES += 1
     else:
         SPLIT_LAUNCHES += 1
-    return out, y
+    return out, y, stats
 
 
 class _HexConvLayer(torch.autograd.Function):
@@ -450,32 +574,31 @@ class _HexConvLayer(torch.autograd.Function):
     def forward(ctx, x, x2, kernel, bias, gamma, beta, radius, dilation,
                 groups, relu):
         norm = ("gn", groups, gamma, beta) if groups else None
-        out, y = _layer_forward(x, kernel, bias, radius, dilation, norm, relu,
-                                x2)
+        out, y, stats = _layer_forward(x, kernel, bias, radius, dilation,
+                                       norm, relu, x2)
         ctx.geometry = (radius, dilation, groups, relu)
-        # GN layers pull back through their pre-activation; the others
-        # through the ReLU mask of their output
+        # GN layers pull back through their pre-activation and statistics;
+        # the others through the ReLU mask of their output
         ctx.save_for_backward(x, x2, kernel, bias, gamma, beta,
-                              y if groups else out)
+                              y if groups else out, stats)
         return out
 
     @staticmethod
     @once_differentiable
     def backward(ctx, gout):
-        x, x2, kernel, bias, gamma, beta, saved = ctx.saved_tensors
+        x, x2, kernel, bias, gamma, beta, saved, stats = ctx.saved_tensors
         radius, dilation, groups, relu = ctx.geometry
         dgamma = dbeta = None
         if groups:
-            with torch.enable_grad():
-                y = saved.detach().requires_grad_()
-                gm = gamma.detach().requires_grad_()
-                bt = beta.detach().requires_grad_()
-                out = _post_plain(y, ("gn", groups, gm, bt), relu, gout.dtype)
-                g32, dgamma, dbeta = torch.autograd.grad(out, (y, gm, bt),
-                                                         gout)
+            gpre, dgamma, dbeta, dbias = gn_relu_backward(
+                saved, stats[..., 0], stats[..., 1], gamma, beta,
+                gout.contiguous(), groups, relu)
+            gpre = gpre.to(x.dtype)
+            dgamma, dbeta = dgamma.to(gamma.dtype), dbeta.to(beta.dtype)
         else:
             g32 = gout.float() * (saved > 0) if relu else gout.float()
-        gpre = g32.to(x.dtype).contiguous()
+            gpre = g32.to(x.dtype).contiguous()
+            dbias = g32.sum((0, 1, 2))
         need = ctx.needs_input_grad
         kw = dict(radius=radius, dilation=dilation)
         dx = dx2 = dk = None
@@ -492,7 +615,7 @@ class _HexConvLayer(torch.autograd.Function):
                            dx2 if need[1] else None)
             if need[2]:
                 dk = hex_conv_layer_split_wgrad(x, x2, gpre, **kw)
-        db = (g32.sum((0, 1, 2)).to(bias.dtype)
+        db = (dbias.to(bias.dtype)
               if bias is not None and need[3] else None)
         return (dx, dx2, None if dk is None else dk.to(kernel.dtype), db,
                 dgamma, dbeta, None, None, None, None)
@@ -579,8 +702,8 @@ def _dgrad_launch(gpre, kernel, radius, dilation, what):
     """One adjoint conv pass on checked NHWC ``gpre`` with the kernel
     ``(Cout, Cin, kn)`` transposed to ``(kn, Cout, Cin)``."""
     wt = kernel.detach().permute(2, 0, 1)                   # (kn, Cout, Cin)
-    dx, _ = _conv_launch(gpre, wt, kernel.shape[1], (radius, dilation, True),
-                         what)
+    dx = _conv_launch(gpre, wt, kernel.shape[1], (radius, dilation, True),
+                      what)[0]
     return dx
 
 

@@ -190,7 +190,13 @@ def test_hexconvstack_grads_match_jax(norm, min_cells):
                                        (None, True), (None, False)])
 def test_layer_function_matches_plain_autograd(norm, relu):
     """hex_conv_layer (the autograd Function, plain versions inside on the
-    CPU) gives the grads that autograd of hex_conv_layer_plain gives."""
+    CPU) gives the grads that autograd of hex_conv_layer_plain gives.
+
+    Tolerance 1e-6 without a norm, where both sides are autograd of the
+    same plain conv.  With GN 2e-5: the Function pulls back through the
+    closed-form vjp at E[y^2] - mean^2 statistics, the reference through
+    autograd of torch.var, and each lies about 2e-7 of the largest grad
+    from a float64 evaluation (8.6e-6 apart at most here, on dW)."""
     rng = np.random.default_rng(3)
     x = _t(rng.random((2, 9, 11, 4)).astype(np.float32)).requires_grad_()
     k = _t(rng.normal(0, 0.2, (8, 4, 7)).astype(np.float32)).requires_grad_()
@@ -209,8 +215,9 @@ def test_layer_function_matches_plain_autograd(norm, relu):
         if want is None:
             assert got is None
         else:
-            np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-6,
-                                       atol=1e-6)
+            tol = 2e-5 if norm else 1e-6
+            np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=tol,
+                                       atol=tol)
 
 
 def test_layer_backward_skips_dx_of_an_input_without_grad(monkeypatch):

@@ -307,11 +307,13 @@ def test_hexcnn_kernel_path_grads_match_plain(cuda, norm):
     for mod in (resample, conv_stack):
         mod.LAUNCHES = 0
     conv_stack.DGRAD_LAUNCHES = conv_stack.WGRAD_LAUNCHES = 0
+    conv_stack.GN_BWD_LAUNCHES = 0
     got = _model_grads(model, rect, labels, plain=False)
     counts = (resample.LAUNCHES, conv_stack.LAUNCHES,
-              conv_stack.DGRAD_LAUNCHES, conv_stack.WGRAD_LAUNCHES)
+              conv_stack.DGRAD_LAUNCHES, conv_stack.WGRAD_LAUNCHES,
+              conv_stack.GN_BWD_LAUNCHES)
     want = _model_grads(model, rect, labels, plain=True)
-    assert counts == (1, 4, 3, 4)
+    assert counts == (1, 4, 3, 4, 4 if norm else 0)
     assert sorted(got) == sorted(want)
     for name in want:
         assert got[name] is not None, name
@@ -1027,7 +1029,8 @@ def test_split_backward_refuses_what_it_does_not_take(cuda):
 def test_hexunet_train_step_on_cuda_goes_through_the_kernels(cuda):
     """A small HexUNet (GN, float32 and bfloat16) trains on the kernels: per
     step 1 plan_gather, 3 kernel-B layers, 2 split layers, 2 dgrad, 4 split
-    dgrad, 3 wgrad and 4 split wgrad launches, and no other kernel; the
+    dgrad, 3 wgrad, 4 split wgrad and 5 GN backward launches, and no other
+    kernel; the
     float32 step's loss and every grad within 1e-3 of the plain path, the
     bfloat16 step's loss finite."""
     from hygrid_tpu_torch.models import HexUNet
@@ -1043,11 +1046,12 @@ def test_hexunet_train_step_on_cuda_goes_through_the_kernels(cuda):
                 "split_dgrad": (conv_stack, "SPLIT_DGRAD_LAUNCHES"),
                 "wgrad": (conv_stack, "WGRAD_LAUNCHES"),
                 "split_wgrad": (conv_stack, "SPLIT_WGRAD_LAUNCHES"),
+                "gn_bwd": (conv_stack, "GN_BWD_LAUNCHES"),
                 "fused": (conv_stack, "FUSED_LAUNCHES"),
                 "single": (conv_single, "LAUNCHES")}
     want_counts = {"plan_gather": 1, "hex_conv_layer": 3, "split": 2,
                    "dgrad": 2, "split_dgrad": 4, "wgrad": 3,
-                   "split_wgrad": 4}
+                   "split_wgrad": 4, "gn_bwd": 5}
     for dtype in (torch.float32, torch.bfloat16):
         model = HexUNet(dtype=dtype, generator=gen, **kw)
         ref = HexUNet(**kw)
@@ -1070,3 +1074,153 @@ def test_hexunet_train_step_on_cuda_goes_through_the_kernels(cuda):
         for (name, p), q in zip(model.named_parameters(), ref.parameters()):
             assert p.grad is not None, name
             assert _rel(p.grad, q.grad) <= 1e-3, name
+
+
+# ---- kernel B's GN half: stats in the conv epilogue, the GN backward --------
+
+GN_WIDTHS = [63, 64, 127]
+GN_COUTS = [16, 32, 64, 128]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("groups", ["1", "8", "Cout"])
+@pytest.mark.parametrize("cout", GN_COUTS)
+@pytest.mark.parametrize("w", GN_WIDTHS)
+def test_gn_layer_stats_epilogue_matches_plain(cuda, w, cout, groups, dtype):
+    """A GN layer (statistics summed in the conv epilogue, partial column
+    tiles counting real pixels only) against hex_conv_layer_plain: 1e-4
+    relative in float32, 3e-2 in bfloat16; a second launch bit-equal."""
+    g = {"1": 1, "8": 8, "Cout": cout}[groups]
+    gen = torch.Generator(device=cuda).manual_seed(w + cout + g)
+    x = torch.rand((2, 5, w, 16), generator=gen, device=cuda).to(dtype)
+    k = (torch.randn((cout, 16, 7), generator=gen, device=cuda)
+         / math.sqrt(16 * 7)).to(dtype)
+    bias = 0.1 * torch.randn((cout,), generator=gen, device=cuda)
+    norm = ("gn", g, 1 + 0.1 * torch.rand((cout,), generator=gen, device=cuda),
+            0.1 * torch.randn((cout,), generator=gen, device=cuda))
+    kw = dict(radius=2, norm=norm, relu=True)
+    with torch.inference_mode():
+        got = conv_stack.hex_conv_layer(x, k, bias, **kw)
+        again = conv_stack.hex_conv_layer(x, k, bias, **kw)
+        want = conv_stack.hex_conv_layer_plain(x, k, bias, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    assert _rel(got, want) <= (1e-4 if dtype == torch.float32 else 3e-2)
+
+
+def test_gn_layer_where_a_group_spans_two_channel_tiles(cuda):
+    """Radius 4 at Cin = 256, Cout = 128: the bf16 tile halves to N = 64,
+    so GN(1)'s group spans two blocks' channels (two segments a group)."""
+    gen = torch.Generator(device=cuda).manual_seed(9)
+    bf = torch.bfloat16
+    kn = F.hex_kernel_num(4)
+    assert conv_stack._tile_n(bf, 256, 128, kn,
+                              *conv_stack._patch_shape(4, 1, False)) == 64
+    x = torch.rand((2, 9, 70, 256), generator=gen, device=cuda).to(bf)
+    k = (torch.randn((128, 256, kn), generator=gen, device=cuda)
+         / math.sqrt(256 * kn)).to(bf)
+    norm = ("gn", 1, torch.ones(128, device=cuda),
+            torch.zeros(128, device=cuda))
+    with torch.inference_mode():
+        got = conv_stack.hex_conv_layer(x, k, radius=4, norm=norm, relu=True)
+        want = conv_stack.hex_conv_layer_plain(x, k, radius=4, norm=norm,
+                                               relu=True)
+    torch.cuda.synchronize()
+    assert _rel(got, want) <= 3e-2
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("groups", [1, 8])
+@pytest.mark.parametrize("w", [63, 127])
+def test_gn_split_layer_is_bit_equal_to_the_layer_on_the_concatenation(
+        cuda, w, groups, dtype):
+    """The split GN layer's epilogue sums depend only on the block's
+    geometry, so the split layer equals kernel B on torch.cat bit for
+    bit."""
+    gen = torch.Generator(device=cuda).manual_seed(w + groups)
+    xa = torch.rand((2, 6, w, 24), generator=gen, device=cuda).to(dtype)
+    xb = torch.rand((2, 6, w, 40), generator=gen, device=cuda).to(dtype)
+    k = (torch.randn((64, 64, 7), generator=gen, device=cuda)
+         / math.sqrt(64 * 7)).to(dtype)
+    norm = ("gn", groups,
+            1 + 0.1 * torch.rand((64,), generator=gen, device=cuda),
+            0.1 * torch.randn((64,), generator=gen, device=cuda))
+    with torch.inference_mode():
+        got = conv_stack.hex_conv_layer_split(xa, xb, k, radius=2, norm=norm,
+                                              relu=True)
+        cat = conv_stack.hex_conv_layer(torch.cat([xa, xb], -1), k, radius=2,
+                                        norm=norm, relu=True)
+    torch.cuda.synchronize()
+    assert torch.equal(got, cat)
+
+
+GN_BWD_CASES = [  # (B, H, W, C, G, relu): C off 8 takes the 4- and
+    (2, 5, 63, 32, 8, True),         # 1-channel vectors; at G = C, dbias
+    (3, 7, 127, 64, 1, True),        # is 0 but for rounding (a group of
+    (2, 4, 9, 128, 128, True),       # one channel cancels its bias)
+    (2, 4, 9, 128, 16, False),
+    (1, 6, 13, 20, 4, True),
+    (2, 5, 11, 13, 1, True),
+    (2, 3, 5, 24, 3, False),
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", GN_BWD_CASES)
+def test_gn_relu_backward_matches_plain(cuda, case, dtype):
+    """gn_bwd_* against gn_relu_backward_plain on the same saved
+    statistics: gpre within 1e-4 relative in float32 (3e-2 in bf16: one
+    bf16 rounding of each side), dgamma and dbeta within 1e-4 (both
+    float32, other summation orders), dbias within 1e-4 as well, but at
+    G = C within 1e-4 of the sum of |gpre| it adds up (its terms cancel
+    there: it is 0 but for rounding); a second launch bit-equal."""
+    b, h, w, c, g, relu = case
+    gen = torch.Generator(device=cuda).manual_seed(GN_BWD_CASES.index(case))
+    y = 1.5 * torch.randn((b, h, w, c), generator=gen, device=cuda) + 0.2
+    gamma = 1 + 0.2 * torch.randn((c,), generator=gen, device=cuda)
+    beta = 0.2 * torch.randn((c,), generator=gen, device=cuda)
+    gout = torch.randn((b, h, w, c), generator=gen, device=cuda).to(dtype)
+    mean, rstd = conv_stack.gn_stats_plain(y, g)
+    args = (y, mean, rstd, gamma, beta, gout, g, relu)
+    before = conv_stack.GN_BWD_LAUNCHES
+    got = conv_stack.gn_relu_backward(*args)
+    again = conv_stack.gn_relu_backward(*args)
+    want = conv_stack.gn_relu_backward_plain(*args)
+    torch.cuda.synchronize()
+    assert conv_stack.GN_BWD_LAUNCHES == before + 2
+    assert got[0].dtype == dtype and got[0].shape == y.shape
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    assert _rel(got[0], want[0]) <= (1e-4 if dtype == torch.float32
+                                     else 3e-2)
+    for a, b in zip(got[1:3], want[1:3]):
+        assert _rel(a, b) <= 1e-4
+    if g == c:
+        terms = want[0].float().abs().sum((0, 1, 2))
+        assert bool(((got[3] - want[3]).abs() <= 1e-4 * terms).all())
+    else:
+        assert _rel(got[3], want[3]) <= 1e-4
+
+
+def test_gn_training_step_runs_no_plain_tail_on_cuda(cuda, monkeypatch):
+    """A HexCNN GN training step on CUDA pulls every GN layer back through
+    the GN backward kernel (one launch a layer) and never through the plain
+    tail."""
+    calls = []
+    orig = conv_stack._post_plain
+
+    def spy(*a, **kw):
+        calls.append(1)
+        return orig(*a, **kw)
+
+    monkeypatch.setattr(conv_stack, "_post_plain", spy)
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    model = HexCNN(channels=(16, 32), depth=2, norm="GN",
+                   dtype=torch.bfloat16, device=cuda, generator=gen)
+    images = hexify_batch(torch.rand((2, 3, 64, 64), generator=gen,
+                                     device=cuda))
+    conv_stack.GN_BWD_LAUNCHES = 0
+    _, m = train_step(create_train_state(model), images,
+                      torch.tensor([1, 4], device=cuda))
+    assert conv_stack.GN_BWD_LAUNCHES == 4
+    assert not calls
+    assert math.isfinite(float(m["loss"]))
