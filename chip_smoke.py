@@ -17,9 +17,16 @@ Phases, each of which raises on failure (the script then exits non-zero):
    ``wgrad_mma_kernel<N>``, and of the fused stack,
    ``fused_stack_mma_kernel<N>``: each must have some (bf16 runs on the
    tensor cores, float32 on the CUDA cores);
-3. kernel A (plan_gather) against its plain version on the rect->hex
-   512^2->256^2 bilinear plan and the hex->rect 256^2->512^2 linear plan,
-   b=32, C=3, float32 and bfloat16, with kernel and plain times;
+3. kernel A (plan_gather) against its plain version at the main paths'
+   plans, C=3, float32 and bfloat16: HexCNN-512's rect->hex 512^2->256^2
+   bilinear at b=32, 16 and 8, P-512's hex->rect 256^2->512^2 linear at
+   b=16 and BN-CIFAR's rect->hex 32^2->16^2 at b=256; two launches
+   bit-equal; each rect->hex plan on its factored weight table, and
+   ``torch.equal`` to a launch on the per-pixel table; per call (CUDA
+   events), device-alone (CUDA graph), the wrapper's host time a call and
+   plain times, the bound from what the kernel reads (its own table once)
+   and the bound with the dense plan once in its place, the table's form,
+   bytes and host build time, and the grid the C side chose;
 4. kernel B (hex_conv_layer) against its plain version at the six
    HexCNN-small layer shapes, b=32, GroupNorm(8) + ReLU, float32 and
    bfloat16, two launches bit-equal, with kernel and plain times, cuDNN's
@@ -84,9 +91,9 @@ Phases, each of which raises on failure (the script then exits non-zero):
     bfloat16, with kernel, plain and bound times: hex_conv_layer at the
     P-4K stack layer (1x1080x1920, 16->16, no norm, ReLU; TPU kernel #9,
     cuDNN's time, the bound, TFLOP/s and the bf16 tile's N and HGMMA/HMMA
-    count beside it) and plan_gather at the P-4K rect->hex plan
-    (#2, with shift_resample beside it), a 3-phase 512^2 plan (#3) and
-    the 4K->4K resample4k plan (#4, bfloat16);
+    count beside it) and plan_gather, checked as in phase 3, at P-4K's
+    two legs (the rect->hex one is #2's plan, with shift_resample beside
+    it), a 3-phase 512^2 plan (#3) and the 4K->4K resample4k plan (#4);
 12. the fused stack (hex_conv_fused_stack, TPU kernel #11) at the P-512
     stack (16x256x256x16, 11 layers), float32 and bfloat16: it and chained
     hex_conv_layer launches against the plain version; fused and chained
@@ -100,7 +107,9 @@ Phases, each of which raises on failure (the script then exits non-zero):
     2160x3840): 8 calls on distinct inputs by CUDA events (Mpix/s of rect
     input, peak memory), launches per call (2 plan_gather, 0
     shift_resample, 11 hex_conv_layer or 1 fused stack), one call against
-    the plain float32 path, and a torch.profiler split of one P-4K call;
+    the plain float32 path, one P-512 call (unfused and fused) replayed in
+    a CUDA graph (the device alone, beside the event-timed calls), and a
+    torch.profiler split of one P-4K call;
 14. the single-op conv (hex_conv_single, TPU kernels #7 and #8) against
     its plain version at the per-module route's five kernel layers
     (BN-512 float32 and bfloat16, BN-CIFAR float32), at odd parity,
@@ -162,7 +171,9 @@ in the activations' dtype, TF32 off; its autograd for the backward) as
 ``library_ms``, the median of 5 timings of 10 calls each (their range is
 logged).  The last lines are the kernel summary (with each kernel's bound: the bytes
 it must move at 3.35 TB/s or its operations at the card's peak for their
-type, whichever takes longer), the card's name and power limit, and
+type, whichever takes longer; plan_gather's bytes are its source, output
+and own table, and ``dense_bound_ms`` puts the dense plan in the table's
+place), the card's name and power limit, and
 ``{"ok": true, "device": {...}}``.
 """
 import functools
@@ -214,6 +225,23 @@ def cuda_ms(torch, fn, iters=10, warmup=2):
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def host_ms(torch, fn, calls=50, repeats=5):
+    """Host time of one ``fn`` call in ms: the wrapper's Python and the
+    launch's enqueue, by the host's clock over ``calls`` calls back to back
+    after a synchronise (fewer than the launch queue holds, so the host
+    never waits for the device); the median of ``repeats``."""
+    times = []
+    for _ in range(repeats):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        times.append((time.perf_counter() - t0) / calls * 1e3)
+        torch.cuda.synchronize()
+    return sorted(times)[len(times) // 2]
 
 
 def graph_ms(torch, fn, iters=20):
@@ -414,43 +442,101 @@ def cudnn_ms(torch, x, k, grad=None, repeats=5, iters=10):
     return times[len(times) // 2], (times[0], times[-1])
 
 
-def check_kernel_a(torch, gen):
+def check_gather(torch, name, plan, x, factored=None):
+    """One plan_gather case of phases 3 and 11: the kernel against its
+    plain version (TOL a_f32_abs / a_bf16_rel), two launches bit-equal,
+    with ``factored`` the factored table required and ``torch.equal`` to
+    a launch on the per-pixel table; times per call (CUDA events), on the
+    device alone (CUDA graph), the wrapper's host time a call, and plain;
+    the bound from what the kernel reads (source, output and its own
+    table once: ``bound_ms``) and, beside it, with the dense plan once in
+    place of the table (``dense_bound_ms``); the host seconds of one table
+    build.  Logs a line; returns its numbers."""
     from hygrid_tpu_torch.kernels import resample
-    from hygrid_tpu_torch.ops import geometry, sampling
-    cases = [("rect->hex 512^2->256^2 bilinear", (512, 512),
-              geometry.rect_to_hex_plan(512, 512, 256, 256, "bilinear")),
-             ("hex->rect 256^2->512^2 linear", (256, 256),
-              geometry.hex_to_rect_plan(256, 256, 512, 512, "linear"))]
+    from hygrid_tpu_torch.ops import sampling
+    dtype = x.dtype
+    t0 = time.perf_counter()        # one build of the tables, uncached
+    resample.gather_tables(plan, x.element_size())
+    build_s = time.perf_counter() - t0
+    tables = resample.gather_tables_cached(plan, x.element_size())
+    got = resample.plan_gather(x, plan)
+    launch = resample.last_launch()
+    again = resample.plan_gather(x, plan)
+    want = sampling.apply_plan(x, plan)
+    torch.cuda.synchronize()
+    require(got.shape == want.shape and got.dtype == dtype,
+            f"plan_gather {name}: shape/dtype {got.shape} {got.dtype}")
+    require(torch.equal(got, again),
+            f"plan_gather {name} {dtype}: two launches differ")
+    err, rel = max_err(got, want)
+    if dtype == torch.float32:
+        require(err <= TOL["a_f32_abs"],
+                f"plan_gather {name} f32: max abs err {err}")
+    else:
+        require(rel <= TOL["a_bf16_rel"],
+                f"plan_gather {name} bf16: relative err {rel}")
+    line = ""
+    if factored:
+        require(tables.weight_form == "factored",
+                f"plan_gather {name}: {tables.weight_form} weights, not the "
+                "factored table")
+        pixel = resample.gather_tables(plan, x.element_size(),
+                                       factored=False)
+        require(torch.equal(got, resample._launch(x, plan, pixel)),
+                f"plan_gather {name} {dtype}: the factored table differs "
+                "from the per-pixel one")
+        line = (f"; torch.equal to the per-pixel table ({pixel.table_bytes} "
+                "bytes)")
+    ms = cuda_ms(torch, lambda: resample.plan_gather(x, plan))
+    dev = graph_ms(torch, lambda: resample.plan_gather(x, plan))
+    host = host_ms(torch, lambda: resample.plan_gather(x, plan))
+    plain = cuda_ms(torch, lambda: sampling.apply_plan(x, plan))
+    idx, wts = plan.tensors(x.device)
+    flops = 2 * got.numel() * idx.shape[0]
+    b_ms, b_by = bound(nbytes(x, got) + tables.table_bytes, flops, "f32")
+    d_ms, _ = bound(nbytes(x, got, idx, wts), flops, "f32")
+    log(f"plan_gather {name} {str(dtype)[6:]} K={idx.shape[0]}: "
+        f"max_abs_err={err!r} rel={rel!r} kernel_ms={ms!r} "
+        f"device_ms={dev!r} (CUDA graph) host_ms={host!r} (the wrapper's "
+        f"enqueue) plain_ms={plain!r} bound_ms={b_ms!r} ({b_by}, "
+        f"{tables.index_form}/{tables.weight_form} table "
+        f"{tables.table_bytes} bytes, built in {build_s:.3f} s on the "
+        f"host) dense_bound_ms={d_ms!r} (dense plan {nbytes(idx, wts)} "
+        f"bytes); launch {launch}; two launches bit-equal{line}")
+    return dict(max_abs_err=err, ms=ms, device_ms=dev, host_ms=host,
+                plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
+                dense_bound_ms=d_ms, table_build_s=build_s)
+
+
+# phase 3's plans: (name, (geometry plan function, its arguments), lead
+# dims, factored table)
+GATHER_PLANS = [
+    ("HexCNN-512 rect->hex 512^2->256^2 bilinear b=32",
+     ("rect_to_hex", 512, 512, 256, 256, "bilinear"), (BATCH, 3), True),
+    ("HexCNN-512 rect->hex b=16",
+     ("rect_to_hex", 512, 512, 256, 256, "bilinear"), (16, 3), True),
+    ("HexCNN-512 rect->hex b=8",
+     ("rect_to_hex", 512, 512, 256, 256, "bilinear"), (8, 3), True),
+    ("P-512 hex->rect 256^2->512^2 linear b=16",
+     ("hex_to_rect", 256, 256, 512, 512, "linear"), (16, 3), False),
+    ("BN-CIFAR rect->hex 32^2->16^2 bilinear b=256",
+     ("rect_to_hex", 32, 32, 16, 16, "bilinear"), (256, 3), True),
+]
+
+
+def check_kernel_a(torch, gen):
+    """Phase 3: plan_gather at the plans of the main paths, float32 and
+    bfloat16 (check_gather).  Returns the kernels line's numbers: the
+    HexCNN-512 b=32 rect->hex plan in bfloat16."""
+    from hygrid_tpu_torch.ops import geometry
     summary = None
-    for name, (h, w), plan in cases:
-        x32 = torch.rand((BATCH, 3, h, w), generator=gen, device="cuda")
+    for name, (kind, *args), lead, factored in GATHER_PLANS:
+        plan = getattr(geometry, f"{kind}_plan")(*args)
+        x32 = torch.rand(lead + plan.src_shape, generator=gen, device="cuda")
         for dtype in (torch.float32, torch.bfloat16):
-            x = x32.to(dtype)
-            got = resample.plan_gather(x, plan)
-            want = sampling.apply_plan(x, plan)
-            torch.cuda.synchronize()
-            require(got.shape == want.shape and got.dtype == dtype,
-                    f"plan_gather {name}: shape/dtype {got.shape} {got.dtype}")
-            err, rel = max_err(got, want)
-            if dtype == torch.float32:
-                require(err <= TOL["a_f32_abs"],
-                        f"plan_gather {name} f32: max abs err {err}")
-            else:
-                require(rel <= TOL["a_bf16_rel"],
-                        f"plan_gather {name} bf16: relative err {rel}")
-            ms = cuda_ms(torch, lambda: resample.plan_gather(x, plan))
-            plain = cuda_ms(torch, lambda: sampling.apply_plan(x, plan))
-            idx, wts = plan.tensors(x.device)
-            b_ms, b_by = bound(nbytes(x, got, idx, wts),
-                               2 * got.numel() * idx.shape[0], "f32")
-            log(f"plan_gather {name} K={plan.idx.shape[0]} b={BATCH} C=3 "
-                f"{str(dtype)[6:]}: max_abs_err={err!r} rel={rel!r} "
-                f"kernel_ms={ms!r} plain_ms={plain!r} "
-                f"bound_ms={b_ms!r} ({b_by})")
+            res = check_gather(torch, name, plan, x32.to(dtype), factored)
             if summary is None and dtype == torch.bfloat16:
-                summary = dict(max_abs_err=err, ms=ms, plain_ms=plain,
-                               **summed_bound([(b_ms, b_by)]),
-                               library_ms=None)
+                summary = dict(res, library_ms=None)
     return summary
 
 
@@ -1238,11 +1324,12 @@ def build_permodule_hexcnn(*, impl="pallas", device="cuda", generator=None,
 def check_tiers(torch, gen):
     """Phase 11: the TPU's banded and phased tiers, which compute what the
     port's kernels compute, checked at the shapes they served: the P-4K
-    stack layer (#9, on hex_conv_layer) and, on plan_gather, the P-4K
-    rect->hex plan (#2; shift_resample beside it), a 3-phase plan under
-    8 MiB (#3) and the resample4k plan (#4)."""
+    stack layer (#9, on hex_conv_layer) and, on plan_gather
+    (check_gather), P-4K's two legs (the rect->hex one is #2's plan;
+    shift_resample beside it), a 3-phase plan under 8 MiB (#3) and the
+    resample4k plan (#4)."""
     from hygrid_tpu_torch.kernels import conv_stack as cs
-    from hygrid_tpu_torch.kernels import resample, resample_shift as rs
+    from hygrid_tpu_torch.kernels import resample_shift as rs
     from hygrid_tpu_torch.ops import geometry, sampling
     both = (torch.float32, torch.bfloat16)
     x32 = torch.rand((1, 1080, 1920, 16), generator=gen, device="cuda")
@@ -1283,48 +1370,33 @@ def check_tiers(torch, gen):
     plans = [
         ("#2 P-4K rect->hex 2160x3840->1080x1920 bilinear",
          geometry.rect_to_hex_plan(2160, 3840, 1080, 1920, "bilinear"),
-         (1, 3), both),
+         (1, 3), True),
+        ("P-4K hex->rect 1080x1920->2160x3840 linear",
+         geometry.hex_to_rect_plan(1080, 1920, 2160, 3840, "linear"), (1, 3),
+         False),
         ("#3 512^2 same-size hex->rect linear",
          geometry.hex_to_rect_plan(512, 512, 512, 512, "linear"), (16, 3),
-         both),
+         False),
         ("#4 resample4k 4K->4K hex->rect linear",
          geometry.hex_to_rect_plan(2160, 3840, 2160, 3840, "linear"), (3,),
-         (torch.bfloat16,)),
+         False),
     ]
     log(f"tier plans built in {time.perf_counter() - t0:.1f} s (numpy)")
-    for name, plan, lead, dtypes in plans:
+    for name, plan, lead, factored in plans:
         x32 = torch.rand(lead + plan.src_shape, generator=gen, device="cuda")
-        for dtype in dtypes:
+        for dtype in both:
             x = x32.to(dtype)
             require(not sampling.takes_shift_route(plan, x.element_size()),
                     f"tier {name}: routed to shift_resample")
-            got = resample.plan_gather(x, plan)
-            want = sampling.apply_plan(x, plan)
-            torch.cuda.synchronize()
-            err, rel = max_err(got, want)
-            if dtype == torch.float32:
-                require(err <= TOL["a_f32_abs"],
-                        f"tier {name} f32: max abs err {err}")
-            else:
-                require(rel <= TOL["a_bf16_rel"],
-                        f"tier {name} bf16: relative err {rel}")
-            ms = cuda_ms(torch, lambda: resample.plan_gather(x, plan))
-            pms = cuda_ms(torch, lambda: sampling.apply_plan(x, plan))
-            idx, wts = plan.tensors(x.device)
-            b_ms, b_by = bound(nbytes(x, got, idx, wts),
-                               2 * got.numel() * idx.shape[0], "f32")
-            line = (f"tier {name} lead={lead} {str(dtype)[6:]} (plan_gather):"
-                    f" max_abs_err={err!r} rel={rel!r} kernel_ms={ms!r} "
-                    f"plain_ms={pms!r} bound_ms={b_ms!r} ({b_by})")
+            check_gather(torch, f"tier {name} lead={lead}", plan, x,
+                         factored)
             if name.startswith("#2"):
                 # ROADMAP item 12b: the shift kernel on the same plan
-                sms = cuda_ms(torch, lambda: rs.shift_resample(x, plan))
-                line += (f"; shift_resample kernel_ms={sms!r}; device alone "
-                         f"(CUDA graph): plan_gather_ms="
-                         f"{graph_ms(torch, lambda: resample.plan_gather(x, plan))!r}"
-                         f" shift_resample_ms="
-                         f"{graph_ms(torch, lambda: rs.shift_resample(x, plan))!r}")
-            log(line)
+                log(f"tier {name} {str(dtype)[6:]}: shift_resample "
+                    f"kernel_ms="
+                    f"{cuda_ms(torch, lambda: rs.shift_resample(x, plan))!r}"
+                    f" device_ms="
+                    f"{graph_ms(torch, lambda: rs.shift_resample(x, plan))!r}")
 
 
 def check_fused(torch, gen):
@@ -1503,6 +1575,14 @@ def _run_pipeline(torch, name, batch, shape, fused):
                 f"pipeline {name} vs plain f32: relative err {rel}")
         split = (_profile_split(torch, lambda: pipe(xs[1]), ms)
                  if name == "P-4K" else None)
+        graph = None
+        if name != "P-4K":
+            # the same call with the host's dispatch left out (ROADMAP item
+            # 23): one input, replayed in a CUDA graph
+            try:
+                graph = f"{graph_ms(torch, lambda: pipe(xs[1]), iters=4)!r} ms"
+            except RuntimeError as e:
+                graph = f"not captured ({str(e).splitlines()[0][:160]})"
     mpix = batch * shape[0] * shape[1] / 1e6
     log(f"pipeline {name} b={batch} {shape[0]}x{shape[1]} bf16: {ms!r} ms "
         f"a call over {PIPE_CALLS} distinct inputs (CUDA events), "
@@ -1510,7 +1590,8 @@ def _run_pipeline(torch, name, batch, shape, fused):
         f"peak_mem_bytes={peak} (the {PIPE_CALLS + 1} inputs and "
         f"{PIPE_CALLS} outputs included); set-up {setup:.1f} s; "
         f"launches={launches}; vs plain f32 max_abs_err={err!r} "
-        f"rel={rel!r}")
+        f"rel={rel!r}" + (f"; one call replayed in a CUDA graph (device "
+                          f"alone): {graph}" if graph else ""))
     if split:
         log(f"pipeline {name} torch.profiler, one call: {split}")
     return launches
@@ -2318,7 +2399,12 @@ def kernel_times(torch):
     BN-CIFAR in f32; the fused P-512 stack in f32 too; #9's P-4K stack
     layer (``p4k_layer``, 1x1080x1920, 16->16, ReLU); and on the device
     alone (CUDA-graph replay) shift_resample and plan_gather at the 4K
-    mosaic's plan (C=3) and the 720p rect->hex plan at b=8, f32 and bf16.
+    mosaic's plan (C=3) and the 720p rect->hex plan at b=8, f32 and bf16,
+    and plan_gather at the plans of phases 3 and 11 (``KT_GATHER``), with
+    the wrapper's host time a call at those plans (``host_ms``).  First,
+    the pipelines' set-up (``pipeline_setup_s``: P-512 and P-4K built and
+    called once, in seconds, their plans and tables included); after the
+    pipelines' times, ``pipeline_diag`` (:func:`_pipeline_diag`).
     Kernel B's six GN layers split by torch.profiler into the conv pass and
     the GN passes after it (``kernel_b_conv_pass``, ``kernel_b_gn_half``),
     and the same six layers forward and backward through
@@ -2326,10 +2412,13 @@ def kernel_times(torch):
     float32 GN parameters, as the training step runs them).  End to end
     (``e2e_ms``, ms a call, and ``images_s``): HexCNN-small (GN, bf16, b=32
     512^2) and HexUNet-small (b=8) serving a request and taking an AdamW
-    training step; and one HexCNN-small step's kernels by name from
+    training step, and the pipelines of phase 13 (``pipeline_mpix_s``: one
+    input, 5 calls a timing); and one HexCNN-small step's kernels by name from
     torch.profiler (``train_by_op``, ms: the 16 largest kernels, the 24
     largest host ops by the device time of the kernels they launched, and
-    the sum of torch's own kernels).  Each sum is taken ``KERNEL_TIME_REPEATS``
+    the sum of torch's own kernels; ``serve_hexcnn_largest``, the 12
+    largest kernels of a HexCNN-small request).  Each sum is taken
+    ``KERNEL_TIME_REPEATS``
     times; one JSON line."""
     from hygrid_tpu_torch.kernels import conv_single, resample
     from hygrid_tpu_torch.kernels import conv_stack as cs
@@ -2340,6 +2429,7 @@ def kernel_times(torch):
     gen = torch.Generator(device="cuda").manual_seed(21)
     bf = torch.bfloat16
     kn = hex_kernel_num(2)
+    setup_s = _pipeline_setup(torch, gen)
 
     def rand(*shape, scale=None):
         t = torch.randn(shape, generator=gen, device="cuda")
@@ -2438,6 +2528,15 @@ def kernel_times(torch):
                 rs.shift_resample, x, plan)
             device_calls[f"plan_gather_{label}_{tag}"] = functools.partial(
                 resample.plan_gather, x, plan)
+    # plan_gather at the main paths' plans (phases 3 and 11)
+    host = {}
+    for label, (kind, *args), lead, dt in KT_GATHER:
+        plan = getattr(geometry, f"{kind}_plan")(*args)
+        x = torch.rand(lead + plan.src_shape, generator=gen,
+                       device="cuda").to(bf if dt == "bf16" else
+                                         torch.float32)
+        device_calls[f"plan_gather_{label}"] = functools.partial(
+            resample.plan_gather, x, plan)
     with torch.inference_mode():
         times = {name: [sum(cuda_ms(torch, fn) for fn in fns)
                         for _ in range(KERNEL_TIME_REPEATS)]
@@ -2446,6 +2545,9 @@ def kernel_times(torch):
             fn()                  # the plan's tables, outside the capture
             times[name] = [graph_ms(torch, fn)
                            for _ in range(KERNEL_TIME_REPEATS)]
+            if name[len("plan_gather_"):] in {lb for lb, *_ in KT_GATHER}:
+                host[name] = [host_ms(torch, fn)
+                              for _ in range(KERNEL_TIME_REPEATS)]
         halves = [[_gn_half(torch, fn) for fn in calls["kernel_b"]]
                   for _ in range(KERNEL_TIME_REPEATS)]
     times["kernel_b_conv_pass"] = [sum(c for c, _, _ in h) for h in halves]
@@ -2455,10 +2557,93 @@ def kernel_times(torch):
                            for _ in range(KERNEL_TIME_REPEATS)]
     del calls, device_calls, fwd_bwd
     e2e, images, by_op = _e2e_times(torch, gen)
+    mpix, pipe_diag = {}, {}
+    for name, batch, shape, fused in PIPELINES:
+        pipe, _ = build_pipeline(shape, PIPE_CHANNELS, PIPE_LAYERS,
+                                 PIPE_RADIUS, bf, fused=fused)
+        x = torch.rand((batch, 3) + shape, generator=gen, device="cuda")
+        with torch.inference_mode():
+            e2e[name] = [cuda_ms(torch, functools.partial(pipe, x), iters=5)
+                         for _ in range(KERNEL_TIME_REPEATS)]
+            pipe_diag[name] = _pipeline_diag(torch, functools.partial(pipe,
+                                                                      x))
+        mpix[name] = [batch * shape[0] * shape[1] / 1e3 / ms
+                      for ms in e2e[name]]
     print(json.dumps({"kernel_times_ms": times, "e2e_ms": e2e,
-                      "images_s": images, "train_by_op": by_op,
-                      "root": str(ROOT)}))
+                      "images_s": images, "pipeline_mpix_s": mpix,
+                      "host_ms": host, "pipeline_setup_s": setup_s,
+                      "pipeline_diag": pipe_diag,
+                      "train_by_op": by_op, "root": str(ROOT)}))
     return 0
+
+
+def _pipeline_diag(torch, fn, calls=5):
+    """Where a pipeline call's time goes: ``kernels_ms``, the device time
+    of its kernels a call (torch.profiler over ``calls`` calls), beside
+    the event-timed ms, and ``largest``, its four largest kernels (ms a
+    call); ``device_allocs`` and ``device_frees``, the caching
+    allocator's cudaMalloc and cudaFree calls during ``calls``
+    event-timed calls after warm-up (each may stall the host)."""
+    cuda_ms(torch, fn, iters=calls)
+    before = torch.cuda.memory_stats()
+    cuda_ms(torch, fn, iters=calls, warmup=0)
+    after = torch.cuda.memory_stats()
+    kernels = _profiled_kernels(torch, lambda: [fn() for _ in range(calls)])
+    return dict(kernels_ms=sum(us for _, us in kernels) / 1e3 / calls,
+                largest=[[k[:70], us / 1e3 / calls] for k, us in kernels[:4]],
+                **{k: after.get(f"num_{k[:-1]}", 0) - before.get(
+                    f"num_{k[:-1]}", 0)
+                   for k in ("device_allocs", "device_frees")})
+
+
+def _pipeline_setup(torch, gen):
+    """``kernel_times``' set-up part: ``{name: seconds}`` from building
+    P-512 and P-4K (bf16) to the end of their first call, on plans this
+    process has not built before (so their numpy plans, their kernel
+    tables and the first launches are in it), after one small call has
+    loaded the kernels' library."""
+    from hygrid_tpu_torch.ops import geometry
+    warm = torch.rand((1, 3, 16, 16), generator=gen, device="cuda")
+    geometry.rect_to_hex_resample(warm, (8, 8), "bilinear")
+    torch.cuda.synchronize()
+    setup = {}
+    for name, batch, shape, fused in PIPELINES:
+        if fused:
+            continue
+        x = torch.rand((batch, 3) + shape, generator=gen, device="cuda")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pipe, _ = build_pipeline(shape, PIPE_CHANNELS, PIPE_LAYERS,
+                                 PIPE_RADIUS, torch.bfloat16)
+        with torch.inference_mode():
+            pipe(x)
+        torch.cuda.synchronize()
+        setup[name] = time.perf_counter() - t0
+    return setup
+
+
+# kernel_times' plan_gather plans, on the device alone: (label, plan
+# function and arguments, lead dims, dtype)
+KT_GATHER = [
+    ("r2h512_b32_bf16", ("rect_to_hex", 512, 512, 256, 256, "bilinear"),
+     (32, 3), "bf16"),
+    ("r2h512_b16_bf16", ("rect_to_hex", 512, 512, 256, 256, "bilinear"),
+     (16, 3), "bf16"),
+    ("r2h512_b8_bf16", ("rect_to_hex", 512, 512, 256, 256, "bilinear"),
+     (8, 3), "bf16"),
+    ("h2r512_b16_bf16", ("hex_to_rect", 256, 256, 512, 512, "linear"),
+     (16, 3), "bf16"),
+    ("p4k_r2h_bf16", ("rect_to_hex", 2160, 3840, 1080, 1920, "bilinear"),
+     (1, 3), "bf16"),
+    ("p4k_h2r_bf16", ("hex_to_rect", 1080, 1920, 2160, 3840, "linear"),
+     (1, 3), "bf16"),
+    ("cifar_b256_f32", ("rect_to_hex", 32, 32, 16, 16, "bilinear"),
+     (256, 3), "f32"),
+    ("3phase_b16_bf16", ("hex_to_rect", 512, 512, 512, 512, "linear"),
+     (16, 3), "bf16"),
+    ("resample4k_bf16", ("hex_to_rect", 2160, 3840, 2160, 3840, "linear"),
+     (3,), "bf16"),
+]
 
 
 def _e2e_times(torch, gen):
@@ -2505,11 +2690,15 @@ def _e2e_times(torch, gen):
         return (_conv_args(k) is not None or _is_gn_pass(k) or _is_gn_bwd(k)
                 or "wgrad_" in k or "plan_gather" in k)
 
+    with torch.inference_mode():
+        serve = _profiled_kernels(torch, runs["serve_hexcnn"][2])
     by_op = {"torch_kernels_ms": sum(us for k, us in kernels
                                      if not ported(k)) / 1e3,
              "all_kernels_ms": sum(us for _, us in kernels) / 1e3,
              "largest": [[k[:100], us / 1e3] for k, us in kernels[:16]],
-             "by_op": [[k, us / 1e3] for k, us in ops[:24]]}
+             "by_op": [[k, us / 1e3] for k, us in ops[:24]],
+             "serve_hexcnn_largest": [[k[:100], us / 1e3]
+                                      for k, us in serve[:12]]}
     return e2e, images, by_op
 
 

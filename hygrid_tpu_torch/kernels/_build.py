@@ -41,7 +41,8 @@ _F = ctypes.c_float
 # every pointer and the stream are c_void_p: a bare Python int would be
 # passed as a 32-bit C int and cut the address
 _SIGNATURES = {
-    "hg_plan_gather": [_P, _P, _P, _P, _LL, _LL, _LL, _I, _I, _P],
+    "hg_plan_gather": [_P, _P, _I, _LL, _P, _P],
+    "hg_plan_gather_last_launch": [_P],
     "hg_hex_conv_layer": [_P, _P, _I, _P, _P, _P, _P, _P, _P, _I, _F, _P, _P,
                           _P, _LL, _P, _I, _I, _I, _I, _I, _I, _I, _P, _I, _P],
     "hg_gn_relu_backward": [_P, _P, _P, _P, _P, _P, _LL, _P, _P, _I, _I, _LL,

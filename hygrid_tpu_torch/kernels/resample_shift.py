@@ -1,11 +1,10 @@
 """Shift-structured resampler (``csrc/shift_resample.cu``).
 
 Port of ``hygrid_tpu/kernels/resample_shift.py`` (``_shift_kernel_full``
-and ``_shift_kernel_banded``) and of the numpy row-band decomposition of
-``hygrid_tpu/kernels/resample_pallas.py`` it builds on.  Many plans map
-output column ``j`` to source columns ``(num * j) // den + s`` for a few
-integer shifts ``s`` and read two source rows ``rowbase[r] + d`` per output
-row ``r``.  :func:`shift_decompose` finds that structure and sums the plan's
+and ``_shift_kernel_banded``), built on the row-band decomposition
+(``resample.rowsep_decompose``).  Many plans map output column ``j`` to
+source columns ``(num * j) // den + s`` for a few integer shifts ``s`` and
+read two source rows ``rowbase[r] + d`` per output row ``r``.  :func:`shift_decompose` finds that structure and sums the plan's
 weights per slot ``(d, s)``; then
 
     out[n, r, j] = sum_i  W[i, r, j] * src[n, rowbase[r] + d_i, (num*j)//den + s_i]
@@ -48,6 +47,7 @@ from torch.autograd.function import once_differentiable
 
 from ..ops.sampling import SamplePlan
 from . import _build
+from .resample import rowsep_decompose, rowsep_decompose_cached
 
 __all__ = ["rowsep_decompose", "ShiftGeometry", "expand_weights",
            "shift_decompose", "shift_decompose_cached", "slot_shifts",
@@ -64,63 +64,6 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _FORMS = {"dense": 0, "phase": 1, "select": 2}
 _SELECT_NONE = 255     # a select table's "no slot": the pixel reads 0
 _ONE_BITS = 0x3F800000
-
-
-def rowsep_decompose(plan: SamplePlan):
-    """Decompose a plan into the row-band form.
-
-    Returns ``(rowbase (h1,) int32, cols (2, K, h1, w1) int32,
-    wts (2, K, h1, w1) float32)`` such that::
-
-        out[c, r, :] = sum_d sum_k wts[d,k,r,:] * src[c, rowbase[r]+d, cols[d,k,r,:]]
-
-    or None if the plan is not row-separable.
-    """
-    h, w = plan.src_shape
-    if h < 2:
-        return None
-    k, h1, w1 = plan.idx.shape
-    rows = plan.idx // w
-    cols = plan.idx % w
-    valid = plan.weights != 0
-    # zero-weight entries are clamped placeholders: they can live anywhere
-    big = np.where(valid, rows, h + 10)
-    base = big.min(axis=(0, 2))                      # (h1,)
-    invalid = base > h                               # fully-invalid rows:
-    if invalid.all():
-        base = np.zeros_like(base)
-    elif invalid.any():
-        # forward/backward-fill from valid neighbours (any in-range value
-        # is correct: these rows carry only zero weights)
-        idxs = np.arange(base.shape[0])
-        ffill = np.maximum.accumulate(np.where(~invalid, idxs, -1))
-        rev = np.where(~invalid[::-1], idxs[::-1], 2 * base.shape[0])
-        bfill = np.minimum.accumulate(rev)[::-1]
-        base = base[np.where(ffill >= 0, ffill, bfill)]
-    base = np.clip(base, 0, h - 2).astype(np.int64)
-    delta = rows - base[None, :, None]
-    if np.any(valid & ((delta < 0) | (delta > 1))):
-        return None
-    # keep only slots that carry any weight for the given row-part
-    per_d = []
-    for d in (0, 1):
-        sel = valid & (delta == d)
-        c_list, w_list = [], []
-        for kk in range(k):
-            wk = np.where(sel[kk], plan.weights[kk], 0.0)
-            if np.any(wk):
-                c_list.append(np.where(sel[kk], cols[kk], 0))
-                w_list.append(wk)
-        per_d.append((c_list, w_list))
-    kd = max(1, max(len(c) for c, _ in per_d))
-    out_cols = np.zeros((2, kd, h1, w1), np.int32)
-    out_wts = np.zeros((2, kd, h1, w1), np.float32)
-    for d in (0, 1):
-        c_list, w_list = per_d[d]
-        for i, (c, wv) in enumerate(zip(c_list, w_list)):
-            out_cols[d, i] = c
-            out_wts[d, i] = wv
-    return base.astype(np.int32), out_cols, out_wts
 
 
 @dataclasses.dataclass(frozen=True)
@@ -211,7 +154,7 @@ def shift_decompose(plan: SamplePlan, max_shifts: int = _MAX_SHIFTS):
     ``cols - (num*j)//den`` takes at most ``max_shifts`` distinct values
     over the live (weight != 0) entries.
     """
-    dec = rowsep_decompose(plan)
+    dec = rowsep_decompose_cached(plan)
     if dec is None:
         return None
     rowbase, cols, wts = dec

@@ -58,8 +58,9 @@ class SamplePlan:
     exact_select: bool = False
     _device_copies: Dict[str, Tuple[torch.Tensor, torch.Tensor]] = \
         dataclasses.field(default_factory=dict, repr=False)
-    # results derived from the plan (its shift decomposition), which live
-    # and die with it
+    # results derived from the plan (its row-band and shift decompositions,
+    # the kernels' tables, the rect->hex factors), which live and die with
+    # it
     _derived: Dict[str, object] = dataclasses.field(default_factory=dict,
                                                     repr=False)
 
@@ -182,8 +183,46 @@ def rect_sample_plan(x, y, h: int, w: int, method: str,
         w2_ = j_f * (1 - i_f) * vs[1].astype(fdt)
         w3_ = (1 - j_f) * i_f * vs[2].astype(fdt)
         w4_ = j_f * i_f * vs[3].astype(fdt)
-        return _finalize(nbrs, [w1_, w2_, w3_, w4_], h, w)
+        plan = _finalize(nbrs, [w1_, w2_, w3_, w4_], h, w)
+        factors = _rect_factors(i_, j_, i_n, j_n, i_f, j_f, h, w)
+        if factors is not None:
+            plan._derived["rect_factors"] = factors
+        return plan
     raise ValueError(f"unsupported rect sampling method {method!r}")
+
+
+def _rect_factors(i_, j_, i_n, j_n, i_f, j_f, h, w):
+    """The bilinear plan's float64 factors where its sample rows are
+    constant along each output row and its sample columns repeat by row
+    parity (the rect->hex grids), else None.
+
+    ``row (h1, 2)``: ``(1 - i_f, i_f)`` a row; ``col (2, w1, 2)``:
+    ``(1 - j_f, j_f)`` by row parity; ``row_valid (h1, 2)`` and
+    ``col_valid (2, w1, 2)``: 1.0 where row ``i_n + a`` (column ``j_n + b``)
+    lies in the source, else 0.0.  Tap ``k = 2a + b`` has the weight
+    ``float32((col[r % 2, c, b] * row[r, a]) * (row_valid[r, a] *
+    col_valid[r % 2, c, b]))``, the products above in their order;
+    ``kernels/resample.py::gather_tables`` checks that bit for bit before
+    it uses them."""
+    if i_.ndim != 2 or i_.dtype != np.float64 or j_.dtype != np.float64:
+        return None
+    h1 = i_.shape[0]
+    par = np.arange(h1) % 2
+    if not (np.array_equal(i_, np.repeat(i_[:, :1], i_.shape[1], 1))
+            and np.array_equal(j_, j_[par])):
+        return None
+    rows = i_n[:, 0]
+    cols = j_n[:2] if h1 > 1 else j_n[[0, 0]]
+    jf = j_f[:2] if h1 > 1 else j_f[[0, 0]]
+
+    def inside(i, n):
+        return ((i >= 0) & (i < n)).astype(np.float64)
+
+    return dict(
+        row=np.stack([1 - i_f[:, 0], i_f[:, 0]], -1),
+        col=np.stack([1 - jf, jf], -1),
+        row_valid=np.stack([inside(rows, h), inside(rows + 1, h)], -1),
+        col_valid=np.stack([inside(cols, w), inside(cols + 1, w)], -1))
 
 
 def apply_plan(image: torch.Tensor, plan: SamplePlan) -> torch.Tensor:
@@ -233,10 +272,13 @@ def takes_shift_route(plan: SamplePlan, esz: int) -> bool:
     that the TPU kernel can hold resident (its pre-stretched or
     de-interleaved planes, padded to 128 lanes, at most 8 MiB).  These are
     the 720p video and the mosaic plans.  Unit-stride plans and larger
-    sources (the 4K rect->hex leg) stay on the plan-gather kernel, which
-    was the faster of the two on every plan measured on an H100.  The
+    sources (the 4K rect->hex leg) stay on the plan-gather kernel.  The
     gates are the TPU's, kept only so that each path runs its TPU kernel's
-    counterpart; they are not H100 measurements.
+    counterpart; they are not H100 measurements.  On the device alone
+    (CUDA-graph replay, ``chip_smoke.py`` phase 8, NVIDIA H100 80GB HBM3 at
+    700 W) the plan-gather kernel is the faster of the two at these
+    plans: the 4K mosaic 0.0575 ms against 0.0911 (bf16), 720p b=8 0.0405
+    against 0.0614 (bf16), 1080p 0.0163 against 0.0257 (float32).
     """
     from ..kernels.resample_shift import shift_decompose_cached
     geo = shift_decompose_cached(plan)

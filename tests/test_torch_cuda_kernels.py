@@ -91,6 +91,76 @@ def test_plan_gather_matches_plain(cuda, name, dtype):
         assert _rel(got, want) <= 1e-2
 
 
+# one plan of each table form, w1 not a multiple of 8 and h1 odd
+# (kernels/resample.py::gather_tables)
+TABLE_PLANS = {
+    "parity-factored": lambda: geometry.rect_to_hex_plan(
+        134, 150, 67, 75, "bilinear", hex_grid_shift=True),
+    "rows-pixel": lambda: geometry.hex_to_rect_plan(35, 41, 69, 83,
+                                                     "linear"),
+    "parity-pixel": lambda: geometry.hex_to_rect_plan(45, 60, 45, 60,
+                                                       "linear"),
+    "dense-pixel": lambda: geometry.warp_plan(
+        37, 21, [[0.9, 0.3, 1.0], [-0.2, 1.1, -2.0], [0, 0, 1]], "linear"),
+}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("planes", [1, 3, 48, 96])
+@pytest.mark.parametrize("form", list(TABLE_PLANS))
+def test_plan_gather_table_forms_match_plain(cuda, form, planes, dtype):
+    """Each table form at 1 to 96 planes against apply_plan, and two
+    launches bit-equal."""
+    plan = TABLE_PLANS[form]()
+    tables = resample.gather_tables_cached(plan, torch.finfo(dtype).bits // 8)
+    assert f"{tables.index_form}-{tables.weight_form}" == form
+    gen = torch.Generator(device=cuda).manual_seed(planes)
+    x = torch.rand((planes,) + plan.src_shape, generator=gen,
+                   device=cuda).to(dtype)
+    got = resample.plan_gather(x, plan)
+    again = resample.plan_gather(x, plan)
+    want = sampling.apply_plan(x, plan)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    if dtype == torch.float32:
+        assert float((got - want).abs().max()) <= 1e-6
+    else:
+        assert _rel(got, want) <= 1e-2
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(512, 512, 256, 256), (32, 32, 16, 16),
+                                   (134, 150, 67, 75)])
+def test_plan_gather_factored_table_equals_the_pixel_table(cuda, shape,
+                                                           dtype):
+    """A rect->hex plan's factored weights give every output bit of its
+    per-pixel float32 weights."""
+    plan = geometry.rect_to_hex_plan(*shape, "bilinear")
+    esz = torch.finfo(dtype).bits // 8
+    assert resample.gather_tables_cached(plan, esz).weight_form == "factored"
+    pixel = resample.gather_tables(plan, esz, factored=False)
+    assert pixel.weight_form == "pixel"
+    x = torch.rand((5, 3) + plan.src_shape, device=cuda).to(dtype)
+    assert torch.equal(resample.plan_gather(x, plan),
+                       resample._launch(x, plan, pixel))
+
+
+@pytest.mark.parametrize("form", ["parity-factored", "rows-pixel"])
+def test_plan_gather_last_launch_reports_the_grid(cuda, form):
+    """last_launch() reads the grid of the latest launch: its column and
+    row tiles are the plan's, and its plane groups cover the planes."""
+    plan = TABLE_PLANS[form]()
+    x = torch.rand((7,) + plan.src_shape, device=cuda)
+    resample.plan_gather(x, plan)
+    torch.cuda.synchronize()
+    got = resample.last_launch()
+    h1, w1 = plan.out_shape
+    assert got["col_tiles"] == -(-w1 // resample.tile_width(4))
+    assert got["row_tiles"] == -(-h1 // resample.TILE_ROWS)
+    assert 1 <= got["groups"] <= 7 and got["blocks_per_sm"] >= 1
+    assert got["smem"] > 0
+
+
 def test_plan_gather_refuses_what_it_does_not_take(cuda):
     plan = geometry.rect_to_hex_plan(16, 16, 8, 8, "bilinear")
     with pytest.raises(TypeError, match="float32 or bfloat16"):

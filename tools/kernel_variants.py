@@ -22,12 +22,16 @@ in a process of its own:
 * ``shift_resample`` and ``plan_gather`` on the device alone (CUDA-graph
   replay) at the 4K mosaic's plan (C=3) and the 720p rect->hex plan at
   b=8, float32 and bfloat16, and whether the shift kernel matches its
-  plain version (bit for bit at the mosaic, max abs difference at 720p).
+  plain version (bit for bit at the mosaic, max abs difference at 720p);
+* ``plan_gather`` on the device alone (the best of 3 graph replays) at
+  ``chip_smoke.KT_GATHER``'s plans (the main paths' plans of phases 3 and
+  11), its grid (``resample.last_launch()``) and its max abs difference to
+  ``apply_plan``.
 
-Prints the registers and spills ptxas reports for each variant's fused
-and shift kernels, then one ``<name> {json}`` line per variant.  A variant
-whose edits break bit-equality is still timed: it is a measurement, not
-a candidate.  Needs the GPU; the script imports no JAX.
+Prints the registers and spills ptxas reports for each variant's fused,
+shift and plan-gather kernels, then one ``<name> {json}`` line per
+variant.  A variant whose edits break bit-equality is still timed: it is
+a measurement, not a candidate.  Needs the GPU; the script imports no JAX.
 """
 import json
 import shutil
@@ -45,7 +49,7 @@ sys.path.insert(1, sys.argv[2])
 import chip_smoke as smoke
 from hygrid_tpu_torch.kernels import conv_stack as cs, resample, \
     resample_shift as rs
-from hygrid_tpu_torch.ops import geometry
+from hygrid_tpu_torch.ops import geometry, sampling
 from hygrid_tpu_torch.viz import render
 from torch.profiler import ProfilerActivity, profile
 assert cs.__file__.startswith(sys.argv[1]), cs.__file__
@@ -103,6 +107,20 @@ with torch.inference_mode():
                 torch, functools.partial(rs.shift_resample, x, plan))
             out[f"plan_gather_{tag}_ms"] = smoke.graph_ms(
                 torch, functools.partial(resample.plan_gather, x, plan))
+    # plan_gather at the main paths' plans, on the device alone, and
+    # whether it matches its plain version (max abs difference)
+    for label, (kind, *args), lead, dt in smoke.KT_GATHER:
+        plan = getattr(geometry, f"{kind}_plan")(*args)
+        x = torch.rand(lead + plan.src_shape, generator=gen,
+                       device="cuda").to(torch.bfloat16 if dt == "bf16"
+                                         else torch.float32)
+        got = resample.plan_gather(x, plan)
+        out[f"plan_gather_{label}_matches"] = float(
+            (got.float() - sampling.apply_plan(x, plan).float()).abs().max())
+        out[f"plan_gather_{label}_launch"] = resample.last_launch()
+        out[f"plan_gather_{label}_ms"] = min(smoke.graph_ms(
+            torch, functools.partial(resample.plan_gather, x, plan))
+            for _ in range(3))
 print("RESULT", json.dumps(out))
 '''
 
@@ -112,11 +130,13 @@ BUILD = ("import sys; sys.path.insert(0, sys.argv[1]); "
 
 
 def ptxas_notes(log: str):
-    """ptxas's registers and spills for the fused and shift kernels."""
+    """ptxas's registers and spills for the fused, shift and plan-gather
+    kernels."""
     lines = log.splitlines()
     for i, line in enumerate(lines):
         if "Compiling entry function" in line and (
-                "fused_stack_mma" in line or "shift_resample_kernel" in line):
+                "fused_stack_mma" in line or "shift_resample_kernel" in line
+                or "plan_gather_kernel" in line):
             name = line.split("'")[1] if "'" in line else line
             notes = [x.split(":", 1)[-1].strip() for x in lines[i + 1:i + 4]
                      if "Used" in x or "spill" in x]
