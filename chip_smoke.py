@@ -163,7 +163,45 @@ Phases, each of which raises on failure (the script then exits non-zero):
     step of the timed state, its loss, every grad and mean IoU against
     the plain float32 path, the float32 kernel path beside it, and the
     grads against the bfloat16 plain path; then 60 fit steps on
-    synthetic_hex_shapes(size=64) batches, whose loss must fall.
+    synthetic_hex_shapes(size=64) batches, whose loss must fall;
+20. the affine layer's backward (TPU kernel #12 on ("affine", scale,
+    shift) layers, 12s on the split layer: the tail pulled back by
+    affine_relu_backward, its ReLU mask the layer's output, dx and dW by
+    the dgrad pass and hex_conv_wgrad)
+    at HexCNN-small's six layer shapes (b=32) and HexUNet-small's dec1
+    split layer (b=8, 32+32->32), float32 and bfloat16, scale and shift
+    drawn from the seed: the pre-activation the forward kept against the
+    plain conv's, and gpre, dx, dW, dbias, dscale and dshift against the
+    plain backward at that pre-activation (the tail by float64 autograd,
+    then the plain dgrad and wgrad); two backward runs bit-equal; beside
+    each the plain time (autograd of the plain layer), the library's
+    (autograd of hex_conv2d(impl="direct") + affine + ReLU), the bound
+    and TFLOP/s; then hex_conv_stack with affine norms through its public
+    entry, forward and backward (HexCNN-small's first stage, b=32, and
+    HexUNet-small's dec1 skip-join stage, b=8, bf16), with its launches;
+21. HexViT serving at benchmarks/suite.py::bench_hexvit's config (d192,
+    6 blocks, 3 heads, 4 halvings: 256^2 hex -> 256 tokens; bf16, random
+    weights from a seed) on distinct b=32 512^2 RGB batches, rect->hex
+    included: per request 1 plan_gather and no other hand-written kernel
+    (the stem convs are cuDNN, attention scaled_dot_product_attention);
+    logits finite and within 5e-2 of the plain float32 path; images/s by
+    CUDA events, the median and spread of 3 windows of at least 1 s; one
+    request replayed in a CUDA graph (the device alone); peak memory; a
+    torch.profiler split by kernel group; the request's work and bound;
+22. training the new families with AdamW, 1 warm-up and 4 timed steps on
+    distinct batches each (images/s by CUDA events, launches counted,
+    finite losses), then one step's loss and every grad against the plain
+    float32 path on the card (1e-1 relative for bf16 compute, 1e-3 for
+    float32; each leaf against its own size, the key biases, whose grad
+    is zero by construction, against the largest grad): HexViT (phase
+    21's model, float32 parameters, its position embedding drawn at std
+    0.3 so that its tokens differ, b=32 512^2 gratings, rect->hex in the
+    step), HexCNN-small with norm="BN" in float32 (b=32 512^2; every
+    running mean must move at every step; its only hand-written kernel is
+    plan_gather, so against the plain path on plan_gather's input this is
+    a check that the step is deterministic, beside plan_gather's input
+    check) and HexResNet at its default widths on synthetic_hex_cifar at
+    b=256 (each batch hexified on the card).
 
 Beside kernel B, the backward kernels, the split layer and the single-op
 conv the kernels line carries cuDNN's time (``hex_conv2d(impl="direct")``
@@ -2387,6 +2425,604 @@ def run_hexunet_training(torch):
     return launches
 
 
+# phase 20's affine layers (name, B, H, W, Ca, Cb, Cout): HexCNN-small's six
+# at b=32, and HexUNet-small's dec1 split layer (Cb > 0: the split layer)
+AFFINE_LAYERS = ([(f"L{i}", BATCH, h, w, cin, 0, cout)
+                  for i, (cin, cout, h, w) in enumerate(LAYERS)]
+                 + [("dec1", UNET_BATCH, 256, 256, 32, 32, 32)])
+
+
+def _affine_layer_graph(torch, xs, k, vecs, plain):
+    """One affine + ReLU layer (the split layer for two inputs) on fresh
+    leaves ``(*xs, k, bias, scale, shift)``, under grad: ``(out,
+    leaves)``."""
+    from hygrid_tpu_torch.kernels import conv_stack as cs
+    leaves = [t.detach().requires_grad_() for t in (*xs, k, *vecs)]
+    xl, (kl, bias, scale, shift) = leaves[:len(xs)], leaves[len(xs):]
+    if len(xs) == 2:
+        fn = cs.hex_conv_layer_split_plain if plain else cs.hex_conv_layer_split
+    else:
+        fn = cs.hex_conv_layer_plain if plain else cs.hex_conv_layer
+    with torch.enable_grad():
+        out = fn(*xl, kl, bias, radius=2, norm=("affine", scale, shift),
+                 relu=True)
+    return out, leaves
+
+
+def _affine_library_graph(torch, xs, k, vecs):
+    """The library's version of the same layer: ``hex_conv2d(impl=
+    "direct")`` (cuDNN) on the NCHW concatenation in the activations'
+    dtype, then the affine and ReLU in float32, under grad."""
+    from hygrid_tpu_torch.nn.functional import hex_conv2d
+    xn = torch.cat(xs, -1).permute(0, 3, 1, 2).contiguous()
+    leaves = [t.detach().requires_grad_() for t in (xn, k, *vecs)]
+    xl, kl, bias, scale, shift = leaves
+    with torch.enable_grad():
+        y = hex_conv2d(xl, kl, bias, radius=2, padding=1, impl="direct")
+        out = torch.relu(y * scale[:, None, None] + shift[:, None, None])
+        out = out.to(xn.dtype)
+    return out, leaves
+
+
+def _affine_stack_path(torch, gen):
+    """Phase 20's path through the public entry point: ``hex_conv_stack``
+    with affine norms, forward and backward, at HexCNN-small's first stage
+    (b=32, 256^2, 3 -> 32 -> 32, the image needs no grad) and HexUNet-
+    small's dec1 skip-join stage (b=8, 256^2, 32+32 -> 32 -> 32, both
+    inputs need grads), bf16.  Returns the launches, counted from 0."""
+    from hygrid_tpu_torch.kernels import conv_stack as cs
+    kn = 7
+
+    def affine(c):
+        return ("affine",
+                (1 + 0.2 * torch.randn(c, generator=gen, device="cuda")
+                 ).requires_grad_(),
+                (0.1 * torch.randn(c, generator=gen, device="cuda")
+                 ).requires_grad_())
+
+    def kernel(cout, cin):
+        return (torch.randn((cout, cin, kn), generator=gen, device="cuda")
+                / math.sqrt(cin * kn)).requires_grad_()
+
+    image = torch.rand((BATCH, 256, 256, 3), generator=gen, device="cuda"
+                       ).to(torch.bfloat16)
+    up, skip = (torch.rand((UNET_BATCH, 256, 256, 32), generator=gen,
+                           device="cuda").to(torch.bfloat16).requires_grad_()
+                for _ in range(2))
+    stages = [dict(x=image, kernels=[kernel(32, 3), kernel(32, 32)]),
+              dict(x=up, extra_input=skip,
+                   kernels=[kernel(32, 64), kernel(32, 32)])]
+    counters = _launch_counters()
+    for mod, attr in counters.values():
+        setattr(mod, attr, 0)
+    for st in stages:
+        norms = [affine(32) for _ in st["kernels"]]
+        out = cs.hex_conv_stack(
+            st["x"], [k.to(torch.bfloat16) for k in st["kernels"]],
+            radius=2, norms=norms, data_format="NHWC",
+            extra_input=st.get("extra_input"))
+        out.float().square().mean().backward()
+        grads = [k.grad for k in st["kernels"]] + [
+            t.grad for n in norms for t in n[1:]]
+        require(all(g is not None and bool(torch.isfinite(g).all())
+                    for g in grads), "affine stack: missing or non-finite "
+                                     "grads")
+    torch.cuda.synchronize()
+    got = {name: getattr(mod, attr) for name, (mod, attr) in counters.items()}
+    want = {"hex_conv_layer": 3, "hex_conv_layer_split": 1,
+            "hex_conv_layer_dgrad": 2, "hex_conv_layer_split_dgrad": 2,
+            "hex_conv_wgrad": 3, "hex_conv_wgrad_split": 2}
+    require(got == {n: want.get(n, 0) for n in counters},
+            f"affine stack: launches {got}, want {want}")
+    require(up.grad is not None and skip.grad is not None,
+            "affine stack: no grad for the split stage's inputs")
+    return {k: v for k, v in got.items() if v}
+
+
+def _affine_backward_plain(torch, x, k, y, scale, shift, g):
+    """The plain version of an affine + ReLU layer's backward at the
+    pre-activation ``y`` the forward kept: the tail pulled back by torch
+    autograd in float64 (its ReLU mask is the sign of the exact ``y *
+    scale + shift``, as the kernel's fmaf rounds it), then
+    ``hex_conv_layer_dgrad_plain`` / ``_wgrad_plain`` on ``gpre`` rounded
+    to the activations' dtype.  Returns ``(gpre, dx, dW, dbias, dscale,
+    dshift)``, dx cut at the inputs' channels by the caller."""
+    from hygrid_tpu_torch.kernels import conv_stack as cs
+    leaves = [t.detach().double().requires_grad_() for t in (y, scale, shift)]
+    with torch.enable_grad():
+        out = torch.relu(leaves[0] * leaves[1] + leaves[2])
+        gpre, dscale, dshift = torch.autograd.grad(out, leaves, g.double())
+    dbias = gpre.sum((0, 1, 2))
+    gpre = gpre.to(g.dtype)
+    return (gpre, cs.hex_conv_layer_dgrad_plain(gpre, k, radius=2),
+            cs.hex_conv_layer_wgrad_plain(x, gpre, radius=2), dbias, dscale,
+            dshift)
+
+
+def check_affine_backward(torch, gen):
+    """Phase 20: the affine layer's backward (TPU kernel #12 in affine
+    mode; 12s on the split layer) against its plain version at the
+    pre-activation the forward kept (:func:`_affine_backward_plain`), and
+    that pre-activation against the plain conv's.  Returns the launches of
+    the public-entry path (:func:`_affine_stack_path`)."""
+    from hygrid_tpu_torch.kernels import conv_stack as cs
+    sums = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound=[])
+    for name, b, h, w, ca, cb, cout in AFFINE_LAYERS:
+        cin = ca + cb
+        k = torch.randn((cout, cin, 7), generator=gen, device="cuda") \
+            / math.sqrt(cin * 7)
+        x32 = [torch.rand((b, h, w, c), generator=gen, device="cuda")
+               for c in ((ca, cb) if cb else (ca,))]
+        vecs = [0.1 * torch.randn(cout, generator=gen, device="cuda"),
+                1 + 0.2 * torch.randn(cout, generator=gen, device="cuda"),
+                0.1 * torch.randn(cout, generator=gen, device="cuda")]
+        g32 = torch.randn((b, h, w, cout), generator=gen, device="cuda")
+        line = (f"affine backward {name} {ca}{f'+{cb}' if cb else ''}->{cout}"
+                f" {h}x{w} b={b} (affine + ReLU):")
+        for dtype in (torch.float32, torch.bfloat16):
+            xs, kd, g = [t.to(dtype) for t in x32], k.to(dtype), g32.to(dtype)
+            tol = TOL["b_f32_rel" if dtype == torch.float32 else "b_bf16_rel"]
+            out_k, leaves_k = _affine_layer_graph(torch, xs, kd, vecs, False)
+
+            def kernel():
+                return torch.autograd.grad(out_k, leaves_k, g,
+                                           retain_graph=True)
+
+            got, again = kernel(), kernel()
+            require(all(torch.equal(u, v) for u, v in zip(got, again)),
+                    f"affine backward {name} {dtype}: two launches differ")
+            norm = ("affine", vecs[1], vecs[2])
+            o_k, y_k = cs._layer_forward(xs[0], kd, vecs[0], 2, 1, norm,
+                                         True, xs[1] if cb else None,
+                                         save_pre=True)[:2]
+            xcat = torch.cat(xs, -1)
+            errs = {"pre": max_err(y_k, cs._pre_plain(xcat, kd, vecs[0], 2,
+                                                       1))[1]}
+            gpre_k = cs.affine_relu_backward(y_k, vecs[1], g, o_k)[0]
+            want = _affine_backward_plain(torch, xcat, kd, y_k, *vecs[1:], g)
+            dx = torch.cat(got[:len(xs)], -1)
+            for n, u, v in zip(("gpre", "dx", "dW", "dbias", "dscale",
+                                "dshift"), (gpre_k, dx, *got[len(xs):]),
+                               want):
+                errs[n] = max_err(u, v)[1]
+            torch.cuda.synchronize()
+            bad = {n: e for n, e in errs.items() if not e <= tol}
+            require(not bad, f"affine backward {name} {dtype}: relative "
+                             f"errs {bad} > {tol}")
+            out_p, leaves_p = _affine_layer_graph(torch, xs, kd, vecs, True)
+            ms = cuda_ms(torch, kernel, iters=5)
+            pms = cuda_ms(torch, lambda: torch.autograd.grad(
+                out_p, leaves_p, g, retain_graph=True), iters=5)
+            del out_p, leaves_p
+            out_l, leaves_l = _affine_library_graph(torch, xs, kd, vecs)
+            gn = g.permute(0, 3, 1, 2).contiguous()
+            lms = cuda_ms(torch, lambda: torch.autograd.grad(
+                out_l, leaves_l, gn, retain_graph=True), iters=5)
+            flops = 2 * 2 * 7 * b * h * w * cin * cout
+            b_ms, b_by = bound(nbytes(*xs, g, y_k, o_k, kd, *got), flops,
+                               "bf16" if dtype == torch.bfloat16 else "f32")
+            line += (f" {str(dtype)[6:]} rel errs {errs} bit-equal twice; "
+                     f"kernel_ms={ms!r} ({tflops(flops, ms)!r} TFLOP/s) "
+                     f"plain_ms={pms!r} library_ms={lms!r} "
+                     f"bound_ms={b_ms!r} ({b_by});")
+            if dtype == torch.bfloat16 and not cb:
+                sums["ms"] += ms
+                sums["plain_ms"] += pms
+                sums["library_ms"] += lms
+                sums["bound"].append((b_ms, b_by))
+            del out_k, leaves_k, out_l, leaves_l, gn, got, again, want
+            del y_k, gpre_k, dx, xcat
+        log(line)
+    sums.update(summed_bound(sums.pop("bound")))
+    log(f"affine backward, HexCNN-small's six layers in bf16 (the tail, dx "
+        f"and dW by the Function's backward; plain: autograd of the plain "
+        f"layer; library: autograd of cuDNN's conv + affine + ReLU): {sums}")
+    return _affine_stack_path(torch, gen)
+
+
+HEXVIT = dict(dim=192, depth=6, heads=3, patch_halvings=4,
+              hex_size=(256, 256))     # benchmarks/suite.py::bench_hexvit
+HEXVIT_GROUPS = [
+    ("plan_gather", lambda k: "plan_gather" in k),
+    ("attention", lambda k: any(s in k.lower() for s in (
+        "flash", "fmha", "attention", "sdpa"))),
+    ("cuDNN convs", lambda k: any(s in k.lower() for s in (
+        "conv", "fprop", "dgrad", "wgrad", "implicit", "cudnn", "nchw",
+        "nhwc"))),
+    ("GEMMs", lambda k: any(s in k.lower() for s in (
+        "gemm", "nvjet", "cutlass", "xmma", "matmul"))),
+    ("LN/GELU", lambda k: any(s in k.lower() for s in (
+        "layer_norm", "layernorm", "gelu"))),
+]
+
+
+def hexvit_cost(model, batch):
+    """``(flops, parameter bytes)`` of one HexViT forward on ``batch``
+    images of the model's hex size: the stem convs (2 x pixels x Cout x Cin
+    x taps each), a block's four d x d projections and two MLP matmuls per
+    token, attention's two T x T x d products, the head."""
+    flops, t = 0, model.pos_embedding.shape[1]
+    h, w = model.hex_size
+    for i in range(model.patch_halvings):
+        cout, cin, kn = getattr(model, f"stem{i}").kernel.shape
+        h, w = h // 2, w // 2
+        flops += 2 * batch * h * w * cout * cin * kn
+    for i in range(model.depth):
+        blk = getattr(model, f"block{i}")
+        d, hidden = blk.fc1.in_features, blk.fc1.out_features
+        flops += 2 * batch * t * (4 * d * d + 2 * d * hidden)
+        flops += 2 * 2 * batch * t * t * d
+    flops += 2 * batch * model.head.in_features * model.head.out_features
+    return flops, sum(p.numel() * p.element_size() for p in model.parameters())
+
+
+def run_hexvit(torch):
+    """Phase 21: HexViT serving at ``bench_hexvit``'s config.  Returns the
+    launches of the counted requests."""
+    from hygrid_tpu_torch.models import HexViT, hexify_batch
+    gen = torch.Generator(device="cuda").manual_seed(15)
+    model = HexViT(dtype=torch.bfloat16, generator=gen, **HEXVIT).eval()
+    in_gen = torch.Generator(device="cuda").manual_seed(16)
+    xs = [torch.rand((BATCH, 3, 512, 512), generator=in_gen, device="cuda")
+          for _ in range(N_REQUESTS + 1)]
+
+    def serve(x, m=model):
+        return m(hexify_batch(x.to(torch.bfloat16)))
+
+    counters = _launch_counters()
+    with torch.inference_mode():
+        serve(xs[0])
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for mod, attr in counters.values():
+            setattr(mod, attr, 0)
+        t0 = time.perf_counter()
+        outs = [serve(x) for x in xs[1:]]
+        torch.cuda.synchronize()
+        first_ms = (time.perf_counter() - t0) * 1e3 / N_REQUESTS
+        got = {name: getattr(mod, attr)
+               for name, (mod, attr) in counters.items()}
+        want = {name: N_REQUESTS if name == "plan_gather" else 0
+                for name in counters}
+        require(got == want, f"HexViT: launches {got}, want {want}")
+        peak = torch.cuda.max_memory_allocated()
+        for i, out in enumerate(outs):
+            require(out.shape == (BATCH, 10) and out.dtype == torch.bfloat16
+                    and bool(torch.isfinite(out).all()),
+                    f"HexViT request {i}: {tuple(out.shape)} {out.dtype} or "
+                    f"non-finite")
+        require(not torch.equal(outs[0], outs[1]),
+                "HexViT: distinct requests, equal logits")
+        ref_model = HexViT(dtype=torch.float32, **HEXVIT)
+        ref_model.load_state_dict(model.state_dict())
+        err, rel = max_err(outs[0], ref_model(hexify_batch(xs[1],
+                                                           plain=True)))
+        require(rel <= TOL["slice_rel"],
+                f"HexViT vs plain f32: relative err {rel}")
+        del ref_model
+        n, times = _timed_windows(torch, {"serve": (lambda: None, serve)},
+                                  xs[1:], first_ms)
+        times = sorted(times["serve"])
+        med = times[len(times) // 2]
+        try:
+            graph = f"{graph_ms(torch, lambda: serve(xs[1]), iters=4)!r} ms"
+        except RuntimeError as e:
+            graph = f"not captured ({str(e).splitlines()[0][:160]})"
+        split = _profile_split(torch, lambda: serve(xs[1]), med,
+                               HEXVIT_GROUPS)
+    flops, param_bytes = hexvit_cost(model, BATCH)
+    b_ms, b_by = bound(nbytes(xs[1].to(torch.bfloat16), outs[0])
+                       + param_bytes, flops, "bf16")
+    log(f"HexViT d192/L6/3 heads, 4 halvings, bf16 b={BATCH} 512^2 (256 "
+        f"tokens): {med!r} ms a request, median of {PERMODULE_WINDOWS} "
+        f"windows of {n} requests cycling over {N_REQUESTS} distinct inputs "
+        f"(CUDA events; windows {[round(t * n) for t in times]} ms), "
+        f"images/s={BATCH / (med / 1e3)!r} (windows "
+        f"{BATCH / (times[-1] / 1e3)!r}-{BATCH / (times[0] / 1e3)!r}); one "
+        f"request replayed in a CUDA graph (device alone): {graph}; "
+        f"peak_mem_bytes={peak} (the {N_REQUESTS + 1} inputs and "
+        f"{N_REQUESTS} outputs included); launches={got} in {N_REQUESTS} "
+        f"requests; logits vs plain f32 max_abs_err={err!r} rel={rel!r}; "
+        f"work {flops / 1e9!r} GFLOP a request, bound_ms={b_ms!r} ({b_by}, "
+        f"{tflops(flops, med)!r} TFLOP/s achieved)")
+    log(f"HexViT torch.profiler, one request: {split}")
+    return {k: v for k, v in got.items() if v}
+
+
+def _ref_grads(torch, make, snapshot, x, labels):
+    """``(loss, {leaf: grad})`` of one forward (``train=True``) and
+    backward of ``make()`` loaded with ``snapshot``."""
+    from hygrid_tpu_torch.models import dense_onehot_xent
+    ref = make()
+    ref.load_state_dict(snapshot)
+    loss = dense_onehot_xent(ref(x, train=True), labels)
+    loss.backward()
+    return float(loss.detach()), {n: p.grad for n, p in
+                                  ref.named_parameters()}
+
+
+def _step_vs_plain(torch, state, step, refs, labels, zero):
+    """One step of the timed state (``step()``, the kernel path) and one
+    forward and backward of each reference path in ``refs``, ``{label:
+    (make_model, input)}``, loaded with the state's weights and buffers
+    from before the step (the first is the plain float32 path), all with
+    deterministic library algorithms (cuDNN's, index_put's), so that the
+    paths differ by what they compute and not by the order of atomic adds.
+    Returns ``(loss, {label: (loss, {leaf: grad})}, {leaf: grad})``, the
+    last the kernel path's grads, and, from two runs of the plain float32
+    path with the default (nondeterministic) algorithms, the largest leaf
+    relative difference between them (``zero`` as in :func:`_grad_rels`):
+    the library's own spread."""
+    snapshot = {k: v.clone() for k, v in state.model.state_dict().items()}
+    make, x = next(iter(refs.values()))
+    spread = [_ref_grads(torch, make, snapshot, x, labels)[1]
+              for _ in range(2)]
+    spread = max(_grad_rels(*spread, 2.0 ** -24, zero).values())
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        with torch.backends.cudnn.flags(enabled=True, benchmark=False,
+                                        deterministic=True, allow_tf32=False):
+            loss = float(step()["loss"])
+            runs = {label: _ref_grads(torch, make, snapshot, x, labels)
+                    for label, (make, x) in refs.items()}
+    finally:
+        torch.use_deterministic_algorithms(False)
+    return loss, runs, {n: p.grad for n, p in
+                        state.model.named_parameters()}, spread
+
+
+def _grad_rels(got, want, unit, zero=()):
+    """``{leaf: rel max-abs err}`` of the grads ``got`` against ``want``,
+    each leaf's error over its own largest magnitude; a leaf in ``zero``,
+    whose grad is zero by construction (HexViT's key biases: the softmax
+    cancels a shift of every key), over ``unit`` (the unit roundoff of the
+    compute dtype) times the largest grad of any leaf, the rounding
+    residue a computation in that dtype leaves there."""
+    top = max(float(g.abs().max()) for g in want.values())
+    rels = {}
+    for n, w in want.items():
+        err = float((got[n].float() - w.float()).abs().max())
+        mag = unit * top if n in zero else float(w.abs().max())
+        rels[n] = err / mag if mag else (0.0 if err == 0 else math.inf)
+    return rels
+
+
+def _train_model(torch, label, state, batches, labels, refs, per_step,
+                 unit, groups=None, stats_change=False, zero=()):
+    """Phase 22 for one model: the fresh state's first step (on the last
+    batch) against the reference paths ``refs`` (:func:`_step_vs_plain`;
+    grads by :func:`_grad_rels` at ``unit`` and ``zero``; first, because
+    AdamW's first steps at the default rate shrink HexViT's query and key
+    grads of blocks 2-5 below what bf16 resolves), then a warm-up step and
+    ``N_STEPS`` timed AdamW steps on the distinct ``batches`` (hex images,
+    or callables that make them from the rect input: the rect->hex
+    resample is then part of the step), timed by CUDA events (with
+    ``stats_change`` every BatchNorm running mean must move at every
+    step), the launches counted from 0 (``per_step`` of each kernel a
+    step) and a torch.profiler split of one step.  Returns the launches,
+    and the loss and grads' relative errors by path."""
+    from hygrid_tpu_torch.models import train_step
+
+    def step(batch, y):
+        return train_step(state, batch() if callable(batch) else batch, y)[1]
+
+    check_steps = state.step
+    loss, runs, grads, spread = _step_vs_plain(
+        torch, state, lambda: step(batches[-1], labels[-1]), refs,
+        labels[-1], zero)
+    step(batches[0], labels[0])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    counters = _launch_counters()
+    for mod, attr in counters.values():
+        setattr(mod, attr, 0)
+    means = [b for n, b in state.model.named_buffers()
+             if n.endswith("running_mean")]
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    metrics = []
+    for batch, y in zip(batches[1:N_STEPS + 1], labels[1:N_STEPS + 1]):
+        before = [m.clone() for m in means] if stats_change else []
+        metrics.append(step(batch, y))
+        require(all(not torch.equal(a, m) for a, m in zip(before, means)),
+                f"{label}: a running mean did not change in a step")
+    end.record()
+    end.synchronize()
+    ms = start.elapsed_time(end) / N_STEPS
+    peak = torch.cuda.max_memory_allocated()
+    got = {name: getattr(mod, attr) for name, (mod, attr) in counters.items()}
+    want = {name: per_step.get(name, 0) * N_STEPS for name in counters}
+    require(got == want, f"{label}: launches {got}, want {want}")
+    losses = [float(m["loss"]) for m in metrics]
+    require(all(math.isfinite(v) for v in losses),
+            f"{label}: non-finite losses {losses}")
+    split = _profile_split(torch, lambda: step(batches[1], labels[1]), ms,
+                           groups)
+    b = labels[0].shape[0]
+    log(f"{label}: {ms!r} ms a step over {N_STEPS} distinct batches (CUDA "
+        f"events), images/s={b / (ms / 1e3)!r}; peak_mem_bytes={peak}; "
+        f"launches={got} in {N_STEPS} steps; losses={losses}")
+    log(f"{label} torch.profiler, one step: {split}")
+    log(f"{label}: two runs of the plain float32 path with the default "
+        f"library algorithms differ by {spread!r} (the largest leaf rel "
+        f"max-abs): the library's own spread; the checks below run "
+        f"deterministic algorithms")
+    path, (_, ref_grads) = next(iter(runs.items()))
+    mags = {n: float(g.abs().max()) for n, g in ref_grads.items()}
+    low = min((n for n in mags if n not in zero), key=mags.get)
+    log(f"{label}: the smallest leaf grad (max-abs) of the {path} path is "
+        f"{low}'s, {mags[low] / max(mags.values())!r} of the largest; "
+        f"measured against the largest grad (zero by construction): "
+        f"{sorted(zero)}")
+    rels = {}
+    for path, (ref_loss, ref_grads) in runs.items():
+        rels[path] = (abs(loss - ref_loss) / abs(ref_loss),
+                      _grad_rels(grads, ref_grads, unit, zero))
+        log(f"{label}: the step after {check_steps} steps vs the {path} "
+            f"path: loss {loss!r} vs {ref_loss!r} (rel {rels[path][0]!r}); "
+            f"grads (rel max-abs): " + ", ".join(
+                f"{n}={r!r}" for n, r in rels[path][1].items()))
+    return {k: v for k, v in got.items() if v}, rels, runs
+
+
+def _require_close(label, rels, path, tol):
+    loss_rel, leaves = rels[path]
+    require(loss_rel <= TOL["loss_rel"],
+            f"{label}: loss vs the {path} path, rel {loss_rel}")
+    bad = {n: r for n, r in leaves.items() if not r <= tol}
+    require(not bad, f"{label}: grads vs the {path} path {bad} > {tol}")
+
+
+HEXRESNET_BATCH = 256
+TRAIN_GROUPS = HEXVIT_GROUPS + [
+    ("AdamW", lambda k: "adam" in k.lower() or "multi_tensor" in k),
+    ("reductions", lambda k: "reduce_kernel" in k)]
+
+
+def gratings(torch, gen, n, size, num_classes=10):
+    """``n`` float32 RGB ``size``^2 images on the card and their int64
+    labels, drawn from ``gen``: ``synthetic_hex_cifar``'s class-dependent
+    oriented gratings (the class sets the angle and the frequency) plus
+    noise of standard deviation 0.3."""
+    labels = torch.randint(0, num_classes, (n,), generator=gen,
+                           device="cuda")
+    yy, xx = torch.meshgrid(*[torch.arange(size, device="cuda") / size] * 2,
+                            indexing="ij")
+    angle = (math.pi / num_classes) * labels[:, None, None]
+    freq = 2 + labels[:, None, None] % 3
+    wave = torch.sin(2 * math.pi * freq * (torch.cos(angle) * xx
+                                           + torch.sin(angle) * yy))
+    noise = torch.randn((n, 3, size, size), generator=gen, device="cuda")
+    return wave[:, None] + 0.3 * noise, labels
+
+
+def run_new_training(torch):
+    """Phase 22: HexViT (phase 21's model, position embedding std 0.3, on
+    gratings), HexCNN-small with BatchNorm (f32, b=32 512^2) and HexResNet
+    (default widths, synthetic_hex_cifar at b=256) train with AdamW.  BN HexCNN-small's
+    only hand-written kernel is plan_gather, so on the card its step
+    against the plain path on plan_gather's input (the same model code)
+    checks that the step is deterministic, beside plan_gather's input
+    against the plain gather's; its training is held to the reference on
+    the CPU (tests/test_torch_bn_train.py).  Returns the launches by
+    path."""
+    from hygrid_tpu_torch.models import (HexResNet, HexViT,
+                                         create_train_state, hexcnn_small,
+                                         hexify_batch, synthetic_hex_cifar)
+    paths = {}
+    in_gen = torch.Generator(device="cuda").manual_seed(17)
+
+    # HexViT on gratings, its position embedding drawn at std 0.3: at the
+    # reference's std 0.02 the 256 tokens of blocks 2-5 are nearly equal
+    # on any input (noise, gratings, block patterns), attention is near
+    # uniform, and bf16 cannot resolve the query and key grads there (they
+    # come out 2 to 40 times their size off); tokens that differ give
+    # every grad but the key biases' a size bf16 resolves (the smallest is
+    # logged)
+    t0 = time.perf_counter()
+    vit_gen = torch.Generator(device="cuda").manual_seed(21)
+    rects, labels = zip(*[gratings(torch, vit_gen, BATCH, 512)
+                          for _ in range(N_STEPS + 2)])
+    batches = [functools.partial(hexify_batch, r) for r in rects]
+    plain_input = hexify_batch(rects[-1], plain=True)
+    kernel_input = hexify_batch(rects[-1])
+    gen = torch.Generator(device="cuda").manual_seed(15)
+    model = HexViT(dtype=torch.bfloat16, generator=gen, **HEXVIT)
+    with torch.no_grad():
+        model.pos_embedding.normal_(0, 0.3, generator=gen)
+    label = (f"HexViT d192/L6 bf16 (f32 parameters, position embedding "
+             f"std 0.3) AdamW gratings b={BATCH} 512^2")
+    paths["hexvit_train"], rels, _ = _train_model(
+        torch, label, create_train_state(model), batches, labels,
+        {"f32 plain": (lambda: HexViT(**HEXVIT), plain_input),
+         "f32 kernel": (lambda: HexViT(**HEXVIT), kernel_input),
+         "bf16 plain": (lambda: HexViT(dtype=torch.bfloat16, **HEXVIT),
+                        plain_input)},
+        {"plan_gather": 1}, 2.0 ** -8, TRAIN_GROUPS,
+        zero={n for n, _ in model.named_parameters()
+              if n.endswith("attn.key.bias")})
+    _require_close(label, rels, "f32 plain", TOL["grad_bf16_rel"])
+    del model, rects, labels, batches, plain_input, kernel_input
+    log(f"phase 22 HexViT: {time.perf_counter() - t0:.1f} s")
+
+    rects = [torch.rand((BATCH, 3, 512, 512), generator=in_gen,
+                        device="cuda") for _ in range(N_STEPS + 2)]
+    batches = [functools.partial(hexify_batch, r) for r in rects]
+    labels = [torch.randint(0, 10, (BATCH,), generator=in_gen,
+                            device="cuda") for _ in rects]
+    plain_input = hexify_batch(rects[-1], plain=True)
+    kernel_input = hexify_batch(rects[-1])
+
+    t0 = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(18)
+    label = f"HexCNN-small BN f32 AdamW b={BATCH} 512^2"
+    # the model's sensitivity to its input at the ulp: the plain input
+    # moved by one float32 ulp up or down at random
+    up = torch.randint(0, 2, plain_input.shape, generator=in_gen,
+                       device="cuda", dtype=torch.bool)
+    ulp_input = torch.nextafter(plain_input, torch.where(
+        up, torch.inf, -torch.inf))
+    paths["bn_train"], rels, _ = _train_model(
+        torch, label, create_train_state(hexcnn_small(norm="BN",
+                                                      generator=gen)),
+        batches, labels,
+        {"f32 plain": (lambda: hexcnn_small(norm="BN"), plain_input),
+         "f32 plain on the kernel's input": (lambda: hexcnn_small(norm="BN"),
+                                             kernel_input),
+         "f32 plain on the plain input moved by one ulp": (
+             lambda: hexcnn_small(norm="BN"), ulp_input)},
+        {"plan_gather": 1}, 2.0 ** -24, TRAIN_GROUPS, stats_change=True)
+    # plan_gather is the step's only hand-written kernel, and its float32
+    # output is within phase 3's tolerance of the plain gather's; BN
+    # HexCNN-small's grads move by more than 1e-3 when its input moves by
+    # one ulp (logged above), so the step is held to the plain path on
+    # the kernel's input (the same model code: a check that the step is
+    # deterministic), and its loss to the plain path's
+    in_err = max_err(kernel_input, plain_input)[0]
+    log(f"{label}: the hex input, plan_gather vs the plain gather: "
+        f"max_abs_err={in_err!r}")
+    require(in_err <= TOL["a_f32_abs"], f"{label}: plan_gather's input "
+                                        f"max_abs_err {in_err}")
+    _require_close(label, rels, "f32 plain on the kernel's input",
+                   TOL["grad_f32_rel"])
+    require(rels["f32 plain"][0] <= TOL["loss_rel"],
+            f"{label}: loss vs the f32 plain path, rel {rels['f32 plain'][0]}")
+    del rects, batches, plain_input, kernel_input
+    log(f"phase 22 BN HexCNN-small: {time.perf_counter() - t0:.1f} s")
+
+    # HexResNet on the reference's own data for it, each batch hexified on
+    # the card (one plan_gather a batch, in the counted path) and, for the
+    # check, on the CPU (the plain version)
+    t0 = time.perf_counter()
+    counters = _launch_counters()
+    for mod, attr in counters.values():
+        setattr(mod, attr, 0)
+    data = [synthetic_hex_cifar(np.random.default_rng(20 + i),
+                                HEXRESNET_BATCH, device="cuda")
+            for i in range(N_STEPS + 2)]
+    prep = {name: getattr(mod, attr) for name, (mod, attr) in
+            counters.items()}
+    require(prep == {n: len(data) if n == "plan_gather" else 0
+                     for n in counters},
+            f"HexResNet data: launches {prep}")
+    plain_input = synthetic_hex_cifar(
+        np.random.default_rng(20 + N_STEPS + 1), HEXRESNET_BATCH,
+        device="cpu")[0].cuda()
+    gen = torch.Generator(device="cuda").manual_seed(19)
+    label = (f"HexResNet 32/64/128 x2 f32 AdamW synthetic_hex_cifar "
+             f"b={HEXRESNET_BATCH} 32^2 -> 16^2 hex")
+    _, rels, _ = _train_model(
+        torch, label, create_train_state(HexResNet(generator=gen)),
+        [x for x, _ in data], [y for _, y in data],
+        {"f32 plain": (HexResNet, plain_input)}, {}, 2.0 ** -24,
+        TRAIN_GROUPS)
+    _require_close(label, rels, "f32 plain", TOL["grad_f32_rel"])
+    paths["hexresnet_train"] = {"plan_gather": prep["plan_gather"]}
+    log(f"phase 22 HexResNet: {time.perf_counter() - t0:.1f} s")
+    return paths
+
+
 def kernel_times(torch):
     """``python3 chip_smoke.py --kernel-times``: the times of the kernels
     every tree of the port with the split layer's backward shares, through
@@ -2792,6 +3428,15 @@ def main():
     split_bwd = check_split_backward(torch, gen)
     paths["hexunet_train"] = run_hexunet_training(torch)
     log(f"phases 18-19: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    paths["affine_train"] = check_affine_backward(torch, gen)
+    log(f"phase 20: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    paths["hexvit"] = run_hexvit(torch)
+    log(f"phase 21: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    paths.update(run_new_training(torch))
+    log(f"phase 22: {time.perf_counter() - t0:.1f} s")
 
     def count(name):
         by_path = {p: n[name] for p, n in paths.items() if n.get(name)}

@@ -54,8 +54,12 @@
 // So y crosses device memory twice (written, read), where it crossed three
 // times with a separate statistics pass.  Without GN, the conv pass applies
 // bias, the per-channel affine and ReLU in its epilogue and writes the
-// working dtype directly (the kStats = false instantiations).  The GN
-// layer's backward is gn_backward.cu.
+// working dtype directly (the kStats = false instantiations); an affine
+// layer whose backward will run also writes the float32 pre-activation from
+// the same registers (`pre`), as the GN layer keeps its y, so that the
+// backward (conv_stack.py::affine_relu_backward, then the dgrad and dW
+// passes below) reads the values the forward normalised.  The GN layer's
+// backward is gn_backward.cu.
 //
 // Split mode (x2 non-null) replaces _stack_layer_kernel with split=True
 // (conv_pallas.py:838-871), the first layer of a UNet decoder's skip-join
@@ -92,12 +96,16 @@ constexpr int COB = 32;   // float32: output channels per block
 constexpr int PT = hg::ConvTile<COB>::kPT;           // 4 pixels per thread
 constexpr int kPixLanes = hg::ConvTile<COB>::kPixLanes;  // 16
 
-__device__ __forceinline__ float epilogue(float v, int co,
-                                          const float* __restrict__ bias,
-                                          const float* __restrict__ scale,
-                                          const float* __restrict__ shift,
-                                          int relu) {
-  if (bias) v += bias[co];
+__device__ __forceinline__ float with_bias(float v, int co,
+                                           const float* __restrict__ bias) {
+  return bias ? v + bias[co] : v;
+}
+
+// the epilogue after the bias: the per-channel affine and ReLU
+__device__ __forceinline__ float post(float v, int co,
+                                      const float* __restrict__ scale,
+                                      const float* __restrict__ shift,
+                                      int relu) {
   if (scale) v = fmaf(v, scale[co], shift[co]);
   if (relu) v = fmaxf(v, 0.f);
   return v;
@@ -145,13 +153,16 @@ __device__ __forceinline__ void gn_segment_sums(float* red, int seg, int co0,
 // hg::stage_patch (bfloat16 only).  kStats (GN layers: Tout float32, no
 // scale or ReLU): the epilogue also writes the block's segment sums of y and
 // y^2 to gn_part (B, H, tiles, Cout / seg, 2); otherwise gn_part and seg
-// are not read.
+// are not read.  pre (not kStats, may be null): the float32 pre-activation
+// y (+bias) of the same pixels, (B, H, W, Cout), written beside out (the
+// affine layer's forward keeps it for its backward).
 template <int kN, typename Tin, typename Tout, bool kSplit, bool kStats>
 __global__ void __launch_bounds__(kConvThreads)
 hex_conv_kernel(const Tin* __restrict__ x, const Tin* __restrict__ x2, int Ca,
                 const Tin* __restrict__ w,
                 const float* __restrict__ bias, const float* __restrict__ scale,
                 const float* __restrict__ shift, Tout* __restrict__ out,
+                float* __restrict__ pre,
                 int H, int W, int Cin, int Cout, int kn,
                 const __grid_constant__ hg::TapTable taps, int r_lo, int n_rows,
                 int c_lo, int n_cols, int relu, int vec,
@@ -180,24 +191,32 @@ hex_conv_kernel(const Tin* __restrict__ x, const Tin* __restrict__ x2, int Ca,
     for (int h = 0; h < 2; ++h) {
       const int pix = w0 + 16 * (threadIdx.x / 32) + lane / 4 + 8 * h;
       if (pix >= W) continue;
-      Tout* op = out + ((pix0 + (long long)o * W) + pix) * Cout;
+      const long long at = ((pix0 + (long long)o * W) + pix) * Cout;
+      Tout* op = out + at;
+      float* pp = pre ? pre + at : nullptr;
 #pragma unroll
       for (int i = 0; i < kN / 8; ++i) {
         const int co = co0 + 8 * i + 2 * (lane % 4);
         if (co >= Cout) continue;
-        const float v0 = epilogue(acc[4 * i + 2 * h], co, bias, scale, shift,
-                                  relu);
+        const float y0 = with_bias(acc[4 * i + 2 * h], co, bias);
+        const float v0 = post(y0, co, scale, shift, relu);
         if (co + 1 >= Cout) {
           store(op + co, v0);
+          if (pp) pp[co] = y0;
           continue;
         }
-        const float v1 = epilogue(acc[4 * i + 2 * h + 1], co + 1, bias, scale,
-                                  shift, relu);
+        const float y1 = with_bias(acc[4 * i + 2 * h + 1], co + 1, bias);
+        const float v1 = post(y1, co + 1, scale, shift, relu);
         if (pairs) {
           store2(op + co, v0, v1);
+          if (pp) store2(pp + co, y0, y1);
         } else {
           store(op + co, v0);
           store(op + co + 1, v1);
+          if (pp) {
+            pp[co] = y0;
+            pp[co + 1] = y1;
+          }
         }
       }
     }
@@ -261,12 +280,14 @@ hex_conv_kernel(const Tin* __restrict__ x, const Tin* __restrict__ x2, int Ca,
     for (int i = 0; i < PT; ++i) {
       const int pix = w0 + tp + i * kPixLanes;
       if (pix >= W) continue;
-      Tout* op = out + (((long long)b * H + o) * W + pix) * Cout;
+      const long long at = (((long long)b * H + o) * W + pix) * Cout;
 #pragma unroll
       for (int j = 0; j < kChanT; ++j) {
         const int co = co0 + tc * kChanT + j;
         if (co >= Cout) continue;
-        store(op + co, epilogue(acc[i][j], co, bias, scale, shift, relu));
+        const float y = with_bias(acc[i][j], co, bias);
+        store(out + at + co, post(y, co, scale, shift, relu));
+        if (pre) pre[at + co] = y;
       }
     }
     if constexpr (kStats) {
@@ -375,7 +396,7 @@ gn_apply_kernel(const float* __restrict__ y, const float* __restrict__ stats,
 template <int kN, typename Tin, typename Tout, bool kStats>
 int launch_conv_n(const void* x, const void* x2, int Ca, const void* w,
                   const float* bias, const float* scale, const float* shift,
-                  void* out, int B, int H, int W, int Cin, int Cout, int kn,
+                  void* out, float* pre, int B, int H, int W, int Cin, int Cout, int kn,
                   const Geometry& g, int relu, int vec, size_t smem,
                   float* gn_part, int seg, cudaStream_t stream) {
   auto kernel = x2 ? hex_conv_kernel<kN, Tin, Tout, true, kStats>
@@ -388,7 +409,7 @@ int launch_conv_n(const void* x, const void* x2, int Ca, const void* w,
   kernel<<<grid, kConvThreads, smem, stream>>>(
       static_cast<const Tin*>(x), static_cast<const Tin*>(x2), Ca,
       static_cast<const Tin*>(w), bias, scale, shift, static_cast<Tout*>(out),
-      H, W, Cin, Cout, kn, g.taps, g.r_lo, g.n_rows, g.c_lo, g.n_cols, relu,
+      pre, H, W, Cin, Cout, kn, g.taps, g.r_lo, g.n_rows, g.c_lo, g.n_cols, relu,
       vec, gn_part, seg);
   return (int)cudaGetLastError();
 }
@@ -403,12 +424,12 @@ bool aligned16(const void* p) {
 template <typename Tin, typename Tout, bool kStats>
 int launch_conv(const void* x, const void* x2, int Ca, const void* w,
                 const float* bias, const float* scale, const float* shift,
-                void* out, int B, int H, int W, int Cin, int Cout, int kn,
+                void* out, float* pre, int B, int H, int W, int Cin, int Cout, int kn,
                 const Geometry& g, int relu, int n, float* gn_part, int seg,
                 cudaStream_t stream) {
   if constexpr (std::is_same<Tin, float>::value) {
     return launch_conv_n<COB, Tin, Tout, kStats>(
-        x, x2, Ca, w, bias, scale, shift, out, B, H, W, Cin, Cout, kn, g,
+        x, x2, Ca, w, bias, scale, shift, out, pre, B, H, W, Cin, Cout, kn, g,
         relu, 0, hg::conv_tile_smem(g, kn, COB), gn_part, seg, stream);
   } else {
     // 16-byte copies where every unit of 8 channels lies whole in one
@@ -420,8 +441,8 @@ int launch_conv(const void* x, const void* x2, int Ca, const void* w,
 #define HG_CONV_N(N)                                                        \
   case N:                                                                   \
     return launch_conv_n<N, Tin, Tout, kStats>(                             \
-        x, x2, Ca, w, bias, scale, shift, out, B, H, W, Cin, Cout, kn, g,   \
-        relu, vec, smem, gn_part, seg, stream);
+        x, x2, Ca, w, bias, scale, shift, out, pre, B, H, W, Cin, Cout, kn, \
+        g, relu, vec, smem, gn_part, seg, stream);
       HG_CONV_N(16)
       HG_CONV_N(32)
       HG_CONV_N(64)
@@ -445,15 +466,15 @@ int launch_layer(const void* x, const void* x2, int Ca, const void* w,
                  int Cout, int kn, const Geometry& g, int relu, int n,
                  cudaStream_t stream) {
   if (gn_groups == 0)
-    return launch_conv<T, T, false>(x, x2, Ca, w, bias, scale, shift, out, B,
-                                    H, W, Cin, Cout, kn, g, relu, n, nullptr,
-                                    0, stream);
+    return launch_conv<T, T, false>(x, x2, Ca, w, bias, scale, shift, out, y,
+                                    B, H, W, Cin, Cout, kn, g, relu, n,
+                                    nullptr, 0, stream);
   const int cpg = Cout / gn_groups;
   const int seg = std::gcd(cpg, n);
   const int tiles = (W + kTileP - 1) / kTileP;
   if (n_part != 2LL * B * H * tiles * (Cout / seg)) return -1;
   int err = launch_conv<T, float, true>(x, x2, Ca, w, bias, nullptr, nullptr,
-                                        y, B, H, W, Cin, Cout, kn, g, 0, n,
+                                        y, nullptr, B, H, W, Cin, Cout, kn, g, 0, n,
                                         part, seg, stream);
   if (err) return err;
   const long long HW = (long long)H * W;
@@ -485,7 +506,9 @@ int launch_layer(const void* x, const void* x2, int Ca, const void* w,
 // Cout), the pre-activation (kept for the backward), part (B, H,
 // ceil(W / 64), Cout / seg, 2) with seg = gcd(Cout / gn_groups, N), n_part
 // its floats, and stats (B, gn_groups, 2), mean and rstd (kept for the
-// backward).  x2 non-null is the split layer (the
+// backward).  Without GN, y non-null (B, H, W, Cout) float32 receives the
+// pre-activation (conv + bias) beside out: the affine layer's forward keeps
+// it for its backward.  x2 non-null is the split layer (the
 // counterpart of _stack_layer_kernel's split=True, conv_pallas.py:838-871):
 // x is (B, H, W, Ca) with input channels [0, Ca), x2 (B, H, W, Cin - Ca)
 // with [Ca, Cin), 0 < Ca < Cin, and w still the unsplit layer's.  The grid

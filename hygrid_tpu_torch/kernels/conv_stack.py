@@ -14,17 +14,21 @@ ReLU, as ``_stack_layer_kernel`` computes it:
 * ``("gn", G, gamma, beta)`` — per-sample GroupNorm over G channel groups,
   statistics from the float32 pre-activation (``E[x^2] - mean^2`` clamped
   at 0, eps 1e-5);
-* ``("affine", scale, shift)`` — per-channel ``x * scale + shift``
-  (forward only: under grad it raises ``NotImplementedError``).
+* ``("affine", scale, shift)`` — per-channel ``x * scale + shift``.
 
 :func:`hex_conv_layer` is a ``torch.autograd.Function`` (the counterpart of
 the stack's ``custom_vjp``, ``conv_pallas.py:1266-1362``).  Its forward
 keeps the layer input and, for GN layers, the float32 pre-activation the
-conv pass writes anyway and the (sample, group) mean and rstd.  Its
-backward pulls the output cotangent back through ReLU / GN / bias, for GN
-layers with :func:`gn_relu_backward` (``csrc/gn_backward.cu``: the
-closed-form vjp of the reference's tail, where JAX takes ``jax.vjp`` of
-``_make_post`` under XLA), in the activation dtype, and runs
+conv pass writes anyway and the (sample, group) mean and rstd; an affine
+layer whose grad is wanted has the conv pass write its float32
+pre-activation beside the output too, and a ReLU layer without GN keeps
+its output, whose positive entries are the ReLU's mask.  Its backward
+pulls the output cotangent back through ReLU / norm / bias, for GN layers with
+:func:`gn_relu_backward` (``csrc/gn_backward.cu``: the closed-form vjp of
+the reference's tail, where JAX takes ``jax.vjp`` of ``_make_post`` under
+XLA), for affine layers with :func:`affine_relu_backward` (plain torch
+ops on any device, as the reference's XLA pullback of the same tail), in
+the activation dtype, and runs
 :func:`hex_conv_layer_dgrad` (dL/dx) and :func:`hex_conv_layer_wgrad`
 (dL/dW): the two halves of ``_stack_layer_bwd_kernel``.  Each grad comes
 back in its input's dtype.
@@ -91,7 +95,8 @@ __all__ = ["hex_conv_layer", "hex_conv_layer_plain", "hex_conv_layer_dgrad",
            "hex_conv_layer_split_plain", "hex_conv_layer_split_dgrad",
            "hex_conv_layer_split_dgrad_plain", "hex_conv_layer_split_wgrad",
            "hex_conv_layer_split_wgrad_plain", "gn_stats_plain",
-           "gn_relu_backward", "gn_relu_backward_plain", "hex_conv_stack"]
+           "gn_relu_backward", "gn_relu_backward_plain",
+           "affine_relu_backward", "hex_conv_stack"]
 
 LAUNCHES = 0
 """Number of layers run by the kernel (one GN layer is three CUDA launches
@@ -371,6 +376,26 @@ def gn_relu_backward(y, mean, rstd, gamma, beta, gout, groups: int,
     return gpre, grads[0], grads[1], grads[2]
 
 
+def affine_relu_backward(y, scale, gout, out=None):
+    """The backward of an affine layer's tail ``act(y * scale + shift)``:
+    NHWC float32 pre-activation ``y`` ``(B, H, W, C)``, ``scale`` ``(C,)``,
+    the output cotangent ``gout`` and, for a ReLU layer, the layer's output
+    ``out``, whose positive entries pass the cotangent (None: no ReLU).
+    Returns ``(gpre, dscale, dshift, dbias)``: the pre-activation cotangent
+    in gout's dtype, and float32 ``(C,)`` sums (``dbias`` from the float32
+    ``gpre``), as ``jax.vjp`` of the reference's ``_make_post`` gives them.
+
+    Plain torch ops on any device: the reference pulls this tail back under
+    XLA (``conv_pallas.py:2023-2029``), not in a Pallas kernel."""
+    sc = scale.float()
+    d = gout.float()
+    if out is not None:
+        d = torch.where(out > 0, d, torch.zeros_like(d))
+    gpre = d * sc
+    return (gpre.to(gout.dtype), (d * y).sum((0, 1, 2)), d.sum((0, 1, 2)),
+            gpre.sum((0, 1, 2)))
+
+
 def hex_conv_layer_plain(x: torch.Tensor, kernel: torch.Tensor, bias=None, *,
                          radius: int, dilation: int = 1, norm=None,
                          relu: bool = False) -> torch.Tensor:
@@ -461,7 +486,7 @@ def _ptr(t):
 
 
 def _conv_launch(x, wt, cout, taps_key, what, bias=None, norm=None,
-                 relu=False, x2=None):
+                 relu=False, x2=None, save_pre=False):
     """One ``hg_hex_conv_layer`` call on checked NHWC ``x`` with weights
     ``wt`` ``(kn, Cin, Cout)`` (any float dtype; passed as float32 for
     float32 ``x``, packed by :func:`_pack_mma_weights` for bfloat16) and
@@ -469,7 +494,8 @@ def _conv_launch(x, wt, cout, taps_key, what, bias=None, norm=None,
     ``x2`` (checked, same batch, spatial shape and dtype) the split layer
     on the channel concatenation of ``x`` and ``x2``.  Returns ``(out, y,
     stats)``: for a GN layer the float32 pre-activation and ``(B, G, 2)``
-    mean and rstd the kernel computed, else None."""
+    mean and rstd the kernel computed; for an affine layer with
+    ``save_pre`` the pre-activation and None; else None."""
     b, h, w, ca = x.shape
     cin = ca + (0 if x2 is None else x2.shape[-1])
     kn = wt.shape[0]
@@ -505,6 +531,9 @@ def _conv_launch(x, wt, cout, taps_key, what, bias=None, norm=None,
         _, scale, shift = norm
         scale = _check_param(scale, "scale", cout, x.device)
         shift = _check_param(shift, "shift", cout, x.device)
+        if save_pre:
+            y = torch.empty((b, h, w, cout), dtype=torch.float32,
+                            device=x.device)
     out = torch.empty((b, h, w, cout), dtype=x.dtype, device=x.device)
     lib = _build.load_library()
     with torch.cuda.device(x.device):
@@ -530,12 +559,14 @@ def _check_pair(a, b, what) -> None:
                          "dtype and device")
 
 
-def _layer_forward(x, kernel, bias, radius, dilation, norm, relu, x2=None):
+def _layer_forward(x, kernel, bias, radius, dilation, norm, relu, x2=None,
+                   save_pre=False):
     """``(out, y, stats)`` of one layer, or with ``x2`` of the split layer
     on the channel concatenation of ``x`` and ``x2``: ``y`` is its float32
-    NHWC pre-activation where the device path has it (always on the CPU,
-    GN layers on CUDA), ``stats`` a GN layer's float32 ``(B, G, 2)`` mean
-    and rstd (None without GN)."""
+    NHWC pre-activation where the device path has it (always on the CPU;
+    on CUDA for GN layers, and for affine layers with ``save_pre``),
+    ``stats`` a GN layer's float32 ``(B, G, 2)`` mean and rstd (None
+    without GN)."""
     global LAUNCHES, SPLIT_LAUNCHES
     if x.device.type == "cpu":
         xin = x if x2 is None else torch.cat([x, x2], dim=-1)
@@ -557,7 +588,8 @@ def _layer_forward(x, kernel, bias, radius, dilation, norm, relu, x2=None):
                   what)
     wt = kernel.permute(2, 1, 0)                            # (kn, Cin, Cout)
     out, y, stats = _conv_launch(x, wt, cout, (radius, dilation, False),
-                                 what, bias, norm, relu, x2=x2)
+                                 what, bias, norm, relu, x2=x2,
+                                 save_pre=save_pre)
     if x2 is None:
         LAUNCHES += 1
     else:
@@ -566,37 +598,46 @@ def _layer_forward(x, kernel, bias, radius, dilation, norm, relu, x2=None):
 
 
 class _HexConvLayer(torch.autograd.Function):
-    """One layer with GN (``groups > 0``) or without a norm, on ``x`` or,
-    with ``x2`` not None, on the concatenation of ``x`` and ``x2`` (the
-    split layer); see the module docstring for the backward."""
+    """One layer with GN (``kind`` "gn", ``p, q`` gamma and beta), the
+    per-channel affine (``kind`` "affine", ``p, q`` scale and shift) or
+    without a norm (``kind`` None), on ``x`` or, with ``x2`` not None, on
+    the concatenation of ``x`` and ``x2`` (the split layer); see the module
+    docstring for the backward.  ``save_pre``: an affine layer keeps its
+    float32 pre-activation (its grad is wanted)."""
 
     @staticmethod
-    def forward(ctx, x, x2, kernel, bias, gamma, beta, radius, dilation,
-                groups, relu):
-        norm = ("gn", groups, gamma, beta) if groups else None
+    def forward(ctx, x, x2, kernel, bias, p, q, radius, dilation, kind,
+                groups, relu, save_pre):
+        norm = (None if kind is None else ("gn", groups, p, q)
+                if kind == "gn" else ("affine", p, q))
         out, y, stats = _layer_forward(x, kernel, bias, radius, dilation,
-                                       norm, relu, x2)
-        ctx.geometry = (radius, dilation, groups, relu)
-        # GN layers pull back through their pre-activation and statistics;
-        # the others through the ReLU mask of their output
-        ctx.save_for_backward(x, x2, kernel, bias, gamma, beta,
-                              y if groups else out, stats)
+                                       norm, relu, x2, save_pre)
+        ctx.geometry = (radius, dilation, kind, groups, relu)
+        # normed layers pull back through their pre-activation (and GN's
+        # statistics), ReLU layers without GN through the mask of their
+        # output
+        ctx.save_for_backward(x, x2, kernel, bias, p, q,
+                              None if kind is None else y,
+                              out if relu and kind != "gn" else None, stats)
         return out
 
     @staticmethod
     @once_differentiable
     def backward(ctx, gout):
-        x, x2, kernel, bias, gamma, beta, saved, stats = ctx.saved_tensors
-        radius, dilation, groups, relu = ctx.geometry
-        dgamma = dbeta = None
-        if groups:
-            gpre, dgamma, dbeta, dbias = gn_relu_backward(
-                saved, stats[..., 0], stats[..., 1], gamma, beta,
-                gout.contiguous(), groups, relu)
-            gpre = gpre.to(x.dtype)
-            dgamma, dbeta = dgamma.to(gamma.dtype), dbeta.to(beta.dtype)
+        x, x2, kernel, bias, p, q, y, out, stats = ctx.saved_tensors
+        radius, dilation, kind, groups, relu = ctx.geometry
+        dp = dq = None
+        if kind is not None:
+            if kind == "gn":
+                gpre, dp, dq, dbias = gn_relu_backward(
+                    y, stats[..., 0], stats[..., 1], p, q,
+                    gout.contiguous(), groups, relu)
+            else:
+                gpre, dp, dq, dbias = affine_relu_backward(y, p, gout, out)
+            gpre = gpre.to(x.dtype).contiguous()
+            dp, dq = dp.to(p.dtype), dq.to(q.dtype)
         else:
-            g32 = gout.float() * (saved > 0) if relu else gout.float()
+            g32 = gout.float() * (out > 0) if relu else gout.float()
             gpre = g32.to(x.dtype).contiguous()
             dbias = g32.sum((0, 1, 2))
         need = ctx.needs_input_grad
@@ -618,16 +659,20 @@ class _HexConvLayer(torch.autograd.Function):
         db = (dbias.to(bias.dtype)
               if bias is not None and need[3] else None)
         return (dx, dx2, None if dk is None else dk.to(kernel.dtype), db,
-                dgamma, dbeta, None, None, None, None)
+                dp, dq, None, None, None, None, None, None)
 
 
-def _affine_forward_only(what, tensors) -> None:
-    """Raise if an affine-norm layer is run where a grad is wanted."""
-    if torch.is_grad_enabled() and any(
-            isinstance(t, torch.Tensor) and t.requires_grad for t in tensors):
-        raise NotImplementedError(
-            f"{what}: an affine norm has no backward in the port "
-            "(the training path has none); use norm None or GN")
+def _apply_layer(x, x2, kernel, bias, radius, dilation, norm, relu):
+    """:class:`_HexConvLayer` on a layer's arguments (``norm`` None,
+    ``("gn", G, gamma, beta)`` or ``("affine", scale, shift)``)."""
+    kind = None if norm is None else norm[0]
+    groups = int(norm[1]) if kind == "gn" else 0
+    p, q = (None, None) if norm is None else norm[-2:]
+    save_pre = kind == "affine" and torch.is_grad_enabled() and any(
+        isinstance(t, torch.Tensor) and t.requires_grad
+        for t in (x, x2, kernel, bias, p, q))
+    return _HexConvLayer.apply(x, x2, kernel, bias, p, q, radius, dilation,
+                               kind, groups, bool(relu), save_pre)
 
 
 def hex_conv_layer(x: torch.Tensor, kernel: torch.Tensor, bias=None, *,
@@ -637,22 +682,17 @@ def hex_conv_layer(x: torch.Tensor, kernel: torch.Tensor, bias=None, *,
     with flat hex weights ``kernel`` ``(Cout, Cin, kn)``, then ``bias``, an
     optional ``norm`` (``("gn", G, gamma, beta)`` or ``("affine", scale,
     shift)``) and an optional ReLU.  Returns ``(B, H, W, Cout)`` in x's
-    dtype, differentiable in x, kernel, bias, gamma and beta.
+    dtype, differentiable in x, kernel, bias and the norm's vectors (gamma
+    and beta, or scale and shift).
 
     A CPU tensor runs the plain versions (forward and backward).  A CUDA
     tensor (float32 or bfloat16, contiguous) launches the kernels (for
     bfloat16 on the tensor cores, with the kernel rounded to bf16);
-    anything else raises.  An affine norm is forward-only.
+    anything else raises.
     """
     if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"hex_conv_layer: no kernel for device {x.device}")
-    if norm is not None and norm[0] == "affine":
-        _affine_forward_only("hex_conv_layer", (x, kernel, bias, *norm[1:]))
-        return _layer_forward(x, kernel, bias, radius, dilation, norm,
-                              relu)[0]
-    groups, gamma, beta = (0, None, None) if norm is None else norm[1:]
-    return _HexConvLayer.apply(x, None, kernel, bias, gamma, beta, radius,
-                               dilation, int(groups), bool(relu))
+    return _apply_layer(x, None, kernel, bias, radius, dilation, norm, relu)
 
 
 def hex_conv_layer_split_plain(a: torch.Tensor, b: torch.Tensor,
@@ -675,27 +715,20 @@ def hex_conv_layer_split(a: torch.Tensor, b: torch.Tensor,
     of NHWC ``a`` ``(B, H, W, Ca)`` and ``b`` ``(B, H, W, Cb)``, without
     building it.  ``kernel`` is the unsplit ``(Cout, Ca + Cb, kn)``; bias,
     norm and ReLU as for :func:`hex_conv_layer`.  Returns ``(B, H, W,
-    Cout)`` in the inputs' dtype, differentiable in a, b, kernel, bias,
-    gamma and beta.
+    Cout)`` in the inputs' dtype, differentiable in a, b, kernel, bias and
+    the norm's vectors.
 
     A CPU tensor runs the plain versions (forward and backward, as
     :func:`hex_conv_layer_split_plain` on the concatenation).  A CUDA
     tensor (float32 or bfloat16, contiguous, both inputs alike) launches
     the split mode of ``csrc/hex_conv_layer.cu`` (counted in
     ``SPLIT_LAUNCHES``), and its backward the split dgrad and wgrad
-    kernels; anything else raises.  An affine norm is forward-only.
+    kernels; anything else raises.
     """
     if a.device.type not in ("cpu", "cuda"):
         raise ValueError(f"hex_conv_layer_split: no kernel for device "
                          f"{a.device}")
-    if norm is not None and norm[0] == "affine":
-        _affine_forward_only("hex_conv_layer_split",
-                             (a, b, kernel, bias, *norm[1:]))
-        return _layer_forward(a, kernel, bias, radius, dilation, norm, relu,
-                              b)[0]
-    groups, gamma, beta = (0, None, None) if norm is None else norm[1:]
-    return _HexConvLayer.apply(a, b, kernel, bias, gamma, beta, radius,
-                               dilation, int(groups), bool(relu))
+    return _apply_layer(a, b, kernel, bias, radius, dilation, norm, relu)
 
 
 def _dgrad_launch(gpre, kernel, radius, dilation, what):

@@ -1,5 +1,7 @@
 """Flagship HexCNN image classifier, PyTorch port of the stage-wise routes
-of ``hygrid_tpu/models/hexcnn.py`` (``:120-154``).
+of ``hygrid_tpu/models/hexcnn.py`` (``:120-154``), and its residual
+families: :class:`HexConvNeXtBlock`, :class:`HexResBlock` and
+:class:`HexResNet` (``:157-244``).
 
 Stages of conv layers separated by stride-2 hex max-pools, then a global
 average pool and a linear head.  The public input is ``(B, C, H, W)``
@@ -27,7 +29,46 @@ from ..nn import functional as F
 from ..nn.layers import HexConvStack
 from ..nn.modules import HexConvModule
 
-__all__ = ["HexCNN", "hexcnn_small", "hexcnn_tiny"]
+__all__ = ["HexCNN", "HexConvNeXtBlock", "HexResBlock", "HexResNet",
+           "hexcnn_small", "hexcnn_tiny"]
+
+
+def _dense_init(linear: nn.Linear, generator) -> None:
+    """flax ``Dense`` defaults: lecun_normal kernel (a normal truncated at
+    two standard deviations), zero bias."""
+    std = 1.0 / math.sqrt(linear.in_features) / 0.87962566103423978
+    with torch.no_grad():
+        nn.init.trunc_normal_(linear.weight, std=std, a=-2 * std, b=2 * std,
+                              generator=generator)
+        linear.bias.zero_()
+
+
+def _dense(cin: int, cout: int, device, generator) -> nn.Linear:
+    """A float32 ``nn.Linear`` with flax ``Dense``'s initialisation."""
+    linear = nn.Linear(cin, cout, device=device)
+    _dense_init(linear, generator)
+    return linear
+
+
+def _linear(x: torch.Tensor, linear: nn.Linear, dtype) -> torch.Tensor:
+    """flax ``Dense(dtype=dtype)`` on the last axis: input and float32
+    parameters cast to ``dtype``."""
+    return nn.functional.linear(x.to(dtype), linear.weight.to(dtype),
+                                linear.bias.to(dtype))
+
+
+def _gelu(x: torch.Tensor) -> torch.Tensor:
+    """flax ``nn.gelu``: the tanh approximation."""
+    return nn.functional.gelu(x, approximate="tanh")
+
+
+def _layer_norm(x: torch.Tensor, norm: nn.LayerNorm, dtype) -> torch.Tensor:
+    """flax ``LayerNorm(dtype=dtype)`` over the last axis: statistics and
+    normalisation in float32, the result cast to ``dtype`` (eps 1e-6, the
+    module's)."""
+    return nn.functional.layer_norm(
+        x.float(), norm.normalized_shape, norm.weight, norm.bias,
+        norm.eps).to(dtype)
 
 
 class HexCNN(nn.Module):
@@ -82,13 +123,7 @@ class HexCNN(nn.Module):
                         generator=generator))
                     cin = width
             cin = width
-        self.head = nn.Linear(cin, num_classes, device=device)
-        # flax Dense defaults: lecun_normal kernel, zero bias
-        std = 1.0 / math.sqrt(cin) / 0.87962566103423978
-        with torch.no_grad():
-            nn.init.trunc_normal_(self.head.weight, std=std, a=-2 * std,
-                                  b=2 * std, generator=generator)
-            self.head.bias.zero_()
+        self.head = _dense(cin, num_classes, device, generator)
 
     def forward(self, x: torch.Tensor, *, plain: bool = False,
                 train: bool = False) -> torch.Tensor:
@@ -112,9 +147,139 @@ class HexCNN(nn.Module):
                 x = F.hex_pool2d(x, "max", kernel_size=2, stride=2,
                                  data_format=fmt).contiguous()
         x = F.hex_global_pool2d(x, "average", data_format=fmt)
-        return nn.functional.linear(x.to(self.dtype),
-                                    self.head.weight.to(self.dtype),
-                                    self.head.bias.to(self.dtype))
+        return _linear(x, self.head, self.dtype)
+
+
+def _trunc_normal(shape, std, dtype, device, generator) -> nn.Parameter:
+    """flax ``truncated_normal(std)``: a normal truncated at two standard
+    deviations."""
+    t = torch.empty(shape, dtype=torch.float32, device=device)
+    with torch.no_grad():
+        nn.init.trunc_normal_(t, std=std, a=-2 * std, b=2 * std,
+                              generator=generator)
+    return nn.Parameter(t.to(dtype))
+
+
+class HexConvNeXtBlock(nn.Module):
+    """Depthwise hex conv -> LN -> pointwise MLP residual block
+    (``hygrid_tpu/models/hexcnn.py:157-183``): the ConvNeXt pattern on the
+    hex lattice.
+
+    Parameters: ``dw_kernel`` ``(width, 1, kn)`` stored in ``dtype`` (as
+    the reference stores it), ``norm`` (LayerNorm, eps 1e-6), ``fc1``
+    ``width -> expand * width`` and ``fc2`` back (flax ``LayerNorm_0``,
+    ``Dense_0``, ``Dense_1``; float32, computed in ``dtype``).  The input
+    has ``width`` channels (the residual adds it).
+    """
+
+    def __init__(self, width: int, radius: int = 3, expand: int = 4,
+                 dtype: torch.dtype = torch.float32, device="cuda",
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.width, self.radius, self.dtype = width, radius, dtype
+        self.dw_kernel = _trunc_normal((width, 1, F.hex_kernel_num(radius)),
+                                       0.02, dtype, device, generator)
+        self.norm = nn.LayerNorm(width, eps=1e-6, device=device)
+        self.fc1 = _dense(width, expand * width, device, generator)
+        self.fc2 = _dense(expand * width, width, device, generator)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        """``(B, width, H, W)`` -> the same shape, offset 0."""
+        residual = x
+        x = F.hex_conv2d(x, self.dw_kernel, radius=self.radius,
+                         padding=self.radius - 1, groups=self.width)
+        x = _layer_norm(x.permute(0, 2, 3, 1), self.norm, self.dtype)
+        x = _linear(_gelu(_linear(x, self.fc1, self.dtype)), self.fc2,
+                    self.dtype)
+        return x.permute(0, 3, 1, 2) + residual
+
+
+class HexResBlock(nn.Module):
+    """Pre-activation residual block (``hygrid_tpu/models/hexcnn.py:186-
+    220``): GN -> GELU -> hex conv ``k1`` -> GN -> GELU -> hex conv ``k2``,
+    plus the skip (a Dense ``proj`` when the width changes).
+
+    GN has ``gcd(8, C)`` groups, eps 1e-6 and its statistics in float32
+    (``gn1``, ``gn2``); the convs are bias-free, ``k1`` ``(width, cin, kn)``
+    and ``k2`` ``(width, width, kn)`` stored in ``dtype``, run
+    ``impl="direct"`` (cuDNN on the card).
+    """
+
+    def __init__(self, in_channels: int, width: int, radius: int = 2,
+                 dtype: torch.dtype = torch.float32, device="cuda",
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.radius, self.dtype = radius, dtype
+        kn = F.hex_kernel_num(radius)
+        self.gn1 = nn.GroupNorm(math.gcd(8, in_channels), in_channels,
+                                eps=1e-6, device=device)
+        self.k1 = _trunc_normal((width, in_channels, kn), 0.05, dtype, device,
+                                generator)
+        self.gn2 = nn.GroupNorm(math.gcd(8, width), width, eps=1e-6,
+                                device=device)
+        self.k2 = _trunc_normal((width, width, kn), 0.05, dtype, device,
+                                generator)
+        self.proj = (_dense(in_channels, width, device, generator)
+                     if in_channels != width else None)
+
+    def _gn_gelu(self, x, gn):
+        x = nn.functional.group_norm(x.float(), gn.num_groups, gn.weight,
+                                     gn.bias, gn.eps)
+        return _gelu(x.to(self.dtype))
+
+    def _conv(self, x, kernel):
+        return F.hex_conv2d(x, kernel, radius=self.radius,
+                            padding=self.radius - 1, impl="direct")
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        """``(B, in_channels, H, W)`` -> ``(B, width, H, W)``."""
+        h = self._conv(self._gn_gelu(x, self.gn1), self.k1)
+        h = self._conv(self._gn_gelu(h, self.gn2), self.k2)
+        if self.proj is not None:
+            x = _linear(x.permute(0, 2, 3, 1), self.proj,
+                        self.dtype).permute(0, 3, 1, 2)
+        return x + h
+
+
+class HexResNet(nn.Module):
+    """Residual hex backbone and classifier (``hygrid_tpu/models/hexcnn.py:
+    223-244``): stages of :class:`HexResBlock` named ``s{i}b{j}``, a
+    stride-2 hex max-pool between stages, a global average pool and the
+    Dense ``head``.
+
+    ``in_channels``: the input's channels (flax infers them at init).
+    ``device`` / ``generator``: where the parameters live (the card unless
+    the caller asks for the CPU) and what initialises them.
+    """
+
+    def __init__(self, num_classes: int = 10,
+                 widths: Sequence[int] = (32, 64, 128),
+                 blocks_per_stage: int = 2, radius: int = 2,
+                 in_channels: int = 3, dtype: torch.dtype = torch.float32,
+                 device="cuda", generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.widths, self.dtype = tuple(widths), dtype
+        self.blocks_per_stage = blocks_per_stage
+        cin = in_channels
+        for si, width in enumerate(self.widths):
+            for bi in range(blocks_per_stage):
+                self.add_module(f"s{si}b{bi}", HexResBlock(
+                    cin, width, radius, dtype, device, generator))
+                cin = width
+        self.head = _dense(cin, num_classes, device, generator)
+
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+        """Logits ``(B, num_classes)`` for hex images ``(B, C, H, W)``;
+        ``train`` is the reference's flag (no layer differs in training)."""
+        x = x.to(self.dtype)
+        last = len(self.widths) - 1
+        for si in range(len(self.widths)):
+            for bi in range(self.blocks_per_stage):
+                x = getattr(self, f"s{si}b{bi}")(x)
+            if si != last:
+                x = F.hex_pool2d(x, "max", kernel_size=2, stride=2)
+        return _linear(F.hex_global_pool2d(x, "average"), self.head,
+                       self.dtype)
 
 
 def hexcnn_tiny(num_classes: int = 10, **kw) -> HexCNN:

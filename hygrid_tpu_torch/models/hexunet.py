@@ -24,7 +24,6 @@ port neither takes nor needs it.
 """
 from __future__ import annotations
 
-import math
 from typing import Optional, Sequence
 
 import torch
@@ -34,18 +33,9 @@ from ..nn import experimental as E
 from ..nn import functional as F
 from ..nn.layers import HexConvStack, _kaiming_hex_init
 from ..nn.modules import HexConvModule
+from .hexcnn import _dense_init
 
 __all__ = ["HexUNet", "HexConvTranspose2d", "HexPixelShuffleUpsample"]
-
-
-def _dense_init(linear: nn.Linear, generator) -> None:
-    """flax ``Dense`` defaults: lecun_normal kernel (a normal truncated at
-    two standard deviations), zero bias."""
-    std = 1.0 / math.sqrt(linear.in_features) / 0.87962566103423978
-    with torch.no_grad():
-        nn.init.trunc_normal_(linear.weight, std=std, a=-2 * std, b=2 * std,
-                              generator=generator)
-        linear.bias.zero_()
 
 
 class HexConvTranspose2d(nn.Module):

@@ -6,11 +6,16 @@ synthetic datasets.
 ``hygrid_tpu``'s steps are pure functions of a flax ``TrainState``; here
 the state holds a ``torch.nn.Module`` and a ``torch.optim.AdamW``, and
 :func:`train_step` updates both in place.  Batch-norm statistics
-(``batch_stats``) are not ported: a model with buffers raises.
+(flax's ``batch_stats``) are the model's buffers: the optimizer never sees
+them, :func:`train_step` runs the forward with ``train=True`` (batch
+statistics, the running statistics updated) and :func:`eval_step` with
+``train=False`` (the running statistics), as the reference's ``_forward``
+does.
 """
 from __future__ import annotations
 
 import dataclasses
+import inspect
 from typing import Callable, Optional, Tuple
 
 import numpy as np
@@ -43,7 +48,9 @@ class TrainState:
 def create_train_state(model: nn.Module, sample_input=None,
                        tx: Optional[Callable] = None,
                        learning_rate: float = 1e-3) -> TrainState:
-    """Wrap ``model`` with an optimizer over all of its parameters.
+    """Wrap ``model`` with an optimizer over its parameters (its buffers,
+such as BatchNorm's running statistics, are state the forward updates, as
+``batch_stats`` beside optax's ``params``).
 
     ``tx`` is a callable ``params -> torch.optim.Optimizer``; the default is
     ``optax.adamw(learning_rate)``'s semantics in ``torch.optim.AdamW``:
@@ -53,10 +60,6 @@ def create_train_state(model: nn.Module, sample_input=None,
     used: torch modules build their parameters at construction.
     """
     del sample_input
-    if any(True for _ in model.buffers()):
-        raise NotImplementedError(
-            "create_train_state: models with buffers (batch-norm batch_stats)"
-            " are not ported; HexCNN with norm='GN' or None has none")
     params = list(model.parameters())
     if tx is None:
         optimizer = torch.optim.AdamW(params, lr=learning_rate,
@@ -94,20 +97,31 @@ def _accuracy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     return (logits.argmax(-1) == labels).float().mean()
 
 
+def _forward(model: nn.Module, images: torch.Tensor, train: bool):
+    """``model(images)``, with ``train=`` where its forward takes the flag
+    (``hygrid_tpu``'s ``_forward`` passes it to ``apply``)."""
+    if "train" in inspect.signature(model.forward).parameters:
+        return model(images, train=train)
+    return model(images)
+
+
 def train_step(state: TrainState, images: torch.Tensor,
                labels: torch.Tensor):
     """One optimisation step: forward, :func:`dense_onehot_xent`, backward,
     optimizer update.  Unlike ``hygrid_tpu``'s pure step it updates
     ``state`` (the model's parameters, the optimizer's moments and
     ``state.step``) in place, and returns it with ``{"loss", "accuracy"}``
-    as 0-d tensors.  The parameters' ``.grad`` keep this step's grads.
+    as 0-d tensors.  The parameters' ``.grad`` keep this step's grads.  The
+    forward runs with ``train=True`` where the model takes the flag, so
+    BatchNorm normalises with batch statistics and updates its running
+    statistics.
 
     ``labels`` may be (B,) class ids or (B, h, w) per-cell ids against
     (B, K, h, w) logits.
     """
     model = state.model.train()
     state.optimizer.zero_grad(set_to_none=True)
-    logits = _class_axis_last(model(images), labels)
+    logits = _class_axis_last(_forward(model, images, True), labels)
     loss = dense_onehot_xent(logits, labels)
     loss.backward()
     state.optimizer.step()
@@ -119,8 +133,10 @@ def train_step(state: TrainState, images: torch.Tensor,
 @torch.no_grad()
 def eval_step(state: TrainState, images: torch.Tensor,
               labels: torch.Tensor) -> dict:
-    """Integer-label cross-entropy and accuracy, without a grad."""
-    logits = _class_axis_last(state.model.eval()(images), labels)
+    """Integer-label cross-entropy and accuracy, without a grad, on the
+    running statistics (``train=False``)."""
+    logits = _class_axis_last(_forward(state.model.eval(), images, False),
+                              labels)
     logp = torch.log_softmax(logits, dim=-1)
     loss = -logp.gather(-1, labels[..., None].long()).squeeze(-1).mean()
     return {"loss": loss, "accuracy": _accuracy(logits, labels)}
@@ -162,11 +178,14 @@ def hexify_batch(images: torch.Tensor,
 
 
 def synthetic_hex_cifar(rng: np.random.Generator, n: int, *,
-                        num_classes: int = 10, size: int = 32):
+                        num_classes: int = 10, size: int = 32,
+                        device="cuda"):
     """Deterministic CIFAR-like synthetic data (class-dependent oriented
     gratings + noise), hexified to (size//2, size//2): the numpy draws of
     ``hygrid_tpu.models.synthetic_hex_cifar``, so one seed gives both
-    packages the same data.  Returns float32 images and int64 labels."""
+    packages the same data.  Returns float32 images and int64 labels on
+    ``device``, where the images are hexified (the card unless the caller
+    asks for the CPU)."""
     labels = rng.integers(0, num_classes, n)
     yy, xx = np.mgrid[0:size, 0:size] / size
     images = np.zeros((n, 3, size, size), np.float32)
@@ -177,7 +196,8 @@ def synthetic_hex_cifar(rng: np.random.Generator, n: int, *,
                       * (2 + k % 3))
         images[sel] = wave[None]
     images += rng.normal(0, 0.3, images.shape).astype(np.float32)
-    return hexify_batch(torch.from_numpy(images)), torch.from_numpy(labels)
+    return (hexify_batch(torch.from_numpy(images).to(device)),
+            torch.from_numpy(labels).to(device))
 
 
 def synthetic_hex_shapes(rng: np.random.Generator, n: int, *, size: int = 64,

@@ -10,7 +10,9 @@ import numpy as np
 import torch
 
 __all__ = ["hexcnn_state_dict_from_flax", "hexconvmodule_state_dict_from_flax",
-           "hexunet_state_dict_from_flax"]
+           "hexunet_state_dict_from_flax", "hexvit_state_dict_from_flax",
+           "hexresnet_state_dict_from_flax",
+           "hexconvnext_state_dict_from_flax"]
 
 # flax norm submodule (inside HexConvModule's "norm") -> torch names
 _NORM_LEAVES = {"scale": "weight", "bias": "bias"}
@@ -146,4 +148,98 @@ def hexunet_state_dict_from_flax(tree: Mapping
                     out[f"{name}.{leaf}"] = _t(value)
         else:
             _conv_stage(out, name, sub, stats)
+    return out
+
+
+def _norm(out, name, norm: Mapping) -> None:
+    """A flax ``LayerNorm`` / ``GroupNorm`` (``scale``, ``bias``) as torch
+    ``{name}.weight`` and ``{name}.bias``."""
+    out[f"{name}.weight"] = _t(norm["scale"])
+    out[f"{name}.bias"] = _t(norm["bias"])
+
+
+def hexvit_state_dict_from_flax(tree: Mapping
+                                ) -> "OrderedDict[str, torch.Tensor]":
+    """``state_dict`` of :class:`hygrid_tpu_torch.models.HexViT` from the
+    flax variables of ``hygrid_tpu.models.HexViT``.
+
+    Accepts what :func:`hexcnn_state_dict_from_flax` accepts.  The stem
+    convs ``stem{i}`` and ``pos_embedding`` keep their names; in each
+    ``block{i}`` the LayerNorms ``LayerNorm_0`` / ``LayerNorm_1`` become
+    ``ln1`` / ``ln2`` and the Dense ``Dense_0`` / ``Dense_1`` ``fc1`` /
+    ``fc2``; the attention's ``query``, ``key`` and ``value`` kernels
+    ``(dim, heads, head_dim)`` become ``attn.{name}.weight`` ``(heads *
+    head_dim, dim)`` (biases flattened), its ``out`` kernel ``(heads,
+    head_dim, dim)`` ``attn.out.weight`` ``(dim, heads * head_dim)``; the
+    final ``LayerNorm_0`` becomes ``norm`` and the Dense ``head`` ``head``.
+    """
+    tree, _ = _split_variables(tree)
+    out: "OrderedDict[str, torch.Tensor]" = OrderedDict()
+    for name in sorted(tree):
+        sub = tree[name]
+        if name == "pos_embedding":
+            out[name] = _t(sub)
+        elif name.startswith("stem"):
+            for leaf, value in sorted(sub.items()):
+                out[f"{name}.{leaf}"] = _t(value)
+        elif name.startswith("block"):
+            _norm(out, f"{name}.ln1", sub["LayerNorm_0"])
+            _norm(out, f"{name}.ln2", sub["LayerNorm_1"])
+            _dense(out, f"{name}.fc1", sub["Dense_0"])
+            _dense(out, f"{name}.fc2", sub["Dense_1"])
+            for proj, dense in sorted(sub["attn"].items()):
+                kernel = np.array(dense["kernel"], dtype=np.float32)
+                d = kernel.shape[-1] if proj == "out" else kernel.shape[0]
+                _dense(out, f"{name}.attn.{proj}", {
+                    "kernel": kernel.reshape(-1, d) if proj == "out"
+                    else kernel.reshape(d, -1),
+                    "bias": np.reshape(dense["bias"], -1)})
+        elif name == "LayerNorm_0":
+            _norm(out, "norm", sub)
+        else:
+            _dense(out, name, sub)
+    return out
+
+
+def hexconvnext_state_dict_from_flax(tree: Mapping, prefix: str = ""
+                                     ) -> "OrderedDict[str, torch.Tensor]":
+    """``state_dict`` of :class:`hygrid_tpu_torch.models.HexConvNeXtBlock`
+    from the flax variables of ``hygrid_tpu.models.HexConvNeXtBlock``
+    (what :func:`hexcnn_state_dict_from_flax` accepts), each key prefixed
+    by ``prefix``: ``dw_kernel`` keeps its name, ``LayerNorm_0`` becomes
+    ``norm``, ``Dense_0`` / ``Dense_1`` ``fc1`` / ``fc2``."""
+    tree, _ = _split_variables(tree)
+    out: "OrderedDict[str, torch.Tensor]" = OrderedDict()
+    out[f"{prefix}dw_kernel"] = _t(tree["dw_kernel"])
+    _norm(out, f"{prefix}norm", tree["LayerNorm_0"])
+    _dense(out, f"{prefix}fc1", tree["Dense_0"])
+    _dense(out, f"{prefix}fc2", tree["Dense_1"])
+    return out
+
+
+def hexresnet_state_dict_from_flax(tree: Mapping
+                                   ) -> "OrderedDict[str, torch.Tensor]":
+    """``state_dict`` of :class:`hygrid_tpu_torch.models.HexResNet` from the
+    flax variables of ``hygrid_tpu.models.HexResNet`` (what
+    :func:`hexcnn_state_dict_from_flax` accepts).  In each block
+    ``s{i}b{j}`` the GroupNorms ``gn1`` / ``gn2`` keep their names
+    (``scale`` -> ``weight``), the kernels ``k1`` / ``k2`` theirs, and the
+    Dense ``proj`` becomes ``proj``; so does the ``head``.  A bare
+    :class:`HexResBlock`'s tree converts as one block with an empty
+    name."""
+    tree, _ = _split_variables(tree)
+    out: "OrderedDict[str, torch.Tensor]" = OrderedDict()
+    blocks = {k: v for k, v in tree.items() if k != "head"}
+    if "k1" in tree:
+        blocks = {"": tree}
+    for name in sorted(blocks):
+        sub, pre = blocks[name], f"{name}." if name else ""
+        for gn in ("gn1", "gn2"):
+            _norm(out, f"{pre}{gn}", sub[gn])
+        for k in ("k1", "k2"):
+            out[f"{pre}{k}"] = _t(sub[k])
+        if "proj" in sub:
+            _dense(out, f"{pre}proj", sub["proj"])
+    if "head" in tree:
+        _dense(out, "head", tree["head"])
     return out

@@ -235,18 +235,6 @@ def test_layer_backward_skips_dx_of_an_input_without_grad(monkeypatch):
     assert all(p.grad is not None for p in tm.parameters())
 
 
-def test_affine_norm_has_no_backward():
-    x = torch.rand(1, 6, 5, 4)
-    k = torch.rand(4, 4, 7, requires_grad=True)
-    norm = ("affine", torch.ones(4), torch.zeros(4))
-    with pytest.raises(NotImplementedError, match="affine"):
-        tcs.hex_conv_layer(x, k, radius=2, norm=norm)
-    with torch.no_grad():
-        out = tcs.hex_conv_layer(x, k, radius=2, norm=norm)
-    assert torch.equal(out, tcs.hex_conv_layer_plain(x, k, radius=2,
-                                                     norm=norm))
-
-
 PLANS = {  # the port's plans, bit-equal to hygrid_tpu's (test_torch_geometry)
     "r2h-40x36-bilinear": lambda: tgeo.rect_to_hex_plan(40, 36, 20, 18,
                                                         "bilinear"),

@@ -981,11 +981,19 @@ def test_split_layer_refuses_what_it_does_not_take(cuda):
         grads.append([t.grad for t in leaves])
     for got, want in zip(*grads):
         assert got is not None and float((got - want).abs().max()) <= 1e-5
-    with pytest.raises(NotImplementedError, match="affine"):
-        conv_stack.hex_conv_layer_split(
-            a, b, k.requires_grad_(), radius=2,
-            norm=("affine", torch.ones(8, device=cuda),
-                  torch.zeros(8, device=cuda)))
+    # an affine split layer trains too (12s in affine mode)
+    norm = ("affine", 1 + 0.1 * torch.rand(8, generator=gen, device=cuda),
+            0.1 * torch.randn(8, generator=gen, device=cuda))
+    grads = []
+    for fn in (conv_stack.hex_conv_layer_split,
+               conv_stack.hex_conv_layer_split_plain):
+        leaves = [t.clone().requires_grad_() for t in (a, b, k, *norm[1:])]
+        out = fn(*leaves[:3], radius=2, relu=True,
+                 norm=("affine", *leaves[3:]))
+        (out * out.detach()).sum().backward()
+        grads.append([t.grad for t in leaves])
+    for got, want in zip(*grads):
+        assert got is not None and _rel(got, want) <= 1e-4
 
 
 def test_hexunet_on_cuda_goes_through_the_kernels(cuda):
@@ -1294,3 +1302,91 @@ def test_gn_training_step_runs_no_plain_tail_on_cuda(cuda, monkeypatch):
     assert conv_stack.GN_BWD_LAUNCHES == 4
     assert not calls
     assert math.isfinite(float(m["loss"]))
+
+
+AFFINE_BWD_CASES = [  # (B, H, W, Ca, Cb, Cout, relu); Cb 0: not split
+    (2, 11, 13, 5, 0, 40, True),
+    (2, 12, 9, 32, 0, 32, False),
+    (2, 10, 17, 16, 16, 16, True),
+    (1, 9, 70, 24, 8, 32, True),
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", AFFINE_BWD_CASES)
+def test_affine_layer_backward_matches_plain(cuda, case, dtype):
+    """An affine layer (and an affine split layer) under grad: the forward
+    keeps its float32 pre-activation, the backward runs the dgrad and dW
+    kernels (split dgrad and split wgrad for the split layer); grads of x,
+    the kernel, bias, scale and shift against autograd of the plain version
+    (float32 1e-4 relative; bfloat16 3e-2, the conv layer's), and two
+    backward runs bit-equal."""
+    b, h, w, ca, cb, cout, relu = case
+    gen = torch.Generator(device=cuda).manual_seed(AFFINE_BWD_CASES.index(case))
+    split = cb > 0
+    xs = [torch.rand((b, h, w, c), generator=gen, device=cuda).to(dtype)
+          for c in ((ca, cb) if split else (ca,))]
+    k = (torch.randn((cout, ca + cb, 7), generator=gen, device=cuda)
+         / math.sqrt((ca + cb) * 7)).to(dtype)
+    vecs = [0.1 * torch.randn((cout,), generator=gen, device=cuda),
+            1 + 0.2 * torch.randn((cout,), generator=gen, device=cuda),
+            0.1 * torch.randn((cout,), generator=gen, device=cuda)]
+    g = torch.randn((b, h, w, cout), generator=gen, device=cuda).to(dtype)
+
+    def run(plain):
+        leaves = [t.clone().requires_grad_() for t in (*xs, k, *vecs)]
+        xl, (kl, bias, scale, shift) = leaves[:len(xs)], leaves[len(xs):]
+        kw = dict(radius=2, norm=("affine", scale, shift), relu=relu)
+        if split:
+            fn = (conv_stack.hex_conv_layer_split_plain if plain
+                  else conv_stack.hex_conv_layer_split)
+        else:
+            fn = (conv_stack.hex_conv_layer_plain if plain
+                  else conv_stack.hex_conv_layer)
+        (fn(*xl, kl, bias, **kw) * g).sum().backward()
+        return [t.grad for t in leaves]
+
+    counters = ("LAUNCHES", "DGRAD_LAUNCHES", "WGRAD_LAUNCHES",
+                "SPLIT_LAUNCHES", "SPLIT_DGRAD_LAUNCHES",
+                "SPLIT_WGRAD_LAUNCHES")
+    for name in counters:
+        setattr(conv_stack, name, 0)
+    got, again = run(False), run(False)
+    want = run(True)
+    launches = {n: getattr(conv_stack, n) for n in counters}
+    want_launches = ({"SPLIT_LAUNCHES": 2, "SPLIT_DGRAD_LAUNCHES": 4,
+                      "SPLIT_WGRAD_LAUNCHES": 4} if split else
+                     {"LAUNCHES": 2, "DGRAD_LAUNCHES": 2,
+                      "WGRAD_LAUNCHES": 2})
+    assert launches == {n: want_launches.get(n, 0) for n in counters}
+    tol = 1e-4 if dtype == torch.float32 else 3e-2
+    for i, (u, v, wv) in enumerate(zip(got, again, want)):
+        assert torch.equal(u, v), i
+        assert _rel(u, wv) <= tol, i
+
+
+def test_hexvit_on_cuda_serves_through_plan_gather_alone(cuda):
+    """A small HexViT (bf16) on hexify_batch's output: one plan_gather a
+    request and no other hand-written kernel; logits within 5e-2 of the
+    plain float32 path."""
+    from hygrid_tpu_torch.models import HexViT
+    gen = torch.Generator(device=cuda).manual_seed(4)
+    kw = dict(num_classes=5, dim=64, depth=2, heads=2, patch_halvings=3,
+              hex_size=(32, 32))
+    model = HexViT(dtype=torch.bfloat16, device=cuda, generator=gen, **kw)
+    ref = HexViT(device=cuda, **kw)
+    ref.load_state_dict(model.state_dict())
+    rect = torch.rand((2, 3, 64, 64), generator=gen, device=cuda)
+    before = {n: getattr(m, "LAUNCHES") for n, m in
+              (("gather", resample), ("layer", conv_stack),
+               ("single", conv_single), ("shift", resample_shift))}
+    with torch.inference_mode():
+        out = model(hexify_batch(rect.to(torch.bfloat16)))
+    after = {n: getattr(m, "LAUNCHES") for n, m in
+             (("gather", resample), ("layer", conv_stack),
+              ("single", conv_single), ("shift", resample_shift))}
+    assert {n: after[n] - before[n] for n in after} == \
+        {"gather": 1, "layer": 0, "single": 0, "shift": 0}
+    want = ref(hexify_batch(rect, plain=True))
+    assert out.shape == (2, 5) and out.dtype == torch.bfloat16
+    assert _rel(out, want) <= 5e-2

@@ -141,14 +141,19 @@ def test_extra_input_argument_checks_match_reference(kind):
 
 
 def test_split_layer_is_forward_only():
-    """With an affine norm (the per-module route's eval BN) the split layer
-    is forward only: under grad it raises, under no_grad it runs; an
-    unknown device raises.  GN and no norm train (the next test)."""
+    """The split layer with an affine norm (the per-module route's eval
+    BN), once forward only (hence the name), trains: its kernel grad is
+    autograd's of the plain version on the concatenation
+    (test_torch_affine_backward.py holds it to jax.grad); under no_grad
+    it runs; an unknown device raises."""
     xa, xb, ks, _, _ = _split_inputs(4, 1, 4, 4, 8, 8, 8, 1, None)
     norm = ("affine", torch.ones(8), torch.zeros(8))
-    with pytest.raises(NotImplementedError, match="affine"):
-        tcs.hex_conv_layer_split(_t(xa), _t(xb), _t(ks[0]).requires_grad_(),
-                                 radius=2, norm=norm)
+    grads = []
+    for fn in (tcs.hex_conv_layer_split, tcs.hex_conv_layer_split_plain):
+        k = _t(ks[0]).requires_grad_()
+        fn(_t(xa), _t(xb), k, radius=2, norm=norm, relu=True).sum().backward()
+        grads.append(k.grad)
+    assert torch.equal(*grads)
     with torch.no_grad():
         out = tcs.hex_conv_layer_split(_t(xa), _t(xb),
                                        _t(ks[0]).requires_grad_(), radius=2,

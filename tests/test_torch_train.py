@@ -150,10 +150,12 @@ def test_mean_iou_matches_jax(layout):
 
 
 def test_synthetic_data_matches_jax():
-    for name, kw in (("synthetic_hex_cifar", dict(size=32)),
-                     ("synthetic_hex_shapes", dict(size=32))):
+    for name, kw, where in (("synthetic_hex_cifar", dict(size=32),
+                             dict(device="cpu")),
+                            ("synthetic_hex_shapes", dict(size=32), {})):
         want_x, want_y = getattr(jm, name)(np.random.default_rng(3), 5, **kw)
-        got_x, got_y = getattr(tm, name)(np.random.default_rng(3), 5, **kw)
+        got_x, got_y = getattr(tm, name)(np.random.default_rng(3), 5, **kw,
+                                         **where)
         np.testing.assert_allclose(got_x.numpy(), np.asarray(want_x),
                                    rtol=0, atol=1e-6)
         np.testing.assert_array_equal(got_y.numpy(), np.asarray(want_y))
@@ -186,9 +188,13 @@ def test_create_train_state_uses_optax_adamw_defaults():
     sgd = tm.create_train_state(tm.HexCNN(device="cpu", **MODEL),
                                 tx=lambda p: torch.optim.SGD(p, lr=0.1))
     assert isinstance(sgd.optimizer, torch.optim.SGD)
-    bn = torch.nn.Sequential(torch.nn.BatchNorm1d(4))
-    with pytest.raises(NotImplementedError, match="batch_stats"):
-        tm.create_train_state(bn)
+    # BatchNorm's running statistics are buffers, not optimised (flax's
+    # batch_stats beside optax's params)
+    bn = tm.create_train_state(tm.HexCNN(device="cpu",
+                                         **dict(MODEL, norm="BN")))
+    params = bn.optimizer.param_groups[0]["params"]
+    assert len(params) == len(list(bn.model.parameters()))
+    assert not {id(b) for b in bn.model.buffers()} & {id(p) for p in params}
 
 
 @pytest.mark.parametrize("option", [dict(mesh=object()),
