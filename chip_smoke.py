@@ -201,7 +201,40 @@ Phases, each of which raises on failure (the script then exits non-zero):
     plan_gather, so against the plain path on plan_gather's input this is
     a check that the step is deterministic, beside plan_gather's input
     check) and HexResNet at its default widths on synthetic_hex_cifar at
-    b=256 (each batch hexified on the card).
+    b=256 (each batch hexified on the card);
+23. HexCNN-small training with hex augmentation (examples/train_hexcnn.py
+    --augment): phase 7's model and step on distinct b=32 512^2 batches,
+    each hexified (rect->hex, plan_gather) and then augmented on the card
+    by augment_hex_batch (rotate, flip, translate 2: torch ops, no kernel
+    of ours); runs of 4 augmented and of 4 plain steps in turns (aug,
+    plain, plain, aug) by CUDA events (images/s of each), the launches of
+    the first augmented run (phase 7's a step); every
+    augmented batch torch.equal to the plain transforms on its CPU copy at
+    the same draws (augment_draws replayed) and each image one of the 12
+    dihedral images of its input, shifted by its even row and free column
+    draws; one augmented step's loss against the plain float32 path on
+    the same draws (phase 7's gate); the augmentation's ms a batch beside
+    its bound (the batch read and written once);
+23b. hexrot60 on plan_gather's dense form (a rotation plan has no row-band
+    form) at b=32 C=3 256^2, k = 1..5, default pivot, float32, bfloat16
+    and uint8 (through bfloat16): the dense index form, two plan_gather
+    launches for two calls, torch.equal to apply_plan and between the
+    launches; per-call, device (CUDA graph) and plain ms beside the bound
+    from the dense table's bytes;
+24. raster ingest of one Sentinel-2 L2A 10 m tile (4 bands, 10980^2,
+    uint16, from a seed): written as an uncompressed GeoTIFF (EPSG:32633)
+    by codecs.write_raster into a temporary directory under build/, read
+    by IMAGE (the TiffWindowReader handle), the rect->hex plan, then
+    tiled_rect_to_hex to 5490^2 bilinear with tile_rows=2048 (one
+    plan_gather a tile), hex_impad_to_multiple(., 4), HEXIMAGE on a
+    540x960 window and Hex_imshow at 2160x3840 (one shift_resample), and
+    a .heximg round trip: the seconds of each stage, the tiled run again
+    (its sub-plans and their tables kept on the plan) split into host->
+    device, kernel and device->host,
+    the kernel's ms beside the monolithic rect_to_hex_resample's and the
+    bound, Mpix/s end to end (read, plan, tiled); tiled bit-equal to the
+    monolithic resample on the card (or within 1e-6 relative, said which),
+    the pad a zero pad, the mosaic bit-equal to render_mosaic.
 
 Beside kernel B, the backward kernels, the split layer and the single-op
 conv the kernels line carries cuDNN's time (``hex_conv2d(impl="direct")``
@@ -3023,6 +3056,405 @@ def run_new_training(torch):
     return paths
 
 
+# phase 23's augmentation: augment_hex_batch's draws on HexCNN-small's
+# 256^2 hex batches (examples/train_hexcnn.py --augment)
+AUGMENT = dict(rotate=True, flip=True, translate=2)
+
+
+def _dihedral_hits(torch, x, out, draws):
+    """Whether each image of ``out`` is one of the 12 dihedral images of
+    its input in ``x`` (same-canvas rotations, each mirrored or not),
+    shifted by its drawn (dy, dx)."""
+    from hygrid_tpu_torch.ops import augment
+    hits = torch.zeros(x.shape[0], dtype=torch.bool, device=x.device)
+    for k in range(6):
+        rot = augment.hexrot60_same(x, k)
+        for cand in (rot, torch.flip(rot, dims=(-1,))):
+            cand = augment.hex_translate(cand, draws["dy"], draws["dx"])
+            hits |= (cand == out).flatten(1).all(1)
+    return hits
+
+
+def run_augment_training(torch):
+    """Phase 23: HexCNN-small training with hex augmentation on the card.
+    Returns the per-kernel launches of the augmented steps."""
+    from hygrid_tpu_torch.models import (create_train_state,
+                                         dense_onehot_xent, hexcnn_small,
+                                         hexify_batch, train_step)
+    from hygrid_tpu_torch.ops import augment
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    model = hexcnn_small(norm="GN", dtype=torch.bfloat16, device="cuda",
+                         generator=gen)
+    state = create_train_state(model)
+    in_gen = torch.Generator(device="cuda").manual_seed(23)
+    batches = [torch.rand((BATCH, 3, 512, 512), generator=in_gen,
+                          device="cuda") for _ in range(N_STEPS + 1)]
+    labels = torch.arange(BATCH, device="cuda") % 10
+    aug_gen = torch.Generator(device="cuda").manual_seed(230)
+    # the checked run's generator state before each step's draws, its hex
+    # input and its augmented input
+    kept = []
+
+    def step(batch, aug=True, keep=False):
+        x = hexify_batch(batch)
+        if not aug:
+            return train_step(state, x, labels)[1]
+        seed_state = aug_gen.get_state() if keep else None
+        xa = augment.augment_hex_batch(aug_gen, x, **AUGMENT)
+        if keep:
+            kept.append((seed_state, x, xa))
+        return train_step(state, xa, labels)[1]
+
+    def timed(aug):
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for b in batches[:N_STEPS]:
+            step(b, aug)
+        end.record()
+        end.synchronize()
+        return start.elapsed_time(end)
+
+    step(batches[0])
+    step(batches[0], aug=False)
+    counters = _launch_counters()
+    for mod, attr in counters.values():
+        setattr(mod, attr, 0)
+    # the checked run: N_STEPS augmented steps whose draws and batches are
+    # kept for the checks below, outside the timed runs
+    metrics = [step(b, keep=True) for b in batches[:N_STEPS]]
+    torch.cuda.synchronize()
+    launches = {n: getattr(m, a) for n, (m, a) in counters.items()
+                if getattr(m, a)}
+    # augmented and plain runs in turns (aug, plain, plain, aug), each over
+    # the same N_STEPS distinct batches, with no bookkeeping in them
+    aug_ms = [timed(True)]
+    plain_ms = [timed(False), timed(False)]
+    aug_ms.append(timed(True))
+    per_step = {"plan_gather": 1, "hex_conv_layer": 6,
+                "hex_conv_layer_dgrad": 5, "hex_conv_wgrad": 6,
+                "gn_relu_backward": 6}
+    require(launches == {n: k * N_STEPS for n, k in per_step.items()},
+            f"augmented training: launches {launches} in {N_STEPS} steps, "
+            f"want {per_step} a step")
+    losses = [float(m["loss"]) for m in metrics]
+    require(all(math.isfinite(v) for v in losses),
+            f"augmented training: non-finite losses {losses}")
+
+    # each augmented batch against the plain transforms on its CPU copy at
+    # the same draws, and in the dihedral orbit of its input
+    for i, (seed_state, x, xa) in enumerate(kept):
+        aug_gen.set_state(seed_state)
+        draws = augment.augment_draws(aug_gen, BATCH, **AUGMENT)
+        want = augment.apply_augment(
+            x.cpu(), {n: v.cpu() for n, v in draws.items()})
+        require(torch.equal(xa.cpu(), want),
+                f"augmented batch {i}: not equal to the plain transforms "
+                "on the CPU at the same draws")
+        hits = _dihedral_hits(torch, x, xa, draws)
+        require(bool(hits.all()), f"augmented batch {i}: images "
+                f"{(~hits).nonzero().flatten().tolist()} are no dihedral "
+                "image of their input, shifted")
+        require(bool((draws["dy"] % 2 == 0).all()),
+                f"augmented batch {i}: odd row shifts {draws['dy']}")
+
+    # the augmentation alone, its host and device parts apart: per call
+    # (CUDA events), the host's enqueue of a call, the draws by events,
+    # and the transforms at fixed draws on the device alone (CUDA graph)
+    x = kept[0][1]
+    aug_call_ms = cuda_ms(torch, lambda: augment.augment_hex_batch(
+        aug_gen, x, **AUGMENT))
+    aug_host_ms = host_ms(torch, lambda: augment.augment_hex_batch(
+        aug_gen, x, **AUGMENT), calls=20)
+    draws_ms = cuda_ms(torch, lambda: augment.augment_draws(
+        aug_gen, BATCH, **AUGMENT))
+    fixed = augment.augment_draws(aug_gen, BATCH, **AUGMENT)
+    apply_ms = cuda_ms(torch, lambda: augment.apply_augment(x, fixed))
+    apply_dev_ms = graph_ms(torch, lambda: augment.apply_augment(x, fixed))
+    aug_bound, aug_by = bound(2 * nbytes(x), 0, "f32")
+
+    # one more step from a snapshot, against the plain path in float32 on
+    # the same augmented input (phase 7's gate)
+    batch = batches[-1]
+    snapshot = {k: v.clone() for k, v in model.state_dict().items()}
+    loss = float(step(batch, keep=True)["loss"])
+    seed_state, _, xa = kept[-1]
+    aug_gen.set_state(seed_state)
+    draws = augment.augment_draws(aug_gen, BATCH, **AUGMENT)
+    m = hexcnn_small(norm="GN", dtype=torch.float32, device="cuda")
+    m.load_state_dict(snapshot)
+    x_plain = augment.apply_augment(hexify_batch(batch, plain=True), draws)
+    with torch.no_grad():
+        ref_loss = float(dense_onehot_xent(m(x_plain, plain=True), labels))
+    loss_rel = abs(loss - ref_loss) / abs(ref_loss)
+    in_err = max_err(xa, x_plain)
+
+    def rates(times):
+        return [BATCH * N_STEPS / (t / 1e3) for t in times]
+
+    log(f"augmented training HexCNN-small GN bf16 AdamW b={BATCH} 512^2 "
+        f"(augment_hex_batch {AUGMENT} on the 256^2 hex batch), runs of "
+        f"{N_STEPS} steps in turns (aug, plain, plain, aug), CUDA events: "
+        f"augmented {aug_ms!r} ms, images/s={rates(aug_ms)!r}; without "
+        f"augmentation {plain_ms!r} ms, images/s={rates(plain_ms)!r}; "
+        f"launches {launches}; losses={losses}")
+    step_ms = sum(aug_ms) / len(aug_ms) / N_STEPS
+    added_ms = (sum(aug_ms) - sum(plain_ms)) / len(aug_ms) / N_STEPS
+    log(f"augmentation b={BATCH} C=3 256^2 float32: {aug_call_ms!r} ms a "
+        f"batch (CUDA events, {100 * aug_call_ms / step_ms:.2f} "
+        f"% of an augmented step; the augmented step is {added_ms!r} ms "
+        f"longer than the plain one), the host's enqueue {aug_host_ms!r} "
+        f"ms a call; the draws {draws_ms!r} ms (CUDA events), the "
+        f"transforms at fixed draws {apply_ms!r} ms (CUDA events) and "
+        f"{apply_dev_ms!r} ms on the device alone (CUDA graph); bound "
+        f"{aug_bound!r} ms ({aug_by}: the batch read and written once, "
+        f"{2 * nbytes(x)} bytes); the {N_STEPS} batches of the checked run "
+        "torch.equal to the plain transforms on their CPU copies and each "
+        "image in its dihedral orbit, shifted")
+    log(f"augmented step vs plain f32 on the card (same draws): loss "
+        f"{loss!r} vs {ref_loss!r} (rel {loss_rel!r}); input vs the plain "
+        f"gather's {in_err}")
+    require(loss_rel <= TOL["loss_rel"],
+            f"augmented training loss {loss} vs plain f32 {ref_loss}: rel "
+            f"{loss_rel}")
+    return launches
+
+
+def check_hexrot(torch, gen):
+    """Phase 23b: hexrot60 on plan_gather's dense form.  Returns the
+    launches of its calls and the kernels line's numbers."""
+    from hygrid_tpu_torch.kernels import resample
+    from hygrid_tpu_torch.ops import hexrot, sampling
+    x32 = torch.rand((BATCH, 3, 256, 256), generator=gen,
+                     device="cuda") * 255
+    xs = {"float32": x32, "bfloat16": x32.to(torch.bfloat16),
+          "uint8": x32.to(torch.uint8)}
+    counters = _launch_counters()
+    launches, summary = {}, {}
+    for k in range(1, 6):
+        plan = hexrot.rot_plan(256, 256, k)
+        line = f"hexrot60 k={k} 256^2->{plan.out_shape} b={BATCH} C=3:"
+        for name, x in xs.items():
+            esz = 2 if name == "uint8" else x.element_size()
+            tables = resample.gather_tables_cached(plan, esz)
+            require(tables.index_form == "dense",
+                    f"hexrot60 k={k}: {tables.index_form} index form, not "
+                    "dense")
+            for mod, attr in counters.values():
+                setattr(mod, attr, 0)
+            got = hexrot.hexrot60(x, k)
+            again = hexrot.hexrot60(x, k)
+            torch.cuda.synchronize()
+            used = {n: getattr(m, a) for n, (m, a) in counters.items()
+                    if getattr(m, a)}
+            require(used == {"plan_gather": 2},
+                    f"hexrot60 k={k} {name}: launches {used}")
+            for n, c in used.items():
+                launches[n] = launches.get(n, 0) + c
+            want = sampling.apply_plan(x, plan)
+            require(got.dtype == x.dtype and torch.equal(got, want),
+                    f"hexrot60 k={k} {name}: not torch.equal to apply_plan")
+            require(torch.equal(got, again),
+                    f"hexrot60 k={k} {name}: two launches differ")
+            ms = cuda_ms(torch, lambda: hexrot.hexrot60(x, k))
+            xk = x if name != "uint8" else x.to(torch.bfloat16)
+            dev = graph_ms(torch, lambda: resample.plan_gather(xk, plan))
+            plain = cuda_ms(torch, lambda: sampling.apply_plan(x, plan))
+            b_ms, b_by = bound(nbytes(xk) + got.numel() * xk.element_size()
+                               + tables.table_bytes, 0, "f32")
+            line += (f" {name} {ms!r} ms a call, device {dev!r} ms (CUDA "
+                     f"graph), plain {plain!r} ms, bound {b_ms!r} ms "
+                     f"({b_by}, dense table {tables.table_bytes} bytes);")
+            if k == 1 and name == "float32":
+                summary = dict(hexrot_ms=ms, hexrot_device_ms=dev,
+                               hexrot_plain_ms=plain, hexrot_bound_ms=b_ms)
+        log(line + " torch.equal to apply_plan, two launches bit-equal")
+    return launches, summary
+
+
+# phase 24: one Sentinel-2 L2A 10 m tile (B02, B03, B04, B08), its UTM zone,
+# the tiled resample's default tile, and the viewer's window
+S2_BANDS, S2_SIZE, S2_HEX = 4, 10980, (5490, 5490)
+S2_GEO = (399960.0, 10.0, 0.0, 5000040.0, 0.0, -10.0)
+S2_PROJ = "EPSG:32633"
+S2_TILE_ROWS = 2048
+VIEW_WINDOW, VIEW_OUT = (540, 960), (2160, 3840)
+# plan_gather against apply_plan on the raster's values (0..9999): the
+# kernel's fmaf chain and the plain product-then-sum may round apart, so
+# the gate is phase 3's a_f32_abs on [0, 1) inputs, relative to the
+# largest value
+PLAIN_REL = 1e-6
+
+
+def run_ingest(torch):
+    """Phase 24: raster ingest at a deployment's size.  Returns the
+    launches of the main path and the kernels line's numbers."""
+    import tempfile
+    from hygrid_tpu_torch.image import HEXIMAGE, IMAGE, codecs
+    from hygrid_tpu_torch.kernels import resample
+    from hygrid_tpu_torch.ops import geometry, pad, sampling, tiled
+    from hygrid_tpu_torch.viz import render
+    import os
+    os.environ.pop("DISPLAY", None)     # Hex_imshow shows no window
+    secs = {}
+
+    def stage(name, t0):
+        secs[name] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(24)
+    raster = rng.integers(0, 10000, (S2_BANDS, S2_SIZE, S2_SIZE),
+                          dtype=np.uint16)
+    stage("make", t0)
+    (ROOT / "build").mkdir(exist_ok=True)
+    counters = _launch_counters()
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+        path = str(Path(tmp) / "s2_l2a_10m.tif")
+        t0 = time.perf_counter()
+        codecs.write_raster(path, raster, S2_GEO, S2_PROJ, compress="none")
+        stage("write", t0)
+        for mod, attr in counters.values():
+            setattr(mod, attr, 0)
+        # the main path: disk -> IMAGE -> tiled rect->hex on the card ->
+        # pad -> HEXIMAGE window -> mosaic -> .heximg round trip
+        t0 = time.perf_counter()
+        img = IMAGE(path)
+        stage("read", t0)
+        require(img._reader is not None and img.shape == raster.shape
+                and img.proj == S2_PROJ and np.allclose(img.geotrans, S2_GEO)
+                and np.array_equal(img.Image, raster),
+                "ingest: IMAGE did not read the raster back through its "
+                "window reader with its tags")
+        t0 = time.perf_counter()
+        geometry.rect_to_hex_plan(S2_SIZE, S2_SIZE, *S2_HEX, "bilinear")
+        stage("plan", t0)
+        t0 = time.perf_counter()
+        hexed = tiled.tiled_rect_to_hex(img.Image, S2_HEX, "bilinear",
+                                        tile_rows=S2_TILE_ROWS)
+        stage("tiled", t0)
+        t0 = time.perf_counter()
+        hwc = torch.from_numpy(hexed).to("cuda").permute(1, 2, 0)
+        padded = pad.hex_impad_to_multiple(hwc, 4)
+        torch.cuda.synchronize()
+        stage("pad", t0)
+        r0, c0 = 2000, 2400
+        window = np.ascontiguousarray(
+            hexed[:3, r0:r0 + VIEW_WINDOW[0], c0:c0 + VIEW_WINDOW[1]] / 40.0,
+            np.float32)
+        t0 = time.perf_counter()
+        him = HEXIMAGE(data=window, geotrans=S2_GEO, proj=S2_PROJ)
+        frame = him.Hex_imshow(out_size=VIEW_OUT)
+        stage("view", t0)
+        t0 = time.perf_counter()
+        him.SaveHexImage(str(Path(tmp) / "window.heximg"))
+        back = HEXIMAGE(str(Path(tmp) / "window.heximg"))
+        stage("heximg", t0)
+        launches = {n: getattr(m, a) for n, (m, a) in counters.items()
+                    if getattr(m, a)}
+        n_tiles = -(-S2_HEX[0] // S2_TILE_ROWS)
+        require(launches == {"plan_gather": n_tiles, "shift_resample": 1},
+                f"ingest: launches {launches}, want {n_tiles} plan_gather "
+                "and 1 shift_resample")
+        require(back.shape == him.shape and np.array_equal(
+            back.HexagonImage, window) and back.proj == S2_PROJ
+            and back.geotrans == S2_GEO, "ingest: the .heximg round trip "
+            "changed the window")
+
+    # the tiled resample again on the same shape, its stages split (the
+    # calls of tiled._tiled_apply, synchronised between stages), each
+    # tile's kernel on its sub-plan held against the plain gather of the
+    # same band and sub-plan
+    plan = geometry.rect_to_hex_plan(S2_SIZE, S2_SIZE, *S2_HEX, "bilinear")
+    split = dict.fromkeys(("sub_plans", "tables", "h2d", "kernel", "d2h"),
+                          0.0)
+    kernel_ms, tiles, forms, vs_plain = 0.0, [], set(), []
+
+    def vs(got, want):
+        """'bit-equal', or the relative error within PLAIN_REL."""
+        if torch.equal(got, want):
+            return "bit-equal"
+        _, rel = max_err(got, want)
+        require(rel <= PLAIN_REL, f"ingest: plan_gather vs apply_plan rel "
+                f"{rel} > {PLAIN_REL}")
+        return f"rel {rel!r}"
+
+    for r0 in range(0, S2_HEX[0], S2_TILE_ROWS):
+        t0 = time.perf_counter()
+        lo, hi, sub = plan.row_slice(r0, min(r0 + S2_TILE_ROWS, S2_HEX[0]))
+        split["sub_plans"] += time.perf_counter() - t0
+        t0 = time.perf_counter()
+        tables = resample.gather_tables_cached(sub, 4)
+        split["tables"] += time.perf_counter() - t0
+        require(tables.weight_form == "factored",
+                f"ingest tile at row {r0}: {tables.weight_form} weights, "
+                "not the plan's factored table")
+        forms.add(f"{tables.index_form}/{tables.weight_form}")
+        t0 = time.perf_counter()
+        band = torch.from_numpy(np.ascontiguousarray(
+            img.Image[:, lo:hi + 1])).to("cuda").float()
+        torch.cuda.synchronize()
+        split["h2d"] += time.perf_counter() - t0
+        t0 = time.perf_counter()
+        out = sampling.apply_plan_auto(band, sub)
+        torch.cuda.synchronize()
+        split["kernel"] += time.perf_counter() - t0
+        t0 = time.perf_counter()
+        tiles.append(out.cpu().numpy())
+        split["d2h"] += time.perf_counter() - t0
+        vs_plain.append(vs(out, sampling.apply_plan(band, sub)))
+        kernel_ms += cuda_ms(torch, lambda: sampling.apply_plan_auto(
+            band, sub), iters=5, warmup=1)
+    require(np.array_equal(np.concatenate(tiles, axis=-2), hexed),
+            "ingest: the split run differs from tiled_rect_to_hex")
+    # against the monolithic resample of the whole raster on the card, and
+    # that against the plain gather
+    full = torch.from_numpy(img.Image).to("cuda").float()
+    mono = geometry.rect_to_hex_resample(full, S2_HEX, "bilinear")
+    mono_vs_plain = vs(mono, sampling.apply_plan(full, plan))
+    mono_np = mono.cpu().numpy()
+    equal = bool(np.array_equal(mono_np, hexed))
+    _, rel = max_err(torch.from_numpy(hexed), torch.from_numpy(mono_np))
+    require(equal or rel <= 1e-6, f"ingest: tiled vs monolithic rel {rel}")
+    mono_ms = cuda_ms(torch, lambda: geometry.rect_to_hex_resample(
+        full, S2_HEX, "bilinear"), iters=3, warmup=1)
+    b_ms, b_by = bound(nbytes(full, mono), 0, "f32")
+    # the pad and the mosaic against their plain counterparts
+    want_pad = np.zeros((5492, 5492, S2_BANDS), np.float32)
+    want_pad[:S2_HEX[0], :S2_HEX[1]] = hexed.transpose(1, 2, 0)
+    require(np.array_equal(padded.cpu().numpy(), want_pad),
+            "ingest: hex_impad_to_multiple(., 4) is not the zero pad")
+    want_frame = np.clip(render.render_mosaic(
+        torch.from_numpy(window).to("cuda"), VIEW_OUT).cpu().numpy(),
+        0, 255).astype(np.uint8)
+    require(frame.shape == (3,) + VIEW_OUT
+            and np.array_equal(frame, want_frame),
+            "ingest: Hex_imshow differs from render_mosaic of the window")
+    e2e = secs["read"] + secs["plan"] + secs["tiled"]
+    mpix = S2_SIZE * S2_SIZE / 1e6
+    log(f"ingest Sentinel-2 L2A 10 m tile {S2_BANDS}x{S2_SIZE}^2 uint16 "
+        f"({raster.nbytes} bytes, uncompressed GeoTIFF, {S2_PROJ}) -> hex "
+        f"{S2_HEX} bilinear, tile_rows={S2_TILE_ROWS}: seconds "
+        + ", ".join(f"{n}={s!r}" for n, s in secs.items())
+        + f"; tiled again, split ({len(tiles)} tiles, {sorted(forms)} "
+        "tables): "
+        + ", ".join(f"{n}={s!r}" for n, s in split.items())
+        + f" (together {sum(split.values())!r} s against the first "
+        f"call's {secs['tiled']!r}); kernel {kernel_ms!r} ms over the "
+        "tiles (CUDA events, each tile's call repeated), "
+        f"monolithic {mono_ms!r} ms, bound {b_ms!r} ms ({b_by}: "
+        f"{nbytes(full, mono)} bytes); end to end (read, plan, tiled) "
+        f"{mpix / e2e!r} Mpix/s; tiled vs monolithic "
+        f"{'bit-equal' if equal else f'rel {rel!r} (not bit-equal)'}; "
+        f"plan_gather vs apply_plan: tiles {vs_plain}, monolithic "
+        f"{mono_vs_plain}; "
+        f"launches {launches}; the mosaic bit-equal to render_mosaic, the "
+        ".heximg round trip exact")
+    return launches, dict(ingest_kernel_ms=kernel_ms,
+                          ingest_monolithic_ms=mono_ms,
+                          ingest_bound_ms=b_ms, ingest_s=e2e)
+
+
 def kernel_times(torch):
     """``python3 chip_smoke.py --kernel-times``: the times of the kernels
     every tree of the port with the split layer's backward shares, through
@@ -3437,6 +3869,15 @@ def main():
     t0 = time.perf_counter()
     paths.update(run_new_training(torch))
     log(f"phase 22: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    paths["augment_train"] = run_augment_training(torch)
+    with torch.inference_mode():
+        paths["hexrot"], rot = check_hexrot(torch, gen)
+    log(f"phases 23-23b: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        paths["ingest"], ingest = run_ingest(torch)
+    log(f"phase 24: {time.perf_counter() - t0:.1f} s")
 
     def count(name):
         by_path = {p: n[name] for p, n in paths.items() if n.get(name)}
@@ -3449,7 +3890,7 @@ def main():
              also_replaces=["hygrid_tpu/kernels/resample_pallas.py:374",
                             "hygrid_tpu/kernels/resample_pallas.py:289",
                             "hygrid_tpu/kernels/resample_pallas.py:315"],
-             **count("plan_gather"), **a),
+             **count("plan_gather"), **a, **rot, **ingest),
         dict(name="hex_conv_layer", route="cuda",
              source="hygrid_tpu_torch/csrc/hex_conv_layer.cu",
              replaces="hygrid_tpu/kernels/conv_pallas.py:807",

@@ -6,9 +6,16 @@ is PyTorch; the TPU kernels on the ported path are CUDA C++ kernels for
 the package needs neither JAX nor a GPU nor ``nvcc``.
 """
 from . import lattice, viz
+from .image import IMAGE, HEXIMAGE
 from .ops.geometry import (hex_to_rect_resample, hexresize,
                            image_geometric_transformation,
                            rect_to_hex_resample, warp_output_shape)
+from .ops.convert import (heximage_to_type1, heximage_to_type2,
+                          type1_to_heximage, type2_to_heximage)
+from .ops.pad import heximpad, hex_impad_to_multiple
+from .ops.hexrot import hexrot60, hexflip
+from .ops.augment import (hexrot60_same, random_hexrot60, random_hexflip,
+                          random_hex_translate, augment_hex_batch)
 from .ops.sampling import SamplePlan, apply_plan, apply_plan_auto
 from .nn.functional import (hex_conv2d, hex_conv2d_output_shape,
                             hex_global_pool2d, hex_kernel_num, hex_pool2d)
@@ -22,11 +29,26 @@ __version__ = "0.1.0"
 __all__ = [
     "lattice",
     "viz",
+    "IMAGE",
+    "HEXIMAGE",
     "hex_to_rect_resample",
     "hexresize",
     "image_geometric_transformation",
     "rect_to_hex_resample",
     "warp_output_shape",
+    "heximpad",
+    "hex_impad_to_multiple",
+    "heximage_to_type1",
+    "heximage_to_type2",
+    "type1_to_heximage",
+    "type2_to_heximage",
+    "hexrot60",
+    "hexflip",
+    "hexrot60_same",
+    "random_hexrot60",
+    "random_hexflip",
+    "random_hex_translate",
+    "augment_hex_batch",
     "SamplePlan",
     "apply_plan",
     "apply_plan_auto",

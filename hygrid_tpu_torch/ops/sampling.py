@@ -76,6 +76,29 @@ class SamplePlan:
             self._device_copies[key] = pair
         return pair
 
+    def row_slice(self, r0: int, r1: int):
+        """``(lo, hi, sub)``: the source rows ``lo..hi`` that output rows
+        ``r0:r1`` read, and the plan of those output rows on that band.
+
+        A rect->hex bilinear plan's factors (:func:`_rect_factors`) are
+        sliced with it, so the band's kernel tables are factored as the
+        whole plan's are."""
+        w = self.src_shape[1]
+        idx = self.idx[:, r0:r1]
+        rows = idx // w
+        lo, hi = int(rows.min()), int(rows.max())
+        sub = SamplePlan(idx - lo * w, self.weights[:, r0:r1],
+                         (hi - lo + 1, w), (r1 - r0, self.out_shape[1]),
+                         self.exact_select)
+        f = self._derived.get("rect_factors")
+        if f is not None:
+            # the column factors go by row parity: keep it for an odd r0
+            par = [r0 % 2, (r0 + 1) % 2]
+            sub._derived["rect_factors"] = dict(
+                row=f["row"][r0:r1], row_valid=f["row_valid"][r0:r1],
+                col=f["col"][par], col_valid=f["col_valid"][par])
+        return lo, hi, sub
+
 
 def _finalize(idx_list, w_list, h, w, exact_select=False):
     iidx = np.stack([np.clip(i, 0, h - 1) for i, _ in idx_list], axis=0)
@@ -281,11 +304,15 @@ def takes_shift_route(plan: SamplePlan, esz: int) -> bool:
     against 0.0614 (bf16), 1080p 0.0163 against 0.0257 (float32).
     """
     from ..kernels.resample_shift import shift_decompose_cached
-    geo = shift_decompose_cached(plan)
-    if (geo is None or (geo.num == 1 and geo.den == 1)
-            or plan.out_shape[1] < 640):
-        return False
     h, w = plan.src_shape
+    # the resident planes hold at least the source (num planes of w / num
+    # columns, or one of w * den), so a source over the budget is refused
+    # before the decomposition, a numpy pass over the whole plan
+    if plan.out_shape[1] < 640 or h * w * esz > _SHIFT_SOURCE_BYTES:
+        return False
+    geo = shift_decompose_cached(plan)
+    if geo is None or (geo.num == 1 and geo.den == 1):
+        return False
     # one stretched plane (den > 1, num == 1) or num de-interleaved planes
     w_eff = w * geo.den if geo.den > 1 else -(-w // geo.num)
     a_min = min(a for _, _, a in geo.slots)

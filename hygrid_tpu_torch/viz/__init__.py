@@ -1,6 +1,6 @@
 """Visualisation layer (L5) of the PyTorch port: the hexagon-mosaic
-renderer.  ``hygrid_tpu``'s offscreen viewer shell (``Texture``,
-``Window``) waits for the port's ``image/`` package."""
+renderer and the offscreen viewer shell (``Texture``, ``Window``)."""
 from .render import ViewState, mosaic_plan, render_mosaic
+from .pixelart import Texture, Window
 
-__all__ = ["ViewState", "mosaic_plan", "render_mosaic"]
+__all__ = ["ViewState", "mosaic_plan", "render_mosaic", "Texture", "Window"]

@@ -171,6 +171,26 @@ def test_plan_gather_refuses_what_it_does_not_take(cuda):
                                          ).permute(2, 0, 1), plan)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_hexrot60_dense_plan_equals_plain(cuda, dtype):
+    """hexrot60 (k=1, 256^2, C=3) runs plan_gather's dense form, one
+    launch, torch.equal to apply_plan (an exact-select plan); 8-bit
+    images through bfloat16 and back the same."""
+    from hygrid_tpu_torch.ops import hexrot
+    plan = hexrot.rot_plan(256, 256, 1)
+    esz = torch.finfo(dtype).bits // 8
+    assert resample.gather_tables_cached(plan, esz).index_form == "dense"
+    x = (torch.rand((2, 3, 256, 256), device=cuda) * 255).to(dtype)
+    before = resample.LAUNCHES
+    got = hexrot.hexrot60(x, 1)
+    torch.cuda.synchronize()
+    assert resample.LAUNCHES == before + 1
+    assert got.dtype == dtype and torch.equal(got, sampling.apply_plan(x,
+                                                                       plan))
+    x8 = x.to(torch.uint8)
+    assert torch.equal(hexrot.hexrot60(x8, 1), sampling.apply_plan(x8, plan))
+
+
 LAYER_CASES = [  # (B, H, W, Cin, Cout, radius, dilation, norm kind, relu)
     (2, 11, 13, 5, 40, 2, 1, "gn", True),
     (2, 12, 9, 16, 32, 2, 1, None, True),

@@ -1,5 +1,6 @@
 """The port stands alone: importing it pulls in neither JAX nor flax, builds
-no kernel, and chip_smoke.py refuses to run without a GPU."""
+no kernel and no native library, and chip_smoke.py refuses to run without
+a GPU."""
 import ast
 import os
 import re
@@ -21,7 +22,11 @@ MODULES = ["hygrid_tpu_torch", "hygrid_tpu_torch.kernels.resample",
            "hygrid_tpu_torch.nn.layers", "hygrid_tpu_torch.nn.modules",
            "hygrid_tpu_torch.models.hexcnn", "hygrid_tpu_torch.ops.convert",
            "hygrid_tpu_torch.nn.experimental",
-           "hygrid_tpu_torch.models.hexunet"]
+           "hygrid_tpu_torch.models.hexunet", "hygrid_tpu_torch.image",
+           "hygrid_tpu_torch.image.window", "hygrid_tpu_torch.viz.pixelart",
+           "hygrid_tpu_torch.ops.tiled", "hygrid_tpu_torch.ops.pad",
+           "hygrid_tpu_torch.ops.hexrot", "hygrid_tpu_torch.ops.augment",
+           "hygrid_tpu_torch.utils.native_loader"]
 
 
 def _run(code, cwd=ROOT):
@@ -37,7 +42,9 @@ def test_import_pulls_in_no_jax_and_builds_nothing():
             "bad = [m for m in ('jax', 'flax', 'triton', 'hygrid_tpu') "
             "if m in sys.modules]\n"
             "assert not bad, bad\n"
-            "assert _build._lib is None\n")
+            "assert _build._lib is None\n"
+            "from hygrid_tpu_torch.utils import native_loader\n"
+            "assert not native_loader._lib_tried\n")
     proc = _run(code)
     assert proc.returncode == 0, proc.stderr
 
