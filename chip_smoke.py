@@ -234,7 +234,34 @@ Phases, each of which raises on failure (the script then exits non-zero):
     the kernel's ms beside the monolithic rect_to_hex_resample's and the
     bound, Mpix/s end to end (read, plan, tiled); tiled bit-equal to the
     monolithic resample on the card (or within 1e-6 relative, said which),
-    the pad a zero pad, the mosaic bit-equal to render_mosaic.
+    the pad a zero pad, the mosaic bit-equal to render_mosaic;
+25. the parallel package in this process, a world of one rank on NCCL
+    (parallel.initialize_multihost): fit(mesh=create_mesh({"dp": 1}),
+    checkpoint_path=) on phase 7's model and batches, one step an epoch,
+    each step's loss (fit's history) and parameters (its epoch's .npz)
+    within 1e-6 relative of train_step without a mesh from the same
+    weights, phase 7's launches, a gradient all-reduce a step, the last
+    checkpoint restored into a fresh model with torch.equal logits; the
+    4K chain (sharded_resample 2160x3840 RGB -> hex 1080x1920 bilinear,
+    zero-padded to 16 channels, four sharded_hex_conv2d 16->16 radius 2
+    impl="pallas", sharded_resample back, linear) on an sp mesh of one,
+    float32 and bfloat16, against the same ops unsharded (1e-5 and 5e-2
+    relative), 2 resample launches (plan_gather, or shift_resample where
+    a shard's plan takes that route) and 4 hex_conv_single a chain, no
+    all-reduce or broadcast, the per-shard plan builds' seconds; the
+    pipeline (pipeline_hex_conv_stack, 8 layers 16 channels, b=16 256^2
+    float32) forward and kernel grad against the sequential stack on the
+    same microbatches (1e-5 and 1e-4 relative);
+26. four ranks on the one card over gloo (torch.multiprocessing spawn,
+    each rank on cuda:0, the kernels from phase 2's build/ cache): the
+    chain at sp=4 (540 source and 270 hex rows a rank; halos by send/recv
+    through host memory, the only transport gloo has; no all-reduce or
+    broadcast), one dp=4 training step of phase 25's model on its first
+    batch (8 images a rank, at least one gradient all-reduce, phase 7's
+    launches), the pipeline at pp=4; each held to phase 25's result; per
+    rank the wall ms of each call, the plan builds' seconds, the halo
+    bytes sent and the collectives' counts.  Four processes share one
+    card there: the times are no measure of scaling.
 
 Beside kernel B, the backward kernels, the split layer and the single-op
 conv the kernels line carries cuDNN's time (``hex_conv2d(impl="direct")``
@@ -253,6 +280,7 @@ import math
 import re
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -1016,10 +1044,7 @@ def run_training(torch):
                 "gn_relu_backward": cs.GN_BWD_LAUNCHES}
     peak = torch.cuda.max_memory_allocated()
     dev_ms = start.elapsed_time(end)
-    per_step = {"plan_gather": 1, "hex_conv_layer": 6,
-                "hex_conv_layer_dgrad": 5, "hex_conv_wgrad": 6,
-                "gn_relu_backward": 6}
-    for name, n in per_step.items():
+    for name, n in TRAIN_STEP_LAUNCHES.items():
         require(launches[name] == n * N_STEPS,
                 f"training: {name} launched {launches[name]} times in "
                 f"{N_STEPS} steps, want {n * N_STEPS}")
@@ -3290,7 +3315,6 @@ PLAIN_REL = 1e-6
 def run_ingest(torch):
     """Phase 24: raster ingest at a deployment's size.  Returns the
     launches of the main path and the kernels line's numbers."""
-    import tempfile
     from hygrid_tpu_torch.image import HEXIMAGE, IMAGE, codecs
     from hygrid_tpu_torch.kernels import resample
     from hygrid_tpu_torch.ops import geometry, pad, sampling, tiled
@@ -3453,6 +3477,498 @@ def run_ingest(torch):
     return launches, dict(ingest_kernel_ms=kernel_ms,
                           ingest_monolithic_ms=mono_ms,
                           ingest_bound_ms=b_ms, ingest_s=e2e)
+
+
+# phases 25-26: the parallel package (dp / sp / pp over torch.distributed)
+# on the card.  The 4K chain of tests/test_models_parallel.py:843-871 at
+# full size: a 2160x3840 RGB frame to hex 1080x1920 (bilinear), padded to
+# 16 channels, four 16->16 radius-2 hex convs on hex_conv_single, and back
+# to 2160x3840 (linear); phase 26 runs it on RANKS ranks, each holding 540
+# source and 270 hex rows.
+CHAIN_SRC = (2160, 3840)
+CHAIN_HEX = (1080, 1920)
+CHAIN_C = 16
+CHAIN_LAYERS = 4
+# the pipeline at P-512's width: 16 channels, 8 layers, b=16 on 256^2 hex
+PIPE_SHAPE = (16, 16, 256, 256)
+PIPE_LAYERS = 8
+RANKS = 4
+RANKS_TIMEOUT_S = 600
+PAR_TOL = {"f32_rel": 1e-5, "bf16_rel": 5e-2, "fit_rel": 1e-6,
+           "pipe_grad_rel": 1e-4}
+# one HexCNN-small training step's launches (phase 7)
+TRAIN_STEP_LAUNCHES = {"plan_gather": 1, "hex_conv_layer": 6,
+                       "hex_conv_layer_dgrad": 5, "hex_conv_wgrad": 6,
+                       "gn_relu_backward": 6}
+
+
+def chain_frame(torch, r0, r1):
+    """Rows ``r0:r1`` of the chain's 3 x 2160 x 3840 float32 frame, as
+    ``(1, 3, r1 - r0, 3840)`` on the card: each pixel a function of its
+    global coordinates (waves and a hashed noise), so that a rank makes
+    its own rows and nothing else."""
+    i = torch.arange(r0, r1, device="cuda", dtype=torch.float32)[:, None]
+    j = torch.arange(CHAIN_SRC[1], device="cuda", dtype=torch.float32)[None]
+    planes = []
+    for c in range(3):
+        wave = 0.5 + 0.25 * torch.sin(0.0123 * i + 0.0071 * j + 2.1 * c)
+        noise = torch.frac(torch.sin(i * 12.9898 + j * 78.233 + 37.719 * c)
+                           * 43758.5453)
+        planes.append(wave + 0.25 * noise)
+    return torch.stack(planes)[None]
+
+
+def chain_kernels(torch):
+    gen = torch.Generator(device="cuda").manual_seed(25)
+    return [torch.randn((CHAIN_C, CHAIN_C, 7), generator=gen, device="cuda")
+            * 0.1 for _ in range(CHAIN_LAYERS)]
+
+
+def _pad_channels(torch, h):
+    return torch.cat([h, h.new_zeros((h.shape[0], CHAIN_C - h.shape[1])
+                                     + tuple(h.shape[2:]))], 1)
+
+
+def sharded_chain(torch, parallel, mesh, x, kernels):
+    """The 4K chain on this rank's slab ``x`` of the frame, row-sharded over
+    ``mesh``'s ``"sp"`` axis; returns this rank's slab of the output."""
+    h = parallel.sharded_resample(x, mesh, "rect_to_hex", CHAIN_HEX,
+                                  "bilinear", size=CHAIN_SRC)
+    h = _pad_channels(torch, h)
+    for k in kernels:
+        h = parallel.sharded_hex_conv2d(h, k.to(h.dtype), mesh, radius=2,
+                                        impl="pallas", size=CHAIN_HEX)
+    return parallel.sharded_resample(h, mesh, "hex_to_rect", CHAIN_SRC,
+                                     "linear", size=CHAIN_HEX)
+
+
+class _PlanTimes:
+    """Record the host seconds of every per-shard plan build
+    (``spatial.shard_plans``, which ``sharded_resample`` calls once a
+    call) while the block runs."""
+
+    def __enter__(self):
+        from hygrid_tpu_torch.parallel import spatial
+        self.seconds, self._orig = [], spatial.shard_plans
+
+        def timed(*args, **kwargs):
+            plans = self._orig(*args, **kwargs)
+            self.seconds.append(plans.seconds)
+            return plans
+
+        spatial.shard_plans = timed
+        return self
+
+    def __exit__(self, *exc):
+        from hygrid_tpu_torch.parallel import spatial
+        spatial.shard_plans = self._orig
+
+
+def _counts():
+    """(kernel launches, collectives) since the last :func:`_zero_counts`,
+    only those that are not zero."""
+    from hygrid_tpu_torch.parallel import _comm
+    launches = {name: getattr(mod, attr)
+                for name, (mod, attr) in _launch_counters().items()}
+    return ({k: v for k, v in launches.items() if v},
+            {k: v for k, v in _comm.COUNTS.items() if v})
+
+
+def _zero_counts():
+    from hygrid_tpu_torch.parallel import _comm
+    for mod, attr in _launch_counters().values():
+        setattr(mod, attr, 0)
+    _comm.reset_counts()
+
+
+def pipeline_inputs(torch):
+    gen = torch.Generator(device="cuda").manual_seed(26)
+    ks = torch.randn((PIPE_LAYERS, PIPE_SHAPE[1], PIPE_SHAPE[1], 7),
+                     generator=gen, device="cuda") * 0.1
+    x = torch.randn(PIPE_SHAPE, generator=gen, device="cuda")
+    w = torch.randn(PIPE_SHAPE, generator=gen, device="cuda")
+    return ks, x, w
+
+
+class _EpochBatches:
+    """Epoch ``e`` of ``fit`` yields batch ``e`` alone, hexified when the
+    step reads it, so each epoch's checkpoint holds one step's
+    parameters."""
+
+    def __init__(self, hexify, xs, labels):
+        self.hexify, self.xs, self.labels, self.epoch = hexify, xs, labels, 0
+
+    def __iter__(self):
+        x = self.xs[self.epoch]
+        self.epoch += 1
+        yield self.hexify(x), self.labels
+
+
+def _par_train(torch, parallel, tmp):
+    """Phase 25's data-parallel training: ``fit`` over a ``dp`` mesh of one
+    rank against ``train_step`` without a mesh, step by step."""
+    from hygrid_tpu_torch.models import (create_train_state, fit,
+                                         hexcnn_small, hexify_batch,
+                                         train_step)
+    from hygrid_tpu_torch.utils import restore_checkpoint
+    mesh = parallel.create_mesh({"dp": 1})
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    model = hexcnn_small(norm="GN", dtype=torch.bfloat16, device="cuda",
+                         generator=gen)
+    twin = hexcnn_small(norm="GN", dtype=torch.bfloat16, device="cuda")
+    twin.load_state_dict(model.state_dict())
+    in_gen = torch.Generator(device="cuda").manual_seed(2)
+    xs = [torch.rand((BATCH, 3, 512, 512), generator=in_gen, device="cuda")
+          for _ in range(N_STEPS)]
+    labels = torch.arange(BATCH, device="cuda") % 10
+    ck = str(Path(tmp) / "ck")
+
+    torch.cuda.synchronize()
+    _zero_counts()
+    t0 = time.perf_counter()
+    _, hist = fit(model, _EpochBatches(hexify_batch, xs, labels),
+                  num_epochs=N_STEPS, mesh=mesh, checkpoint_path=ck,
+                  log_every=1)
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3 / N_STEPS
+    launches, comm = _counts()
+    want = {k: n * N_STEPS for k, n in TRAIN_STEP_LAUNCHES.items()}
+    require(launches == want, f"phase 25 fit(mesh=dp 1): launches "
+                              f"{launches}, want {want} (phase 7's)")
+    require(comm.get("all_reduce", 0) >= N_STEPS,
+            f"phase 25 fit: {comm} has no gradient all-reduce a step")
+
+    # the twin: train_step without a mesh from the same weights; each
+    # step's loss against fit's history, its parameters against the
+    # epoch's checkpoint
+    state = create_train_state(twin)
+    worst = {"loss": 0.0, "params": 0.0}
+    first = None
+    for e in range(N_STEPS):
+        _, m = train_step(state, hexify_batch(xs[e]), labels)
+        loss = float(m["loss"])
+        if first is None:
+            first = {"loss": loss, "grads": {
+                n: p.grad.float().cpu() for n, p in twin.named_parameters()}}
+        worst["loss"] = max(worst["loss"],
+                            abs(loss - hist["loss"][e]) / abs(loss))
+        saved = restore_checkpoint(f"{ck}_e{e}.npz")
+        for n, p in twin.named_parameters():
+            got = torch.from_numpy(saved[f"[{n!r}]"]).to(p.device)
+            worst["params"] = max(worst["params"], max_err(got, p)[1])
+    fresh = hexcnn_small(norm="GN", dtype=torch.bfloat16, device="cuda")
+    restore_checkpoint(f"{ck}_e{N_STEPS - 1}.npz", fresh)
+    with torch.inference_mode():
+        xh = hexify_batch(xs[0])
+        restored_equal = torch.equal(fresh(xh), model(xh))
+    log(f"phase 25 fit(mesh=dp 1, NCCL, checkpoint_path=) HexCNN-small GN "
+        f"bf16 b={BATCH} 512^2, {N_STEPS} one-step epochs: {wall!r} ms a "
+        f"step (host clock, the checkpoint write included); launches "
+        f"{launches}; collectives {comm}; losses {hist['loss']}; against "
+        f"train_step without a mesh: loss rel {worst['loss']!r}, params "
+        f"rel {worst['params']!r} (max over steps); restored checkpoint "
+        f"logits torch.equal: {restored_equal}")
+    require(max(worst.values()) <= PAR_TOL["fit_rel"],
+            f"phase 25 fit(mesh=) vs train_step: {worst}")
+    require(restored_equal, "phase 25: restored checkpoint's logits differ")
+    return launches, first
+
+
+def _par_chain(torch, parallel):
+    """Phase 25's 4K chain on an ``sp`` mesh of one rank, float32 and
+    bfloat16, against the same ops unsharded."""
+    from hygrid_tpu_torch.nn.functional import hex_conv2d
+    from hygrid_tpu_torch.ops.geometry import (hex_to_rect_resample,
+                                               rect_to_hex_resample)
+    mesh = parallel.create_mesh({"sp": 1})
+    frame = chain_frame(torch, 0, CHAIN_SRC[0])
+    kernels = chain_kernels(torch)
+    launches, outs = {}, {}
+    for dtype, tol in ((torch.float32, "f32_rel"),
+                       (torch.bfloat16, "bf16_rel")):
+        x = frame.to(dtype)
+        torch.cuda.synchronize()
+        _zero_counts()
+        with _PlanTimes() as plans:
+            t0 = time.perf_counter()
+            got = sharded_chain(torch, parallel, mesh, x, kernels)
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+        counts, comm = _counts()
+        for k, v in counts.items():
+            launches[k] = launches.get(k, 0) + v
+        h = _pad_channels(torch, rect_to_hex_resample(x, CHAIN_HEX,
+                                                      "bilinear"))
+        for k in kernels:
+            h = hex_conv2d(h, k.to(dtype), radius=2, padding=1,
+                           impl="pallas")
+        want = hex_to_rect_resample(h, CHAIN_SRC, "linear")
+        err, rel = max_err(got, want)
+        name = str(dtype).replace("torch.", "")
+        log(f"phase 25 sharded 4K chain (sp 1, NCCL) {name}: {wall!r} ms "
+            f"(host clock, per-shard plans built in the call: "
+            f"{[round(s, 3) for s in plans.seconds]} s); launches {counts}; "
+            f"collectives {comm}; vs unsharded ops max_abs_err={err!r} "
+            f"rel={rel!r}, bit-equal {torch.equal(got, want)}")
+        require(counts.get("plan_gather", 0)
+                + counts.get("shift_resample", 0) == 2
+                and counts.get("hex_conv_single") == CHAIN_LAYERS,
+                f"phase 25 chain {name}: launches {counts}")
+        require(not comm.get("all_reduce") and not comm.get("broadcast"),
+                f"phase 25 chain {name}: collectives {comm}")
+        require(bool(torch.isfinite(got).all())
+                and tuple(got.shape) == (1, CHAIN_C) + CHAIN_SRC,
+                f"phase 25 chain {name}: {tuple(got.shape)} or non-finite")
+        require(rel <= PAR_TOL[tol], f"phase 25 chain {name}: rel {rel}")
+        outs[name] = got
+    return launches, outs
+
+
+def _pipeline_step(torch, parallel, mesh, ks, x, w):
+    ks = ks.clone().requires_grad_(True)
+    y = parallel.pipeline_hex_conv_stack(x, ks, mesh, radius=2)
+    (y * w).sum().backward()
+    return y.detach(), ks.grad
+
+
+def _par_pipeline(torch, parallel):
+    """Phase 25's pipeline on a ``pp`` mesh of one rank, forward and grad,
+    against the sequential stack on the same microbatches."""
+    from hygrid_tpu_torch.nn.functional import hex_conv2d
+    mesh = parallel.create_mesh({"pp": 1})
+    ks, x, w = pipeline_inputs(torch)
+    t0 = time.perf_counter()
+    y, g = _pipeline_step(torch, parallel, mesh, ks, x, w)
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+    kseq = ks.clone().requires_grad_(True)
+    parts = []
+    for xm in x.split(PIPE_SHAPE[0] // 4):   # its default 4 microbatches
+        for k in kseq:
+            xm = hex_conv2d(xm, k, radius=2, padding=1)
+        parts.append(xm)
+    seq = torch.cat(parts)
+    (seq * w).sum().backward()
+    err, rel = max_err(y, seq)
+    gerr, grel = max_err(g, kseq.grad)
+    log(f"phase 25 pipeline (pp 1) {PIPE_LAYERS} layers x {PIPE_SHAPE} "
+        f"f32, forward and grad: {wall!r} ms (host clock); vs the "
+        f"sequential stack: out rel {rel!r} (bit-equal "
+        f"{torch.equal(y, seq)}), kernel grad rel {grel!r}")
+    require(rel <= PAR_TOL["f32_rel"] and grel <= PAR_TOL["pipe_grad_rel"],
+            f"phase 25 pipeline: out rel {rel}, grad rel {grel}")
+    return y, g
+
+
+def run_parallel(torch, tmp):
+    """Phase 25: the parallel package in this process, a world of one rank
+    on NCCL.  Returns the launches and the results phase 26 is held to."""
+    import torch.distributed as dist
+    from hygrid_tpu_torch import parallel
+    parallel.initialize_multihost(f"file://{tmp}/rendezvous25", 1, 0,
+                                  device="cuda")
+    require(dist.get_backend() == "nccl", "phase 25: the backend is "
+                                          f"{dist.get_backend()}, not nccl")
+    try:
+        launches, train = _par_train(torch, parallel, tmp)
+        chain_launches, chain = _par_chain(torch, parallel)
+        pipe = _par_pipeline(torch, parallel)
+    finally:
+        dist.destroy_process_group()
+    for k, v in chain_launches.items():
+        launches[k] = launches.get(k, 0) + v
+    return launches, {"train": train, "chain": chain, "pipe": pipe}
+
+
+def _rank26(rank, tmp, q):
+    """Phase 26's rank ``rank``: the chain at sp=4, one dp=4 training step
+    and the pp=4 pipeline, on ``cuda:0`` over gloo.  Large results go to
+    files in ``tmp``; the rest back through ``q`` as numpy arrays (a
+    tensor would travel as a handle to this process's memory, gone when it
+    exits)."""
+    import traceback
+    try:
+        import torch
+        from hygrid_tpu_torch import parallel
+        from hygrid_tpu_torch.models import (create_train_state, hexcnn_small,
+                                             hexify_batch, train_step)
+        torch.cuda.set_device(0)
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
+        parallel.initialize_multihost(f"file://{tmp}/rendezvous26", RANKS,
+                                      rank, backend="gloo")
+        sp = parallel.create_mesh({"sp": RANKS})
+        dp = parallel.create_mesh({"dp": RANKS})
+        pp = parallel.create_mesh({"pp": RANKS})
+        out = {}
+        rows = CHAIN_SRC[0] // RANKS
+        frame = chain_frame(torch, rank * rows, (rank + 1) * rows)
+        kernels = chain_kernels(torch)
+        for dtype in (torch.float32, torch.bfloat16):
+            name = str(dtype).replace("torch.", "")
+            x = frame.to(dtype)
+            torch.cuda.synchronize()
+            _zero_counts()
+            with _PlanTimes() as plans:
+                t0 = time.perf_counter()
+                got = sharded_chain(torch, parallel, sp, x, kernels)
+                torch.cuda.synchronize()
+                wall = (time.perf_counter() - t0) * 1e3
+            launches, comm = _counts()
+            torch.save(got.cpu(), f"{tmp}/chain_{name}_{rank}.pt")
+            out[f"chain_{name}"] = dict(ms=wall, plan_s=plans.seconds,
+                                        launches=launches, comm=comm,
+                                        slab=tuple(x.shape[-2:]))
+        # one data-parallel step of phase 25's model on its first batch
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        model = hexcnn_small(norm="GN", dtype=torch.bfloat16, device="cuda",
+                             generator=gen)
+        parallel.replicate(model, dp)
+        state = create_train_state(model)
+        in_gen = torch.Generator(device="cuda").manual_seed(2)
+        batch = torch.rand((BATCH, 3, 512, 512), generator=in_gen,
+                           device="cuda")
+        xs = parallel.shard_batch(batch, dp)
+        ys = parallel.shard_batch(torch.arange(BATCH, device="cuda") % 10, dp)
+        del batch
+        hexify_batch(xs)   # the rect->hex plan and its table, built once
+        torch.cuda.synchronize()
+        _zero_counts()
+        t0 = time.perf_counter()
+        _, metrics = train_step(state, hexify_batch(xs), ys, mesh=dp)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+        launches, comm = _counts()
+        out["train"] = dict(ms=wall, launches=launches, comm=comm,
+                            loss=float(metrics["loss"]), grads={
+                                n: p.grad.float().cpu().numpy()
+                                for n, p in model.named_parameters()})
+        # the pipeline, a stage a rank
+        ks, x, w = pipeline_inputs(torch)
+        _zero_counts()
+        t0 = time.perf_counter()
+        y, g = _pipeline_step(torch, parallel, pp, ks, x, w)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+        launches, comm = _counts()
+        per = PIPE_LAYERS // RANKS
+        out["pipe"] = dict(ms=wall, comm=comm,
+                           grad=g[rank * per:(rank + 1) * per].cpu().numpy())
+        if rank == 0:
+            torch.save(y.cpu(), f"{tmp}/pipe_0.pt")
+        torch.distributed.destroy_process_group()
+        q.put((rank, True, out))
+    except BaseException:
+        q.put((rank, False, traceback.format_exc()))
+        raise
+
+
+def _spawn_ranks(tmp):
+    """Start ``RANKS`` processes of :func:`_rank26`; return their results,
+    or raise when one fails or ``RANKS_TIMEOUT_S`` passes.  Every process
+    is joined or killed before this returns."""
+    import multiprocessing as mp
+    import queue
+    ctx = mp.get_context("spawn")
+    q = ctx.Queue()
+    procs = [ctx.Process(target=_rank26, args=(r, tmp, q))
+             for r in range(RANKS)]
+    for p in procs:
+        p.start()
+    deadline = time.monotonic() + RANKS_TIMEOUT_S
+    results, error = [None] * RANKS, None
+    try:
+        while any(r is None for r in results) and error is None:
+            try:
+                rank, ok, value = q.get(timeout=1.0)
+            except queue.Empty:
+                dead = [r for r, p in enumerate(procs)
+                        if p.exitcode not in (None, 0)]
+                if dead:
+                    error = f"ranks {dead} died"
+                elif time.monotonic() > deadline:
+                    error = f"no result within {RANKS_TIMEOUT_S} s"
+                continue
+            if ok:
+                results[rank] = value
+            else:
+                error = f"rank {rank}:\n{value}"
+    finally:
+        for p in procs:
+            p.join(timeout=30 if error is None else 5)
+            if p.is_alive():
+                p.kill()
+                p.join(10)
+    if error is not None:
+        raise RuntimeError(f"phase 26: {error}")
+    return results
+
+
+def run_parallel_ranks(torch, tmp, ref):
+    """Phase 26: ``RANKS`` processes on the one card over gloo, each held to
+    phase 25's single-process result."""
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ranks = _spawn_ranks(tmp)
+    log(f"phase 26: {RANKS} ranks on one card over gloo "
+        f"(four processes sharing one card: no measure of scaling), "
+        f"{time.perf_counter() - t0:.1f} s with start-up")
+    for name, tol in (("float32", "f32_rel"), ("bfloat16", "bf16_rel")):
+        got = torch.cat([torch.load(f"{tmp}/chain_{name}_{r}.pt")
+                         for r in range(RANKS)], -2)
+        got = got.cuda()
+        err, rel = max_err(got, ref["chain"][name])
+        for r, res in enumerate(ranks):
+            c = res[f"chain_{name}"]
+            log(f"phase 26 rank {r} sharded 4K chain {name} (sp {RANKS}, "
+                f"slab {c['slab']} source rows/cols): {c['ms']!r} ms, plans "
+                f"{[round(s, 3) for s in c['plan_s']]} s, halo bytes sent "
+                f"{c['comm'].get('p2p_bytes', 0)}, collectives {c['comm']}, "
+                f"launches {c['launches']}")
+            # a shard's plan may take the shift route (#5/#6), as in
+            # hygrid_tpu: apply_plan_auto decides by its structure
+            legs = (c["launches"].get("plan_gather", 0)
+                    + c["launches"].get("shift_resample", 0))
+            require(legs == 2
+                    and c["launches"].get("hex_conv_single") == CHAIN_LAYERS,
+                    f"phase 26 rank {r} chain {name}: {c['launches']}")
+            require(c["comm"].get("send", 0) == c["comm"].get("recv", 0) > 0
+                    and not c["comm"].get("all_reduce")
+                    and not c["comm"].get("broadcast"),
+                    f"phase 26 rank {r} chain {name}: collectives "
+                    f"{c['comm']}, want send/recv of halos alone")
+        log(f"phase 26 chain {name} vs phase 25 (sp 1): max_abs_err={err!r} "
+            f"rel={rel!r}, bit-equal {torch.equal(got, ref['chain'][name])}")
+        require(rel <= PAR_TOL[tol], f"phase 26 chain {name}: rel {rel}")
+    want = ref["train"]
+    loss_rel = max(abs(r["train"]["loss"] - want["loss"]) / abs(want["loss"])
+                   for r in ranks)
+    grad_rel = max(max_err(torch.from_numpy(r["train"]["grads"][n]), g)[1]
+                   for r in ranks for n, g in want["grads"].items())
+    for r, res in enumerate(ranks):
+        t = res["train"]
+        log(f"phase 26 rank {r} dp {RANKS} train_step HexCNN-small GN bf16 "
+            f"b={BATCH // RANKS} of {BATCH}: {t['ms']!r} ms (host clock); "
+            f"launches {t['launches']}; collectives {t['comm']}")
+        require(t["comm"].get("all_reduce", 0) >= 1,
+                f"phase 26 rank {r}: no gradient all-reduce")
+        require(t["launches"] == TRAIN_STEP_LAUNCHES,
+                f"phase 26 rank {r} train launches {t['launches']}")
+    log(f"phase 26 dp {RANKS} step vs phase 25's step on the global batch: "
+        f"loss rel {loss_rel!r}, grads rel max-abs {grad_rel!r} (max over "
+        f"ranks and leaves)")
+    require(loss_rel <= TOL["loss_rel"] and grad_rel <= TOL["grad_bf16_rel"],
+            f"phase 26 dp step: loss rel {loss_rel}, grad rel {grad_rel}")
+    y = torch.load(f"{tmp}/pipe_0.pt").cuda()
+    g = torch.cat([torch.from_numpy(r["pipe"]["grad"]) for r in ranks]).cuda()
+    _, rel = max_err(y, ref["pipe"][0])
+    _, grel = max_err(g, ref["pipe"][1])
+    for r, res in enumerate(ranks):
+        log(f"phase 26 rank {r} pipeline (pp {RANKS}): {res['pipe']['ms']!r} "
+            f"ms forward and grad; collectives {res['pipe']['comm']}")
+    log(f"phase 26 pipeline vs phase 25: out rel {rel!r}, grad rel {grel!r}")
+    require(rel <= PAR_TOL["f32_rel"] and grel <= PAR_TOL["pipe_grad_rel"],
+            f"phase 26 pipeline: out rel {rel}, grad rel {grel}")
 
 
 def kernel_times(torch):
@@ -3878,6 +4394,14 @@ def main():
     with torch.inference_mode():
         paths["ingest"], ingest = run_ingest(torch)
     log(f"phase 24: {time.perf_counter() - t0:.1f} s")
+    (ROOT / "build").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+        t0 = time.perf_counter()
+        paths["parallel"], par_ref = run_parallel(torch, tmp)
+        log(f"phase 25: {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        run_parallel_ranks(torch, tmp, par_ref)
+        log(f"phase 26: {time.perf_counter() - t0:.1f} s")
 
     def count(name):
         by_path = {p: n[name] for p, n in paths.items() if n.get(name)}

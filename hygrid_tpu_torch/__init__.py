@@ -3,10 +3,18 @@
 Mirrors ``hygrid_tpu``'s module paths and public names.  Plain tensor code
 is PyTorch; the TPU kernels on the ported path are CUDA C++ kernels for
 ``sm_90a`` (``csrc/``), built with ``nvcc`` at their first launch.  Importing
-the package needs neither JAX nor a GPU nor ``nvcc``.
+the package needs neither JAX nor a GPU nor ``nvcc``, and creates no
+process group.
 """
-from . import lattice, viz
+from . import lattice
+from . import compat  # noqa: F401  (reference API shims)
+from . import nn  # noqa: F401
+from . import models  # noqa: F401
+from . import parallel  # noqa: F401
+from . import viz  # noqa: F401
+from . import utils  # noqa: F401
 from .image import IMAGE, HEXIMAGE
+from .lattice import HexSpec
 from .ops.geometry import (hex_to_rect_resample, hexresize,
                            image_geometric_transformation,
                            rect_to_hex_resample, warp_output_shape)
@@ -28,9 +36,15 @@ __version__ = "0.1.0"
 
 __all__ = [
     "lattice",
+    "compat",
+    "nn",
+    "models",
+    "parallel",
     "viz",
+    "utils",
     "IMAGE",
     "HEXIMAGE",
+    "HexSpec",
     "hex_to_rect_resample",
     "hexresize",
     "image_geometric_transformation",

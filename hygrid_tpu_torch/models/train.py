@@ -105,8 +105,18 @@ def _forward(model: nn.Module, images: torch.Tensor, train: bool):
     return model(images)
 
 
+def _global_mean(metrics: dict, group) -> dict:
+    """The metrics' mean over ``group`` (each rank's are means over equal
+    shards of the global batch): one all-reduce."""
+    from ..parallel._comm import all_reduce_
+    names = list(metrics)
+    flat = all_reduce_(torch.stack([metrics[n].float() for n in names]),
+                       group) / torch.distributed.get_world_size(group)
+    return dict(zip(names, flat.unbind()))
+
+
 def train_step(state: TrainState, images: torch.Tensor,
-               labels: torch.Tensor):
+               labels: torch.Tensor, *, mesh=None):
     """One optimisation step: forward, :func:`dense_onehot_xent`, backward,
     optimizer update.  Unlike ``hygrid_tpu``'s pure step it updates
     ``state`` (the model's parameters, the optimizer's moments and
@@ -118,28 +128,48 @@ def train_step(state: TrainState, images: torch.Tensor,
 
     ``labels`` may be (B,) class ids or (B, h, w) per-cell ids against
     (B, K, h, w) logits.
+
+    With a ``mesh`` (:mod:`hygrid_tpu_torch.parallel`), ``images`` and
+    ``labels`` are this rank's equal shard of the global batch over its
+    ``"dp"`` axis: BatchNorm sums its statistics over that group
+    (``nn.modules.batch_stats_group``), the grads are averaged over it
+    (one all-reduce a dtype) before the update, and the metrics are the
+    global batch's.  A step then equals one step on the global batch, as
+    ``jit`` over a sharded batch gives in ``hygrid_tpu``.
     """
+    from ..nn.modules import batch_stats_group
+    group = None if mesh is None else mesh.group("dp")
     model = state.model.train()
     state.optimizer.zero_grad(set_to_none=True)
-    logits = _class_axis_last(_forward(model, images, True), labels)
+    with batch_stats_group(group):
+        logits = _class_axis_last(_forward(model, images, True), labels)
     loss = dense_onehot_xent(logits, labels)
     loss.backward()
+    metrics = {"loss": loss.detach(),
+               "accuracy": _accuracy(logits.detach(), labels)}
+    if group is not None:
+        from ..parallel._comm import average_grads_
+        average_grads_(model.parameters(), group)
+        metrics = _global_mean(metrics, group)
     state.optimizer.step()
     state.step += 1
-    return state, {"loss": loss.detach(),
-                   "accuracy": _accuracy(logits.detach(), labels)}
+    return state, metrics
 
 
 @torch.no_grad()
 def eval_step(state: TrainState, images: torch.Tensor,
-              labels: torch.Tensor) -> dict:
+              labels: torch.Tensor, *, mesh=None) -> dict:
     """Integer-label cross-entropy and accuracy, without a grad, on the
-    running statistics (``train=False``)."""
+    running statistics (``train=False``); with a ``mesh``, of this rank's
+    shard, averaged over the ``"dp"`` group."""
     logits = _class_axis_last(_forward(state.model.eval(), images, False),
                               labels)
     logp = torch.log_softmax(logits, dim=-1)
     loss = -logp.gather(-1, labels[..., None].long()).squeeze(-1).mean()
-    return {"loss": loss, "accuracy": _accuracy(logits, labels)}
+    metrics = {"loss": loss, "accuracy": _accuracy(logits, labels)}
+    if mesh is not None:
+        metrics = _global_mean(metrics, mesh.group("dp"))
+    return metrics
 
 
 def mean_iou(logits: torch.Tensor, labels: torch.Tensor,

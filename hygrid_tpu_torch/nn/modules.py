@@ -30,6 +30,8 @@ All modules run channel-first (B, C, H, W), like the hex ops.
 """
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import functools
 import math
 import warnings
@@ -122,6 +124,45 @@ def _fast_stats(x, dims):
     return mean, var
 
 
+# the process group over which BN layers in training sum their batch
+# statistics (a data-parallel step's "dp" group); None: this process's batch
+_BATCH_STATS_GROUP: contextvars.ContextVar = contextvars.ContextVar(
+    "batch_stats_group", default=None)
+
+
+@contextlib.contextmanager
+def batch_stats_group(group):
+    """Within the block, BN layers in training normalise with the batch
+    statistics of the whole ``group``: each rank's per-channel sum and sum
+    of squares are all-reduced, differentiably, so a data-parallel step
+    sees the global batch's statistics (and updates its running statistics
+    from them), as XLA's collective does in ``hygrid_tpu``
+    (``hygrid_tpu/nn/modules.py:131-133``).  ``None`` keeps them per
+    process."""
+    token = _BATCH_STATS_GROUP.set(group)
+    try:
+        yield
+    finally:
+        _BATCH_STATS_GROUP.reset(token)
+
+
+def _group_stats(x, dims, group):
+    """:func:`_fast_stats` over the batch of every rank of ``group``: one
+    differentiable all-reduce of the local sums of ``x`` and ``x^2`` and
+    the element count."""
+    from ..parallel._comm import AllReduceSum
+    x = x.float()
+    count = x.new_full((1,), x.numel() / x.shape[1])
+    local = torch.cat([x.sum(dims), (x * x).sum(dims), count])
+    total = AllReduceSum.apply(local, group)
+    c = x.shape[1]
+    n = total[2 * c]
+    shape = (1, c, 1, 1)
+    mean = (total[:c] / n).reshape(shape)
+    var = torch.clamp(total[c:2 * c].reshape(shape) / n - mean * mean, min=0)
+    return mean, var
+
+
 class _ChannelFirstNorm(nn.Module):
     """BN / GN / LN / IN on ``(B, C, H, W)`` data with flax's semantics
     (``hygrid_tpu/nn/modules.py:84-122``)."""
@@ -153,7 +194,9 @@ class _ChannelFirstNorm(nn.Module):
         bias = None if self.bias is None else self.bias.reshape(shape)
         if self.norm_type == "BN":
             if train:
-                mean, var = _fast_stats(x, (0, 2, 3))
+                group = _BATCH_STATS_GROUP.get()
+                mean, var = (_fast_stats(x, (0, 2, 3)) if group is None
+                             else _group_stats(x, (0, 2, 3), group))
                 with torch.no_grad():
                     m = self.momentum
                     self.running_mean.copy_(
@@ -186,7 +229,8 @@ def build_hexnorm_layer(cfg: Dict, num_features: int,
                         ) -> Tuple[str, nn.Module]:
     """Build a normalization layer; returns ``(name, module)`` like mmcv
     (``HexModules.py:69-89``).  ``SyncBN`` is plain BatchNorm, as in
-    ``hygrid_tpu`` (one process computes global batch statistics)."""
+    ``hygrid_tpu``; under :func:`batch_stats_group` (a data-parallel
+    ``train_step``) it sums its statistics over the group, as SyncBN."""
     if not isinstance(cfg, Mapping) or "type" not in cfg:
         raise TypeError('cfg must be a dict containing the key "type"')
     cfg_ = dict(cfg)

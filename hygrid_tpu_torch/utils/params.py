@@ -1,10 +1,14 @@
 """Weight conversion from ``hygrid_tpu``'s flax variables to the port's
 ``state_dict``s.  Takes plain nested dicts of numpy arrays (for example
-``jax.tree_util.tree_map(np.asarray, variables)``) and imports no JAX."""
+``jax.tree_util.tree_map(np.asarray, variables)``, or
+:func:`flax_tree_from_npz` of a checkpoint ``hygrid_tpu.utils.save_checkpoint``
+wrote) and imports no JAX."""
 from __future__ import annotations
 
+import ast
+import re
 from collections import OrderedDict
-from typing import Mapping
+from typing import Mapping, Union
 
 import numpy as np
 import torch
@@ -12,11 +16,37 @@ import torch
 __all__ = ["hexcnn_state_dict_from_flax", "hexconvmodule_state_dict_from_flax",
            "hexunet_state_dict_from_flax", "hexvit_state_dict_from_flax",
            "hexresnet_state_dict_from_flax",
-           "hexconvnext_state_dict_from_flax"]
+           "hexconvnext_state_dict_from_flax", "flax_tree_from_npz"]
 
 # flax norm submodule (inside HexConvModule's "norm") -> torch names
 _NORM_LEAVES = {"scale": "weight", "bias": "bias"}
 _BN_STATS = {"mean": "running_mean", "var": "running_var"}
+
+
+_KEY = re.compile(r"\[('(?:[^'\\]|\\.)*'|\"(?:[^\"\\]|\\.)*\"|-?\d+)\]")
+
+
+def flax_tree_from_npz(source: Union[str, Mapping]) -> dict:
+    """The nested dict of numpy arrays behind a flat ``.npz`` checkpoint
+    (a path, or the mapping ``np.load`` gives), whose keys are
+    ``jax.tree_util.keystr`` paths such as ``['params']['head']['kernel']``:
+    what ``hygrid_tpu.utils.save_checkpoint`` writes of flax variables.
+    Feed the result to the ``*_state_dict_from_flax`` converters."""
+    if isinstance(source, str):
+        with np.load(source) as data:
+            flat = {k: data[k] for k in data.files}
+    else:
+        flat = dict(source)
+    tree: dict = {}
+    for key, value in flat.items():
+        parts = [ast.literal_eval(m) for m in _KEY.findall(key)]
+        if not parts or "".join(f"[{p!r}]" for p in parts) != key:
+            raise ValueError(f"{key!r} is not a keystr path")
+        node = tree
+        for part in parts[:-1]:
+            node = node.setdefault(part, {})
+        node[parts[-1]] = np.asarray(value)
+    return tree
 
 
 def _t(value) -> torch.Tensor:

@@ -1,6 +1,6 @@
 """The port stands alone: importing it pulls in neither JAX nor flax, builds
-no kernel and no native library, and chip_smoke.py refuses to run without
-a GPU."""
+no kernel and no native library, creates no process group, and
+chip_smoke.py refuses to run without a GPU."""
 import ast
 import os
 import re
@@ -26,7 +26,20 @@ MODULES = ["hygrid_tpu_torch", "hygrid_tpu_torch.kernels.resample",
            "hygrid_tpu_torch.image.window", "hygrid_tpu_torch.viz.pixelart",
            "hygrid_tpu_torch.ops.tiled", "hygrid_tpu_torch.ops.pad",
            "hygrid_tpu_torch.ops.hexrot", "hygrid_tpu_torch.ops.augment",
-           "hygrid_tpu_torch.utils.native_loader"]
+           "hygrid_tpu_torch.utils.native_loader",
+           "hygrid_tpu_torch.parallel", "hygrid_tpu_torch.parallel.mesh",
+           "hygrid_tpu_torch.parallel.distributed",
+           "hygrid_tpu_torch.parallel.spatial",
+           "hygrid_tpu_torch.parallel.pipeline",
+           "hygrid_tpu_torch.utils.checkpoint",
+           "hygrid_tpu_torch.utils.profiling", "hygrid_tpu_torch.compat",
+           "hygrid_tpu_torch.HexFrames", "hygrid_tpu_torch.HexModules",
+           "hygrid_tpu_torch.HexImage", "hygrid_tpu_torch.Image",
+           "hygrid_tpu_torch.geometry", "hygrid_tpu_torch.geometry_np",
+           "hygrid_tpu_torch.geometry_torch", "hygrid_tpu_torch.HexPixelArt",
+           "hygrid_tpu_torch.HexPixelArt.hexagon_mosaic_shader",
+           "hygrid_tpu_torch.HexPixelArt.texture",
+           "hygrid_tpu_torch.HexPixelArt.window"]
 
 
 def _run(code, cwd=ROOT):
@@ -64,6 +77,18 @@ def test_sources_import_no_jax(path):
         for name in names:
             assert name.split(".")[0] not in ("jax", "flax", "hygrid_tpu"), \
                 f"{path} imports {name}"
+
+
+def test_import_creates_no_process_group():
+    """Importing the package (``parallel`` included) initialises no
+    ``torch.distributed`` group and builds nothing."""
+    code = ("import hygrid_tpu_torch, torch.distributed as dist\n"
+            "from hygrid_tpu_torch import parallel\n"
+            "from hygrid_tpu_torch.kernels import _build\n"
+            "assert not dist.is_initialized()\n"
+            "assert _build._lib is None\n")
+    proc = _run(code)
+    assert proc.returncode == 0, proc.stderr
 
 
 def test_chip_smoke_fails_without_gpu(tmp_path):

@@ -197,8 +197,38 @@ def test_create_train_state_uses_optax_adamw_defaults():
     assert not {id(b) for b in bn.model.buffers()} & {id(p) for p in params}
 
 
-@pytest.mark.parametrize("option", [dict(mesh=object()),
+@pytest.mark.parametrize("option", [dict(mesh="dp 1"),
                                     dict(checkpoint_path="ckpt")])
-def test_fit_unported_options_raise(option):
-    with pytest.raises(NotImplementedError, match="queue 1 items 19-20"):
-        tm.fit(tm.HexCNN(device="cpu", **MODEL), [_batch(0, b=2)], **option)
+def test_fit_unported_options_raise(option, tmp_path):
+    """``mesh`` and ``checkpoint_path`` raised until ``parallel/`` and
+    ``utils/checkpoint.py`` were ported; now ``fit`` takes them: over a
+    one-rank ``dp`` mesh (a gloo group in this process, destroyed after)
+    it gives the history of ``fit`` without one, bit for bit, and the
+    checkpoint of the last epoch restores the trained parameters."""
+    import torch.distributed as dist
+    from hygrid_tpu_torch import parallel, utils
+    batches = [_batch(0, b=2), _batch(1, b=2)]
+    runs = []
+    for use in (False, True):
+        torch.manual_seed(0)
+        model = tm.HexCNN(device="cpu", **MODEL)
+        kw = {}
+        if use and "mesh" in option:
+            dist.init_process_group(
+                "gloo", init_method=f"file://{tmp_path}/pg", rank=0,
+                world_size=1)
+            kw["mesh"] = parallel.create_mesh({"dp": 1})
+        elif use:
+            kw["checkpoint_path"] = str(tmp_path / option["checkpoint_path"])
+        try:
+            runs.append((model, tm.fit(model, batches, num_epochs=2,
+                                       log_every=1, **kw)[1]))
+        finally:
+            if "mesh" in kw:
+                dist.destroy_process_group()
+    assert runs[0][1] == runs[1][1]
+    if "checkpoint_path" in option:
+        fresh = tm.HexCNN(device="cpu", **MODEL)
+        utils.restore_checkpoint(str(tmp_path / "ckpt_e1.npz"), fresh)
+        for a, b in zip(fresh.parameters(), runs[1][0].parameters()):
+            assert torch.equal(a, b)
