@@ -261,7 +261,23 @@ Phases, each of which raises on failure (the script then exits non-zero):
     launches), the pipeline at pp=4; each held to phase 25's result; per
     rank the wall ms of each call, the plan builds' seconds, the halo
     bytes sent and the collectives' counts.  Four processes share one
-    card there: the times are no measure of scaling.
+    card there: the times are no measure of scaling;
+27. ``utils/export.py`` on the card: HexCNN-small (phase 5's model)
+    exported with a symbolic batch from a b=32 example, saved under
+    build/, loaded and served at b=32 and b=8, ``torch.equal`` to the
+    eager kernel path with 1 plan_gather and 6 hex_conv_layer launches a
+    call; the same weights exported on the CPU (b=2, platforms cpu and
+    cuda) and moved to the card at load, likewise at b=32; export and
+    load seconds, artifact bytes; a request from the artifact against
+    the eager one in turns, 3 windows of at least 1 s each (CUDA
+    events), and each one's host ms; the host ms a call of
+    plan_gather and a GN hex_conv_layer through the wrapper, the op and
+    the op's CUDA implementation called directly; then one program for
+    each other op, saved, loaded, ``torch.equal`` to its eager call with
+    its launches: HexUNet-small b=2 (1 plan_gather, 3 hex_conv_layer, 2
+    split layers), BN-512's kernel route b=2 (1 plan_gather, 5
+    hex_conv_single), P-512 fused b=2 (2 plan_gather, 1 fused stack),
+    the 720p frame processor (1 shift_resample).
 
 Beside kernel B, the backward kernels, the split layer and the single-op
 conv the kernels line carries cuDNN's time (``hex_conv2d(impl="direct")``
@@ -3490,8 +3506,9 @@ CHAIN_HEX = (1080, 1920)
 CHAIN_C = 16
 CHAIN_LAYERS = 4
 # the pipeline at P-512's width: 16 channels, 8 layers, b=16 on 256^2 hex
-PIPE_SHAPE = (16, 16, 256, 256)
-PIPE_LAYERS = 8
+# (its own names: P-512 itself keeps PIPE_LAYERS)
+PAR_PIPE_SHAPE = (16, 16, 256, 256)
+PAR_PIPE_LAYERS = 8
 RANKS = 4
 RANKS_TIMEOUT_S = 600
 PAR_TOL = {"f32_rel": 1e-5, "bf16_rel": 5e-2, "fit_rel": 1e-6,
@@ -3583,10 +3600,11 @@ def _zero_counts():
 
 def pipeline_inputs(torch):
     gen = torch.Generator(device="cuda").manual_seed(26)
-    ks = torch.randn((PIPE_LAYERS, PIPE_SHAPE[1], PIPE_SHAPE[1], 7),
+    c = PAR_PIPE_SHAPE[1]
+    ks = torch.randn((PAR_PIPE_LAYERS, c, c, 7),
                      generator=gen, device="cuda") * 0.1
-    x = torch.randn(PIPE_SHAPE, generator=gen, device="cuda")
-    w = torch.randn(PIPE_SHAPE, generator=gen, device="cuda")
+    x = torch.randn(PAR_PIPE_SHAPE, generator=gen, device="cuda")
+    w = torch.randn(PAR_PIPE_SHAPE, generator=gen, device="cuda")
     return ks, x, w
 
 
@@ -3743,7 +3761,7 @@ def _par_pipeline(torch, parallel):
     wall = (time.perf_counter() - t0) * 1e3
     kseq = ks.clone().requires_grad_(True)
     parts = []
-    for xm in x.split(PIPE_SHAPE[0] // 4):   # its default 4 microbatches
+    for xm in x.split(PAR_PIPE_SHAPE[0] // 4):   # its default 4 microbatches
         for k in kseq:
             xm = hex_conv2d(xm, k, radius=2, padding=1)
         parts.append(xm)
@@ -3751,7 +3769,8 @@ def _par_pipeline(torch, parallel):
     (seq * w).sum().backward()
     err, rel = max_err(y, seq)
     gerr, grel = max_err(g, kseq.grad)
-    log(f"phase 25 pipeline (pp 1) {PIPE_LAYERS} layers x {PIPE_SHAPE} "
+    log(f"phase 25 pipeline (pp 1) {PAR_PIPE_LAYERS} layers x "
+        f"{PAR_PIPE_SHAPE} "
         f"f32, forward and grad: {wall!r} ms (host clock); vs the "
         f"sequential stack: out rel {rel!r} (bit-equal "
         f"{torch.equal(y, seq)}), kernel grad rel {grel!r}")
@@ -3851,7 +3870,7 @@ def _rank26(rank, tmp, q):
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
         launches, comm = _counts()
-        per = PIPE_LAYERS // RANKS
+        per = PAR_PIPE_LAYERS // RANKS
         out["pipe"] = dict(ms=wall, comm=comm,
                            grad=g[rank * per:(rank + 1) * per].cpu().numpy())
         if rank == 0:
@@ -3969,6 +3988,203 @@ def run_parallel_ranks(torch, tmp, ref):
     log(f"phase 26 pipeline vs phase 25: out rel {rel!r}, grad rel {grel!r}")
     require(rel <= PAR_TOL["f32_rel"] and grel <= PAR_TOL["pipe_grad_rel"],
             f"phase 26 pipeline: out rel {rel}, grad rel {grel}")
+
+
+# phase 27: torch.export on the card.  HexCNN-small (phase 5's model) is
+# exported with a symbolic batch from a b=BATCH example and served from the
+# reloaded artifact at EXPORT_BATCHES; the other programs at EXPORT_BATCH
+EXPORT_BATCHES = (BATCH, 8)
+EXPORT_BATCH = 2
+SERVE_LAUNCHES = {"plan_gather": 1, "hex_conv_layer": 6}
+
+
+def _export_artifact(torch, tmp, name, export, device=None):
+    """``export()`` (an ``Exported``) saved to ``tmp`` and loaded again
+    (moved to ``device`` when given): ``(program, export_s, load_s,
+    artifact_bytes)``."""
+    from hygrid_tpu_torch.utils import export as texp
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    exp = export()
+    torch.cuda.synchronize()
+    export_s = time.perf_counter() - t0
+    path = Path(tmp) / f"{name}.pt2"
+    texp.save_exported(str(path), exp)
+    t0 = time.perf_counter()
+    program = texp.load_exported(str(path), device=device)
+    return program, export_s, time.perf_counter() - t0, path.stat().st_size
+
+
+def _counted(torch, fn, x):
+    """``(fn(x), the launches of that call)``."""
+    _zero_counts()
+    out = fn(x)
+    torch.cuda.synchronize()
+    return out, _counts()[0]
+
+
+def _export_other(torch, tmp, name, eager, export, x, launches):
+    """One of phase 27's other programs: ``export()`` saved, loaded and
+    called on ``x``, ``torch.equal`` to ``eager(x)``, with ``launches`` a
+    call.  Returns the launches."""
+    program, export_s, load_s, size = _export_artifact(torch, tmp, name,
+                                                       export)
+    with torch.inference_mode():
+        got, counts = _counted(torch, program, x)
+        want = eager(x)
+    log(f"phase 27 {name} {tuple(x.shape)} {x.dtype}: export_s={export_s!r} "
+        f"load_s={load_s!r} artifact_bytes={size}; launches {counts}; "
+        f"torch.equal to eager {torch.equal(got, want)}")
+    require(counts == launches, f"phase 27 {name}: launches {counts}, "
+                                f"want {launches}")
+    require(torch.equal(got, want), f"phase 27 {name}: the loaded program "
+                                    "differs from the eager call")
+    return counts
+
+
+def _dispatch_cost(torch):
+    """Host ms a call (median of 5 ``host_ms`` timings of 30 calls) of
+    ``plan_gather`` at HexCNN-512's plan (b=32 bf16) and of one GN
+    ``hex_conv_layer`` (64->64 at 128x127, b=32 bf16): through the
+    wrapper, through the op, and the op's CUDA implementation called
+    directly (what the dispatcher adds is op minus implementation)."""
+    from hygrid_tpu_torch.kernels import conv_stack, resample
+    from hygrid_tpu_torch.ops import geometry
+    gen = torch.Generator(device="cuda").manual_seed(28)
+    bf = torch.bfloat16
+    plan = geometry.rect_to_hex_plan(512, 512, 256, 256, "bilinear")
+    x = torch.rand((BATCH, 3, 512, 512), generator=gen,
+                   device="cuda").to(bf)
+    h = torch.rand((BATCH, 128, 127, 64), generator=gen,
+                   device="cuda").to(bf)
+    k = (torch.randn((64, 64, 7), generator=gen, device="cuda")
+         * 0.05).to(bf)
+    gamma, beta = torch.ones(64, device="cuda"), torch.zeros(64,
+                                                             device="cuda")
+    gather = resample._op_args(x, plan)
+    layer = (h, None, k, None, gamma, beta, 2, 1, "gn", 8, True, False)
+    fns = {
+        "plan_gather wrapper": lambda: resample.plan_gather(x, plan),
+        "plan_gather op": lambda: resample._OP(*gather),
+        "plan_gather implementation": lambda: resample._plan_gather_cuda(
+            *gather),
+        "hex_conv_layer wrapper": lambda: conv_stack.hex_conv_layer(
+            h, k, radius=2, norm=("gn", 8, gamma, beta), relu=True),
+        "hex_conv_layer op": lambda: conv_stack._LAYER_OP(*layer),
+        "hex_conv_layer implementation": lambda: conv_stack._layer_cuda(
+            *layer)}
+    with torch.inference_mode():
+        return {name: sorted(host_ms(torch, fn, calls=30)
+                             for _ in range(5))[2]
+                for name, fn in fns.items()}
+
+
+def run_export(torch, tmp):
+    """Phase 27: ``utils/export.py`` on the card.  Returns the launches of
+    the loaded programs."""
+    from hygrid_tpu_torch.models import HexUNet, hexcnn_small, hexify_batch
+    from hygrid_tpu_torch.models import video
+    from hygrid_tpu_torch.utils import export as texp
+    bf = torch.bfloat16
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    model = hexcnn_small(norm="GN", dtype=bf, device="cuda",
+                         generator=gen).eval()
+    in_gen = torch.Generator(device="cuda").manual_seed(27)
+
+    def rect(b, dtype=bf):
+        return torch.rand((b, 3, 512, 512), generator=in_gen,
+                          device="cuda").to(dtype)
+
+    def eager(x):
+        return model(hexify_batch(x))
+
+    example = rect(BATCH)
+    xs = {b: rect(b) for b in EXPORT_BATCHES}
+    loaded, export_s, load_s, size = _export_artifact(
+        torch, tmp, "hexcnn_small", functools.partial(
+            texp.export_inference, model, None, example,
+            symbolic_batch=True))
+    info = texp.exported_info(str(Path(tmp) / "hexcnn_small.pt2"))
+    # the same weights exported on the CPU (from a b=2 example) for both
+    # platforms, moved to the card at load
+    cpu_model = hexcnn_small(norm="GN", dtype=bf, device="cpu")
+    cpu_model.load_state_dict(model.state_dict())
+    from_cpu, cpu_export_s, cpu_load_s, cpu_size = _export_artifact(
+        torch, tmp, "hexcnn_small_cpu", functools.partial(
+            texp.export_inference, cpu_model, None,
+            example[:EXPORT_BATCH].cpu(), symbolic_batch=True,
+            platforms=("cpu", "cuda")), device="cuda")
+    launches = {}
+    with torch.inference_mode():
+        for label, program, batches in (("cuda", loaded, EXPORT_BATCHES),
+                                        ("cpu->cuda", from_cpu, (BATCH,))):
+            for b in batches:
+                got, counts = _counted(torch, program, xs[b])
+                want = eager(xs[b])
+                log(f"phase 27 HexCNN-small artifact exported on {label}, "
+                    f"b={b}: launches {counts}, logits {tuple(got.shape)} "
+                    f"torch.equal to eager {torch.equal(got, want)}")
+                require(counts == SERVE_LAUNCHES,
+                        f"phase 27 {label} b={b}: launches {counts}, want "
+                        f"{SERVE_LAUNCHES} a call")
+                require(got.shape == (b, 10)
+                        and bool(torch.isfinite(got).all()),
+                        f"phase 27 {label} b={b}: logits {tuple(got.shape)}")
+                require(torch.equal(got, want),
+                        f"phase 27 {label} b={b}: the loaded program's "
+                        "logits differ from the eager kernel path's")
+                for k, v in counts.items():
+                    launches[k] = launches.get(k, 0) + v
+        x = xs[BATCH]
+        first_ms = cuda_ms(torch, lambda: loaded(x), iters=3)
+        n, ms = _timed_windows(torch, {
+            "loaded": (lambda: None, loaded), "eager": (lambda: None, eager)},
+            [xs[BATCH]], first_ms)
+        host = {name: host_ms(torch, functools.partial(fn, x), calls=10)
+                for name, fn in (("loaded", loaded), ("eager", eager))}
+    log(f"phase 27 export HexCNN-small GN bf16 512^2, symbolic batch "
+        f"(example b={BATCH}): export_s={export_s!r} load_s={load_s!r} "
+        f"artifact_bytes={size}; from the CPU (example b={EXPORT_BATCH}): "
+        f"export_s={cpu_export_s!r} load_s={cpu_load_s!r} (moved to the "
+        f"card) artifact_bytes={cpu_size}; exported_info {info}")
+    log(f"phase 27 HexCNN-small b={BATCH} request, loaded against eager in "
+        f"turns, {PERMODULE_WINDOWS} windows of {n} requests (CUDA "
+        f"events): ms a request {ms}; host_ms a request {host}")
+    log(f"phase 27 the ops' dispatch, host ms a call: "
+        f"{_dispatch_cost(torch)}")
+
+    g = torch.Generator(device="cuda").manual_seed(17)
+    unet = HexUNet(num_classes=4, dtype=bf, generator=g).eval()
+    bn = build_permodule_hexcnn(generator=g).eval()
+    pipe, _ = build_pipeline((512, 512), PIPE_CHANNELS, PIPE_LAYERS,
+                             PIPE_RADIUS, bf, fused=True)
+    proc = video.make_frame_processor(720, 1280)
+    frame = torch.rand((3, 720, 1280), generator=in_gen, device="cuda")
+    x_bf, x_f32 = rect(EXPORT_BATCH), rect(EXPORT_BATCH, torch.float32)
+
+    def served(m):
+        return lambda v: m(hexify_batch(v))
+
+    def inference(m, v):
+        return functools.partial(texp.export_inference, m, None, v,
+                                 symbolic_batch=True)
+
+    others = [
+        ("HexUNet-small", served(unet), inference(unet, x_bf), x_bf,
+         {"plan_gather": 1, "hex_conv_layer": 3, "hex_conv_layer_split": 2}),
+        ("BN-512 kernel route", served(bn), inference(bn, x_f32), x_f32,
+         {"plan_gather": 1, "hex_conv_single": 5}),
+        ("P-512 fused", pipe, functools.partial(
+            texp.export_fn, pipe, (x_f32,), symbolic_batch=True), x_f32,
+         {"plan_gather": 2, "hex_conv_fused_stack": 1}),
+        ("720p frame processor", proc, functools.partial(
+            texp.export_fn, proc, (frame,)), frame, {"shift_resample": 1}),
+    ]
+    for name, eager_fn, export, x, want in others:
+        for k, v in _export_other(torch, tmp, name, eager_fn, export, x,
+                                  want).items():
+            launches[k] = launches.get(k, 0) + v
+    return launches
 
 
 def kernel_times(torch):
@@ -4402,6 +4618,10 @@ def main():
         t0 = time.perf_counter()
         run_parallel_ranks(torch, tmp, par_ref)
         log(f"phase 26: {time.perf_counter() - t0:.1f} s")
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+        t0 = time.perf_counter()
+        paths["export"] = run_export(torch, tmp)
+        log(f"phase 27: {time.perf_counter() - t0:.1f} s")
 
     def count(name):
         by_path = {p: n[name] for p, n in paths.items() if n.get(name)}

@@ -27,11 +27,13 @@ The un-suffixed names are the port's ops: they return tensors, on the
 card unless the input is a tensor elsewhere or ``device=`` says otherwise.
 The device-suffixed names return numpy, as the reference's ``.cpu().numpy()``
 tails do: ``_gpu`` and ``hex_to_square_resample`` run on ``device`` (the
-card by default), ``_cpu`` on the CPU.
+card by default), ``_cpu`` on the CPU.  A bfloat16 result comes back as
+float32 (the cast is exact): numpy has no bfloat16, where the reference
+returns an ``ml_dtypes`` bfloat16 array.
 """
 from __future__ import annotations
 
-import numpy as np
+import torch
 
 from .ops.geometry import (
     image_geometric_transformation,
@@ -43,6 +45,7 @@ from .ops.pad import heximpad, hex_impad_to_multiple
 from .ops.convert import (
     heximage_to_type1, heximage_to_type2, type1_to_heximage)
 from .image import IMAGE, HEXIMAGE
+from .image.image import _numpy
 
 __all__ = [
     "image_geometric_transformation",
@@ -61,9 +64,6 @@ __all__ = [
     "HEXIMAGE",
 ]
 
-
-def _numpy(t) -> np.ndarray:
-    return t.detach().cpu().numpy()
 
 
 def hex_to_square_resample(hex_image, rect_dsize=None,
@@ -86,7 +86,7 @@ def image_geometric_transformation_cpu(image, H=None, interpolation="nearest",
                                        offset=0):
     """CPU name of the warp (``geometry.py:354-435``), run on the CPU;
     returns numpy."""
-    if not isinstance(image, np.ndarray):
-        image = _numpy(image)
+    if torch.is_tensor(image):
+        image = image.detach().cpu()
     return _numpy(image_geometric_transformation(image, H, interpolation,
                                                  offset, device="cpu"))

@@ -46,6 +46,11 @@ def _on_device(a, device, dtype=None) -> torch.Tensor:
 
 
 def _numpy(t: torch.Tensor) -> np.ndarray:
+    """``t`` as a numpy array on the host; bfloat16, which numpy lacks, as
+    float32 (exact)."""
+    t = t.detach()
+    if t.dtype == torch.bfloat16:
+        t = t.float()
     return t.cpu().numpy()
 
 

@@ -23,6 +23,8 @@
   single-op conv of ``hex_conv2d(impl="pallas")``).
 
 Importing these modules builds nothing: ``_build.load_library`` compiles
-the CUDA sources at the first kernel launch.  A wrapper given a CPU tensor
-runs the kernel's plain PyTorch version.
+the CUDA sources at the first kernel launch.  Each forward wrapper calls
+its ``hygrid`` op (``_ops.py``), which runs the kernel's plain PyTorch
+version on a CPU tensor and launches the kernel on a CUDA tensor; the
+backward kernels are called directly.
 """

@@ -11,12 +11,13 @@ packing and Kronecker "shift x tap" matrices are not ported.
 :func:`hex_conv_single` takes ``packed_hex_conv_pallas``'s arguments: it
 casts ``x`` to the kernel's dtype, pads it with zeros, folds the padding
 into the row parity, runs the valid conv and adds the bias after it in the
-output dtype (``conv_pallas.py:205-206``).  On a CUDA tensor (float32 or
-bfloat16) it launches the kernel through a ``torch.autograd.Function``
-whose backward is the plain VJP (autograd of :func:`hex_conv_single_plain`'s
-conv), as the reference pulls back through XLA's packed conv
-(``conv_pallas.py:210-229``).  On a CPU tensor it runs the plain version;
-anything else raises.
+output dtype (``conv_pallas.py:205-206``).  The conv is the op
+``hygrid::hex_conv_single`` (``_ops.py``) inside a
+``torch.autograd.Function`` whose backward is the plain VJP (autograd of
+:func:`hex_conv_single_plain`'s conv), as the reference pulls back through
+XLA's packed conv (``conv_pallas.py:210-229``).  On a CUDA tensor
+(float32 or bfloat16) the op launches the kernel, on a CPU tensor it runs
+the plain version; anything else raises.
 
 The kernel runs bfloat16 on kernel B's tensor-core tile (the weights
 packed by ``conv_stack._pack_mma_weights``, the tile's output channels
@@ -40,7 +41,7 @@ import torch
 from torch.autograd.function import once_differentiable
 
 from ..nn import functional as F
-from . import _build, conv_stack
+from . import _build, _ops, conv_stack
 
 __all__ = ["hex_conv_single", "hex_conv_single_plain",
            "pallas_conv_applicable", "takes_single_route"]
@@ -187,8 +188,15 @@ def hex_conv_single_plain(x, kernel, bias=None, *, even_odd_offset: int = 0,
     return _add_bias(_valid_plain(x, kernel, parity, radius, dilation), bias)
 
 
+def _single_fake(x, kernel, parity, radius, dilation):
+    b, _, h, w = x.shape
+    return x.new_empty((b, kernel.shape[0], *F.hex_conv2d_output_shape(
+        h, w, radius, 1, 0, dilation)))
+
+
 def _launch(x, kernel, parity, radius, dilation):
-    """One ``hg_hex_conv_single`` call on padded NCHW ``x``."""
+    """The op's launch: one ``hg_hex_conv_single`` call on padded NCHW
+    ``x``, counted in ``LAUNCHES``."""
     global LAUNCHES
     if x.dtype not in _DTYPES:
         raise TypeError(f"hex_conv_single: the kernel takes float32 or "
@@ -225,6 +233,12 @@ def _launch(x, kernel, parity, radius, dilation):
     return out
 
 
+_OP = _ops.define(
+    "hex_conv_single(Tensor x, Tensor kernel, int parity, int radius, "
+    "int dilation) -> Tensor",
+    cpu=_valid_plain, cuda=_launch, fake=_single_fake)
+
+
 class _HexConvSingle(torch.autograd.Function):
     """The kernel on padded ``x``; the backward is autograd of the plain
     valid conv (dx on the padded input, which the caller's pad pulls
@@ -234,7 +248,7 @@ class _HexConvSingle(torch.autograd.Function):
     def forward(ctx, x, kernel, parity, radius, dilation):
         ctx.geometry = (parity, radius, dilation)
         ctx.save_for_backward(x, kernel)
-        return _launch(x, kernel, parity, radius, dilation)
+        return _OP(x, kernel, parity, radius, dilation)
 
     @staticmethod
     @once_differentiable
@@ -268,10 +282,7 @@ def hex_conv_single(x, kernel, bias=None, *, even_odd_offset: int = 0,
     """
     x, kernel, parity = _prepare(x, kernel, even_odd_offset, padding,
                                  band_rows)
-    if x.device.type == "cpu":
-        out = _valid_plain(x, kernel, parity, radius, dilation)
-    elif x.device.type == "cuda":
-        out = _HexConvSingle.apply(x, kernel, parity, radius, dilation)
-    else:
+    if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"hex_conv_single: no kernel for device {x.device}")
-    return _add_bias(out, bias)
+    return _add_bias(_HexConvSingle.apply(x, kernel, parity, radius,
+                                          dilation), bias)

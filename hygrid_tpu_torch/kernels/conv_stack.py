@@ -74,7 +74,12 @@ their split twins :func:`hex_conv_layer_split_dgrad_plain` and
 :func:`gn_relu_backward_plain` on the statistics of :func:`gn_stats_plain`.
 Every
 wrapper runs its plain version for a CPU tensor, launches its kernel for a
-CUDA tensor and raises for anything else.
+CUDA tensor and raises for anything else.  The forward launches are the
+ops ``hygrid::hex_conv_layer`` (a layer or a split layer; its
+pre-activation and GN statistics come back as empty tensors where the
+layer keeps none) and ``hygrid::hex_conv_fused_stack`` (``_ops.py``), so
+that an exported program keeps them; the backward kernels are called
+directly (the reference exports inference only).
 """
 from __future__ import annotations
 
@@ -86,7 +91,7 @@ import torch
 from torch.autograd.function import once_differentiable
 
 from ..nn import functional as F
-from . import _build
+from . import _build, _ops
 
 __all__ = ["hex_conv_layer", "hex_conv_layer_plain", "hex_conv_layer_dgrad",
            "hex_conv_layer_dgrad_plain", "hex_conv_layer_wgrad",
@@ -561,22 +566,61 @@ def _check_pair(a, b, what) -> None:
 
 def _layer_forward(x, kernel, bias, radius, dilation, norm, relu, x2=None,
                    save_pre=False):
+    """:func:`_layer_op` with the layer's norm as a ``norm`` tuple (None,
+    ``("gn", groups, gamma, beta)`` or ``("affine", scale, shift)``)."""
+    kind = None if norm is None else norm[0]
+    groups = int(norm[1]) if kind == "gn" else 0
+    p, q = (None, None) if norm is None else norm[-2:]
+    return _layer_op(x, x2, kernel, bias, p, q, radius, dilation, kind,
+                     groups, relu, save_pre)
+
+
+def _layer_op(x, x2, kernel, bias, p, q, radius, dilation, kind, groups,
+              relu, save_pre):
     """``(out, y, stats)`` of one layer, or with ``x2`` of the split layer
-    on the channel concatenation of ``x`` and ``x2``: ``y`` is its float32
-    NHWC pre-activation where the device path has it (always on the CPU;
-    on CUDA for GN layers, and for affine layers with ``save_pre``),
+    on the channel concatenation of ``x`` and ``x2``, through the op
+    ``hygrid::hex_conv_layer``: ``y`` is its float32 NHWC pre-activation
+    for GN layers and, with ``save_pre``, affine layers (None otherwise),
     ``stats`` a GN layer's float32 ``(B, G, 2)`` mean and rstd (None
     without GN)."""
+    out, y, stats = _LAYER_OP(x, x2, kernel, bias, p, q, radius, dilation,
+                              kind, groups, bool(relu), bool(save_pre))
+    return (out, y if _keeps_pre(kind, save_pre) else None,
+            stats if kind == "gn" else None)
+
+
+def _keeps_pre(kind, save_pre: bool) -> bool:
+    """Whether a layer returns its float32 pre-activation: GN layers (their
+    backward reads it), affine layers whose grad is wanted."""
+    return kind == "gn" or (kind == "affine" and save_pre)
+
+
+def _norm_spec(kind, groups, p, q):
+    return (None if kind is None else ("gn", groups, p, q) if kind == "gn"
+            else ("affine", p, q))
+
+
+def _layer_cpu(x, x2, kernel, bias, p, q, radius, dilation, kind, groups,
+               relu, save_pre):
+    """The op's plain version: :func:`hex_conv_layer_plain` (on the
+    concatenation for the split layer), with the pre-activation and the GN
+    statistics by the kernel's formula (:func:`gn_stats_plain`), or empty
+    tensors where the CUDA launch has none."""
+    xin = x if x2 is None else torch.cat([x, x2], dim=-1)
+    y = _pre_plain(xin, kernel, bias, radius, dilation)
+    stats = (torch.stack(gn_stats_plain(y, groups), -1) if kind == "gn"
+             else y.new_empty(0))
+    out = _post_plain(y, _norm_spec(kind, groups, p, q), relu, xin.dtype)
+    # NHWC-contiguous, as the launch writes it (the fake's strides)
+    return (out, y.contiguous() if _keeps_pre(kind, save_pre)
+            else y.new_empty(0), stats)
+
+
+def _layer_cuda(x, x2, kernel, bias, p, q, radius, dilation, kind, groups,
+                relu, save_pre):
+    """The op's launch of kernel B (its split mode with ``x2``), counted in
+    ``LAUNCHES`` (``SPLIT_LAUNCHES``)."""
     global LAUNCHES, SPLIT_LAUNCHES
-    if x.device.type == "cpu":
-        xin = x if x2 is None else torch.cat([x, x2], dim=-1)
-        y = _pre_plain(xin, kernel, bias, radius, dilation)
-        stats = None
-        if norm is not None and norm[0] == "gn":
-            # the output is the plain version's (hex_conv_layer_plain, bit
-            # for bit); the saved statistics are the kernel's formula
-            stats = torch.stack(gn_stats_plain(y, norm[1]), -1)
-        return _post_plain(y, norm, relu, xin.dtype), y, stats
     what = "hex_conv_layer" if x2 is None else "hex_conv_layer_split"
     if x2 is None:
         _check_activations(x, what)
@@ -588,13 +632,35 @@ def _layer_forward(x, kernel, bias, radius, dilation, norm, relu, x2=None,
                   what)
     wt = kernel.permute(2, 1, 0)                            # (kn, Cin, Cout)
     out, y, stats = _conv_launch(x, wt, cout, (radius, dilation, False),
-                                 what, bias, norm, relu, x2=x2,
-                                 save_pre=save_pre)
+                                 what, bias, _norm_spec(kind, groups, p, q),
+                                 relu, x2=x2, save_pre=save_pre)
     if x2 is None:
         LAUNCHES += 1
     else:
         SPLIT_LAUNCHES += 1
-    return out, y, stats
+
+    def empty():
+        return torch.empty(0, dtype=torch.float32, device=x.device)
+
+    return (out, empty() if y is None else y,
+            empty() if stats is None else stats)
+
+
+def _layer_fake(x, x2, kernel, bias, p, q, radius, dilation, kind, groups,
+                relu, save_pre):
+    pre = (*x.shape[:3], kernel.shape[0])
+    f32 = torch.float32
+    return (x.new_empty(pre),
+            x.new_empty(pre if _keeps_pre(kind, save_pre) else 0, dtype=f32),
+            x.new_empty((x.shape[0], groups, 2) if kind == "gn" else 0,
+                        dtype=f32))
+
+
+_LAYER_OP = _ops.define(
+    "hex_conv_layer(Tensor x, Tensor? x2, Tensor kernel, Tensor? bias, "
+    "Tensor? p, Tensor? q, int radius, int dilation, str? kind, int groups, "
+    "bool relu, bool save_pre) -> (Tensor, Tensor, Tensor)",
+    cpu=_layer_cpu, cuda=_layer_cuda, fake=_layer_fake)
 
 
 class _HexConvLayer(torch.autograd.Function):
@@ -608,10 +674,8 @@ class _HexConvLayer(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, x2, kernel, bias, p, q, radius, dilation, kind,
                 groups, relu, save_pre):
-        norm = (None if kind is None else ("gn", groups, p, q)
-                if kind == "gn" else ("affine", p, q))
-        out, y, stats = _layer_forward(x, kernel, bias, radius, dilation,
-                                       norm, relu, x2, save_pre)
+        out, y, stats = _layer_op(x, x2, kernel, bias, p, q, radius,
+                                  dilation, kind, groups, relu, save_pre)
         ctx.geometry = (radius, dilation, kind, groups, relu)
         # normed layers pull back through their pre-activation (and GN's
         # statistics), ReLU layers without GN through the mask of their
@@ -961,9 +1025,23 @@ def _fused_launch(x, kernels, biases, radius, dilation, relus):
     return out
 
 
+def _fused_cpu(x, kernels, biases, radius, dilation, relus):
+    return hex_conv_fused_stack_plain(x, kernels, biases, radius=radius,
+                                      dilation=dilation, relus=relus)
+
+
+_FUSED_OP = _ops.define(
+    "hex_conv_fused_stack(Tensor x, Tensor[] kernels, Tensor?[] biases, "
+    "int radius, int dilation, bool[] relus) -> Tensor",
+    cpu=_fused_cpu, cuda=_fused_launch,
+    fake=lambda x, kernels, biases, radius, dilation, relus: x.new_empty(
+        x.shape))
+
+
 class _HexConvFusedStack(torch.autograd.Function):
-    """The fused stack on CUDA; its backward recomputes the stack through
-    chained :func:`hex_conv_layer` calls and pulls the cotangent back
+    """The fused stack (the op ``hygrid::hex_conv_fused_stack``); its
+    backward recomputes the stack through chained :func:`hex_conv_layer`
+    calls and pulls the cotangent back
     through them (``conv_pallas.py:1338-1362`` recomputes through
     ``_stack_xla``)."""
 
@@ -974,7 +1052,8 @@ class _HexConvFusedStack(torch.autograd.Function):
         ctx.save_for_backward(x, *kernels,
                               *[bs for bs in biases if bs is not None])
         ctx.has_bias = [bs is not None for bs in biases]
-        return _fused_launch(x, kernels, biases, radius, dilation, relus)
+        return _FUSED_OP(x, list(kernels), list(biases), radius,
+                         dilation, list(relus))
 
     @staticmethod
     @once_differentiable
@@ -1024,10 +1103,7 @@ def hex_conv_fused_stack(x: torch.Tensor, kernels, biases=None, *,
     if not len(kernels) == len(biases) == len(relus):
         raise ValueError(f"hex_conv_fused_stack: {len(kernels)} kernels, "
                          f"{len(biases)} biases and {len(relus)} relus")
-    if x.device.type == "cpu":
-        return hex_conv_fused_stack_plain(x, kernels, biases, radius=radius,
-                                          dilation=dilation, relus=relus)
-    if x.device.type != "cuda":
+    if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"hex_conv_fused_stack: no kernel for device "
                          f"{x.device}")
     return _HexConvFusedStack.apply(x, radius, dilation, relus, len(kernels),

@@ -35,6 +35,12 @@ float64 factors (``ops/sampling.py::_rect_factors``) rebuild
 valid)`` in float64 as ``rect_sample_plan`` does.  Every other plan ships
 its float32 weights a pixel (``"pixel"``).
 
+:func:`plan_gather` calls the op ``hygrid::plan_gather`` (``_ops.py``) on
+the tables' tensors and their geometry, so that an exported program keeps
+the launch as one node and the tables as its constants.  Its CPU
+implementation expands the tables to the dense plan (:func:`dense_plan`)
+and runs :func:`apply_plan`'s gather-blend on it, bit-equal to
+:func:`apply_plan`; its CUDA implementation launches the kernel.
 :func:`plan_gather` is differentiable on both devices: its backward is
 the transpose scatter :func:`plan_gather_vjp_plain` (an f32 ``index_add_``),
 the counterpart of ``resample_pallas._apply_plan_pallas_bwd`` (an XLA
@@ -50,12 +56,12 @@ import numpy as np
 import torch
 from torch.autograd.function import once_differentiable
 
-from ..ops.sampling import SamplePlan, apply_plan
-from . import _build
+from ..ops.sampling import SamplePlan, gather_blend
+from . import _build, _ops
 
 __all__ = ["plan_gather", "plan_gather_vjp_plain", "rowsep_decompose",
            "rowsep_decompose_cached", "GatherTables", "gather_tables",
-           "gather_tables_cached", "last_launch"]
+           "gather_tables_cached", "dense_plan", "last_launch"]
 
 LAUNCHES = 0
 """Number of kernel launches made by :func:`plan_gather`."""
@@ -201,51 +207,31 @@ class GatherTables:
         return sum(a.nbytes for a in self.arrays.values() if a is not None)
 
     def tensors(self, device) -> dict:
-        """The arrays of :attr:`arrays` on ``device``, uploaded once per
-        table and device, and under ``"args"`` the C side's ``TableArgs``
-        pointing at them."""
+        """The arrays of :attr:`arrays` as tensors on ``device`` (None where
+        unused), uploaded once per table and device."""
         key = str(torch.device(device))
         tabs = self._device_copies.get(key)
         if tabs is None:
             tabs = {name: None if a is None else
                     torch.from_numpy(np.ascontiguousarray(a)).to(device)
                     for name, a in self.arrays.items()}
-            k, h1, w1, h, w = self.shape
-            seg = tile_width(self.esz)
-            tabs["args"] = _TableArgs(
-                *(None if tabs[n] is None else tabs[n].data_ptr()
-                  for n, _ in _TableArgs._fields_[:8]),
-                h, w, h1, w1, -(-w1 // seg) * seg, k,
-                _INDEX_FORMS[self.index_form],
-                _WEIGHT_FORMS[self.weight_form], self.band_rows,
-                self.band_pitch, seg)
             self._device_copies[key] = tabs
         return tabs
 
     def expand(self):
         """``(idx (K, h1, w1) int32, weights (K, h1, w1) float32)``: the
         dense plan these tables encode, in numpy, as the kernel reads it
-        (bit-equal to ``plan.idx`` and ``plan.weights``)."""
+        (bit-equal to ``plan.idx`` and ``plan.weights``; :func:`dense_plan`
+        on the tables)."""
         k, h1, w1, _, w = self.shape
-        if self.weight_form == "factored":
-            weights = _factored_weights(self.rowf, self.colf[:, :, :w1])
-        else:
-            weights = self.weights.reshape(k, h1, w1)
-        if self.index_form == "dense":
-            return self.idx.reshape(k, h1, w1), weights
-        seg = tile_width(self.esz)
-        r = np.arange(h1)
-        lo = self.tile_col_lo[(r // TILE_ROWS)[:, None],
-                              (np.arange(w1) // seg)[None, :]]   # (h1, w1)
-        if self.index_form == "parity":
-            col = self.idx[:, r % 2, :w1].astype(np.int64)
-            d = self.dk[:, :, None].astype(np.int64)
-        else:
-            e = self.idx.reshape(k, h1, w1).view(np.uint16).astype(np.int64)
-            col, d = e >> 1, e & 1
-        rows = self.rowbase[None, :, None].astype(np.int64) + d
-        idx = rows * w + lo[None] + col
-        return idx.astype(np.int32), weights
+        tabs = {n: None if a is None else torch.from_numpy(a)
+                for n, a in self.arrays.items()}
+        del tabs["tile_row_lo"]
+        idx, weights = dense_plan(**tabs, w=w, h1=h1, w1=w1, esz=self.esz,
+                                  index_form=self.index_form,
+                                  weight_form=self.weight_form)
+        return (idx.reshape(k, h1, w1).int().numpy(),
+                weights.reshape(k, h1, w1).numpy())
 
 
 class _TableArgs(ctypes.Structure):
@@ -271,15 +257,18 @@ def _smem_bytes(esz, k, index_form, weight_form, band_rows, band_pitch):
             + (8 * seg * 8 if weight_form == "factored" else 0) + 8)
 
 
-def _factored_weights(rowf: np.ndarray, colf: np.ndarray) -> np.ndarray:
-    """float32 ``(4, h1, w1)`` weights of a factored table: tap ``k = 2a +
-    b`` is ``(col_b * row_a) * (valid_row_a * valid_col_b)`` in float64,
-    rounded once, as the kernel forms it."""
-    cf = colf[np.arange(rowf.shape[0]) % 2]              # (h1, 4, w1)
+def _factored_weights(rowf: torch.Tensor, colf: torch.Tensor,
+                      w1: int) -> torch.Tensor:
+    """float32 ``(4, h1, w1)`` weights of a factored table (``colf`` with
+    at least ``w1`` columns): tap ``k = 2a + b`` is ``(col_b * row_a) *
+    (valid_row_a * valid_col_b)`` in float64, rounded once, as the kernel
+    forms it."""
+    h1 = rowf.shape[0]
+    cf = colf[torch.arange(h1, device=rowf.device) % 2][..., :w1]
     rf = rowf[:, :, None]                                # (h1, 4, 1)
-    return np.stack([((cf[:, b] * rf[:, a])
-                      * (rf[:, 2 + a] * cf[:, 2 + b])).astype(np.float32)
-                     for a in (0, 1) for b in (0, 1)])
+    return torch.stack([((cf[:, b] * rf[:, a])
+                         * (rf[:, 2 + a] * cf[:, 2 + b])).float()
+                        for a in (0, 1) for b in (0, 1)])
 
 
 def _bits_equal(a: np.ndarray, b: np.ndarray) -> bool:
@@ -299,7 +288,9 @@ def _factored_table(plan: SamplePlan):
     colf = np.concatenate([f["col"], f["col_valid"]], -1).transpose(0, 2, 1)
     if rowf.shape != (h1, 4) or colf.shape != (2, 4, w1):
         return None
-    if not _bits_equal(_factored_weights(rowf, colf), plan.weights):
+    if not _bits_equal(_factored_weights(torch.from_numpy(rowf),
+                                         torch.from_numpy(colf), w1).numpy(),
+                       plan.weights):
         return None
     return (np.ascontiguousarray(rowf, np.float64),
             np.ascontiguousarray(colf, np.float64))
@@ -399,9 +390,11 @@ def last_launch() -> dict:
 
 
 def plan_gather(image: torch.Tensor, plan: SamplePlan) -> torch.Tensor:
-    """Execute ``plan`` on ``image`` ``(..., H, W)``.
+    """Execute ``plan`` on ``image`` ``(..., H, W)`` through the op
+    ``hygrid::plan_gather`` on the plan's cached tables.
 
-    A CPU tensor runs the plain version (:func:`apply_plan`).  A CUDA tensor
+    A CPU tensor runs the plain version (:func:`apply_plan`'s gather-blend
+    on the dense plan the tables encode, bit-equal to it).  A CUDA tensor
     (float32 or bfloat16, contiguous) launches the kernel; anything else
     raises.  The result has the image's dtype and shape ``(..., h1, w1)``;
     its gradient is :func:`plan_gather_vjp_plain` on either device.
@@ -431,8 +424,6 @@ class _PlanGather(torch.autograd.Function):
     @staticmethod
     def forward(ctx, image, plan):
         ctx.plan = plan
-        if image.device.type == "cpu":
-            return apply_plan(image, plan)
         return _launch(image, plan)
 
     @staticmethod
@@ -443,33 +434,115 @@ class _PlanGather(torch.autograd.Function):
 
 def _launch(image: torch.Tensor, plan: SamplePlan,
             tables: GatherTables = None) -> torch.Tensor:
-    """Launch the kernel on ``plan``'s cached tables, or on ``tables``
+    """``hygrid::plan_gather`` on ``plan``'s cached tables, or on ``tables``
     (:func:`gather_tables` of this plan and the image's element size)."""
+    return _OP(*_op_args(image, plan, tables))
+
+
+def _op_args(image: torch.Tensor, plan: SamplePlan,
+             tables: GatherTables = None) -> tuple:
+    """``hygrid::plan_gather``'s arguments for :func:`_launch`."""
+    h, w = plan.src_shape
+    _check_image(image, h, w)
+    esz = image.element_size()
+    tables = tables if tables is not None else gather_tables_cached(plan, esz)
+    if tables.esz != esz or tables.shape != plan.idx.shape + (h, w):
+        raise ValueError("plan_gather: the tables are not this plan's at "
+                         "this element size")
+    tabs = tables.tensors(image.device)
+    return (image, *(tabs[n] for n in _TABLES), h, w, *plan.out_shape, esz,
+            tables.index_form, tables.weight_form, tables.band_rows,
+            tables.band_pitch, plan.exact_select)
+
+
+# the op's table inputs, in the order of GatherTables.arrays and the C
+# side's TableArgs
+_TABLES = ("idx", "dk", "weights", "rowf", "colf", "rowbase", "tile_row_lo",
+           "tile_col_lo")
+
+
+def _out_dtype(dtype: torch.dtype, exact_select: bool) -> torch.dtype:
+    """:func:`apply_plan`'s result dtype: floating images and exact-select
+    plans keep the image's, other integer blends give float32."""
+    return dtype if dtype.is_floating_point or exact_select else \
+        torch.float32
+
+
+def dense_plan(idx, dk, weights, rowf, colf, rowbase, tile_col_lo, w: int,
+               h1: int, w1: int, esz: int, index_form: str,
+               weight_form: str):
+    """``(idx (K, h1*w1) int64, weights (K, h1*w1) float32)``: the dense
+    plan that a :class:`GatherTables`' tensors encode, computed in torch
+    on their device (bit-equal to ``plan.idx`` and ``plan.weights``)."""
+    k, dev = idx.shape[0], idx.device
+    if weight_form == "factored":
+        weights = _factored_weights(rowf, colf, w1)
+    weights = weights.reshape(k, -1)
+    if index_form == "dense":
+        return idx.reshape(k, -1).long(), weights
+    seg = tile_width(esz)
+    r = torch.arange(h1, device=dev)
+    lo = tile_col_lo[(r // TILE_ROWS)[:, None],
+                     (torch.arange(w1, device=dev) // seg)[None, :]].long()
+    if index_form == "parity":
+        col = idx[:, r % 2, :w1].long()
+        d = dk[:, :, None].long()
+    else:
+        e = idx.reshape(k, h1, w1).long() & 0xFFFF       # col << 1 | d
+        col, d = e >> 1, e & 1
+    rows = rowbase[None, :, None].long() + d
+    return (rows * w + lo[None] + col).reshape(k, -1), weights
+
+
+def _check_image(image, h, w):
+    if tuple(image.shape[-2:]) != (h, w):
+        raise ValueError(f"image spatial shape {tuple(image.shape[-2:])} != "
+                         f"plan source {(h, w)}")
+
+
+def _plan_gather_cpu(image, idx, dk, weights, rowf, colf, rowbase,
+                     tile_row_lo, tile_col_lo, h, w, h1, w1, esz, index_form,
+                     weight_form, band_rows, band_pitch, exact_select):
+    """The op's plain version: :func:`apply_plan`'s gather-blend on the
+    tables' dense plan."""
+    _check_image(image, h, w)
+    gidx, gw = dense_plan(idx, dk, weights, rowf, colf, rowbase, tile_col_lo,
+                          w, h1, w1, esz, index_form, weight_form)
+    return gather_blend(image, gidx, gw, (h1, w1), exact_select)
+
+
+def _plan_gather_cuda(image, idx, dk, weights, rowf, colf, rowbase,
+                      tile_row_lo, tile_col_lo, h, w, h1, w1, esz, index_form,
+                      weight_form, band_rows, band_pitch, exact_select):
+    """The op's launch of ``csrc/plan_gather.cu``, counted in
+    ``LAUNCHES``."""
     global LAUNCHES
     if image.dtype not in _DTYPES:
         raise TypeError(f"plan_gather: the kernel takes float32 or bfloat16 "
                         f"images, got {image.dtype}")
     if not image.is_contiguous():
         raise ValueError("plan_gather: the image must be contiguous")
-    h, w = plan.src_shape
-    if tuple(image.shape[-2:]) != (h, w):
-        raise ValueError(f"image spatial shape {tuple(image.shape[-2:])} != "
-                         f"plan source {plan.src_shape}")
-    k, h1, w1 = plan.idx.shape
+    _check_image(image, h, w)
+    tabs = (idx, dk, weights, rowf, colf, rowbase, tile_row_lo, tile_col_lo)
+    k = idx.shape[0]
     if k > _MAX_TAPS:
         raise ValueError(f"plan_gather: at most {_MAX_TAPS} taps, got {k}")
-    esz = image.element_size()
-    tables = tables if tables is not None else gather_tables_cached(plan, esz)
-    if tables.esz != esz or tables.shape != (k, h1, w1, h, w):
-        raise ValueError("plan_gather: the tables are not this plan's at "
-                         "this element size")
+    if esz != image.element_size() or any(
+            t is not None and t.device != image.device for t in tabs):
+        raise ValueError(f"plan_gather: the tables must be for "
+                         f"{image.element_size()}-byte elements on "
+                         f"{image.device}")
     lead = tuple(image.shape[:-2])
     n_planes = image.numel() // (h * w)
     out = torch.empty(lead + (h1, w1), dtype=image.dtype,
                       device=image.device)
     if n_planes == 0:
         return out
-    args = tables.tensors(image.device)["args"]
+    seg = tile_width(esz)
+    args = _TableArgs(*(None if t is None else t.data_ptr() for t in tabs),
+                      h, w, h1, w1, -(-w1 // seg) * seg, k,
+                      _INDEX_FORMS[index_form], _WEIGHT_FORMS[weight_form],
+                      band_rows, band_pitch, seg)
     lib = _build.load_library()
     with torch.cuda.device(image.device):
         stream = torch.cuda.current_stream().cuda_stream
@@ -479,3 +552,19 @@ def _launch(image: torch.Tensor, plan: SamplePlan,
     _build.check(status, "plan_gather")
     LAUNCHES += 1
     return out
+
+
+def _plan_gather_fake(image, idx, dk, weights, rowf, colf, rowbase,
+                      tile_row_lo, tile_col_lo, h, w, h1, w1, esz, index_form,
+                      weight_form, band_rows, band_pitch, exact_select):
+    return image.new_empty(tuple(image.shape[:-2]) + (h1, w1),
+                           dtype=_out_dtype(image.dtype, exact_select))
+
+
+_OP = _ops.define(
+    "plan_gather(Tensor image, Tensor idx, Tensor? dk, Tensor? weights, "
+    "Tensor? rowf, Tensor? colf, Tensor? rowbase, Tensor? tile_row_lo, "
+    "Tensor? tile_col_lo, int h, int w, int h1, int w1, int esz, "
+    "str index_form, str weight_form, int band_rows, int band_pitch, "
+    "bool exact_select) -> Tensor",
+    cpu=_plan_gather_cpu, cuda=_plan_gather_cuda, fake=_plan_gather_fake)

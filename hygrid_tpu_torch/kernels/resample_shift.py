@@ -34,6 +34,11 @@ are the same.  The gradient is the transpose of the plan
 (:func:`~hygrid_tpu_torch.kernels.resample.plan_gather_vjp_plain`), as the
 reference's shift executor takes ``apply_plan_pallas``'s custom VJP
 (``resample_pallas.py:432-457``).
+
+:func:`shift_resample` calls the op ``hygrid::shift_resample``
+(``_ops.py``) on the geometry's tables, its slots and strides: its CPU
+implementation is :func:`shift_resample_plain`'s arithmetic, its CUDA one
+the launch.
 """
 from __future__ import annotations
 
@@ -46,8 +51,9 @@ import torch
 from torch.autograd.function import once_differentiable
 
 from ..ops.sampling import SamplePlan
-from . import _build
-from .resample import rowsep_decompose, rowsep_decompose_cached
+from . import _build, _ops
+from .resample import (_check_image, _out_dtype, rowsep_decompose,
+                       rowsep_decompose_cached)
 
 __all__ = ["rowsep_decompose", "ShiftGeometry", "expand_weights",
            "shift_decompose", "shift_decompose_cached", "slot_shifts",
@@ -97,9 +103,8 @@ class ShiftGeometry:
         None (dense), ``wtab`` (``geo.form``'s table: uint8 ``(n_phases,
         w1)`` for "select", float32 ``(n_phases, n_slots, w1)`` for
         "phase", ``(h1, n_slots, w1)`` for "dense"), ``table_bytes`` (its
-        size), and
-        the slots' row parts and raw column shifts as host int32
-        arrays."""
+        size), and the slots' row parts and raw column shifts as lists
+        (``slot_d``, ``slot_s``)."""
         key = str(torch.device(device))
         tabs = self._device_copies.get(key)
         if tabs is None:
@@ -114,8 +119,7 @@ class ShiftGeometry:
                 phase_idx=(None if self.form == "dense" else
                            torch.from_numpy(self.phase_idx).to(device)),
                 wtab=wtab, table_bytes=wtab.numel() * wtab.element_size(),
-                slot_d=np.array([d for d, _ in shifts], np.int32),
-                slot_s=np.array([s for _, s in shifts], np.int32))
+                slot_d=[d for d, _ in shifts], slot_s=[s for _, s in shifts])
             self._device_copies[key] = tabs
         return tabs
 
@@ -137,12 +141,17 @@ def expand_weights(geo: ShiftGeometry, tabs: dict) -> torch.Tensor:
     """The float32 ``(h1, n_slots, w1)`` weights that ``geo.form``'s table
     ``tabs["wtab"]`` (from :meth:`ShiftGeometry.tensors`) encodes, on its
     device: bit-equal to ``geo.wplanes.transpose(1, 0, 2)``."""
-    wtab = tabs["wtab"]
-    if geo.form == "dense":
+    return _expand(tabs["wtab"], tabs["phase_idx"], geo.form, len(geo.slots))
+
+
+def _expand(wtab, phase_idx, form: str, n_slots: int) -> torch.Tensor:
+    """:func:`expand_weights` on the table ``wtab`` of ``form``, indexed by
+    the rows' ``phase_idx`` (None for "dense")."""
+    if form == "dense":
         return wtab
-    rows = wtab[tabs["phase_idx"].long()]
-    if geo.form == "select":                           # (h1, w1) uint8
-        slots = torch.arange(len(geo.slots), device=rows.device)
+    rows = wtab[phase_idx.long()]
+    if form == "select":                               # (h1, w1) uint8
+        slots = torch.arange(n_slots, device=rows.device)
         return (rows[:, None, :].long() == slots[None, :, None]).float()
     return rows
 
@@ -249,34 +258,46 @@ def shift_resample_plain(image: torch.Tensor, plan: SamplePlan,
     geo = geo if geo is not None else shift_decompose_cached(plan)
     if geo is None:
         raise ValueError("plan is not shift-structured")
-    h, w = plan.src_shape
-    h1, w1 = plan.out_shape
-    if tuple(image.shape[-2:]) != (h, w):
-        raise ValueError(f"image spatial shape {tuple(image.shape[-2:])} != "
-                         f"plan source {plan.src_shape}")
+    return _shift_cpu(image, *_op_args(plan, geo, image.device))
+
+
+def _op_args(plan: SamplePlan, geo: ShiftGeometry, device) -> tuple:
+    """``hygrid::shift_resample``'s arguments after the image: the
+    geometry's tables on ``device``, its form, the slots' row parts and
+    raw column shifts, the plan's shapes and the column stride."""
+    tabs = geo.tensors(device)
+    return (tabs["rowbase"], tabs["phase_idx"], tabs["wtab"], geo.form,
+            tabs["slot_d"], tabs["slot_s"],
+            *plan.src_shape, *plan.out_shape, geo.num, geo.den)
+
+
+def _shift_cpu(image, rowbase, phase_idx, wtab, form, slot_d, slot_s, h, w,
+               h1, w1, num, den):
+    """The op's plain version: :func:`shift_resample_plain`'s sums from the
+    op's inputs."""
+    _check_image(image, h, w)
     lead = tuple(image.shape[:-2])
     x = image.reshape((-1, h, w))
     dev = image.device
     acc_dtype = (torch.float64 if image.dtype == torch.float64
                  else torch.float32)
-    tabs = geo.tensors(dev)
-    wtab = expand_weights(geo, tabs)                     # (h1, n_slots, w1)
-    rowbase = tabs["rowbase"].long()
-    base = (geo.num * torch.arange(w1, device=dev)) // geo.den
+    wtab = _expand(wtab, phase_idx, form, len(slot_d))   # (h1, n_slots, w1)
+    rowbase = rowbase.long()
+    base = (num * torch.arange(w1, device=dev)) // den
     acc = torch.zeros((x.shape[0], h1, w1), dtype=acc_dtype, device=dev)
-    for i, (d, s) in enumerate(slot_shifts(geo)):
+    for i, (d, s) in enumerate(zip(slot_d, slot_s)):
         cols = base + s
         inside = (cols >= 0) & (cols < w)
         v = x[:, rowbase + d][:, :, cols.clamp(0, w - 1)].to(acc_dtype)
         v = torch.where(inside, v, torch.zeros((), dtype=acc_dtype,
                                                device=dev))
         acc = acc + v * wtab[:, i, :].to(acc_dtype)
-    out_dtype = image.dtype if image.dtype.is_floating_point else torch.float32
-    return acc.to(out_dtype).reshape(lead + (h1, w1))
+    return acc.to(_out_dtype(image.dtype, False)).reshape(lead + (h1, w1))
 
 
 def shift_resample(image: torch.Tensor, plan: SamplePlan) -> torch.Tensor:
-    """Execute a shift-structured ``plan`` on ``image`` ``(..., H, W)``.
+    """Execute a shift-structured ``plan`` on ``image`` ``(..., H, W)``
+    through the op ``hygrid::shift_resample`` on the plan's cached tables.
 
     A CPU tensor runs :func:`shift_resample_plain`.  A CUDA tensor (float32
     or bfloat16, contiguous) launches the kernel; anything else raises, as
@@ -298,9 +319,8 @@ class _ShiftResample(torch.autograd.Function):
         geo = shift_decompose_cached(plan)
         if geo is None:
             raise ValueError("shift_resample: plan is not shift-structured")
-        if image.device.type == "cpu":
-            return shift_resample_plain(image, plan, geo)
-        return _launch(image, plan, geo)
+        _check_image(image, *plan.src_shape)
+        return _OP(image, *_op_args(plan, geo, image.device))
 
     @staticmethod
     @once_differentiable
@@ -309,36 +329,50 @@ class _ShiftResample(torch.autograd.Function):
         return plan_gather_vjp_plain(grad, ctx.plan), None
 
 
-def _launch(image: torch.Tensor, plan: SamplePlan,
-            geo: ShiftGeometry) -> torch.Tensor:
+def _shift_cuda(image, rowbase, phase_idx, wtab, form, slot_d, slot_s, h, w,
+                h1, w1, num, den):
+    """The op's launch of ``csrc/shift_resample.cu``, counted in
+    ``LAUNCHES``."""
     global LAUNCHES
     if image.dtype not in _DTYPES:
         raise TypeError(f"shift_resample: the kernel takes float32 or "
                         f"bfloat16 images, got {image.dtype}")
     if not image.is_contiguous():
         raise ValueError("shift_resample: the image must be contiguous")
-    h, w = plan.src_shape
-    h1, w1 = plan.out_shape
-    if tuple(image.shape[-2:]) != (h, w):
-        raise ValueError(f"image spatial shape {tuple(image.shape[-2:])} != "
-                         f"plan source {plan.src_shape}")
-    tabs = geo.tensors(image.device)
+    _check_image(image, h, w)
+    if any(t is not None and t.device != image.device
+           for t in (rowbase, phase_idx, wtab)):
+        raise ValueError(f"shift_resample: the tables must be on "
+                         f"{image.device}")
     lead = tuple(image.shape[:-2])
     n_planes = image.numel() // (h * w)
     out = torch.empty(lead + (h1, w1), dtype=image.dtype, device=image.device)
     if n_planes == 0:
         return out
-    phase_idx = tabs["phase_idx"]
+    slot_d = np.asarray(slot_d, np.int32)
+    slot_s = np.asarray(slot_s, np.int32)
     lib = _build.load_library()
     with torch.cuda.device(image.device):
         stream = torch.cuda.current_stream().cuda_stream
         status = lib.hg_shift_resample(
-            image.data_ptr(), out.data_ptr(), tabs["rowbase"].data_ptr(),
+            image.data_ptr(), out.data_ptr(), rowbase.data_ptr(),
             None if phase_idx is None else phase_idx.data_ptr(),
-            tabs["wtab"].data_ptr(), _FORMS[geo.form],
-            tabs["slot_d"].ctypes.data, tabs["slot_s"].ctypes.data,
-            len(geo.slots), n_planes, h, w, h1, w1, geo.num, geo.den,
-            _DTYPES[image.dtype], stream)
+            wtab.data_ptr(), _FORMS[form], slot_d.ctypes.data,
+            slot_s.ctypes.data, len(slot_d), n_planes, h, w, h1, w1, num,
+            den, _DTYPES[image.dtype], stream)
     _build.check(status, "shift_resample")
     LAUNCHES += 1
     return out
+
+
+def _shift_fake(image, rowbase, phase_idx, wtab, form, slot_d, slot_s, h, w,
+                h1, w1, num, den):
+    return image.new_empty(tuple(image.shape[:-2]) + (h1, w1),
+                           dtype=_out_dtype(image.dtype, False))
+
+
+_OP = _ops.define(
+    "shift_resample(Tensor image, Tensor rowbase, Tensor? phase_idx, "
+    "Tensor wtab, str form, int[] slot_d, int[] slot_s, int h, int w, "
+    "int h1, int w1, int num, int den) -> Tensor",
+    cpu=_shift_cpu, cuda=_shift_cuda, fake=_shift_fake)

@@ -262,11 +262,21 @@ def apply_plan(image: torch.Tensor, plan: SamplePlan) -> torch.Tensor:
         raise ValueError(f"image spatial shape {tuple(image.shape[-2:])} != "
                          f"plan source {plan.src_shape}")
     idx, weights = plan.tensors(image.device)
+    return gather_blend(image, idx, weights, plan.out_shape,
+                        plan.exact_select)
+
+
+def gather_blend(image: torch.Tensor, idx: torch.Tensor,
+                 weights: torch.Tensor, out_shape, exact_select: bool
+                 ) -> torch.Tensor:
+    """:func:`apply_plan`'s arithmetic on a dense plan given as ``(K,
+    h1*w1)`` source indices ``idx`` and float32 ``weights``: ``(..., H, W)``
+    to ``(..., *out_shape)``."""
     lead = image.shape[:-2]
-    flat = image.reshape(lead + (h * w,))
+    flat = image.reshape(lead + (image.shape[-2] * image.shape[-1],))
     taken = flat.index_select(-1, idx.reshape(-1)).reshape(
         lead + idx.shape)                                 # (..., K, P)
-    if plan.exact_select:
+    if exact_select:
         # one selected value per output cell: multiply by the 0/1 mask in
         # the image dtype so integer inputs round-trip bit-exactly
         out = taken[..., 0, :] * weights[0].to(image.dtype)
@@ -276,7 +286,7 @@ def apply_plan(image: torch.Tensor, plan: SamplePlan) -> torch.Tensor:
         out = (taken.to(acc) * weights.to(acc)).sum(dim=-2)
         if image.dtype.is_floating_point:
             out = out.to(image.dtype)
-    return out.reshape(lead + tuple(plan.out_shape))
+    return out.reshape(lead + tuple(out_shape))
 
 
 # the reference's VMEM budget for the shift kernel's resident source

@@ -1,13 +1,14 @@
 """Utilities of the PyTorch port: the native tile loader, profiling,
-checkpoints and the flax weight converters.  ``hygrid_tpu.utils``'s
-``export_*`` names (``utils/export.py`` on ``torch.export``) are not
-ported yet: they need the kernel wrappers registered as ``torch.library``
-custom ops first."""
+checkpoints, ahead-of-time export on ``torch.export`` (``export.py``: the
+kernels stay in the exported program as ``hygrid`` ops) and the flax
+weight converters."""
 from .native_loader import (NativeTileLoader, RawRasterSpec,
                             native_available, read_raw_raster,
                             write_raw_raster)
 from .profiling import annotate, benchmark, device_timer, get_logger
 from .checkpoint import HAS_ORBAX, restore_checkpoint, save_checkpoint
+from .export import (export_fn, export_inference, exported_info,
+                     load_exported)
 from .params import (flax_tree_from_npz, hexcnn_state_dict_from_flax,
                      hexconvmodule_state_dict_from_flax,
                      hexconvnext_state_dict_from_flax,
@@ -15,7 +16,8 @@ from .params import (flax_tree_from_npz, hexcnn_state_dict_from_flax,
                      hexunet_state_dict_from_flax,
                      hexvit_state_dict_from_flax)
 
-__all__ = ["NativeTileLoader", "RawRasterSpec", "native_available",
+__all__ = ["export_fn", "export_inference", "load_exported",
+           "exported_info", "NativeTileLoader", "RawRasterSpec", "native_available",
            "read_raw_raster", "write_raw_raster",
            "annotate", "device_timer", "benchmark", "get_logger",
            "save_checkpoint", "restore_checkpoint", "HAS_ORBAX",

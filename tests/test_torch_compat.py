@@ -6,6 +6,7 @@ reference's; the top-level and ``nn`` namespaces hold every name of the
 reference's."""
 import importlib
 
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -34,9 +35,7 @@ def test_namespaces_hold_the_reference_names():
     assert set(hg.__all__) <= set(tg.__all__)
     assert set(hg.nn.__all__) <= set(tg.nn.__all__)
     assert set(hg.parallel.__all__) <= set(tg.parallel.__all__)
-    export = {"export_fn", "export_inference", "load_exported",
-              "exported_info"}   # utils/export.py: not ported yet
-    assert set(hg.utils.__all__) - export <= set(tg.utils.__all__)
+    assert set(hg.utils.__all__) <= set(tg.utils.__all__)
     assert tg.HexSpec(5, 7) == tg.lattice.HexSpec(5, 7)
 
 
@@ -92,6 +91,39 @@ def test_compat_matches_reference(name):
     got = got.numpy() if torch.is_tensor(got) else got
     assert got.shape == want.shape
     np.testing.assert_allclose(got, want, atol=1e-5)
+
+
+# the numpy-returning shims on a bfloat16 image: the port returns float32
+# (numpy has no bfloat16; the cast is exact), the reference an ml_dtypes
+# bfloat16 array, compared here cast to float32.  The port blends bf16 in
+# float32 and rounds once where the reference blends in bf16 (a deliberate
+# difference), so the bound is one bf16 rounding step of the values: 1e-2
+# of the largest value (bf16 keeps 8 significant bits, a step of 2**-7).
+BF16_REL = 1e-2
+BF16_CASES = {
+    "hex_to_square_resample": (
+        lambda x: tcompat.hex_to_square_resample(x, (32, 32), "linear",
+                                                 device="cpu"),
+        lambda x: jcompat.hex_to_square_resample(x, (32, 32), "linear")),
+    "image_geometric_transformation_gpu": (
+        lambda x: tcompat.image_geometric_transformation_gpu(
+            x, H, "linear", device="cpu"),
+        lambda x: jcompat.image_geometric_transformation_gpu(x, H, "linear")),
+    "image_geometric_transformation_cpu": (
+        lambda x: tcompat.image_geometric_transformation_cpu(x, H, "linear"),
+        lambda x: jcompat.image_geometric_transformation_cpu(x, H, "linear")),
+}
+
+
+@pytest.mark.parametrize("name", list(BF16_CASES))
+def test_compat_numpy_shims_take_bfloat16(name):
+    port, ref = BF16_CASES[name]
+    x = np.random.default_rng(16).random((3, 16, 16)).astype(np.float32)
+    got = port(torch.from_numpy(x).to(torch.bfloat16))
+    want = np.asarray(ref(jnp.asarray(x, jnp.bfloat16))).astype(np.float32)
+    assert isinstance(got, np.ndarray) and got.dtype == np.float32
+    assert got.shape == want.shape
+    assert np.abs(got - want).max() <= BF16_REL * np.abs(want).max()
 
 
 def test_mosaic_shader_stand_in_matches_reference():

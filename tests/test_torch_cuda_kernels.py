@@ -1410,3 +1410,112 @@ def test_hexvit_on_cuda_serves_through_plan_gather_alone(cuda):
     want = ref(hexify_batch(rect, plain=True))
     assert out.shape == (2, 5) and out.dtype == torch.bfloat16
     assert _rel(out, want) <= 5e-2
+
+
+def _op_cases(cuda):
+    """Each ``hygrid`` op's arguments on the card at small sizes, in
+    float32 and bfloat16 and in every table form: name -> (op, args)."""
+    gen = torch.Generator(device=cuda).manual_seed(16)
+
+    def rand(*shape, dtype=torch.float32):
+        return torch.randn(shape, generator=gen, device=cuda).to(dtype)
+
+    plans = {"parity-factored": geometry.rect_to_hex_plan(16, 20, 8, 10,
+                                                          "bilinear"),
+             "rows": geometry.hex_to_rect_plan(8, 10, 16, 20, "linear"),
+             "dense": geometry.warp_plan(12, 14, np.array(
+                 [[1.2, 0.1, 0.0], [-0.1, 0.9, 0.0], [0.0, 0.0, 1.0]]),
+                 "linear")}
+    shifts = {"phase": plans["parity-factored"],
+              "select": render._mosaic_sample_plan(17, 30, 68, 120, 0, None),
+              "dense": geometry.hex_to_rect_plan(70, 8, 150, 8, "linear")}
+    cases = {}
+    for dt in (torch.float32, torch.bfloat16):
+        tag = "f32" if dt == torch.float32 else "bf16"
+        for name, plan in plans.items():
+            cases[f"plan_gather-{name}-{tag}"] = (
+                torch.ops.hygrid.plan_gather, resample._op_args(
+                    rand(2, 3, *plan.src_shape, dtype=dt), plan))
+        for name, plan in shifts.items():
+            geo = resample_shift.shift_decompose_cached(plan)
+            cases[f"shift_resample-{name}-{tag}"] = (
+                torch.ops.hygrid.shift_resample,
+                (rand(2, *plan.src_shape, dtype=dt),
+                 *resample_shift._op_args(plan, geo, cuda)))
+        cases[f"hex_conv_single-{tag}"] = (
+            torch.ops.hygrid.hex_conv_single,
+            (rand(2, 16, 10, 12, dtype=dt), rand(32, 16, 7, dtype=dt), 1, 2,
+             1))
+        for kind, split in (("gn", False), ("affine", False), (None, False),
+                            ("gn", True)):
+            cin = 24 if split else 16
+            p, q = (rand(32) + 1, rand(32)) if kind else (None, None)
+            cases[f"hex_conv_layer-{kind}-{'split-' if split else ''}{tag}"] \
+                = (torch.ops.hygrid.hex_conv_layer,
+                   (rand(2, 6, 7, 16, dtype=dt),
+                    rand(2, 6, 7, 8, dtype=dt) if split else None,
+                    rand(32, cin, 7, dtype=dt) * 0.2, rand(32), p, q, 2, 1,
+                    kind, 8 if kind == "gn" else 0, True, kind == "affine"))
+        cases[f"hex_conv_fused_stack-{tag}"] = (
+            torch.ops.hygrid.hex_conv_fused_stack,
+            (rand(2, 6, 7, 16, dtype=dt),
+             [rand(16, 16, 7, dtype=dt) * 0.2 for _ in range(2)],
+             [rand(16), None], 2, 1, [True, False]))
+    return cases
+
+
+OP_CASE_NAMES = [f"{op}-{form}-{tag}" for tag in ("f32", "bf16")
+                 for op, form in (
+                     *((("plan_gather", f) for f in
+                        ("parity-factored", "rows", "dense"))),
+                     *((("shift_resample", f) for f in
+                        ("phase", "select", "dense"))))] + [
+    f"{name}-{tag}" for tag in ("f32", "bf16")
+    for name in ("hex_conv_single", "hex_conv_layer-gn",
+                 "hex_conv_layer-affine", "hex_conv_layer-None",
+                 "hex_conv_layer-gn-split", "hex_conv_fused_stack")]
+
+
+@pytest.mark.parametrize("name", OP_CASE_NAMES)
+def test_hygrid_op_on_cuda_matches_its_schema_and_fake(cuda, name):
+    """``torch.library.opcheck`` of each ``hygrid`` op on the card: the
+    launch keeps the schema (no input mutated, no output aliased) and the
+    fake implementation gives its outputs' shapes, dtypes and strides."""
+    op, args = _op_cases(cuda)[name]
+    torch.library.opcheck(op.default, args,
+                          test_utils=("test_schema", "test_faketensor"))
+
+
+def test_exported_hexcnn_runs_the_kernels_on_cuda(cuda, tmp_path):
+    """``utils/export.py`` on the card: hexcnn_tiny (GN) exported with a
+    symbolic batch, saved, loaded and run at b = 1 and 3 launches one
+    plan_gather and two hex_conv_layer a call, ``torch.equal`` to the
+    eager kernel path; the same weights exported on the CPU and moved to
+    the card at load run the same kernels to the same bits."""
+    from hygrid_tpu_torch.utils import export as texp
+    gen = torch.Generator(device=cuda).manual_seed(17)
+    model = hexcnn_tiny(num_classes=5, norm="GN", dtype=torch.bfloat16,
+                        device=cuda, generator=gen).eval()
+    cpu_model = hexcnn_tiny(num_classes=5, norm="GN", dtype=torch.bfloat16,
+                            device="cpu")
+    cpu_model.load_state_dict(model.state_dict())
+    x = torch.rand((2, 3, 32, 32), generator=gen, device=cuda)
+    paths = []
+    for name, m, ex, kw in (("cuda", model, x, {}),
+                            ("cpu", cpu_model, x.cpu(),
+                             dict(platforms=("cpu", "cuda")))):
+        paths.append(str(tmp_path / f"{name}.pt2"))
+        texp.save_exported(paths[-1], texp.export_inference(
+            m, None, ex.to(torch.bfloat16), symbolic_batch=True, **kw))
+    for program in (texp.load_exported(paths[0]),
+                    texp.load_exported(paths[1], device="cuda")):
+        for b in (1, 3):
+            xb = torch.rand((b, 3, 32, 32), generator=gen,
+                            device=cuda).to(torch.bfloat16)
+            before = (resample.LAUNCHES, conv_stack.LAUNCHES)
+            with torch.inference_mode():
+                got = program(xb)
+            assert (resample.LAUNCHES - before[0],
+                    conv_stack.LAUNCHES - before[1]) == (1, 2)
+            with torch.inference_mode():
+                assert torch.equal(got, model(hexify_batch(xb)))

@@ -32,7 +32,8 @@ MODULES = ["hygrid_tpu_torch", "hygrid_tpu_torch.kernels.resample",
            "hygrid_tpu_torch.parallel.spatial",
            "hygrid_tpu_torch.parallel.pipeline",
            "hygrid_tpu_torch.utils.checkpoint",
-           "hygrid_tpu_torch.utils.profiling", "hygrid_tpu_torch.compat",
+           "hygrid_tpu_torch.utils.profiling", "hygrid_tpu_torch.utils.export",
+           "hygrid_tpu_torch.compat",
            "hygrid_tpu_torch.HexFrames", "hygrid_tpu_torch.HexModules",
            "hygrid_tpu_torch.HexImage", "hygrid_tpu_torch.Image",
            "hygrid_tpu_torch.geometry", "hygrid_tpu_torch.geometry_np",

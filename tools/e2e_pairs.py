@@ -9,8 +9,9 @@ for example a ``git archive`` of the parent, or ``ROOT_B``, this one),
 builds HexCNN-small and HexUNet-small (GN, bf16, random weights from a
 seed) as users do, and times by CUDA events, 3 timings each after 2
 warm-up calls: a HexCNN-small request (b=32 512^2, rect->hex included, 20
-calls a timing) and AdamW training step (10), a HexUNet-small request
-(b=8, 20) and training step (5), and the pipelines of ``chip_smoke.py``
+calls a timing) and AdamW training step (10), the request's host time
+(``serve_hexcnn host``: ``chip_smoke.host_ms``, 10 requests enqueued back
+to back, 3 timings), a HexUNet-small request (b=8, 20) and training step (5), and the pipelines of ``chip_smoke.py``
 phase 13 (P-512, P-512 fused, P-4K; 5 calls), each pipeline also on the
 device alone (one call replayed in a CUDA graph, ``<name> graph``) and
 with ``chip_smoke._pipeline_diag`` (its kernels' device ms a call, the
@@ -90,6 +91,10 @@ res, diag = {}, {}
 for name, (serving, calls, fn) in runs.items():
     with torch.inference_mode(serving):
         res[name] = timed(fn, calls)
+with torch.inference_mode():
+    # the host's time a request: 10 requests enqueued back to back
+    res["serve_hexcnn host"] = [smoke.host_ms(
+        torch, runs["serve_hexcnn"][2], calls=10) for _ in range(3)]
 for name, batch, shape, fused in smoke.PIPELINES:
     pipe, _ = smoke.build_pipeline(shape, smoke.PIPE_CHANNELS,
                                    smoke.PIPE_LAYERS, smoke.PIPE_RADIUS, bf,
