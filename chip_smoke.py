@@ -54,7 +54,8 @@ Phases, each of which raises on failure (the script then exits non-zero):
    GN layers (b=32) and HexUNet-small's five (b=8), float32 and bfloat16:
    gpre, dgamma, dbeta and dbias, two launches bit-equal, with the plain
    time, the library's (the ReLU mask and
-   ``aten.native_group_norm_backward`` on NCHW float32) and the bound;
+   ``aten.native_group_norm_backward`` on NCHW float32), the bound, the
+   rate at the function's bytes and the walk ``gn_backward_plan`` chose;
 7. the training slice: HexCNN-small (norm="GN", bf16 compute, float32
    parameters) with AdamW takes one warm-up and 4 timed steps on distinct
    b=32 512^2 float32 batches (rect->hex, forward, one-hot cross-entropy,
@@ -940,11 +941,15 @@ def check_gn_backward(torch, gen):
     split layers), GN(8) + ReLU, gout float32 and bfloat16: gpre within the
     layer's tolerance, dgamma, dbeta and dbias within the float32 one, two
     launches bit-equal.  Beside each time: the plain time, the library's
-    (the ReLU mask and ``aten.native_group_norm_backward``) and the bound
-    (y, gout and gpre once each).  Returns the bf16 summaries over each
-    model's layers for the kernels line."""
+    (the ReLU mask and ``aten.native_group_norm_backward``), the bound
+    (y, gout and gpre once each), the rate at the function's bytes, and
+    the planner's walk (``gn_backward_plan``: chunk pixels, staged pixels,
+    samples a wave, waves = items a block, stages, shared bytes, grid).
+    Returns the bf16 summaries over each model's layers for the kernels
+    line."""
     from hygrid_tpu_torch.kernels import conv_stack as cs
     aten = torch.ops.aten
+    card = cs.gn_backward_device(torch.device("cuda"))
     layers = ([("HexCNN-small", f"L{i}", BATCH, cout, h, w)
                for i, (_, cout, h, w) in enumerate(LAYERS)]
               + [("HexUNet-small", name, UNET_BATCH, c, h, w)
@@ -998,11 +1003,15 @@ def check_gn_backward(torch, gen):
             del gn
             b_ms, b_by = bound(nbytes(y, gout, got[0]), 12 * y.numel(),
                                "f32")
+            plan = cs.gn_backward_plan(b, h * w, c, gout.element_size(),
+                                       *card)
             line += (f" {str(dtype)[6:]} max_abs_err={err!r} rel={rel!r} "
                      f"(dgamma, dbeta, dbias rel {sum_rels}) "
                      f"kernel_ms={ms!r} plain_ms={pms!r} library_ms={lms!r} "
                      f"(mask + native_group_norm_backward on NCHW float32) "
-                     f"bound_ms={b_ms!r} ({b_by});")
+                     f"bound_ms={b_ms!r} ({b_by}) "
+                     f"GB/s={nbytes(y, gout, got[0]) / ms / 1e6!r} "
+                     f"plan={plan._asdict()};")
             if dtype == torch.bfloat16:
                 acc = sums[model]
                 acc["max_abs_err"] = max(acc["max_abs_err"], err)
@@ -4209,7 +4218,10 @@ def kernel_times(torch):
     the GN passes after it (``kernel_b_conv_pass``, ``kernel_b_gn_half``),
     and the same six layers forward and backward through
     ``hex_conv_layer`` (``gn_fwd_bwd``, bf16 activations and weights,
-    float32 GN parameters, as the training step runs them).  End to end
+    float32 GN parameters, as the training step runs them); the GN
+    backward alone at both models' layers beside its library call
+    (:func:`_gn_bwd_calls`: ``gn_bwd``, ``gn_bwd_unet`` and their
+    ``_library`` sums).  End to end
     (``e2e_ms``, ms a call, and ``images_s``): HexCNN-small (GN, bf16, b=32
     512^2) and HexUNet-small (b=8) serving a request and taking an AdamW
     training step, and the pipelines of phase 13 (``pipeline_mpix_s``: one
@@ -4355,6 +4367,9 @@ def kernel_times(torch):
     times["kernel_b_gn_fold"] = [sum(f for _, _, f in h) for h in halves]
     times["gn_fwd_bwd"] = [sum(cuda_ms(torch, fn) for fn in fwd_bwd)
                            for _ in range(KERNEL_TIME_REPEATS)]
+    for name, fns in _gn_bwd_calls(torch, gen).items():
+        times[name] = [sum(cuda_ms(torch, fn, iters=5) for fn in fns)
+                       for _ in range(KERNEL_TIME_REPEATS)]
     del calls, device_calls, fwd_bwd
     e2e, images, by_op = _e2e_times(torch, gen)
     mpix, pipe_diag = {}, {}
@@ -4375,6 +4390,48 @@ def kernel_times(torch):
                       "pipeline_diag": pipe_diag,
                       "train_by_op": by_op, "root": str(ROOT)}))
     return 0
+
+
+def _gn_bwd_calls(torch, gen):
+    """``kernel_times``' GN backward sums: ``gn_bwd`` (HexCNN-small's six
+    GN layers, b=32) and ``gn_bwd_unet`` (HexUNet-small's five, b=8), each
+    ``gn_relu_backward`` on float32 y, bf16 gout and its statistics, as
+    phase 6b's bf16 case; and ``gn_bwd_library``, ``gn_bwd_unet_library``,
+    the ReLU mask and ``aten.native_group_norm_backward`` on the same
+    inputs, as phase 6b times them (NCHW float32 copies and the mask made
+    before timing, the masking timed).  Only the public
+    wrapper and the plain statistics: it runs on any tree since PR 11."""
+    from hygrid_tpu_torch.kernels import conv_stack as cs
+    aten = torch.ops.aten
+    out = {"gn_bwd": [], "gn_bwd_unet": [], "gn_bwd_library": [],
+           "gn_bwd_unet_library": []}
+    layers = ([("gn_bwd", BATCH, cout, h, w) for _, cout, h, w in LAYERS]
+              + [("gn_bwd_unet", UNET_BATCH, c, h, w)
+                 for _, c, h, w in UNET_GN_LAYERS])
+    for name, b, c, h, w in layers:
+        groups = math.gcd(8, c)
+        y = 1.5 * torch.randn((b, h, w, c), generator=gen, device="cuda") \
+            + 0.2
+        gamma = 1 + 0.1 * torch.rand((c,), generator=gen, device="cuda")
+        beta = 0.1 * torch.randn((c,), generator=gen, device="cuda")
+        gout = torch.randn((b, h, w, c), generator=gen,
+                           device="cuda").to(torch.bfloat16)
+        mean, rstd = cs.gn_stats_plain(y, groups)
+        out[name].append(functools.partial(
+            cs.gn_relu_backward, y, mean, rstd, gamma, beta, gout, groups,
+            True))
+        yn = y.permute(0, 3, 1, 2).contiguous()
+        mask = torch.nn.functional.group_norm(yn, groups, gamma, beta) > 0
+        gn = gout.float().permute(0, 3, 1, 2).contiguous()
+
+        def library(gn=gn, mask=mask, yn=yn, mean=mean, rstd=rstd,
+                    gamma=gamma, b=b, c=c, hw=h * w, groups=groups):
+            return aten.native_group_norm_backward(
+                gn * mask, yn, mean, rstd, gamma, b, c, hw, groups,
+                [True, True, True])
+
+        out[f"{name}_library"].append(library)
+    return out
 
 
 def _pipeline_diag(torch, fn, calls=5):

@@ -23,60 +23,268 @@
 // activation dtype, as the bias's cotangent is summed from the float32
 // pre-activation cotangent).
 //
-// What bounds it: bytes.  Four launches, two of them passes over (y, gout):
-//   1. gn_bwd_reduce_kernel: per (chunk of pixels, sample) block, sums of dz
-//      and dz yhat per channel;
-//   2. gn_bwd_fold_kernel: per sample, the chunks in order, then A and Bs per
-//      group;
-//   3. gn_bwd_apply_kernel: gpre in the activation dtype, and the block's
-//      per-channel sums of the float32 gpre;
-//   4. gn_bwd_final_kernel: per channel, dgamma, dbeta and dbias in a fixed
-//      order.
-// The passes read y (float32) and gout twice and write gpre once: 14 bytes
-// an element in bf16, where the function needs 8 (each input once); the
-// folds move (B, chunks, C) partial sums, a few hundred KB.  Both passes use
-// hg::GnLayout: each thread keeps V channels for its run of pixels, 16-byte
-// loads and stores, no integer divide an element.  No atomics: every sum has
-// a fixed order, so repeated launches are bit-equal.
+// What bounds it: bytes.  The function reads y (float32) and gout once and
+// writes gpre once: 8 bytes an element in bf16.  A sample's gpre needs the
+// sample's sums over all of (y, gout), so a kernel that keeps nothing on
+// chip reads both twice (14 bytes an element).  This one reads them once:
+//
+//   * One cooperative launch (every block resident) walks (sample, chunk of
+//     pixels) items in sample-major waves: a wave is as many samples as the
+//     blocks' shared memory holds, one chunk a block
+//     (kernels/conv_stack.py::gn_backward_plan chooses chunk, samples a wave
+//     and stages from the card's SMs and shared memory).
+//   * A block stages its chunk of y and gout, and the sample's statistics,
+//     in shared memory with cp.async; with two stages the next wave's chunk
+//     copies while this wave runs.  It sums (dz yhat, dz) per channel from
+//     there (vectors of V channels a thread, warp shuffles, then the rows
+//     left), writes them to its partial slot and arrives at the sample's
+//     counter.
+//   * Once the counter shows every chunk, each block of the sample folds the
+//     partials in chunk order (the same sums in every block: one read of
+//     the partials instead of a last block's fold, a flag and a read of its
+//     result), computes the per-group (rstd A / n, f rstd Bs / n), then gpre
+//     from its staged copy, not from device memory.  Its float32 gpre sums
+//     run on across its waves; the last block to finish folds the samples'
+//     dgamma and dbeta and the blocks' dbias, in order.
+//
+// A wave costs its sums' trip through L2 (the partial's stores, the counter,
+// its readers' loads) as well as its bytes, and the trip is slow while the
+// next wave's copies fill the memory system: a release waits for its warp's
+// earlier memory operations, so warp 0, which arrives, copies nothing.
+// Where a sample is larger than the blocks' shared memory, each chunk stages
+// what fits and reads the rest from device memory in both passes.  The
+// counters are cleared on the stream before the launch (a memset, no
+// kernel), so a call is one launch, takes no host synchronisation and can be
+// captured in a CUDA graph.  Every sum has a fixed order (no float atomics),
+// so repeated launches are bit-equal.
 #include "hex_common.cuh"
 
 namespace {
 
-// A pairwise tree over the k rows of red ([k][n] floats, row-major): thread
-// (row, col) adds its V columns; red[0][*] holds the sums after it.  Every
-// thread of the block calls it.
-template <int V>
-__device__ __forceinline__ void row_tree(float* red, int n, int k, int row,
-                                         int col) {
-  for (int st = 1; st < k; st *= 2) {
-    __syncthreads();
-    if (row % (2 * st) == 0 && row + st < k)
+constexpr int kThreads = 512;     // a block's threads where V > 1
+
+__host__ __device__ inline long long pad16(long long n) {
+  return (n + 15) / 16 * 16;
+}
+
+// The block, as hg::GnLayout lays out the GN passes: vectors of V channels
+// (4 here, whole 16-byte float32 loads), cvs of them a pixel, k pixel rows
+// (conv_stack.py::gn_backward_layout); `rows` rows of per-channel sums are
+// left after the warp shuffles (one a warp where a warp's lanes hold whole
+// pixel rows, else one a pixel row).
+struct Layout {
+  int V, cvs, k, threads, rows;
+  bool shuffle;
+};
+
+Layout layout(int C, bool aligned) {
+  Layout l;
+  l.V = aligned && C % 4 == 0 ? 4 : 1;
+  l.cvs = C / l.V;
+  l.k = l.cvs >= kThreads ? 1 : kThreads / l.cvs;
+  l.threads = l.cvs * l.k;
+  l.shuffle = l.cvs < 32 && 32 % l.cvs == 0;
+  l.rows = l.shuffle ? l.threads / 32 : l.k;
+  return l;
+}
+
+// One stage (a chunk's y, its gout, then the sample's mean and rstd a
+// group, C floats each) and the block's shared memory: stages, the
+// reduction rows (at least 4 floats a thread, the folds' slices), the
+// final step's flag (16 bytes), the sample's per-channel sums and
+// per-group coefficients (2 C floats each) and gamma (C floats).
+long long stage_bytes(long long staged_px, int C, int gb) {
+  return pad16(staged_px * C * 4) + pad16(staged_px * C * gb) + pad16(8LL * C);
+}
+long long red_floats(int C, const Layout& l) {
+  const long long r = 2LL * l.rows * C;
+  return r > 4LL * l.threads ? r : 4LL * l.threads;
+}
+long long smem_bytes(int C, int gb, const Layout& l, long long staged_px,
+                     int stages) {
+  return stages * stage_bytes(staged_px, C, gb) + pad16(4 * red_floats(C, l)) +
+         16 + 20LL * C;
+}
+
+template <typename Tg>
+struct Args {
+  const float* y;
+  const Tg* gout;
+  const float* mean;
+  const float* rstd;
+  const float* gamma;
+  const float* beta;
+  Tg* gpre;
+  float* grads;      // (3, C): dgamma, dbeta, dbias
+  float* partial;    // (B, chunks, 2, C): sum dz yhat, sum dz of a chunk
+  float* sums;       // (B, 2, C): a sample's dgamma, dbeta parts
+  float* bpart;      // (grid, C): sum gpre of a block's items
+  unsigned* arrive;  // (B): chunks summed
+  unsigned* done;    // (1): blocks through every wave
+  long long HW, stage_bytes, gout_off, stats_off, red_floats;
+  int stat_stride, B, C, G, relu, chunk_px, staged_px, chunks, spw, waves,
+      stages, vec, rows, shuffle;
+  float count, eps;
+};
+
+// The arrival and wait of a split barrier at gpu scope (as CUTLASS's
+// GenericBarrier): after the writing threads, thread 0 adds with release
+// semantics; a waiter's thread 0 spins with acquire loads, then the block
+// passes a barrier.  A release waits for its warp's earlier memory
+// operations, so the arriving warp (warp 0) issues none of the next wave's
+// copies.
+__device__ __forceinline__ void arrive(unsigned* counter) {
+  if (threadIdx.x == 0)
+    asm volatile("red.release.gpu.global.add.u32 [%0], %1;\n"
+                 :: "l"(counter), "r"(1u) : "memory");
+}
+
+__device__ __forceinline__ unsigned ld_acquire(const unsigned* p) {
+  unsigned v;
+  asm volatile("ld.acquire.gpu.global.u32 %0, [%1];\n"
+               : "=r"(v) : "l"(p) : "memory");
+  return v;
+}
+
+// A wait past some seconds means a broken walk: trap (a launch error)
+// rather than hang the device.
+__device__ __forceinline__ void wait_for(const unsigned* counter,
+                                         unsigned count) {
+  if (threadIdx.x == 0)
+    for (unsigned spins = 0; ld_acquire(counter) < count; ++spins) {
+      if (spins > (1u << 28)) __trap();
+      __nanosleep(20);
+    }
+  __syncthreads();
+}
+
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n"
+               :: "r"(static_cast<uint32_t>(__cvta_generic_to_shared(dst))),
+                  "l"(src) : "memory");
+}
+
+// The slices' sums of a fold: slice s of the block's threads holds in acc
+// the VW floats of its column i (of w); dst[e] (e < w VW) = the sum over the
+// slices, in two levels through red (4 blockDim.x floats).  Every thread
+// calls it.
+template <int VW>
+__device__ __forceinline__ void sum_slices(const float (&acc)[VW], int s,
+                                           int i, int slices, int w,
+                                           float* dst, float* red) {
+  const int T = blockDim.x, t = threadIdx.x, m = w * VW;
+  __syncthreads();
+  if (s < slices)
 #pragma unroll
-      for (int i = 0; i < V; ++i)
-        red[row * n + col + i] += red[(row + st) * n + col + i];
+    for (int v = 0; v < VW; ++v) red[s * m + i * VW + v] = acc[v];
+  __syncthreads();
+  // slice groups: (g, e) adds slices g, g + g1, ... into slice g
+  const int g1 = T / m < slices ? (T / m > 0 ? T / m : 1) : slices;
+  for (int x = t; x < g1 * m; x += T) {
+    const int g = x / m, e = x % m;
+    float sum = 0.f;
+    for (int sl = g; sl < slices; sl += g1) sum += red[sl * m + e];
+    red[g * m + e] = sum;
+  }
+  __syncthreads();
+  for (int e = t; e < m; e += T) {
+    float sum = 0.f;
+    for (int g = 0; g < g1; ++g) sum += red[g * m + e];
+    dst[e] = sum;
+  }
+}
+
+// dst[i] = sum over r < rows of src[r * n + i], i < n, in a fixed order:
+// slice s of the block's threads sums rows s, s + slices, ... in turn (VW
+// floats a load, neighbouring threads on neighbouring columns), then the
+// slices (sum_slices).  src was written by other blocks (read through L2).
+// Every thread calls it; dst is complete after it.
+template <int VW>
+__device__ void fold_vec(const float* src, long long rows, int n, float* dst,
+                         float* red) {
+  const int T = blockDim.x, t = threadIdx.x, cols = n / VW;
+  for (int c0 = 0; c0 < cols; c0 += T) {
+    const int w = cols - c0 < T ? cols - c0 : T, slices = T / w;
+    const int i = t % w, s = t / w;
+    float acc[VW];
+#pragma unroll
+    for (int v = 0; v < VW; ++v) acc[v] = 0.f;
+    if (s < slices) {
+      const float* p = src + (long long)(c0 + i) * VW;
+#pragma unroll 8
+      for (long long r = s; r < rows; r += slices) {
+        if constexpr (VW == 4) {
+          const float4 q = __ldcg(reinterpret_cast<const float4*>(p + r * n));
+          acc[0] += q.x, acc[1] += q.y, acc[2] += q.z, acc[3] += q.w;
+        } else {
+          acc[0] += __ldcg(p + r * n);
+        }
+      }
+    }
+    sum_slices<VW>(acc, s, i, slices, w, dst + c0 * VW, red);
   }
   __syncthreads();
 }
 
-// Per-thread constants of channels c .. c + V - 1 of sample b.
-template <int V>
-struct GnChannels {
-  float mean[V], rstd[V], scale[V], shift[V];
-  __device__ GnChannels(const float* __restrict__ stats,
-                        const float* __restrict__ gamma,
-                        const float* __restrict__ beta, int b, int c, int G,
-                        int cpg) {
+__device__ void fold_rows(const float* src, long long rows, int n,
+                          float* dst, float* red) {
+  if (n % 4 == 0 && reinterpret_cast<uintptr_t>(src) % 16 == 0)
+    fold_vec<4>(src, rows, n, dst, red);
+  else
+    fold_vec<1>(src, rows, n, dst, red);
+}
+
+// The block's per-channel sums of NQ quantities q[j][0 .. V-1] (channels
+// c .. c + V - 1 of the thread's pixel row): lanes of a warp that hold the
+// same channels add by xor shuffles, then the rows left are summed in
+// order, by one thread a (quantity, channel) where they are at most 32,
+// else by a pairwise tree; out(j, ch) = red[j * rows * C + ch] after it.
+template <int V, int NQ>
+__device__ __forceinline__ void block_sums(float (&q)[NQ][V], float* red,
+                                           int C, int cvs, int rows,
+                                           bool shuffle, int row, int c) {
+  const int t = threadIdx.x, T = blockDim.x;
+  int r = row;
+  if (shuffle) {
+    for (int off = cvs; off < 32; off *= 2)
 #pragma unroll
-    for (int i = 0; i < V; ++i) {
-      const float* st = stats + 2 * ((long long)b * G + (c + i) / cpg);
-      mean[i] = st[0];
-      rstd[i] = st[1];
-      scale[i] = rstd[i] * gamma[c + i];
-      // rounded twice, not fused: the forward's shift (gn_apply_kernel)
-      shift[i] = __fsub_rn(beta[c + i], __fmul_rn(mean[i], scale[i]));
+      for (int j = 0; j < NQ; ++j)
+#pragma unroll
+        for (int i = 0; i < V; ++i)
+          q[j][i] += __shfl_xor_sync(0xffffffffu, q[j][i], off);
+    r = t / 32;
+  }
+  __syncthreads();                 // red is free
+  if (!shuffle || t % 32 < cvs) {
+#pragma unroll
+    for (int j = 0; j < NQ; ++j)
+#pragma unroll
+      for (int i = 0; i < V; ++i) red[(j * rows + r) * C + c + i] = q[j][i];
+  }
+  __syncthreads();
+  if (rows <= 32) {
+    for (int e = t; e < NQ * C; e += T) {
+      float* col = red + (e / C) * rows * C + e % C;
+      float sum = col[0];
+      for (int rr = 1; rr < rows; ++rr) sum += col[rr * C];
+      col[0] = sum;
+    }
+  } else {
+    const bool in = t < rows * cvs;
+    const int tr = t / cvs, tc = (t % cvs) * V;
+    for (int st = 1; st < rows; st *= 2) {
+      if (in && tr % (2 * st) == 0 && tr + st < rows)
+#pragma unroll
+        for (int j = 0; j < NQ; ++j)
+#pragma unroll
+          for (int i = 0; i < V; ++i)
+            red[(j * rows + tr) * C + tc + i] +=
+                red[(j * rows + tr + st) * C + tc + i];
+      __syncthreads();
     }
   }
-};
+  __syncthreads();
+}
 
 // dz of one element: gout where the forward's output was positive
 __device__ __forceinline__ float masked(float g, float y, float scale,
@@ -84,244 +292,371 @@ __device__ __forceinline__ float masked(float g, float y, float scale,
   return relu && !(fmaf(y, scale, shift) > 0.f) ? 0.f : g;
 }
 
-// Block (chunk, sample): partial (B, n_chunks, C, 2) = (sum dz, sum dz yhat)
-// over the chunk's px pixels.  Dynamic shared memory: 2 x threads x V
-// floats.
-template <int V, typename Tg>
-__global__ void __launch_bounds__(V == 1 ? 1024 : 256)
-gn_bwd_reduce_kernel(const float* __restrict__ y, const Tg* __restrict__ gout,
-                     const float* __restrict__ stats,
-                     const float* __restrict__ gamma,
-                     const float* __restrict__ beta,
-                     float* __restrict__ partial, long long HW, int C, int G,
-                     int px, int relu) {
-  extern __shared__ float red[];               // [2][k][C]
-  const int cvs = C / V, k = blockDim.x / cvs;
-  const int row = threadIdx.x / cvs, c = (threadIdx.x % cvs) * V;
-  const int b = blockIdx.y;
-  const GnChannels<V> ch(stats, gamma, beta, b, c, G, C / G);
-  float sd[V], sdy[V];
-#pragma unroll
-  for (int i = 0; i < V; ++i) sd[i] = sdy[i] = 0.f;
-  const long long p0 = (long long)blockIdx.x * px;
-  const long long p1 = p0 + px < HW ? p0 + px : HW;
-  const long long base = (long long)b * HW * C + c;
-  for (long long p = p0 + row; p < p1; p += k) {
+// f(p, y, gout) for the thread's pixels p = row, row + k, ... < npx of a
+// chunk: the first ns from the staged copy, the rest from device memory.
+template <int V, typename Tg, typename F>
+__device__ __forceinline__ void for_pixels(const float* ys, const Tg* gs,
+                                           const float* yg, const Tg* gg,
+                                           long long ns, long long npx,
+                                           int C, int row, int k, int c,
+                                           F&& f) {
+  int p = row;                       // a stage is under 2^31 bytes
+#pragma unroll 2
+  for (; p < ns; p += k) {
     float yv[V], gv[V];
-    hg::load_vec<V>(y + base + p * C, yv);
-    hg::load_vec<V>(gout + base + p * C, gv);
-#pragma unroll
-    for (int i = 0; i < V; ++i) {
-      const float d = masked(gv[i], yv[i], ch.scale[i], ch.shift[i], relu);
-      sd[i] += d;
-      sdy[i] = fmaf(d, (yv[i] - ch.mean[i]) * ch.rstd[i], sdy[i]);
-    }
+    hg::load_vec<V>(ys + p * C + c, yv);
+    hg::load_vec<V>(gs + p * C + c, gv);
+    f(p, yv, gv);
   }
+  for (long long pl = p; pl < npx; pl += k) {
+    float yv[V], gv[V];
+    hg::load_vec<V>(yg + pl * C + c, yv);
+    hg::load_vec<V>(gg + pl * C + c, gv);
+    f(pl, yv, gv);
+  }
+}
+
+template <int V, typename Tg>
+__global__ void __launch_bounds__(V == 1 ? 1024 : kThreads, 1)
+gn_bwd_wave_kernel(const Args<Tg> a) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int C = a.C, G = a.G, cpg = C / G, cvs = C / V, T = blockDim.x,
+            k = T / cvs;
+  const int t = threadIdx.x, row = t / cvs, c = (t % cvs) * V;
+  float* red = reinterpret_cast<float*>(smem + a.stages * a.stage_bytes);
+  int* flag = reinterpret_cast<int*>(red + pad16(4 * a.red_floats) / 4);
+  float* csum = reinterpret_cast<float*>(flag + 4);   // (2, C)
+  float* coef = csum + 2 * C;                         // (G, 2)
+  float* gam = coef + 2 * C;                          // (C,)
+  // block i's item of wave w: sample w spw + i / chunks, chunk i % chunks
+  const int bi = blockIdx.x / a.chunks, j = blockIdx.x % a.chunks;
+  const long long p0 = (long long)j * a.chunk_px;
+  const long long npx =
+      a.HW - p0 < a.chunk_px ? a.HW - p0 : (long long)a.chunk_px;
+  const long long ns = npx < a.staged_px ? npx : a.staged_px;
+  float gamma[V], beta[V];
 #pragma unroll
   for (int i = 0; i < V; ++i) {
-    red[row * C + c + i] = sd[i];
-    red[(k + row) * C + c + i] = sdy[i];
+    gamma[i] = a.gamma[c + i];
+    beta[i] = a.beta[c + i];
   }
-  row_tree<V>(red, C, k, row, c);
-  row_tree<V>(red + k * C, C, k, row, c);
-  if (row == 0) {
-    float* out = partial + ((long long)b * gridDim.x + blockIdx.x) * C * 2;
+  for (int e = t; e < C; e += T) gam[e] = a.gamma[e];
+  // the copies, by every warp but warp 0 (see arrive): 16-byte cp.async
+  // where every pixel row is whole 16-byte units (vec), else element by
+  // element; the statistics by 4-byte cp.async
+  const int ct = t - 32, CT = T - 32;
+  auto stage = [&](int w) {
+    const int b = w * a.spw + bi;
+    if (w < a.waves && b < a.B && ct >= 0) {
+      unsigned char* buf = smem + (w % a.stages) * a.stage_bytes;
+      const long long e0 = ((long long)b * a.HW + p0) * C, n = ns * C;
+      float* yd = reinterpret_cast<float*>(buf);
+      Tg* gd = reinterpret_cast<Tg*>(buf + a.gout_off);
+      float* sd = reinterpret_cast<float*>(buf + a.stats_off);
+      for (int g = ct; g < G; g += CT) {
+        const long long si = ((long long)b * G + g) * a.stat_stride;
+        cp_async4(sd + g, a.mean + si);
+        cp_async4(sd + C + g, a.rstd + si);
+      }
+      if (a.vec) {
+        const char* ysrc = reinterpret_cast<const char*>(a.y + e0);
+        const char* gsrc = reinterpret_cast<const char*>(a.gout + e0);
+        const long long uy = n * 4 / 16, ug = n * (long long)sizeof(Tg) / 16;
+        for (long long u = ct; u < uy; u += CT)
+          hg::cp_async16(reinterpret_cast<char*>(yd) + 16 * u, ysrc + 16 * u,
+                         16);
+        for (long long u = ct; u < ug; u += CT)
+          hg::cp_async16(reinterpret_cast<char*>(gd) + 16 * u, gsrc + 16 * u,
+                         16);
+      } else {
+        for (long long e = ct; e < n; e += CT) {
+          yd[e] = a.y[e0 + e];
+          gd[e] = a.gout[e0 + e];
+        }
+      }
+    }
+    hg::cp_async_commit();   // one group a wave, empty where idle
+  };
+  // wave w's item: its staged chunk (block-uniform: null where the block is
+  // idle in wave w) and its place in y, gout and gpre
+  struct Item {
+    const float *ys, *st, *yg;
+    const Tg *gs, *gg;
+    long long e0;
+    int b;
+  };
+  auto item = [&](int w) {
+    Item it{};
+    it.b = w * a.spw + bi;
+    if (w >= a.waves || it.b >= a.B) {
+      it.ys = nullptr;
+      return it;
+    }
+    const unsigned char* buf = smem + (w % a.stages) * a.stage_bytes;
+    it.ys = reinterpret_cast<const float*>(buf);
+    it.gs = reinterpret_cast<const Tg*>(buf + a.gout_off);
+    it.st = reinterpret_cast<const float*>(buf + a.stats_off);
+    it.e0 = ((long long)it.b * a.HW + p0) * C;
+    it.yg = a.y + it.e0;
+    it.gg = a.gout + it.e0;
+    return it;
+  };
+  auto constants = [&](const Item& it, float (&mean)[V], float (&rstd)[V],
+                       float (&scale)[V], float (&shift)[V]) {
 #pragma unroll
     for (int i = 0; i < V; ++i) {
-      out[2 * (c + i)] = red[c + i];
-      out[2 * (c + i) + 1] = red[k * C + c + i];
+      mean[i] = it.st[(c + i) / cpg];
+      rstd[i] = it.st[C + (c + i) / cpg];
+      scale[i] = rstd[i] * gamma[i];
+      // rounded twice, not fused: the forward's shift (gn_apply_kernel)
+      shift[i] = __fsub_rn(beta[i], __fmul_rn(mean[i], scale[i]));
     }
-  }
-}
-
-// Block b, C x slices threads (thread t: channel t % C, chunks t / C, +
-// slices, ...): sums (B, C, 2) = the sample's (sum dz, sum dz yhat) per
-// channel, the chunks folded as a strided run then a tree over the slices;
-// then coef (B, G, 2) = (rstd A / n, f rstd Bs / n) per group, its channels
-// in order.  Dynamic shared memory: 2 x slices x C floats.
-__global__ void __launch_bounds__(1024)
-gn_bwd_fold_kernel(const float* __restrict__ partial,
-                   const float* __restrict__ stats,
-                   const float* __restrict__ gamma, float* __restrict__ sums,
-                   float* __restrict__ coef, int n_chunks, int C, int G,
-                   float count, float eps) {
-  extern __shared__ float red[];               // [2][slices][C]
-  const int slices = blockDim.x / C;
-  const int c = threadIdx.x % C, sl = threadIdx.x / C;
-  const int b = blockIdx.x;
-  float sd = 0.f, sdy = 0.f;
-  for (int ch = sl; ch < n_chunks; ch += slices) {
-    const float* p = partial + (((long long)b * n_chunks + ch) * C + c) * 2;
-    sd += p[0];
-    sdy += p[1];
-  }
-  red[sl * C + c] = sd;
-  red[(slices + sl) * C + c] = sdy;
-  row_tree<1>(red, C, slices, sl, c);
-  row_tree<1>(red + slices * C, C, slices, sl, c);
-  if (sl == 0) {
-    sums[((long long)b * C + c) * 2] = red[c];
-    sums[((long long)b * C + c) * 2 + 1] = red[slices * C + c];
-  }
-  const int cpg = C / G;
-  const float rstd_eps = rsqrtf(eps);     // rstd where the variance sat at 0
-  for (int g = threadIdx.x; g < G; g += blockDim.x) {
-    float a = 0.f, bs = 0.f;
-    for (int cc = g * cpg; cc < (g + 1) * cpg; ++cc) {
-      a = fmaf(gamma[cc], red[cc], a);
-      bs = fmaf(gamma[cc], red[slices * C + cc], bs);
+  };
+  // 1. the chunk's (sum dz yhat, sum dz) per channel, published
+  auto reduce = [&](int w) {
+    const Item it = item(w);
+    if (!it.ys) return;
+    float mean[V], rstd[V], scale[V], shift[V], q[2][V];
+    constants(it, mean, rstd, scale, shift);
+#pragma unroll
+    for (int i = 0; i < V; ++i) q[0][i] = q[1][i] = 0.f;
+    for_pixels<V>(it.ys, it.gs, it.yg, it.gg, ns, npx, C, row, k, c,
+                  [&](long long, const float(&yv)[V], const float(&gv)[V]) {
+#pragma unroll
+      for (int i = 0; i < V; ++i) {
+        const float d = masked(gv[i], yv[i], scale[i], shift[i], a.relu);
+        q[1][i] += d;
+        q[0][i] = fmaf(d, (yv[i] - mean[i]) * rstd[i], q[0][i]);
+      }
+    });
+    block_sums<V, 2>(q, red, C, cvs, a.rows, a.shuffle, row, c);
+    if (t < 32) {
+      float* part = a.partial + ((long long)it.b * a.chunks + j) * 2 * C;
+      for (int e = t; e < 2 * C; e += 32)
+        part[e] = red[(e / C) * a.rows * C + e % C];
+      __syncwarp();
+      arrive(a.arrive + it.b);
     }
-    const float rstd = stats[2 * ((long long)b * G + g) + 1];
-    const float f = rstd < rstd_eps ? 1.f : 0.f;
-    coef[2 * ((long long)b * G + g)] = rstd * a / count;
-    coef[2 * ((long long)b * G + g) + 1] = f * rstd * bs / count;
-  }
-}
-
-// Block (chunk, sample), as the reduce pass: gpre and bpart (B, n_chunks,
-// C), the chunk's per-channel sums of the float32 gpre.  Dynamic shared
-// memory: threads x V floats.
-template <int V, typename Tg>
-__global__ void __launch_bounds__(V == 1 ? 1024 : 256)
-gn_bwd_apply_kernel(const float* __restrict__ y, const Tg* __restrict__ gout,
-                    const float* __restrict__ stats,
-                    const float* __restrict__ gamma,
-                    const float* __restrict__ beta,
-                    const float* __restrict__ coef, Tg* __restrict__ gpre,
-                    float* __restrict__ bpart, long long HW, int C, int G,
-                    int px, int relu) {
-  extern __shared__ float red[];               // [k][C]
-  const int cvs = C / V, k = blockDim.x / cvs;
-  const int row = threadIdx.x / cvs, c = (threadIdx.x % cvs) * V;
-  const int b = blockIdx.y, cpg = C / G;
-  const GnChannels<V> ch(stats, gamma, beta, b, c, G, cpg);
-  float a1[V], a2[V], bs[V];
+  };
+  // 2. once every chunk has arrived, each block folds the sample's partials
+  //    in chunk order (the same sums in every block) and its per-group
+  //    (rstd A / n, f rstd Bs / n); 3. gpre from the staged copy, summed
+  //    into the block's running sums
+  float bs[1][V];
 #pragma unroll
-  for (int i = 0; i < V; ++i) {
-    const float* cf = coef + 2 * ((long long)b * G + (c + i) / cpg);
-    a1[i] = cf[0];
-    a2[i] = cf[1];
-    bs[i] = 0.f;
-  }
-  const long long p0 = (long long)blockIdx.x * px;
-  const long long p1 = p0 + px < HW ? p0 + px : HW;
-  const long long base = (long long)b * HW * C + c;
-  for (long long p = p0 + row; p < p1; p += k) {
-    float yv[V], gv[V];
-    hg::load_vec<V>(y + base + p * C, yv);
-    hg::load_vec<V>(gout + base + p * C, gv);
-#pragma unroll
-    for (int i = 0; i < V; ++i) {
-      const float d = masked(gv[i], yv[i], ch.scale[i], ch.shift[i], relu);
-      const float yh = (yv[i] - ch.mean[i]) * ch.rstd[i];
-      gv[i] = fmaf(ch.scale[i], d, -fmaf(a2[i], yh, a1[i]));
-      bs[i] += gv[i];
+  for (int i = 0; i < V; ++i) bs[0][i] = 0.f;
+  auto fold_apply = [&](int w) {
+    const Item it = item(w);
+    if (!it.ys) return;
+    wait_for(a.arrive + it.b, a.chunks);
+    fold_rows(a.partial + (long long)it.b * a.chunks * 2 * C, a.chunks, 2 * C,
+              csum, red);
+    if (j == 0)
+      for (int e = t; e < 2 * C; e += T)
+        a.sums[(long long)it.b * 2 * C + e] = csum[e];
+    const float rstd_eps = rsqrtf(a.eps);   // rstd where the variance sat at 0
+    for (int g = t; g < G; g += T) {
+      float sa = 0.f, sb = 0.f;
+      for (int cc = g * cpg; cc < (g + 1) * cpg; ++cc) {
+        sa = fmaf(gam[cc], csum[C + cc], sa);
+        sb = fmaf(gam[cc], csum[cc], sb);
+      }
+      const float r = it.st[C + g];
+      coef[2 * g] = r * sa / a.count;
+      coef[2 * g + 1] = (r < rstd_eps ? 1.f : 0.f) * r * sb / a.count;
     }
-    hg::store_vec<V>(gpre + base + p * C, gv);
-  }
-#pragma unroll
-  for (int i = 0; i < V; ++i) red[row * C + c + i] = bs[i];
-  row_tree<V>(red, C, k, row, c);
-  if (row == 0) {
-    float* out = bpart + ((long long)b * gridDim.x + blockIdx.x) * C;
-#pragma unroll
-    for (int i = 0; i < V; ++i) out[c + i] = red[c + i];
-  }
-}
-
-// Block c, 256 threads: grads (3, C) = dgamma, dbeta (sums over samples)
-// and dbias (over samples x chunks), each a strided run then a tree.
-__global__ void __launch_bounds__(256)
-gn_bwd_final_kernel(const float* __restrict__ sums,
-                    const float* __restrict__ bpart, float* __restrict__ grads,
-                    int B, int n_chunks, int C) {
-  __shared__ float red[3][256];
-  const int c = blockIdx.x, t = threadIdx.x;
-  float dg = 0.f, dbt = 0.f, db = 0.f;
-  for (int b = t; b < B; b += 256) {
-    dbt += sums[((long long)b * C + c) * 2];
-    dg += sums[((long long)b * C + c) * 2 + 1];
-  }
-  const long long n = (long long)B * n_chunks;
-  for (long long e = t; e < n; e += 256) db += bpart[e * C + c];
-  red[0][t] = dg;
-  red[1][t] = dbt;
-  red[2][t] = db;
-  for (int st = 128; st > 0; st /= 2) {
     __syncthreads();
-    if (t < st)
-      for (int j = 0; j < 3; ++j) red[j][t] += red[j][t + st];
+    float mean[V], rstd[V], scale[V], shift[V], a1[V], a2[V];
+    constants(it, mean, rstd, scale, shift);
+#pragma unroll
+    for (int i = 0; i < V; ++i) {
+      a1[i] = coef[2 * ((c + i) / cpg)];
+      a2[i] = coef[2 * ((c + i) / cpg) + 1];
+    }
+    Tg* out = a.gpre + it.e0 + c;
+    for_pixels<V>(it.ys, it.gs, it.yg, it.gg, ns, npx, C, row, k, c,
+                  [&](long long p, const float(&yv)[V], const float(&gv)[V]) {
+      float gp[V];
+#pragma unroll
+      for (int i = 0; i < V; ++i) {
+        const float d = masked(gv[i], yv[i], scale[i], shift[i], a.relu);
+        const float yh = (yv[i] - mean[i]) * rstd[i];
+        gp[i] = fmaf(scale[i], d, -fmaf(a2[i], yh, a1[i]));
+        bs[0][i] += gp[i];
+      }
+      hg::store_vec<V>(out + p * C, gp);
+    });
+    __syncthreads();                           // the stage is free
+  };
+  // two stages: the next wave's chunk copies while this one is reduced,
+  // folded and applied
+  if (a.stages == 2) stage(0);
+  for (int w = 0; w < a.waves; ++w) {
+    if (a.stages == 2) {
+      stage(w + 1);
+      hg::cp_async_wait<1>();
+    } else {
+      stage(w);
+      hg::cp_async_wait<0>();
+    }
+    __syncthreads();
+    reduce(w);
+    fold_apply(w);
   }
-  if (t == 0)
-    for (int j = 0; j < 3; ++j) grads[j * C + c] = red[j][0];
+  // 4. after its last wave a block sums its items' gpre per channel; the
+  //    last block to finish folds the samples' dgamma and dbeta and the
+  //    blocks' dbias, in order
+  block_sums<V, 1>(bs, red, C, cvs, a.rows, a.shuffle, row, c);
+  for (int e = t; e < C; e += T)
+    a.bpart[(long long)blockIdx.x * C + e] = red[e];
+  __syncthreads();
+  if (t == 0) {
+    unsigned old;
+    asm volatile("atom.acq_rel.gpu.global.add.u32 %0, [%1], %2;\n"
+                 : "=r"(old) : "l"(a.done), "r"(1u) : "memory");
+    *flag = old == gridDim.x - 1;
+  }
+  __syncthreads();
+  if (*flag) {
+    fold_rows(a.sums, a.B, 2 * C, a.grads, red);
+    fold_rows(a.bpart, gridDim.x, C, a.grads + 2 * C, red);
+  }
 }
 
 bool aligned16(const void* p) {
   return reinterpret_cast<uintptr_t>(p) % 16 == 0;
 }
 
+// The shared bytes gn_bwd_wave_kernel<V, Tg> was last allowed.
+template <int V, typename Tg>
+size_t& smem_allowed() {
+  static size_t bytes = 0;
+  return bytes;
+}
+
+// One cooperative launch of `grid` blocks, or -2 where they cannot all be
+// resident.  The kernel's shared-memory attribute is raised only past what
+// an earlier call set (smem_set), so a call captured in a CUDA graph after
+// an eager one at its shapes makes no attribute call.
+template <typename K>
+int launch_coop(K kernel, void** args, int grid, int threads, size_t smem,
+                size_t& smem_set, cudaStream_t stream) {
+  cudaError_t err = cudaSuccess;
+  if (smem > smem_set) {
+    err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    smem_set = smem;
+  }
+  int dev = 0, sms = 0, coop = 0, per_sm = 0;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return (int)err;
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                      threads, smem);
+  if (err != cudaSuccess) return (int)err;
+  if (!coop || (long long)per_sm * sms < grid) return -2;
+  err = cudaLaunchCooperativeKernel(reinterpret_cast<void*>(kernel),
+                                    dim3(grid), dim3(threads), args, smem,
+                                    stream);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
+
+// out: the current device's SMs, the dynamic shared memory a block may
+// opt in to, and whether it takes cooperative launches (the planner's
+// inputs).  Returns a cudaError_t.
+extern "C" int hg_gn_backward_device(int* out) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  cudaDeviceGetAttribute(out, cudaDevAttrMultiProcessorCount, dev);
+  cudaDeviceGetAttribute(out + 1, cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                         dev);
+  cudaDeviceGetAttribute(out + 2, cudaDevAttrCooperativeLaunch, dev);
+  return (int)cudaGetLastError();
+}
 
 // The backward of act(GroupNorm(y)).  y: float32 (B, HW, C) NHWC, the
 // layer's pre-activation (bias included); gout and gpre: (B, HW, C) of
-// `dtype` (0 = float32, 1 = bfloat16); stats: float32 (B, G, 2) mean and
-// rstd as the forward saved them; gamma, beta: float32 (C,); scratch:
-// n_scratch = B x n_chunks x C x 3 + B x C x 2 + B x G x 2 float32; grads:
-// float32 (3, C) = dgamma, dbeta, dbias.  Returns the first non-zero
-// cudaGetLastError() of its launches, or -1 for arguments it does not take.
+// `dtype` (0 = float32, 1 = bfloat16); mean, rstd: float32, (sample, group)
+// at ((b G + g) stat_stride); gamma, beta: float32 (C,); plan: V, threads,
+// chunk_px, staged_px, chunks, samples a wave, stages, shared bytes
+// (conv_stack.py::gn_backward_plan); scratch: n_scratch 4-byte words,
+// B x chunks x 2C + 2 B C + grid x C floats, then B + 1 counters (cleared
+// here); grads:
+// float32 (3, C) = dgamma, dbeta, dbias.  Returns the first non-zero CUDA
+// error, -1 for arguments or a plan it does not take, -2 where the device
+// cannot run the launch.
 extern "C" int hg_gn_relu_backward(
-    const void* y, const void* gout, const void* stats, const void* gamma,
-    const void* beta, void* scratch, long long n_scratch, void* gpre,
-    void* grads, int dtype, int B, long long HW, int C, int G, int n_chunks,
-    int relu, float eps, void* stream) {
-  if (B < 1 || B > 65535 || HW < 1 || C < 1 || C > 1024 || G < 1 ||
-      C % G || n_chunks < 1 || n_chunks > HW || (dtype != 0 && dtype != 1) ||
-      !y || !gout || !stats || !gamma || !beta || !scratch || !gpre ||
-      !grads)
+    const void* y, const void* gout, const void* mean, const void* rstd,
+    int stat_stride, const void* gamma, const void* beta, void* scratch,
+    long long n_scratch, void* gpre, void* grads, int dtype, int B,
+    long long HW, int C, int G, int relu, float eps, const int* plan,
+    void* stream) {
+  if (B < 1 || HW < 1 || C < 1 || C > 1024 || G < 1 || C % G ||
+      stat_stride < 1 || (dtype != 0 && dtype != 1) || !y || !gout ||
+      !mean || !rstd || !gamma || !beta || !scratch || !gpre || !grads ||
+      !plan)
     return -1;
-  const long long chunked = (long long)B * n_chunks * C;
-  if (n_scratch != 3 * chunked + 2LL * B * C + 2LL * B * G) return -1;
-  float* partial = static_cast<float*>(scratch);          // (B, chunks, C, 2)
-  float* bpart = partial + 2 * chunked;                   // (B, chunks, C)
-  float* sums = bpart + chunked;                          // (B, C, 2)
-  float* coef = sums + 2LL * B * C;                       // (B, G, 2)
+  const int gb = dtype == 0 ? 4 : 2;
+  const bool aligned = aligned16(y) && aligned16(gout) && aligned16(gpre);
+  const Layout l = layout(C, aligned);
+  const int chunk_px = plan[2], staged_px = plan[3], chunks = plan[4],
+            spw = plan[5], stages = plan[6];
+  if (plan[0] != l.V || plan[1] != l.threads || chunk_px < 1 ||
+      (HW + chunk_px - 1) / chunk_px != chunks || staged_px < 1 ||
+      staged_px > chunk_px || spw < 1 || spw > B ||
+      (long long)spw * chunks > 65535 || (stages != 1 && stages != 2))
+    return -1;
+  const long long smem = smem_bytes(C, gb, l, staged_px, stages);
+  if (plan[7] != smem) return -1;
+  const long long chunked = (long long)B * chunks * C;
+  const long long words =
+      2 * chunked + 2LL * B * C + (long long)spw * chunks * C;
+  if (n_scratch != words + B + 1) return -1;
+  float* f = static_cast<float*>(scratch);
+  unsigned* counters = reinterpret_cast<unsigned*>(f + words);
   auto s = static_cast<cudaStream_t>(stream);
-  auto f = [](const void* p) { return static_cast<const float*>(p); };
-  const hg::GnLayout lay = hg::gn_layout(
-      C, aligned16(y) && aligned16(gout) && aligned16(gpre));
-  const dim3 grid(n_chunks, B);
-  const int threads = lay.threads();
-  const int px = (int)((HW + n_chunks - 1) / n_chunks);
-  const int slices = C >= 256 ? 1 : 256 / C;
+  cudaError_t err = cudaMemsetAsync(counters, 0, (B + 1LL) * 4, s);
+  if (err != cudaSuccess) return (int)err;
   auto run = [&](auto tg) {
     using Tg = decltype(tg);
-    const Tg* g = static_cast<const Tg*>(gout);
-    int err = hg::dispatch_v(lay.V, [&](auto v) {
+    Args<Tg> a;
+    a.y = static_cast<const float*>(y);
+    a.gout = static_cast<const Tg*>(gout);
+    a.mean = static_cast<const float*>(mean);
+    a.rstd = static_cast<const float*>(rstd);
+    a.gamma = static_cast<const float*>(gamma);
+    a.beta = static_cast<const float*>(beta);
+    a.gpre = static_cast<Tg*>(gpre);
+    a.grads = static_cast<float*>(grads);
+    a.partial = f;
+    a.sums = f + 2 * chunked;
+    a.bpart = a.sums + 2LL * B * C;
+    a.arrive = counters;
+    a.done = counters + B;
+    a.HW = HW;
+    a.stage_bytes = stage_bytes(staged_px, C, gb);
+    a.gout_off = pad16((long long)staged_px * C * 4);
+    a.stats_off = a.gout_off + pad16((long long)staged_px * C * gb);
+    a.red_floats = red_floats(C, l);
+    a.stat_stride = stat_stride;
+    a.B = B, a.C = C, a.G = G, a.relu = relu;
+    a.chunk_px = chunk_px, a.staged_px = staged_px, a.chunks = chunks;
+    a.spw = spw, a.waves = (B + spw - 1) / spw, a.stages = stages;
+    a.vec = aligned && (C * gb) % 16 == 0 && (C * 4) % 16 == 0;
+    a.rows = l.rows, a.shuffle = l.shuffle;
+    a.count = (float)(HW * (C / G));
+    a.eps = eps;
+    void* args[] = {&a};
+    return hg::dispatch_v(l.V, [&](auto v) {
       constexpr int V = decltype(v)::value;
-      gn_bwd_reduce_kernel<V, Tg>
-          <<<grid, threads, 2 * threads * V * sizeof(float), s>>>(
-              f(y), g, f(stats), f(gamma), f(beta), partial, HW, C, G, px,
-              relu);
-      return (int)cudaGetLastError();
+      return launch_coop(gn_bwd_wave_kernel<V, Tg>, args, spw * chunks,
+                         l.threads, (size_t)smem, smem_allowed<V, Tg>(), s);
     });
-    if (err) return err;
-    gn_bwd_fold_kernel<<<B, C * slices, 2 * slices * C * sizeof(float), s>>>(
-        partial, f(stats), f(gamma), sums, coef, n_chunks, C, G,
-        (float)(HW * (C / G)), eps);
-    if ((err = (int)cudaGetLastError())) return err;
-    err = hg::dispatch_v(lay.V, [&](auto v) {
-      constexpr int V = decltype(v)::value;
-      gn_bwd_apply_kernel<V, Tg><<<grid, threads, threads * V * sizeof(float),
-                                   s>>>(
-          f(y), g, f(stats), f(gamma), f(beta), coef,
-          static_cast<Tg*>(gpre), bpart, HW, C, G, px, relu);
-      return (int)cudaGetLastError();
-    });
-    if (err) return err;
-    gn_bwd_final_kernel<<<C, 256, 0, s>>>(sums, bpart,
-                                          static_cast<float*>(grads), B,
-                                          n_chunks, C);
-    return (int)cudaGetLastError();
   };
   return dtype == 0 ? run(float{}) : run(__nv_bfloat16{});
 }

@@ -8,7 +8,9 @@
   statistics summed in the conv pass's epilogue);
 * ``conv_stack.gn_relu_backward`` — ``csrc/gn_backward.cu``, the GN/ReLU
   tail's backward of a GN layer (the counterpart of the reference's
-  ``jax.vjp`` of ``conv_pallas.py::_make_post`` under XLA);
+  ``jax.vjp`` of ``conv_pallas.py::_make_post`` under XLA): one
+  cooperative launch walking the waves ``conv_stack.gn_backward_plan``
+  chooses;
 * ``conv_stack.hex_conv_layer_dgrad`` (the same conv pass on the adjoint
   tap table) and ``conv_stack.hex_conv_layer_wgrad``
   (``csrc/hex_conv_wgrad.cu``) — together they replace

@@ -45,8 +45,9 @@ _SIGNATURES = {
     "hg_plan_gather_last_launch": [_P],
     "hg_hex_conv_layer": [_P, _P, _I, _P, _P, _P, _P, _P, _P, _I, _F, _P, _P,
                           _P, _LL, _P, _I, _I, _I, _I, _I, _I, _I, _P, _I, _P],
-    "hg_gn_relu_backward": [_P, _P, _P, _P, _P, _P, _LL, _P, _P, _I, _I, _LL,
-                            _I, _I, _I, _I, _F, _P],
+    "hg_gn_relu_backward": [_P, _P, _P, _P, _I, _P, _P, _P, _LL, _P, _P, _I,
+                            _I, _LL, _I, _I, _I, _F, _P, _P],
+    "hg_gn_backward_device": [_P],
     "hg_hex_conv_wgrad": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _I,
                           _I, _P],
     "hg_shift_resample": [_P, _P, _P, _P, _P, _I, _P, _P, _I, _LL, _I, _I,

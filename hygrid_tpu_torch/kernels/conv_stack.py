@@ -83,8 +83,10 @@ directly (the reference exports inference only).
 """
 from __future__ import annotations
 
+import ctypes
 import functools
 import math
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -101,6 +103,7 @@ __all__ = ["hex_conv_layer", "hex_conv_layer_plain", "hex_conv_layer_dgrad",
            "hex_conv_layer_split_dgrad_plain", "hex_conv_layer_split_wgrad",
            "hex_conv_layer_split_wgrad_plain", "gn_stats_plain",
            "gn_relu_backward", "gn_relu_backward_plain",
+           "gn_backward_plan", "gn_backward_device",
            "affine_relu_backward", "hex_conv_stack"]
 
 LAUNCHES = 0
@@ -128,12 +131,14 @@ SPLIT_WGRAD_LAUNCHES = 0
 """Number of dW runs made by :func:`hex_conv_layer_split_wgrad` (two a
 split layer, one on each input; a run is two CUDA launches)."""
 GN_BWD_LAUNCHES = 0
-"""Number of GN/ReLU tail backward runs (:func:`gn_relu_backward`, one a GN
-layer's backward; a run is four CUDA launches)."""
+"""Number of GN/ReLU tail backward launches (:func:`gn_relu_backward`, one a
+GN layer's backward: one cooperative launch after a memset of its
+counters)."""
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _EPS = 1e-5
-_GN_BLOCKS = 2048     # target (sample, pixel-chunk) blocks of the GN backward
+_GN_BWD_THREADS = 512  # a GN backward block's threads where V > 1
+_GN_BWD_DEVICE: dict = {}  # device index -> (SMs, shared bytes a block)
 # target blocks of the dW partial-sum pass: float32 (CUDA cores), and
 # bfloat16 (tensor cores: fewer, longer blocks, so the f32 partial sums each
 # chunk writes and the fold reads stay few)
@@ -329,6 +334,147 @@ def gn_relu_backward_plain(y, mean, rstd, gamma, beta, gout, groups: int,
             sd.sum(0).reshape(c), gpre.sum((0, 1)).reshape(c))
 
 
+class GnBackwardPlan(NamedTuple):
+    """How ``csrc/gn_backward.cu`` walks a call (:func:`gn_backward_plan`).
+
+    ``v`` channels a thread vector and ``threads`` a block
+    (:func:`gn_backward_layout`); a sample's pixels cut in ``chunks`` runs
+    of ``chunk_px`` (the last shorter), each staged in a block's shared
+    memory up to ``staged_px`` (the rest read from device memory in both
+    passes); ``spw`` samples a wave, one chunk a block, so ``grid = spw x
+    chunks`` blocks and ``waves = ceil(B / spw)`` items a block; ``stages``
+    buffers a block (2: the next wave's chunk copies while this one runs);
+    ``smem`` dynamic shared bytes a block."""
+    v: int
+    threads: int
+    chunk_px: int
+    staged_px: int
+    chunks: int
+    spw: int
+    waves: int
+    stages: int
+    smem: int
+    grid: int
+
+
+def gn_backward_layout(c: int, aligned: bool = True):
+    """``(V, threads, rows)`` of a GN backward block at ``c`` channels:
+    ``V`` channels a thread vector (4 where ``c % 4 == 0`` and the tensors
+    are 16-byte aligned, else 1); ``c / V`` vectors a pixel times ``k``
+    pixel rows of threads (512, or ``c`` where ``V = 1`` and ``c > 512``);
+    ``rows`` rows of per-channel sums left after the warp shuffles (one a
+    warp where a warp holds whole pixel rows, else one a pixel row).  The
+    C side's ``layout``."""
+    v = 4 if aligned and c % 4 == 0 else 1
+    cvs = c // v
+    k = 1 if cvs >= _GN_BWD_THREADS else _GN_BWD_THREADS // cvs
+    shuffle = cvs < 32 and 32 % cvs == 0
+    return v, cvs * k, (cvs * k // 32 if shuffle else k)
+
+
+def _pad16(n: int) -> int:
+    return -(-n // 16) * 16
+
+
+def gn_backward_smem(c: int, gout_bytes: int, threads: int, rows: int,
+                     staged_px: int, stages: int) -> int:
+    """Dynamic shared bytes of a GN backward block: ``stages`` buffers of a
+    chunk's staged y (float32) and gout and the sample's mean and rstd (C
+    floats each, G of them used), each 16-byte padded; two floats a
+    channel for each of ``rows``, at least 4 a thread (the folds' slices);
+    16 bytes of flags; the sample's two per-channel sums, its per-group
+    coefficients and gamma (5 C floats).  The C side's ``smem_bytes``."""
+    stage = (_pad16(staged_px * c * 4) + _pad16(staged_px * c * gout_bytes)
+             + _pad16(8 * c))
+    return (stages * stage + _pad16(4 * max(2 * rows * c, 4 * threads))
+            + 16 + 20 * c)
+
+
+@functools.lru_cache(maxsize=256)
+def gn_backward_plan(b: int, hw: int, c: int, gout_bytes: int, sms: int,
+                     smem_limit: int, aligned: bool = True
+                     ) -> GnBackwardPlan:
+    """The GN backward's walk at ``b`` samples of ``hw`` pixels x ``c``
+    channels, gout ``gout_bytes`` an element, on a card of ``sms`` SMs
+    whose blocks may take ``smem_limit`` bytes of shared memory (one
+    block an SM).
+
+    A wave holds whole samples (a block spins on its sample's fold, which
+    needs every chunk of the sample resident), so a chunk is at most what
+    a block stages.  Two stages where a sample fits ``sms`` blocks' halves,
+    else one; as many samples a wave as fit, the waves then evened out,
+    and the chunks cut so that a wave fills the grid.  A sample larger than
+    every block's whole shared memory runs one a wave, each chunk staging
+    what fits.  Raises ValueError where a block cannot stage one pixel."""
+    v, threads, rows = gn_backward_layout(c, aligned)
+
+    def smem(px, stages):
+        return gn_backward_smem(c, gout_bytes, threads, rows, px, stages)
+
+    def capacity(stages):
+        px = max(0, (smem_limit - smem(0, stages))
+                 // (stages * c * (4 + gout_bytes)))
+        while px and smem(px, stages) > smem_limit:
+            px -= 1
+        return px
+
+    def plan(chunks, spw, staged_cap, stages):
+        chunk_px = -(-hw // chunks)
+        staged = min(chunk_px, staged_cap)
+        chunks = -(-hw // chunk_px)
+        return GnBackwardPlan(v, threads, chunk_px, staged, chunks, spw,
+                              -(-b // spw), stages, smem(staged, stages),
+                              spw * chunks)
+
+    for stages in (2, 1):
+        cap = capacity(stages)
+        need = -(-hw // cap) if cap else sms + 1   # chunks a sample needs
+        if need <= sms:
+            spw = min(b, sms // need)
+            spw = -(-b // -(-b // spw))
+            return plan(min(hw, sms // spw), spw, cap, stages)
+    cap = capacity(1)
+    if not cap:
+        raise ValueError(f"gn_relu_backward: a block cannot stage one pixel "
+                         f"of {c} channels in {smem_limit} bytes")
+    return plan(min(hw, sms), 1, cap, 1)
+
+
+def gn_backward_scratch(plan: GnBackwardPlan, b: int, c: int) -> int:
+    """4-byte words of a call's scratch: the chunks' (2, C) sums, the
+    samples' (2, C) sums, the blocks' (C,) sums, then B + 1 counters."""
+    return 2 * b * plan.chunks * c + 2 * b * c + plan.grid * c + b + 1
+
+
+def gn_backward_device(device) -> tuple:
+    """``(SMs, shared bytes a block may opt in to)`` of a CUDA device,
+    queried once; raises where it cannot run cooperative launches."""
+    index = torch.device(device).index
+    if index is None:
+        index = torch.cuda.current_device()
+    if index not in _GN_BWD_DEVICE:
+        out = (ctypes.c_int * 3)()
+        with torch.cuda.device(index):
+            _build.check(_build.load_library().hg_gn_backward_device(out),
+                         "gn_backward_device")
+        if not out[2]:
+            raise RuntimeError(f"gn_relu_backward: cuda:{index} cannot run "
+                               "cooperative launches")
+        _GN_BWD_DEVICE[index] = (out[0], out[1])
+    return _GN_BWD_DEVICE[index]
+
+
+def _stat_views(mean, rstd, b, groups):
+    """``(mean, rstd, stride)``: the float32 statistics as the kernel reads
+    them, (sample, group) at ``(b G + g) stride``; the forward's ``stats[...,
+    0]`` and ``stats[..., 1]`` are read in place (stride 2)."""
+    if (mean.dtype == rstd.dtype == torch.float32
+            and mean.stride() == rstd.stride() and mean.stride(1) >= 1
+            and mean.stride(0) == groups * mean.stride(1)):
+        return mean, rstd, mean.stride(1)
+    return mean.float().contiguous(), rstd.float().contiguous(), 1
+
+
 def gn_relu_backward(y, mean, rstd, gamma, beta, gout, groups: int,
                      relu: bool):
     """The backward of a GN layer's tail ``act(GroupNorm(y))``: NHWC float32
@@ -338,10 +484,11 @@ def gn_relu_backward(y, mean, rstd, gamma, beta, gout, groups: int,
     dbias)`` as :func:`gn_relu_backward_plain` does.
 
     A CPU tensor runs :func:`gn_relu_backward_plain`.  A CUDA tensor (gout
-    float32 or bfloat16, C <= 1024) launches ``csrc/gn_backward.cu`` (a
-    reduction pass and an elementwise pass over ``(y, gout)`` with fixed-
-    order folds, counted once in ``GN_BWD_LAUNCHES``); anything else
-    raises."""
+    float32 or bfloat16, C <= 1024) launches ``csrc/gn_backward.cu`` once
+    (one cooperative pass over ``(y, gout)`` staged in shared memory, walked
+    as :func:`gn_backward_plan` says, with fixed-order folds; counted in
+    ``GN_BWD_LAUNCHES``); anything else raises, as does a device that cannot
+    run the launch."""
     global GN_BWD_LAUNCHES
     if y.device.type == "cpu":
         return gn_relu_backward_plain(y, mean, rstd, gamma, beta, gout,
@@ -360,22 +507,27 @@ def gn_relu_backward(y, mean, rstd, gamma, beta, gout, groups: int,
                          f"{groups} groups, C={c}")
     if mean.shape != (b, groups) or rstd.shape != (b, groups):
         raise ValueError(f"{what}: mean and rstd must be ({b}, {groups})")
-    stats = torch.stack([mean.float(), rstd.float()], -1).contiguous()
+    mean, rstd, stride = _stat_views(mean, rstd, b, groups)
     gamma = _check_param(gamma, "gamma", c, y.device)
     beta = _check_param(beta, "beta", c, y.device)
-    n_chunks = max(1, min(h * w, -(-_GN_BLOCKS // b)))
-    n_scratch = 3 * b * n_chunks * c + 2 * b * c + 2 * b * groups
-    scratch = torch.empty(n_scratch, dtype=torch.float32, device=y.device)
     gpre = torch.empty_like(gout)
+    aligned = all(t.data_ptr() % 16 == 0 for t in (y, gout, gpre))
+    plan = gn_backward_plan(b, h * w, c, gout.element_size(),
+                            *gn_backward_device(y.device), aligned)
+    n_scratch = gn_backward_scratch(plan, b, c)
+    scratch = torch.empty(n_scratch, dtype=torch.float32, device=y.device)
     grads = torch.empty((3, c), dtype=torch.float32, device=y.device)
+    fields = (ctypes.c_int * 8)(plan.v, plan.threads, plan.chunk_px,
+                                plan.staged_px, plan.chunks, plan.spw,
+                                plan.stages, plan.smem)
     lib = _build.load_library()
     with torch.cuda.device(y.device):
         stream = torch.cuda.current_stream().cuda_stream
         status = lib.hg_gn_relu_backward(
-            y.data_ptr(), gout.data_ptr(), stats.data_ptr(),
-            gamma.data_ptr(), beta.data_ptr(), scratch.data_ptr(), n_scratch,
-            gpre.data_ptr(), grads.data_ptr(), _DTYPES[gout.dtype], b, h * w,
-            c, groups, n_chunks, int(relu), _EPS, stream)
+            y.data_ptr(), gout.data_ptr(), mean.data_ptr(), rstd.data_ptr(),
+            stride, gamma.data_ptr(), beta.data_ptr(), scratch.data_ptr(),
+            n_scratch, gpre.data_ptr(), grads.data_ptr(), _DTYPES[gout.dtype],
+            b, h * w, c, groups, int(relu), _EPS, fields, stream)
     _build.check(status, what)
     GN_BWD_LAUNCHES += 1
     return gpre, grads[0], grads[1], grads[2]

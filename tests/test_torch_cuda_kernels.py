@@ -1260,21 +1260,38 @@ GN_BWD_CASES = [  # (B, H, W, C, G, relu): C off 8 takes the 4- and
     (1, 6, 13, 20, 4, True),
     (2, 5, 11, 13, 1, True),
     (2, 3, 5, 24, 3, False),
+    # the wave walk's edges (conv_stack.gn_backward_plan): HW under one
+    # chunk; b=1; several samples a wave and several waves; C = 8 at G = C;
+    # C = 1024 at G = 8 and G = 1; C = 384 (a fold's columns outnumber the
+    # block's threads); a sample larger than the card's shared memory
+    # (chunks staged in part, the rest read twice); a group whose variance
+    # sits at the clamp (one sample's first group constant: f = 0)
+    (2, 1, 3, 32, 8, True),
+    (1, 64, 63, 128, 8, True),
+    (12, 64, 63, 128, 8, True),
+    (2, 9, 11, 8, 8, True),
+    (2, 9, 11, 1024, 8, True),
+    (2, 5, 7, 1024, 1, False),
+    (3, 5, 7, 384, 8, True),
+    (2, 512, 512, 32, 8, True),
+    (3, 6, 9, 16, 4, True, "clamp"),
 ]
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("case", GN_BWD_CASES)
 def test_gn_relu_backward_matches_plain(cuda, case, dtype):
-    """gn_bwd_* against gn_relu_backward_plain on the same saved
+    """gn_bwd_wave_kernel against gn_relu_backward_plain on the same saved
     statistics: gpre within 1e-4 relative in float32 (3e-2 in bf16: one
     bf16 rounding of each side), dgamma and dbeta within 1e-4 (both
     float32, other summation orders), dbias within 1e-4 as well, but at
     G = C within 1e-4 of the sum of |gpre| it adds up (its terms cancel
     there: it is 0 but for rounding); a second launch bit-equal."""
-    b, h, w, c, g, relu = case
+    b, h, w, c, g, relu, *clamp = case
     gen = torch.Generator(device=cuda).manual_seed(GN_BWD_CASES.index(case))
     y = 1.5 * torch.randn((b, h, w, c), generator=gen, device=cuda) + 0.2
+    if clamp:
+        y[min(1, b - 1), ..., :c // g] = 0.5
     gamma = 1 + 0.2 * torch.randn((c,), generator=gen, device=cuda)
     beta = 0.2 * torch.randn((c,), generator=gen, device=cuda)
     gout = torch.randn((b, h, w, c), generator=gen, device=cuda).to(dtype)
@@ -1297,6 +1314,73 @@ def test_gn_relu_backward_matches_plain(cuda, case, dtype):
         assert bool(((got[3] - want[3]).abs() <= 1e-4 * terms).all())
     else:
         assert _rel(got[3], want[3]) <= 1e-4
+    if clamp:
+        assert float(rstd[min(1, y.shape[0] - 1), 0]) == pytest.approx(
+            1e-5 ** -0.5)
+
+
+def _gn_bwd_args(cuda, dtype=torch.bfloat16, shape=(4, 64, 63, 32), g=8):
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    y = 1.5 * torch.randn(shape, generator=gen, device=cuda) + 0.2
+    c = shape[-1]
+    gamma = 1 + 0.2 * torch.randn((c,), generator=gen, device=cuda)
+    beta = 0.2 * torch.randn((c,), generator=gen, device=cuda)
+    gout = torch.randn(shape, generator=gen, device=cuda).to(dtype)
+    mean, rstd = conv_stack.gn_stats_plain(y, g)
+    return y, mean, rstd, gamma, beta, gout, g, True
+
+
+def test_gn_relu_backward_is_at_most_two_launches(cuda):
+    """One call is one kernel launch and the memset of its counters (the
+    statistics read in place from the forward's (B, G, 2) tensor, no stack
+    or copy), as torch.profiler sees the device."""
+    from torch.profiler import ProfilerActivity, profile
+    y, mean, rstd, gamma, beta, gout, g, relu = _gn_bwd_args(cuda)
+    stats = torch.stack([mean, rstd], -1).contiguous()
+    args = (y, stats[..., 0], stats[..., 1], gamma, beta, gout, g, relu)
+    conv_stack.gn_relu_backward(*args)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        conv_stack.gn_relu_backward(*args)
+        torch.cuda.synchronize()
+    device = [e.name for e in prof.events()
+              if str(e.device_type).endswith("CUDA")]
+    assert 1 <= len(device) <= 2, device
+    assert sum("gn_bwd_wave_kernel" in n for n in device) == 1, device
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_gn_relu_backward_replays_in_a_cuda_graph(cuda, dtype):
+    """A CUDA-graph capture of the backward replays bit-equal to the eager
+    call, twice (the counters are cleared on the stream each replay)."""
+    args = _gn_bwd_args(cuda, dtype)
+    eager = conv_stack.gn_relu_backward(*args)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        conv_stack.gn_relu_backward(*args)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = conv_stack.gn_relu_backward(*args)
+    for _ in range(2):
+        graph.replay()
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(out, eager))
+
+
+def test_gn_relu_backward_raises_where_no_plan_fits(cuda, monkeypatch):
+    """No fallback: a card whose blocks cannot stage one pixel raises (the
+    planner's limits stood in for), and nothing is launched."""
+    args = _gn_bwd_args(cuda, shape=(2, 8, 9, 1024))
+    conv_stack.gn_backward_device(cuda)
+    index = torch.cuda.current_device()
+    monkeypatch.setitem(conv_stack._GN_BWD_DEVICE, index, (132, 4096))
+    before = conv_stack.GN_BWD_LAUNCHES
+    with pytest.raises(ValueError, match="cannot stage one pixel"):
+        conv_stack.gn_relu_backward(*args)
+    assert conv_stack.GN_BWD_LAUNCHES == before
 
 
 def test_gn_training_step_runs_no_plain_tail_on_cuda(cuda, monkeypatch):
