@@ -65,6 +65,13 @@ Phases, each of which raises on failure (the script then exits non-zero):
    finite; a torch.profiler split of one step by kernel group; one step's
    loss and every parameter's grad must agree with the plain path run in
    float32 on the card (and, tighter, the float32 kernel path with it);
+7f. HexCNN-small in its default dtype, float32 (``hexcnn_small(norm="GN")``
+   with no dtype, as users build it: every conv pass, dx and dW on the
+   float32 tiles), at phase 7's shapes: 4 requests and 4 AdamW steps by
+   CUDA events, images/s, the steps' peak memory, a request's and a
+   step's launches held as in phases 5 and 7, a torch.profiler split of
+   one step, and one step's loss and every grad against the plain float32
+   path (phase 7's gates);
 8. kernel C (shift_resample) against its plain version, float32 and
    bfloat16, on the 720p rect->hex bilinear plan (b=1 and b=8, C=3), the
    4K mosaic (540x960 -> 2160x3840, C=3, bit-equal), the 1080p rect->hex
@@ -284,7 +291,9 @@ Beside kernel B, the backward kernels, the split layer and the single-op
 conv the kernels line carries cuDNN's time (``hex_conv2d(impl="direct")``
 in the activations' dtype, TF32 off; its autograd for the backward) as
 ``library_ms``, the median of 5 timings of 10 calls each (their range is
-logged).  The last lines are the kernel summary (with each kernel's bound: the bytes
+logged).  Kernel B, dx, dW, the fused stack and the split layer and its
+backward carry their float32 sums over the same layers under ``f32``
+(ms, plain and library ms, bound).  The last lines are the kernel summary (with each kernel's bound: the bytes
 it must move at 3.35 TB/s or its operations at the card's peak for their
 type, whichever takes longer; plan_gather's bytes are its source, output
 and own table, and ``dense_bound_ms`` puts the dense plan in the table's
@@ -675,6 +684,7 @@ def check_kernel_b(torch, gen):
     errs, ms_sum, plain_sum, lib_sum, bounds = [], 0.0, 0.0, 0.0, []
     gn = dict(conv_pass_ms=0.0, gn_half_ms=0.0, gn_fold_ms=0.0,
               gn_half_bound_ms=0.0, gn_library_ms=0.0)
+    f32, f32_bounds = _f32_sums(), []
     for li, (cin, cout, h, w) in enumerate(LAYERS):
         groups = math.gcd(8, cout)
         k = torch.randn((cout, cin, kn), generator=gen, device="cuda") \
@@ -749,11 +759,14 @@ def check_kernel_b(torch, gen):
                 plain_sum += pms
                 lib_sum += lms
                 bounds.append((b_ms, b_by))
+            else:
+                _add_f32(f32, f32_bounds, err, ms, pms, lms, (b_ms, b_by))
         log(line)
     log(f"hex_conv_layer six GN layers bf16: {gn}")
     # library: cuDNN's conv alone (the kernel adds bias, GN and ReLU)
     return dict(max_abs_err=max(errs), ms=ms_sum, plain_ms=plain_sum,
-                **summed_bound(bounds), library_ms=lib_sum, **gn)
+                **summed_bound(bounds), library_ms=lib_sum, **gn,
+                f32=dict(f32, **summed_bound(f32_bounds)))
 
 
 def run_slice(torch):
@@ -818,19 +831,40 @@ def run_slice(torch):
     return launches
 
 
+def _f32_sums():
+    return dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0, library_ms=0.0)
+
+
+def _add_f32(acc, bounds, err, ms, pms, lms, b):
+    """Adds one float32 layer's figures to a kernel's ``f32`` summary (the
+    kernels line's float32 sums beside the bf16 ones)."""
+    acc["max_abs_err"] = max(acc["max_abs_err"], err)
+    acc["ms"] += ms
+    acc["plain_ms"] += pms
+    acc["library_ms"] += lms
+    bounds.append(b)
+
+
 def _conv_args(k):
-    """The template arguments of a ``hex_conv_kernel`` launch in a profiler
-    kernel name (``<N, Tin, Tout, split, stats>``; four before the stats
-    epilogue), or None for another kernel."""
-    m = re.search(r"hex_conv_kernel<([^>]*)>", k)
-    return None if m is None else [a.strip() for a in m.group(1).split(",")]
+    """The template arguments of a kernel B launch in a profiler kernel
+    name (``hex_conv_kernel<N, Tin, Tout, split, stats>``; four before the
+    stats epilogue; the float32 pass ``hex_conv_fma_kernel<COB, split,
+    stats>`` read as ``<COB, float, float, split, stats>``), or None for
+    another kernel."""
+    m = re.search(r"hex_conv_(fma_)?kernel<([^>]*)>", k)
+    if m is None:
+        return None
+    args = [a.strip() for a in m.group(2).split(",")]
+    return [args[0], "float", "float", *args[1:]] if m.group(1) else args
 
 
 def _is_gn_conv(k):
-    """Kernel B's conv pass of a GN layer (float32 pre-activation out),
-    not split."""
+    """Kernel B's conv pass of a GN layer (its stats epilogue; before the
+    epilogue, the only float32 output in bf16), not split."""
     a = _conv_args(k)
-    return a is not None and a[2] == "float" and a[3] == "false"
+    if a is None or a[3] != "false":
+        return False
+    return a[4] == "true" if len(a) > 4 else a[2] == "float"
 
 
 def _is_split_conv(k):
@@ -853,7 +887,7 @@ def _is_gn_bwd(k):
 # forward conv pass writes the float32 pre-activation, dx writes bf16)
 HEXCNN_GROUPS = [
     ("kernel B conv", _is_gn_conv),
-    ("dgrad", lambda k: "hex_conv_kernel" in k),
+    ("dgrad", lambda k: _conv_args(k) is not None),
     ("wgrad", lambda k: "wgrad_" in k),
     ("GN passes", _is_gn_pass),
     ("GN backward", _is_gn_bwd),
@@ -867,13 +901,16 @@ def check_backward(torch, gen):
     """Phase 6: dL/dx and dL/dW against their plain versions.  Returns the
     summaries of both for the kernels line: bf16 errors, and kernel and
     plain ms summed over the layers the training step runs them on (dx
-    skips layer 0, whose input needs no grad)."""
+    skips layer 0, whose input needs no grad), the float32 ones under
+    ``f32``."""
     from hygrid_tpu_torch.kernels import conv_stack as cs
     from hygrid_tpu_torch.nn.functional import hex_kernel_num
     kn = hex_kernel_num(2)
     sums = {name: dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0, library_ms=0.0)
             for name in ("dgrad", "wgrad")}
     bounds = {"dgrad": [], "wgrad": []}
+    f32 = {name: _f32_sums() for name in sums}
+    f32_bounds = {name: [] for name in sums}
     for li, (cin, cout, h, w) in enumerate(LAYERS):
         k = torch.randn((cout, cin, kn), generator=gen, device="cuda") \
             / math.sqrt(cin * kn)
@@ -928,9 +965,13 @@ def check_backward(torch, gen):
                     acc["plain_ms"] += pms
                     acc["library_ms"] += lms
                     bounds[name].append((b_ms, b_by))
+                elif name == "wgrad" or li > 0:
+                    _add_f32(f32[name], f32_bounds[name], err, ms, pms, lms,
+                             (b_ms, b_by))
         log(line)
     for name in sums:
         sums[name].update(summed_bound(bounds[name]))
+        sums[name]["f32"] = dict(f32[name], **summed_bound(f32_bounds[name]))
     return sums
 
 
@@ -1122,6 +1163,130 @@ def run_training(torch):
             require(r is not None and r <= tol,
                     f"{label} path grad {n}: relative err {r} > {tol}")
     return launches
+
+
+def run_training_f32(torch):
+    """Phase 7f: HexCNN-small as users build it, in its default dtype
+    (``hexcnn_small(norm="GN")`` with no dtype: float32, its GN stages on
+    ``hex_conv_layer``, so every conv pass, dx and dW runs the float32
+    tiles), at phase 7's shapes (b=32 RGB 512^2 through ``hexify_batch``):
+    N_REQUESTS requests and N_STEPS AdamW steps of ``train_step`` by CUDA
+    events, images/s, the steps' peak memory, the launches (a request's
+    SERVE_LAUNCHES, a step's TRAIN_STEP_LAUNCHES), one step's profiler
+    split, and one step's loss (loss_rel) and every grad (grad_f32_rel)
+    against the plain float32 path.  Returns the launches of the requests
+    and steps."""
+    from hygrid_tpu_torch.kernels import conv_stack as cs, resample
+    from hygrid_tpu_torch.models import (create_train_state,
+                                         dense_onehot_xent, hexcnn_small,
+                                         hexify_batch, train_step)
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    model = hexcnn_small(norm="GN", device="cuda", generator=gen)
+    serve_model = hexcnn_small(norm="GN", device="cuda",
+                               generator=gen).eval()
+    require(all(p.dtype == torch.float32 for p in model.parameters()),
+            "phase 7f: hexcnn_small's default dtype is not float32")
+    state = create_train_state(model)
+    in_gen = torch.Generator(device="cuda").manual_seed(8)
+    batches = [torch.rand((BATCH, 3, 512, 512), generator=in_gen,
+                          device="cuda") for _ in range(N_STEPS + 2)]
+    labels = torch.arange(BATCH, device="cuda") % 10
+
+    def serve(batch):
+        return serve_model(hexify_batch(batch))
+
+    def step(batch):
+        return train_step(state, hexify_batch(batch), labels)[1]
+
+    def timed(fn, items):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = [fn(b) for b in items]
+        end.record()
+        end.synchronize()
+        return out, start.elapsed_time(end)
+
+    counters = ("LAUNCHES", "DGRAD_LAUNCHES", "WGRAD_LAUNCHES",
+                "GN_BWD_LAUNCHES")
+
+    def launches():
+        return {"plan_gather": resample.LAUNCHES,
+                "hex_conv_layer": cs.LAUNCHES,
+                "hex_conv_layer_dgrad": cs.DGRAD_LAUNCHES,
+                "hex_conv_wgrad": cs.WGRAD_LAUNCHES,
+                "gn_relu_backward": cs.GN_BWD_LAUNCHES}
+
+    with torch.inference_mode():
+        serve(batches[0])
+        torch.cuda.synchronize()
+        resample.LAUNCHES = 0
+        for c in counters:
+            setattr(cs, c, 0)
+        logits, serve_ms = timed(serve, batches[1:N_REQUESTS + 1])
+        served = launches()
+    for name, n in SERVE_LAUNCHES.items():
+        require(served[name] == n * N_REQUESTS,
+                f"phase 7f serving: {name} launched {served[name]} times in "
+                f"{N_REQUESTS} requests, want {n * N_REQUESTS}")
+    for i, out in enumerate(logits):
+        require(out.shape == (BATCH, 10) and out.dtype == torch.float32
+                and bool(torch.isfinite(out).all()),
+                f"phase 7f request {i}: {tuple(out.shape)} {out.dtype} or "
+                "non-finite")
+
+    step(batches[0])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    resample.LAUNCHES = 0
+    for c in counters:
+        setattr(cs, c, 0)
+    metrics, train_ms = timed(step, batches[1:N_STEPS + 1])
+    trained = launches()
+    peak = torch.cuda.max_memory_allocated()
+    for name, n in TRAIN_STEP_LAUNCHES.items():
+        require(trained[name] == n * N_STEPS,
+                f"phase 7f training: {name} launched {trained[name]} times "
+                f"in {N_STEPS} steps, want {n * N_STEPS}")
+    losses = [float(m["loss"]) for m in metrics]
+    require(all(math.isfinite(v) for v in losses),
+            f"phase 7f: non-finite losses {losses}")
+    split = _profile_split(torch, lambda: step(batches[1]),
+                           train_ms / N_STEPS, HEXCNN_GROUPS)
+
+    # one more step from a snapshot, against the plain float32 path
+    batch = batches[-1]
+    snapshot = {k: v.clone() for k, v in model.state_dict().items()}
+    loss = float(step(batch)["loss"])
+    grads = {n: p.grad for n, p in model.named_parameters()}
+    ref = hexcnn_small(norm="GN", device="cuda")
+    ref.load_state_dict(snapshot)
+    ref_loss = dense_onehot_xent(ref(hexify_batch(batch, plain=True),
+                                     plain=True), labels)
+    ref_loss.backward()
+    ref_loss = float(ref_loss.detach())
+    loss_rel = abs(loss - ref_loss) / abs(ref_loss)
+    rels = {n: max_err(grads[n], p.grad)[1] if grads[n] is not None
+            else None for n, p in ref.named_parameters()}
+    log(f"phase 7f HexCNN-small GN float32 (default dtype) b={BATCH} 512^2: "
+        f"serving {N_REQUESTS} requests in {serve_ms!r} ms (CUDA events), "
+        f"{serve_ms / N_REQUESTS!r} ms a request, images/s="
+        f"{BATCH * N_REQUESTS / (serve_ms / 1e3)!r}, launches={served}; "
+        f"training {N_STEPS} AdamW steps in {train_ms!r} ms, "
+        f"{train_ms / N_STEPS!r} ms a step, images/s="
+        f"{BATCH * N_STEPS / (train_ms / 1e3)!r}, peak_mem_bytes={peak}, "
+        f"launches={trained}, losses={losses}")
+    log(f"phase 7f torch.profiler, one float32 step: {split}")
+    log(f"phase 7f step vs plain f32: loss {loss!r} vs {ref_loss!r} (rel "
+        f"{loss_rel!r}); grads (rel max-abs): "
+        + ", ".join(f"{n}={r!r}" for n, r in rels.items()))
+    require(loss_rel <= TOL["loss_rel"],
+            f"phase 7f loss {loss} vs plain f32 {ref_loss}: rel {loss_rel}")
+    for n, r in rels.items():
+        require(r is not None and r <= TOL["grad_f32_rel"],
+                f"phase 7f grad {n}: relative err {r} > "
+                f"{TOL['grad_f32_rel']}")
+    return {k: served[k] + trained[k] for k in served}
 
 
 def _shift_plans(torch):
@@ -1525,11 +1690,11 @@ def check_fused(torch, gen):
     against the plain version at the P-512 stack, and against each other
     (bit for bit in float32 and bfloat16), with the tile the C side chose
     (held to its invariants in bfloat16).  Returns the bf16
-    summary for the kernels line."""
+    summary for the kernels line, with the float32 one under ``f32``."""
     from hygrid_tpu_torch.kernels import conv_stack as cs
     b, h, w, c = 16, 256, 256, PIPE_CHANNELS
     x32 = torch.rand((b, h, w, c), generator=gen, device="cuda")
-    summary = None
+    summary = f32 = None
     line = f"fused stack P-512 {b}x{h}x{w}x{c}, {PIPE_LAYERS + 1} layers:"
     for dtype in (torch.float32, torch.bfloat16):
         _, ks = build_pipeline((512, 512), c, PIPE_LAYERS, PIPE_RADIUS, dtype)
@@ -1592,7 +1757,12 @@ def check_fused(torch, gen):
                  f"smem={plan['smem']} weights={plan['weights']};")
         if dtype == torch.bfloat16:
             summary = dict(max_abs_err=err, ms=ms, plain_ms=pms,
-                           **summed_bound([(b_ms, b_by)]), library_ms=None)
+                           **summed_bound([(b_ms, b_by)]), library_ms=None,
+                           f32=f32)
+        else:
+            f32 = dict(max_abs_err=err, ms=ms, plain_ms=pms,
+                       chained_ms=cms, **summed_bound([(b_ms, b_by)]),
+                       library_ms=None, tile=plan)
     log(line)
     return summary
 
@@ -2046,13 +2216,15 @@ UNET_GN_LAYERS = [("enc0", 32, 256, 256), ("enc1", 64, 128, 127),
 def check_split(torch, gen):
     """Phase 16: the split layer against its plain version and bit-equal
     to kernel B on the concatenation.  Returns the bf16 summary over dec0
-    and dec1 (the serving path's layers) for the kernels line."""
+    and dec1 (the serving path's layers) for the kernels line, the float32
+    one under ``f32``."""
     from hygrid_tpu_torch.kernels import conv_stack as cs
     from hygrid_tpu_torch.nn.functional import hex_kernel_num
     kn = hex_kernel_num(2)
     summary = dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0,
                    concat_kernel_b_ms=0.0, library_ms=0.0)
     bounds = []
+    f32, f32_bounds = _f32_sums(), []
     for name, b, h, w, ca, cb, cout, gn in SPLIT_LAYERS:
         k = torch.randn((cout, ca + cb, kn), generator=gen, device="cuda") \
             / math.sqrt((ca + cb) * kn)
@@ -2118,14 +2290,17 @@ def check_split(torch, gen):
                 summary["concat_kernel_b_ms"] += cms
                 summary["library_ms"] += lms
                 bounds.append((b_ms, b_by))
+            elif name.startswith("dec"):
+                _add_f32(f32, f32_bounds, err, ms, pms, lms, (b_ms, b_by))
         log(line)
     summary.update(summed_bound(bounds))
+    summary["f32"] = dict(f32, **summed_bound(f32_bounds))
     return summary
 
 
 UNET_GROUPS = [
     ("split layers", _is_split_conv),
-    ("kernel B conv", lambda k: "hex_conv_kernel" in k),
+    ("kernel B conv", lambda k: _conv_args(k) is not None),
     ("GN passes", _is_gn_pass),
     ("plan_gather", lambda k: "plan_gather" in k),
     ("cuDNN (transposed convs)", lambda k: any(
@@ -2238,13 +2413,15 @@ def check_split_backward(torch, gen):
     bit-equal to hex_conv_layer_wgrad on each input and to a second
     launch.  Beside each: the plain time and cuDNN's backward.  Returns the
     bf16 summaries over dec0 and dec1 (the training path's layers) for the
-    kernels line."""
+    kernels line, each with its float32 one under ``f32``."""
     from hygrid_tpu_torch.kernels import conv_stack as cs
     from hygrid_tpu_torch.nn.functional import hex_kernel_num
     kn = hex_kernel_num(2)
     sums = {name: dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0, library_ms=0.0)
             for name in ("dgrad", "wgrad")}
     bounds = {"dgrad": [], "wgrad": []}
+    f32 = {kind: _f32_sums() for kind in sums}
+    f32_bounds = {kind: [] for kind in sums}
     for name, b, h, w, ca, cb, cout in SPLIT_BWD_LAYERS:
         k = torch.randn((cout, ca + cb, kn), generator=gen, device="cuda") \
             / math.sqrt((ca + cb) * kn)
@@ -2325,16 +2502,20 @@ def check_split_backward(torch, gen):
                     acc["plain_ms"] += pms
                     acc["library_ms"] += lms
                     bounds[kind].append((b_ms, b_by))
+                elif name.startswith("dec"):
+                    _add_f32(f32[kind], f32_bounds[kind], err, ms, pms, lms,
+                             (b_ms, b_by))
         log(line)
     for kind in sums:
         sums[kind].update(summed_bound(bounds[kind]))
+        sums[kind]["f32"] = dict(f32[kind], **summed_bound(f32_bounds[kind]))
     return sums
 
 
 UNET_TRAIN_GROUPS = [
     ("split layers' conv", _is_split_conv),
     ("kernel B conv", _is_gn_conv),
-    ("dgrad", lambda k: "hex_conv_kernel" in k),
+    ("dgrad", lambda k: _conv_args(k) is not None),
     ("wgrad", lambda k: "wgrad_" in k),
     ("GN passes", _is_gn_pass),
     ("GN backward", _is_gn_bwd),
@@ -4221,9 +4402,15 @@ def kernel_times(torch):
     float32 GN parameters, as the training step runs them); the GN
     backward alone at both models' layers beside its library call
     (:func:`_gn_bwd_calls`: ``gn_bwd``, ``gn_bwd_unet`` and their
-    ``_library`` sums).  End to end
+    ``_library`` sums).  In float32, through the same wrappers: kernel B's
+    six GN layers (``kernel_b_f32``, and split by the profiler as in bf16:
+    ``kernel_b_f32_conv_pass``, ``kernel_b_f32_gn_half``), dx of layers 1-5
+    (``dgrad_f32``), dW of all six (``wgrad_f32``) and the split layer at
+    dec0 + dec1 (``split_f32``) with its backward (``split_dgrad_f32``,
+    ``split_wgrad_f32``).  End to end
     (``e2e_ms``, ms a call, and ``images_s``): HexCNN-small (GN, bf16, b=32
-    512^2) and HexUNet-small (b=8) serving a request and taking an AdamW
+    512^2; and in its default dtype, float32: ``*_hexcnn_f32``) and
+    HexUNet-small (b=8) serving a request and taking an AdamW
     training step, and the pipelines of phase 13 (``pipeline_mpix_s``: one
     input, 5 calls a timing); and one HexCNN-small step's kernels by name from
     torch.profiler (``train_by_op``, ms: the 16 largest kernels, the 24
@@ -4255,7 +4442,9 @@ def kernel_times(torch):
     calls = {"kernel_b": [], "dgrad": [], "wgrad": [], "split": [],
              "fused": [], "chained": [], "split_wgrad": [],
              "single_bf16": [], "single_f32_512": [],
-             "single_f32_cifar": [], "fused_f32": [], "p4k_layer": []}
+             "single_f32_cifar": [], "fused_f32": [], "p4k_layer": [],
+             "kernel_b_f32": [], "dgrad_f32": [], "wgrad_f32": [],
+             "split_f32": [], "split_dgrad_f32": [], "split_wgrad_f32": []}
     # on the device alone: name -> fn
     device_calls = {}
     for li, (cin, cout, h, w) in enumerate(LAYERS):
@@ -4282,15 +4471,32 @@ def kernel_times(torch):
         if li:
             calls["dgrad"].append(functools.partial(
                 cs.hex_conv_layer_dgrad, g, k, radius=2))
+        # the same layers in float32 (a default-dtype HexCNN's passes)
+        x, g, k = x.float(), g.float(), k.float()
+        calls["kernel_b_f32"].append(functools.partial(
+            cs.hex_conv_layer, x, k, radius=2, norm=gn(cout), relu=True))
+        calls["wgrad_f32"].append(functools.partial(
+            cs.hex_conv_layer_wgrad, x, g, radius=2))
+        if li:
+            calls["dgrad_f32"].append(functools.partial(
+                cs.hex_conv_layer_dgrad, g, k, radius=2))
     for _, b, h, w, ca, cb, cout, _ in SPLIT_LAYERS[:2]:
         k = rand(cout, ca + cb, kn, scale=1 / math.sqrt((ca + cb) * kn))
         xa, xb = rand(b, h, w, ca), rand(b, h, w, cb)
+        g = rand(b, h, w, cout)
         calls["split"].append(functools.partial(
             cs.hex_conv_layer_split, xa, xb, k, radius=2, norm=gn(cout),
             relu=True))
         calls["split_wgrad"].append(functools.partial(
-            cs.hex_conv_layer_split_wgrad, xa, xb, rand(b, h, w, cout),
-            radius=2))
+            cs.hex_conv_layer_split_wgrad, xa, xb, g, radius=2))
+        xa, xb, g, k = xa.float(), xb.float(), g.float(), k.float()
+        calls["split_f32"].append(functools.partial(
+            cs.hex_conv_layer_split, xa, xb, k, radius=2, norm=gn(cout),
+            relu=True))
+        calls["split_dgrad_f32"].append(functools.partial(
+            cs.hex_conv_layer_split_dgrad, g, k, ca, radius=2))
+        calls["split_wgrad_f32"].append(functools.partial(
+            cs.hex_conv_layer_split_wgrad, xa, xb, g, radius=2))
     for config, layers in SINGLE_LAYERS.items():
         batch = dict((n, b) for n, b, _ in PERMODULE)[config]
         for cin, cout, h, w in layers:
@@ -4360,11 +4566,15 @@ def kernel_times(torch):
             if name[len("plan_gather_"):] in {lb for lb, *_ in KT_GATHER}:
                 host[name] = [host_ms(torch, fn)
                               for _ in range(KERNEL_TIME_REPEATS)]
-        halves = [[_gn_half(torch, fn) for fn in calls["kernel_b"]]
-                  for _ in range(KERNEL_TIME_REPEATS)]
-    times["kernel_b_conv_pass"] = [sum(c for c, _, _ in h) for h in halves]
-    times["kernel_b_gn_half"] = [sum(g for _, g, _ in h) for h in halves]
-    times["kernel_b_gn_fold"] = [sum(f for _, _, f in h) for h in halves]
+        for tag in ("", "_f32"):
+            halves = [[_gn_half(torch, fn) for fn in calls[f"kernel_b{tag}"]]
+                      for _ in range(KERNEL_TIME_REPEATS)]
+            times[f"kernel_b{tag}_conv_pass"] = [sum(c for c, _, _ in h)
+                                                 for h in halves]
+            times[f"kernel_b{tag}_gn_half"] = [sum(g for _, g, _ in h)
+                                               for h in halves]
+            times[f"kernel_b{tag}_gn_fold"] = [sum(f for _, _, f in h)
+                                               for h in halves]
     times["gn_fwd_bwd"] = [sum(cuda_ms(torch, fn) for fn in fwd_bwd)
                            for _ in range(KERNEL_TIME_REPEATS)]
     for name, fns in _gn_bwd_calls(torch, gen).items():
@@ -4521,6 +4731,11 @@ def _e2e_times(torch, gen):
     cnn = hexcnn_small(norm="GN", dtype=bf, device="cuda", generator=gen)
     unet = HexUNet(dtype=bf, generator=gen, **unet_kw)
     cnn_state, unet_state = create_train_state(cnn), create_train_state(unet)
+    # HexCNN-small in its default dtype (float32), as users build it
+    cnn32_state = create_train_state(hexcnn_small(norm="GN", device="cuda",
+                                                  generator=gen))
+    serve_cnn32 = hexcnn_small(norm="GN", device="cuda",
+                               generator=gen).eval()
     serve_cnn = hexcnn_small(norm="GN", dtype=bf, device="cuda",
                              generator=gen).eval()
     serve_unet = HexUNet(dtype=bf, generator=gen, **unet_kw).eval()
@@ -4533,6 +4748,10 @@ def _e2e_times(torch, gen):
                           lambda: serve_unet(hexify_batch(x_unet.to(bf)))),
         "train_hexunet": (UNET_BATCH, False, lambda: train_step(
             unet_state, hexify_batch(x_unet), unet_labels)),
+        "serve_hexcnn_f32": (BATCH, True,
+                             lambda: serve_cnn32(hexify_batch(x_cnn))),
+        "train_hexcnn_f32": (BATCH, False, lambda: train_step(
+            cnn32_state, hexify_batch(x_cnn), cnn_labels)),
     }
     e2e, images = {}, {}
     for name, (batch, serving, fn) in runs.items():
@@ -4623,6 +4842,9 @@ def main():
     bwd = check_backward(torch, gen)
     gn_bwd = check_gn_backward(torch, gen)
     paths["train"] = run_training(torch)
+    t0 = time.perf_counter()
+    paths["train_f32"] = run_training_f32(torch)
+    log(f"phase 7f: {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     with torch.inference_mode():
         c = check_kernel_c(torch, gen)

@@ -144,38 +144,69 @@ int dispatch_v(int V, F&& f) {
 
 // ---- the conv pass's CUDA-core tile ---------------------------------------
 //
-// The float32 tile of hex_conv_layer.cu and hex_conv_fused_stack.cu (the
-// bfloat16 conv passes are conv_tile_mma below; hex_conv_single.cu's
-// float32 tile is its own and sums in this tile's order).  It replaces the Kronecker matmuls of
-// conv_pallas.py's _stack_layer_kernel and _fused_stack_kernel with f32
-// FMAs on the CUDA cores.
+// The float32 conv pass of hex_conv_layer.cu and hex_conv_fused_stack.cu
+// (TPU kernels #9, #10 and 10s, the dx of #12 and 12s, and #11, in
+// float32; the bfloat16 passes are conv_tile_mma below; hex_conv_single.cu's
+// float32 tile is its own and sums in this tile's order).  It replaces the
+// Kronecker matmuls of conv_pallas.py's _stack_layer_kernel,
+// _stack_layer_kernel_banded and _fused_stack_kernel with full float32
+// FMAs on the CUDA cores: TF32 would not hold the 1e-5 agreement with the
+// reference.
 //
-// One tile is kTileP consecutive output pixels of one output row and COB
-// output channels.  The block (kConvThreads threads) stages the input patch
-// the taps reach (the rows x (kTileP + tap width) pixels x kChunkC input
-// channels) and the matching weights (taps x kChunkC x COB) in shared memory,
-// and each thread accumulates a PT pixel x kChanT channel register tile in
-// f32.  Patch rows are laid out [row][channel][col] so the threads of a warp
-// that share a channel read consecutive words (no bank conflicts); the
-// kChanT output channels come as one float4.  Every output accumulates over
-// input-channel chunks, then taps, then the chunk's channels, in that order,
-// whatever COB is: kernels that share this tile agree bit for bit.  The
-// tile reads NHWC with a channel-fastest staging walk, so that a warp's
-// loads are consecutive.
-constexpr int kTileP = 64;       // output pixels per tile
+// What bounds it: the FP32 pipes (67 TFLOP/s), so the design keeps them
+// fed.  A tile is F32Tile<COB>::kRows consecutive output rows x kTileP = 64
+// columns x COB output channels (COB = 16, 32 or 64) on kF32Threads = 256
+// threads.  Thread t has a column lane cl = t % 8 and, from t / 8, a channel
+// lane tc and a row: it holds kF32Pix = 8 pixels of one row (columns cl,
+// cl + 8, ..., cl + 56) x kCT channels (two groups of 4, at 4 tc and
+// COB / 2 + 4 tc; one group where COB = 16), 64 (or 32) f32 accumulators.
+// A warp is one row's 8 column lanes x 4 channel lanes, so for each (tap,
+// channel) step it reads 8 x values (8 distinct words: one wavefront,
+// broadcast over the channel lanes) and 2 float4 weights (64 contiguous
+// bytes each) for 64 FMAs.
+//
+// Shared memory (stages of conv_tile_smem bytes): the patch the tile's taps
+// reach, rows o0 + r_lo .. o0 + kRows - 1 + r_hi x n_cols columns x 16
+// channels of one input chunk, NHWC with each pixel's four 16-byte units
+// swizzled (unit g at (g ^ ((col >> 1) & 3))), so that the 8 consecutive
+// columns a warp reads for one channel fall in 8 distinct banks and every
+// read's offset from the tap's base is a constant; then the chunk's
+// weights, [tap][16][COB].  Chunk c + 1 is copied in by cp.async (16 bytes
+// a copy where the input's channels come in whole 4-channel units, else 4
+// bytes an element, zero-filled outside the image and past Cin or Cout)
+// while chunk c multiplies, where two stages fit (conv_tile_plan).  The
+// patch grows with the rows the taps reach (2 d + 1 at dilation d); where
+// no tile of all the taps fits, a stage holds one group of taps, its rows
+// and its weights, and the groups of a chunk follow each other.
+//
+// Every output accumulates over input-channel chunks of 16, then taps in
+// table order, then the chunk's channels, one fmaf each, from 0: the order
+// of the K loop, whatever the tile's shape, so kernels that share this
+// order agree bit for bit.  Channels past Cin in the last chunk are skipped
+// (their products are +0, and a sum that starts at +0 is never -0, so
+// skipping them changes no bit).
+constexpr int kTileP = 64;       // output columns of a tile row
 constexpr int kChunkC = 16;      // input channels per stage
-constexpr int kChanT = 4;        // output channels per thread
-constexpr int kConvThreads = 128;
+constexpr int kConvThreads = 128;   // the bf16 tile: one warpgroup
+constexpr int kF32Threads = 256;    // the float32 tile
+constexpr int kF32Pix = 8;          // pixels a thread, 8 columns apart
+constexpr int kMmaMaxSmem = 232448;  // shared memory a block may use (H100)
 
 template <int COB>
-struct ConvTile {
-  static constexpr int kPT = kTileP * COB / (kChanT * kConvThreads);  // pixels per thread
-  static constexpr int kPixLanes = kTileP / kPT;
-  static_assert(kPT * kPixLanes == kTileP &&
-                kPixLanes * (COB / kChanT) == kConvThreads, "tile shape");
+struct F32Tile {
+  static_assert(COB == 16 || COB == 32 || COB == 64, "the tile's widths");
+  static constexpr int kCT = COB >= 32 ? 8 : 4;   // channels a thread
+  static constexpr int kCL = COB / kCT;           // channel lanes: 4 or 8
+  static constexpr int kRows = 32 / kCL;          // output rows: 8 or 4
+  static_assert(kRows * kTileP * COB == kF32Threads * kF32Pix * kCT,
+                "tile shape");
 };
 
-// The patch's extent: rows r_lo .. r_lo + n_rows - 1 around the output row,
+__host__ __device__ constexpr int f32_tile_rows(int cob) {
+  return cob == 64 ? 4 : 8;
+}
+
+// The patch's extent: rows r_lo .. r_lo + n_rows - 1 around an output row,
 // columns c_lo .. c_lo + n_cols - 1 around the tile's first pixel.
 struct Geometry {
   TapTable taps;
@@ -202,99 +233,340 @@ inline Geometry make_geometry(const int* taps_host, int kn) {
   return g;
 }
 
-// Shared memory of one tile, in bytes.
-inline size_t conv_tile_smem(const Geometry& g, int kn, int cob) {
-  return sizeof(float) * ((size_t)g.n_rows * kChunkC * g.n_cols +
-                          (size_t)kn * kChunkC * cob);
+// The rows a group of taps t0 .. t1 - 1 reaches at either parity: its
+// first row (returned) and their count (in *rows).
+__host__ __device__ inline int tap_band(const TapTable& taps, int t0, int t1,
+                                        int* rows) {
+  int lo = 1 << 30, hi = -(1 << 30);
+  for (int t = t0; t < t1; ++t)
+    for (int q = 0; q < 2; ++q) {
+      lo = taps.dr[q][t] < lo ? taps.dr[q][t] : lo;
+      hi = taps.dr[q][t] > hi ? taps.dr[q][t] : hi;
+    }
+  *rows = hi - lo + 1;
+  return lo;
 }
 
-// Accumulate the tile at output row o, pixels w0.., channels co0.. of the
-// sample xb (H, W, Cin) into acc.  w: (kn, Cin, Cout) float32.  smem holds
-// conv_tile_smem bytes.  With load_w false the weights staged by the last
-// call are used again (only valid when Cin <= kChunkC and co0 is the
+// The most rows one group reaches where the kn taps go in groups of tg
+// (taps [0, tg), [tg, 2 tg), ...).
+inline int tap_band_rows(const TapTable& taps, int kn, int tg) {
+  int most = 0;
+  for (int t0 = 0; t0 < kn; t0 += tg) {
+    int rows;
+    tap_band(taps, t0, t0 + tg < kn ? t0 + tg : kn, &rows);
+    most = rows > most ? rows : most;
+  }
+  return most;
+}
+
+// Shared memory of the float32 tile, in bytes: `stages` copies of one
+// chunk's patch for a group of tg taps reaching band rows (the tile's rows
+// + band - 1 rows x n_cols columns) and the group's weights.
+inline size_t conv_tile_smem(int band, int n_cols, int tg, int cob,
+                             int stages) {
+  return sizeof(float) * stages *
+         ((size_t)(f32_tile_rows(cob) + band - 1) * n_cols * kChunkC +
+          (size_t)tg * kChunkC * cob);
+}
+
+struct F32Plan {
+  int cob, rows, stages;
+  int taps, band;   // taps a group (kn: one group) and the most rows one reaches
+  size_t smem;
+};
+
+// The float32 tile for a layer: COB the least of 16, 32, 64 that covers
+// Cout (64 above); two stages where Cin spans more than one chunk; while
+// that does not fit in a block's shared memory, one stage, then half the
+// channels.  Where no tile of all kn taps fits (a wide dilation: the patch
+// grows with the rows the taps reach), the taps go in groups, the most a
+// group that fit, each group a stage of its own (its rows and weights):
+// the same order of products.  cob = 0: nothing fits.
+// kernels/conv_stack.py::_f32_tile mirrors it.
+inline F32Plan conv_tile_plan(const Geometry& g, int kn, int cin, int cout) {
+  for (int tg = kn; tg >= 1; --tg) {
+    const int band = tg == kn ? g.n_rows : tap_band_rows(g.taps, kn, tg);
+    for (int cob = cout <= 16 ? 16 : cout <= 32 ? 32 : 64; cob >= 16;
+         cob /= 2)
+      for (int stages = cin > kChunkC ? 2 : 1; stages >= 1; --stages) {
+        const size_t smem = conv_tile_smem(band, g.n_cols, tg, cob, stages);
+        if (smem <= (size_t)kMmaMaxSmem)
+          return {cob, f32_tile_rows(cob), stages, tg, band, smem};
+      }
+  }
+  return {0, 0, 0, 0, 0, 0};
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           int src_bytes) {
+  const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(d), "l"(src), "r"(src_bytes) : "memory");
+}
+
+__device__ __forceinline__ void cp_async4(void* dst, const void* src,
+                                          int src_bytes) {
+  const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
+               :: "r"(d), "l"(src), "r"(src_bytes) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int kPending>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(kPending) : "memory");
+}
+
+// The swizzled float offset of channel ck of patch pixel p (column c).
+__device__ __forceinline__ int f32_patch_at(int p, int c, int ck) {
+  return p * kChunkC + ((((ck >> 2) ^ (c >> 1)) & 3) << 2) + (ck & 3);
+}
+
+// The float32 tile's copy flags (hex_conv_layer.cu packs them into its
+// `vec` argument): 16-byte copies of the input and of the weights, 16-byte
+// stores of the output, two stages.
+constexpr int kF32VecX = 1, kF32VecW = 2, kF32VecOut = 4, kF32TwoStages = 8;
+
+// One step's patch (input channels ci0 .. ci0 + kc - 1, kc = min(16, Cin -
+// ci0), rows r_lo .. r_lo + n_prow - 1 around the tile's first row) into
+// buf, and with load_w the weights of its nt taps from tap t0 (output
+// channels co0 .. co0 + COB - 1) into ws, by cp.async; the caller commits.
+// A chunk of fewer than 16 channels stages only its own (the multiply
+// reads no others).
+template <int COB, bool kSplit>
+__device__ __forceinline__ void conv_tile_stage(
+    float* buf, float* ws, const float* __restrict__ xb,
+    const float* __restrict__ xb2, int Ca, const float* __restrict__ w,
+    int H, int W, int Cin, int Cout, int r_lo, int n_prow, int c_lo,
+    int n_cols, int o0, int w0, int co0, int ci0, int t0, int nt,
+    bool load_w, int flags) {
+  const int kc = min(kChunkC, Cin - ci0);
+  const int tid = threadIdx.x;
+  auto src_of = [&](int gi, int gj, int gc) -> const float* {
+    const long long pix = (long long)gi * W + gj;
+    if constexpr (kSplit)
+      return gc < Ca ? xb + pix * Ca + gc : xb2 + pix * (Cin - Ca) + (gc - Ca);
+    else
+      return xb + pix * Cin + gc;
+  };
+  if (flags & kF32VecX) {
+    // 4-channel units, consecutive threads on a pixel's four units
+    const int g = tid & 3, gc = ci0 + 4 * g;
+    int p = tid >> 2;
+    int r = p / n_cols, c = p - r * n_cols;
+    if (4 * g >= kc) r = n_prow;   // past the chunk's channels
+    for (; r < n_prow; p += kF32Threads / 4) {
+      const int gi = o0 + r_lo + r, gj = w0 + c_lo + c;
+      const bool live = gi >= 0 && gi < H && gj >= 0 && gj < W && gc < Cin;
+      cp_async16(buf + p * kChunkC + (((g ^ (c >> 1)) & 3) << 2),
+                 live ? src_of(gi, gj, gc) : xb, live ? 16 : 0);
+      c += kF32Threads / 4;
+      if (c >= n_cols) {
+        c -= n_cols;
+        ++r;
+      }
+    }
+  } else {
+    // element by element, the kc channels of each pixel (the 3-channel
+    // stem; Cin or the split's Ca not a multiple of 4; an unaligned input)
+    for (int e = tid; e < n_prow * n_cols * kc; e += kF32Threads) {
+      const int ck = e % kc, p = e / kc;
+      const int r = p / n_cols, c = p - r * n_cols;
+      const int gi = o0 + r_lo + r, gj = w0 + c_lo + c;
+      const bool live = gi >= 0 && gi < H && gj >= 0 && gj < W;
+      cp_async4(buf + f32_patch_at(p, c, ck),
+                live ? src_of(gi, gj, ci0 + ck) : xb, live ? 4 : 0);
+    }
+  }
+  if (!load_w) return;
+  // [tap][16][COB], the rows of the chunk's kc channels
+  if (flags & kF32VecW) {
+    constexpr int U = COB / 4;
+    for (int e = tid; e < nt * kc * U; e += kF32Threads) {
+      const int row = e / U, co = co0 + 4 * (e % U);
+      const int t = row / kc, ck = row - t * kc;
+      const bool live = co < Cout;
+      cp_async16(
+          ws + (t * kChunkC + ck) * COB + 4 * (e % U),
+          live ? w + ((long long)(t0 + t) * Cin + ci0 + ck) * Cout + co : w,
+          live ? 16 : 0);
+    }
+  } else {
+    for (int e = tid; e < nt * kc * COB; e += kF32Threads) {
+      const int row = e / COB, co = co0 + e % COB;
+      const int t = row / kc, ck = row - t * kc;
+      const bool live = co < Cout;
+      cp_async4(
+          ws + (t * kChunkC + ck) * COB + e % COB,
+          live ? w + ((long long)(t0 + t) * Cin + ci0 + ck) * Cout + co : w,
+          live ? 4 : 0);
+    }
+  }
+}
+
+// A thread's operands of one (tap, channel) step: 8 x values (columns 8
+// apart, at xp[128 i]) and its kCT weights (float4s at wp and wp + COB / 2).
+template <int COB>
+struct ConvFrag {
+  float x[kF32Pix];
+  float w[F32Tile<COB>::kCT];
+
+  __device__ __forceinline__ void load(const float* xp, const float* wp) {
+#pragma unroll
+    for (int h = 0; h < F32Tile<COB>::kCT / 4; ++h) {
+      const float4 v = *reinterpret_cast<const float4*>(wp + h * (COB / 2));
+      w[4 * h] = v.x, w[4 * h + 1] = v.y, w[4 * h + 2] = v.z,
+      w[4 * h + 3] = v.w;
+    }
+#pragma unroll
+    for (int i = 0; i < kF32Pix; ++i) x[i] = xp[8 * kChunkC * i];
+  }
+
+  __device__ __forceinline__ void fma(
+      float (&acc)[kF32Pix][F32Tile<COB>::kCT]) const {
+#pragma unroll
+    for (int i = 0; i < kF32Pix; ++i)
+#pragma unroll
+      for (int j = 0; j < F32Tile<COB>::kCT; ++j)
+        acc[i][j] = fmaf(x[i], w[j], acc[i][j]);
+  }
+};
+
+// Accumulate the tile at output rows o0 .. o0 + kRows - 1, columns w0 ..
+// w0 + 63, channels co0 .. co0 + COB - 1 of the NHWC sample xb (H, W, Cin)
+// into acc: thread t's pixels are row o0 + (t / 8) / kCL, columns w0 + t % 8
+// + 8 i, its channels co0 + h COB / 2 + 4 ((t / 8) % kCL) + j.  w: (kn,
+// Cin, Cout) float32.  kGroups: the taps go in groups of tg
+// (conv_tile_plan), and a step stages one chunk's patch for one group:
+// steps run chunk by chunk, a chunk's groups in table order, so the order
+// of the products is the same for every tg.  Without kGroups a step is a
+// chunk of all kn taps (tg = kn) and rows r_lo .. r_lo + n_rows - 1; with
+// it, n_rows is the most rows one group reaches (F32Plan::band).  smem
+// holds conv_tile_smem(.., stages) bytes, 16-byte aligned; flags: kF32VecX
+// (every 4-channel unit of the input lies whole in one 16-byte aligned
+// input), kF32VecW (the same for the weights), the stages
+// (kF32TwoStages).  With load_w false the weights the last call staged are
+// used again (only where Cin <= kChunkC, without kGroups, and co0 is the
 // same).
+// Ends on a barrier, so the caller may reuse smem.
 //
 // kSplit: the input is the channel concatenation of two NHWC samples, xb
 // (H, W, Ca) holding channels [0, Ca) and xb2 (H, W, Cin - Ca) the rest;
-// the concatenation is never built.  Only the staging load picks its
-// source, per element, so a chunk may straddle Ca, and the accumulation
-// order is the one over the concatenated channels: the result is bit-equal
-// to the unsplit tile on the materialised concatenation.
-//
-// kNCHW must be false (the tile reads NHWC); the parameter is kept so that
-// hex_conv_layer.cu's conv_tile<COB, false, true> names kSplit.
-template <int COB, bool kNCHW = false, bool kSplit = false, typename Tin>
+// the concatenation is never built.  Only the copies pick their source
+// (per 4-channel unit, or per element where Ca is not a multiple of 4), so
+// the result is bit-equal to the unsplit tile on the concatenation.
+template <int COB, bool kSplit = false, bool kGroups = false>
 __device__ __forceinline__ void conv_tile(
-    const Tin* __restrict__ xb, const float* __restrict__ w, float* smem,
-    int H, int W, int Cin, int Cout, int kn, const TapTable& taps, int r_lo,
-    int n_rows, int c_lo, int n_cols, int o, int w0, int co0, bool load_w,
-    float (&acc)[ConvTile<COB>::kPT][kChanT],
-    const Tin* __restrict__ xb2 = nullptr, int Ca = 0) {
-  static_assert(!kNCHW, "the tile reads NHWC");
-  constexpr int PT = ConvTile<COB>::kPT;
-  constexpr int kPixLanes = ConvTile<COB>::kPixLanes;
-  float* xs = smem;                               // [n_rows][kChunkC][n_cols]
-  float* ws = smem + n_rows * kChunkC * n_cols;   // [kn][kChunkC][COB]
-  const int q = o & 1;
+    const float* __restrict__ xb, const float* __restrict__ w, float* smem,
+    int H, int W, int Cin, int Cout, int kn, int tg, const TapTable& taps,
+    int r_lo, int n_rows, int c_lo, int n_cols, int o0, int w0, int co0,
+    bool load_w, int flags, float (&acc)[kF32Pix][F32Tile<COB>::kCT],
+    const float* __restrict__ xb2 = nullptr, int Ca = 0) {
+  using T = F32Tile<COB>;
+  const int n_prow = T::kRows + n_rows - 1;
+  const int patch_floats = n_prow * n_cols * kChunkC;
+  const int stage_floats = patch_floats + (kGroups ? tg : kn) * kChunkC * COB;
+  const bool two = (flags & kF32TwoStages) != 0;
   const int tid = threadIdx.x;
-  const int tp = tid % kPixLanes;
-  const int tc = tid / kPixLanes;
+  const int cl = tid % 8;
+  const int tc = (tid / 8) % T::kCL;
+  const int row = (tid / 8) / T::kCL;
+  const int q = (o0 + row) & 1;
+  const int n_groups = kGroups ? (kn + tg - 1) / tg : 1;
+  const int n_steps = (Cin + kChunkC - 1) / kChunkC * n_groups;
 #pragma unroll
-  for (int i = 0; i < PT; ++i)
+  for (int i = 0; i < kF32Pix; ++i)
 #pragma unroll
-    for (int j = 0; j < kChanT; ++j) acc[i][j] = 0.f;
+    for (int j = 0; j < T::kCT; ++j) acc[i][j] = 0.f;
 
-  for (int ci0 = 0; ci0 < Cin; ci0 += kChunkC) {
-    __syncthreads();
-    // consecutive threads read consecutive channels
-    const int n_x = n_rows * n_cols * kChunkC;
-    for (int e = tid; e < n_x; e += kConvThreads) {
-      const int ck = e % kChunkC;
-      const int c = (e / kChunkC) % n_cols;
-      const int r = e / (kChunkC * n_cols);
-      const int gi = o + r_lo + r, gj = w0 + c_lo + c, gc = ci0 + ck;
-      float v = 0.f;
-      if (gi >= 0 && gi < H && gj >= 0 && gj < W && gc < Cin) {
-        if constexpr (kSplit) {
-          const long long pix = (long long)gi * W + gj;
-          v = to_f32(gc < Ca ? xb[pix * Ca + gc]
-                             : xb2[pix * (Cin - Ca) + (gc - Ca)]);
-        } else {
-          v = to_f32(xb[((long long)gi * W + gj) * Cin + gc]);
-        }
-      }
-      xs[(r * kChunkC + ck) * n_cols + c] = v;
+  // step s: chunk s / n_groups, taps t0 .. t1 - 1 of group s % n_groups,
+  // which reach rows lo .. lo + rows - 1
+  auto group = [&](int s, int& t0, int& t1, int& rows) {
+    if constexpr (kGroups) {
+      t0 = s % n_groups * tg;
+      t1 = min(kn, t0 + tg);
+      return tap_band(taps, t0, t1, &rows);
+    } else {
+      t0 = 0;
+      t1 = kn;
+      rows = n_rows;
+      return r_lo;
     }
-    if (load_w) {
-      const int n_w = kn * kChunkC * COB;
-      for (int e = tid; e < n_w; e += kConvThreads) {
-        const int co = e % COB;
-        const int ck = (e / COB) % kChunkC;
-        const int t = e / (COB * kChunkC);
-        const int gc = ci0 + ck, gco = co0 + co;
-        ws[e] = (gc < Cin && gco < Cout)
-                    ? __ldg(w + ((long long)t * Cin + gc) * Cout + gco) : 0.f;
-      }
-    }
+  };
+  auto stage = [&](int s, float* buf) {
+    int t0, t1, rows;
+    const int lo = group(s, t0, t1, rows);
+    conv_tile_stage<COB, kSplit>(buf, buf + patch_floats, xb, xb2, Ca, w, H,
+                                 W, Cin, Cout, lo, T::kRows + rows - 1, c_lo,
+                                 n_cols, o0, w0, co0,
+                                 s / n_groups * kChunkC, t0, t1 - t0, load_w,
+                                 flags);
+    cp_async_commit();
+  };
+  stage(0, smem);
+  for (int s = 0; s < n_steps; ++s) {
+    cp_async_wait<0>();
+    // this step's copies are seen by every thread, and every thread is
+    // done with the last step, whose buffer the next one refills (one
+    // stage: after this step's multiplies)
     __syncthreads();
-    for (int t = 0; t < kn; ++t) {
-      const float* xr = xs + (taps.dr[q][t] - r_lo) * kChunkC * n_cols
-                      + (taps.dc[q][t] - c_lo) + tp;
-      const float* wr = ws + t * kChunkC * COB + tc * kChanT;
-#pragma unroll 4
-      for (int ck = 0; ck < kChunkC; ++ck) {
-        const float4 wv = *reinterpret_cast<const float4*>(wr + ck * COB);
+    if (two && s + 1 < n_steps)
+      stage(s + 1, smem + ((s + 1) & 1) * stage_floats);
+    const float* xs = smem + (two ? (s & 1) * stage_floats : 0);
+    int t0, t1, rows;
+    const int lo = group(s, t0, t1, rows);
+    const float* ws = xs + patch_floats + 4 * tc;
+    const int kc = min(kChunkC, Cin - s / n_groups * kChunkC);
+    auto patch = [&](int t, int& c) {
+      c = cl + taps.dc[q][t] - c_lo;
+      return xs + ((row + taps.dr[q][t] - lo) * n_cols + c) * kChunkC;
+    };
+    auto xp = [](const float* xr, int c, int ck) {
+      return xr + ((((ck >> 2) ^ (c >> 1)) & 3) << 2) + (ck & 3);
+    };
+    if (kc == kChunkC) {
+      // step ck + 1's operands (at ck = 15 the next tap's first) are read
+      // while step ck multiplies
+      ConvFrag<COB> f[2];
+      int c;
+      const float* xr = patch(t0, c);
+      f[0].load(xp(xr, c, 0), ws);
+      for (int t = t0; t < t1; ++t) {
+        const float* wr = ws + (t - t0) * kChunkC * COB;
+        const bool more = t + 1 < t1;
+        int cn;
+        const float* xn = patch(more ? t + 1 : t, cn);
 #pragma unroll
-        for (int i = 0; i < PT; ++i) {
-          const float xv = xr[ck * n_cols + i * kPixLanes];
-          acc[i][0] = fmaf(xv, wv.x, acc[i][0]);
-          acc[i][1] = fmaf(xv, wv.y, acc[i][1]);
-          acc[i][2] = fmaf(xv, wv.z, acc[i][2]);
-          acc[i][3] = fmaf(xv, wv.w, acc[i][3]);
+        for (int ck = 0; ck < kChunkC; ++ck) {
+          if (ck + 1 < kChunkC)
+            f[(ck + 1) & 1].load(xp(xr, c, ck + 1), wr + (ck + 1) * COB);
+          else if (more)
+            f[0].load(xp(xn, cn, 0), wr + kChunkC * COB);
+          f[ck & 1].fma(acc);
+        }
+        xr = xn;
+        c = cn;
+      }
+    } else {
+      for (int t = t0; t < t1; ++t) {
+        int c;
+        const float* xr = patch(t, c);
+        for (int ck = 0; ck < kc; ++ck) {
+          ConvFrag<COB> f;
+          f.load(xp(xr, c, ck), ws + ((t - t0) * kChunkC + ck) * COB);
+          f.fma(acc);
         }
       }
+    }
+    if (!two && s + 1 < n_steps) {
+      __syncthreads();
+      stage(s + 1, smem);
     }
   }
+  __syncthreads();   // every thread is done with smem
 }
 
 // ---- the conv pass's bf16 tensor-core tile --------------------------------
@@ -346,7 +618,6 @@ __device__ __forceinline__ void conv_tile(
 // output column alone, in the same K order), so a split dgrad cut at Ca
 // equals the unsplit one bit for bit.  The order differs from conv_tile's,
 // so in bfloat16 this tile and conv_tile agree only to rounding.
-constexpr int kMmaMaxSmem = 232448;  // shared memory a block may use (H100)
 
 template <int N>
 struct Wgmma;
@@ -451,22 +722,6 @@ __device__ __forceinline__ uint64_t mma_desc(const void* p, uint32_t lbo,
   const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(p));
   return (uint64_t)((a & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
          ((uint64_t)(sbo >> 4) << 32);
-}
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           int src_bytes) {
-  const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-               :: "r"(d), "l"(src), "r"(src_bytes) : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int kPending>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" :: "n"(kPending) : "memory");
 }
 
 // the accumulators are not read or written across a wgmma in flight

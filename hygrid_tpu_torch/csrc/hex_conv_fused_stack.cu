@@ -52,12 +52,14 @@
 // reports its choice through `plan`; occupancy then sizes the grid.
 //
 // float32 (hex_conv_fused_stack_kernel): hex_common.cuh::conv_tile, the
-// tile hex_conv_layer.cu's float32 pass runs, one output row a tile, with 16
-// output channels when C <= 16 and 32 otherwise; where one input chunk holds
-// every channel a block stages a layer's weights once for all its tiles of
-// that layer.  Its accumulation order per output does not depend on the
-// tile, so it too equals chained hex_conv_layer launches bit for bit.  TF32
-// would not hold the 1e-5 agreement with the reference.
+// tile hex_conv_layer.cu's float32 pass runs, with its launch shape and
+// shared memory (conv_tile_plan: 256 threads, 8 rows x 64 columns x 16
+// output channels where C <= 16, 8 x 64 x 32 where C <= 32, 4 x 64 x 64
+// above); where one input chunk holds every channel a block stages a
+// layer's weights once for all its tiles of that layer.  Its accumulation
+// order per output does not depend on the tile, so it too equals chained
+// hex_conv_layer launches bit for bit.  TF32 would not hold the 1e-5
+// agreement with the reference.
 //
 // What bounds it: the P-512 stack (b=16, 256^2, C=16, 11 layers) is 41 GFLOP
 // on 67 MB of input, output and weights: 0.042 ms at the bf16 tensor rate
@@ -76,9 +78,10 @@ namespace cg = cooperative_groups;
 
 namespace {
 
-using hg::kChanT;
 using hg::kChunkC;
 using hg::kConvThreads;
+using hg::kF32Pix;
+using hg::kF32Threads;
 using hg::kMaxTaps;
 using hg::kTileP;
 using hg::Geometry;
@@ -372,34 +375,41 @@ fused_stack_mma_kernel(const __nv_bfloat16* __restrict__ x,
   }
 }
 
-// ---- float32: the CUDA-core tile, one output row a tile -------------------
+// ---- float32: the CUDA-core tile ---------------------------------------
 
-template <int COB>
-__global__ void __launch_bounds__(kConvThreads)
+// flags: hg::conv_tile's copy flags, and hg::kF32VecOut for 16-byte stores;
+// kGroups: the tile's taps in groups of tg (hg::F32Plan)
+template <int COB, bool kGroups>
+__global__ void __launch_bounds__(kF32Threads, 2)
 hex_conv_fused_stack_kernel(const float* __restrict__ x,
                             float* __restrict__ out, float* buf0, float* buf1,
                             const float* __restrict__ w,
                             const float* __restrict__ bias,
                             unsigned long long bias_bits,
                             unsigned long long relu_bits, int L, int B,
-                            int group, int H, int W, int C, int kn,
+                            int group, int H, int W, int C, int kn, int tg,
                             const __grid_constant__ hg::TapTable taps,
-                            int r_lo, int n_rows, int c_lo, int n_cols) {
-  constexpr int PT = hg::ConvTile<COB>::kPT;
-  constexpr int kPixLanes = hg::ConvTile<COB>::kPixLanes;
+                            int r_lo, int n_rows, int c_lo, int n_cols,
+                            int flags) {
+  using T = hg::F32Tile<COB>;
+  constexpr int CT = T::kCT;
   extern __shared__ __align__(16) float smem[];
   cg::grid_group grid = cg::this_grid();
   const int n_strips = (W + kTileP - 1) / kTileP;
+  const int n_bands = (H + T::kRows - 1) / T::kRows;
   const int n_cob = (C + COB - 1) / COB;
   const long long plane = (long long)H * W * C;
   const long long layer_w = (long long)kn * C * C;
-  const int tp = threadIdx.x % kPixLanes;
-  const int tc = threadIdx.x / kPixLanes;
-  const bool one_chunk = C <= kChunkC;  // then COB = 16: one channel block
+  const int cl = threadIdx.x % 8;
+  const int tc = (threadIdx.x / 8) % T::kCL;
+  const int row = (threadIdx.x / 8) / T::kCL;
+  // one stage holds a layer's weights: COB = 16, one channel block
+  const bool one_chunk = C <= kChunkC && !kGroups;
+  const bool vec_out = (flags & hg::kF32VecOut) != 0;
 
   for (int g0 = 0; g0 < B; g0 += group) {
     const int gb = B - g0 < group ? B - g0 : group;
-    const long long tiles = (long long)gb * H * n_strips * n_cob;
+    const long long tiles = (long long)gb * n_bands * n_strips * n_cob;
     for (int l = 0; l < L; ++l) {
       // layer l - 1 wrote buf0 when l - 1 is even
       const float* src = l == 0 ? x + g0 * plane : (l % 2 ? buf0 : buf1);
@@ -413,27 +423,41 @@ hex_conv_fused_stack_kernel(const float* __restrict__ x,
         long long rest = tile / n_strips;
         const int co0 = (int)(rest % n_cob) * COB;
         rest /= n_cob;
-        const int o = (int)(rest % H);
-        const long long b = rest / H;
+        const int o0 = (int)(rest % n_bands) * T::kRows;
+        const long long b = rest / n_bands;
         const int w0 = strip * kTileP;
-        float acc[PT][kChanT];
-        hg::conv_tile<COB>(src + b * plane, wl, smem, H, W, C, C, kn, taps,
-                           r_lo, n_rows, c_lo, n_cols, o, w0, co0,
-                           !(staged && one_chunk), acc);
+        float acc[kF32Pix][CT];
+        hg::conv_tile<COB, false, kGroups>(
+                           src + b * plane, wl, smem, H, W, C, C, kn, tg,
+                           taps, r_lo, n_rows, c_lo, n_cols, o0, w0, co0,
+                           !(staged && one_chunk), flags, acc);
         staged = true;
+        const int o = o0 + row;
+        if (o >= H) continue;
 #pragma unroll
-        for (int i = 0; i < PT; ++i) {
-          const int pix = w0 + tp + i * kPixLanes;
+        for (int i = 0; i < kF32Pix; ++i) {
+          const int pix = w0 + cl + 8 * i;
           if (pix >= W) continue;
           float* op = dst + b * plane + ((long long)o * W + pix) * C;
 #pragma unroll
-          for (int j = 0; j < kChanT; ++j) {
-            const int co = co0 + tc * kChanT + j;
+          for (int h = 0; h < CT / 4; ++h) {
+            const int co = co0 + h * (COB / 2) + 4 * tc;
             if (co >= C) continue;
-            float v = acc[i][j];
-            if (has_bias) v += bias[l * C + co];
-            if (relu) v = fmaxf(v, 0.f);
-            store(op + co, v);
+            float v[4];
+#pragma unroll
+            for (int j = 0; j < 4; ++j) {
+              v[j] = acc[i][4 * h + j];
+              if (has_bias && co + j < C) v[j] += bias[l * C + co + j];
+              if (relu) v[j] = fmaxf(v[j], 0.f);
+            }
+            if (vec_out) {
+              *reinterpret_cast<float4*>(op + co) =
+                  make_float4(v[0], v[1], v[2], v[3]);
+            } else {
+#pragma unroll
+              for (int j = 0; j < 4; ++j)
+                if (co + j < C) store(op + co + j, v[j]);
+            }
           }
         }
       }
@@ -474,36 +498,44 @@ int launch_coop(K kernel, void** args, int threads, size_t smem,
   return (int)cudaGetLastError();
 }
 
+bool aligned16(const void* p) {
+  return reinterpret_cast<uintptr_t>(p) % 16 == 0;
+}
+
 template <int COB>
 int launch_f32(const void* x, void* out, void* buf0, void* buf1,
                const float* w, const float* bias, unsigned long long bias_bits,
                unsigned long long relu_bits, int L, int B, int group, int H,
-               int W, int C, int kn, const Geometry& g, int* plan,
-               cudaStream_t stream) {
-  const size_t smem = hg::conv_tile_smem(g, kn, COB);
-  const long long tiles = (long long)group * H * ((W + kTileP - 1) / kTileP) *
-                          ((C + COB - 1) / COB);
+               int W, int C, int kn, const Geometry& g, const hg::F32Plan& p,
+               int* plan, cudaStream_t stream) {
+  const long long tiles = (long long)group * ((H + p.rows - 1) / p.rows) *
+                          ((W + kTileP - 1) / kTileP) * ((C + COB - 1) / COB);
   if (plan) {
-    const int p[5] = {COB, 1, kConvThreads,
-                      C <= kChunkC ? kWeightsPerLayer : kWeightsPerChunk,
-                      (int)smem};
-    for (int i = 0; i < 5; ++i) plan[i] = p[i];
+    const int q[5] = {COB, p.rows, kF32Threads,
+                      C <= kChunkC && p.taps == kn ? kWeightsPerLayer
+                                                   : kWeightsPerChunk,
+                      (int)p.smem};
+    for (int i = 0; i < 5; ++i) plan[i] = q[i];
   }
+  const bool vec = C % 4 == 0 && aligned16(x) && aligned16(buf0) &&
+                   aligned16(buf1);
+  int flags = (vec ? hg::kF32VecX : 0) |
+              (C % 4 == 0 && aligned16(w) ? hg::kF32VecW : 0) |
+              (vec && aligned16(out) ? hg::kF32VecOut : 0) |
+              (p.stages == 2 ? hg::kF32TwoStages : 0);
   const float* xp = static_cast<const float*>(x);
   float* op = static_cast<float*>(out);
   float* b0 = static_cast<float*>(buf0);
   float* b1 = static_cast<float*>(buf1);
   hg::TapTable taps = g.taps;
-  int r_lo = g.r_lo, n_rows = g.n_rows, c_lo = g.c_lo, n_cols = g.n_cols;
+  int tg = p.taps;
+  int r_lo = g.r_lo, n_rows = p.band, c_lo = g.c_lo, n_cols = g.n_cols;
   void* args[] = {&xp, &op, &b0, &b1, &w, &bias, &bias_bits, &relu_bits,
-                  &L, &B, &group, &H, &W, &C, &kn, &taps, &r_lo, &n_rows,
-                  &c_lo, &n_cols};
-  return launch_coop(hex_conv_fused_stack_kernel<COB>, args, kConvThreads,
-                     smem, tiles, plan, stream);
-}
-
-bool aligned16(const void* p) {
-  return reinterpret_cast<uintptr_t>(p) % 16 == 0;
+                  &L, &B, &group, &H, &W, &C, &kn, &tg, &taps, &r_lo,
+                  &n_rows, &c_lo, &n_cols, &flags};
+  return launch_coop(p.taps < kn ? hex_conv_fused_stack_kernel<COB, true>
+                                 : hex_conv_fused_stack_kernel<COB, false>,
+                     args, kF32Threads, p.smem, tiles, plan, stream);
 }
 
 template <int N>
@@ -548,7 +580,8 @@ int launch_mma(const void* x, void* out, void* buf0, void* buf1,
 // read for the layers whose bit is set in bias_bits (may be null when none
 // is); relu_bits: ReLU after layer l when bit l is set; taps: host
 // (2, kn, 2) int32.  plan: null, or 7 host ints that get the launch's
-// output channels a tile (N, or the float32 tile's COB), band rows, threads
+// output channels a tile (N, or the float32 tile's COB), band rows (the
+// float32 tile's rows), threads
 // a block, weights mode (0 per layer, 1 per chunk), dynamic
 // shared memory bytes, grid and blocks resident on an SM.  Returns 0, the
 // first CUDA error, -1 for arguments the kernel does not take (bfloat16:
@@ -568,11 +601,19 @@ extern "C" int hg_hex_conv_fused_stack(
   const float* b = static_cast<const float*>(bias);
   if (dtype == 0) {
     const float* wf = static_cast<const float*>(w);
-    if (C <= 16)
-      return launch_f32<16>(x, out, buf0, buf1, wf, b, bias_bits, relu_bits,
-                            L, B, group, H, W, C, kn, g, plan, s);
-    return launch_f32<32>(x, out, buf0, buf1, wf, b, bias_bits, relu_bits, L,
-                          B, group, H, W, C, kn, g, plan, s);
+    const hg::F32Plan p = hg::conv_tile_plan(g, kn, C, C);
+    switch (p.cob) {
+#define HG_FUSED_F32(N)                                                     \
+  case N:                                                                   \
+    return launch_f32<N>(x, out, buf0, buf1, wf, b, bias_bits, relu_bits,   \
+                         L, B, group, H, W, C, kn, g, p, plan, s);
+      HG_FUSED_F32(16)
+      HG_FUSED_F32(32)
+      HG_FUSED_F32(64)
+#undef HG_FUSED_F32
+      default:
+        return -1;
+    }
   }
   if (dtype != 1 || !aligned16(w)) return -1;
   const FusedPlan p = fused_mma_plan(g, C, kn);

@@ -28,21 +28,24 @@
 // (_assemble_mats(..., dtype)): for bfloat16 activations `w` is the packed
 // bf16 tensor conv_stack.py::_pack_mma_weights builds from the (kn, Cin,
 // Cout) weights, so the pointer type of `w` follows `dtype`.  The float32
-// conv pass keeps the CUDA-core tile, hex_common.cuh::conv_tile (64 pixels
-// x 32 output channels, each of 128 threads accumulating 4 x 4 in f32
-// FMAs): TF32 would not hold the 1e-5 agreement with the reference.
+// conv pass (hex_conv_fma_kernel) runs on the CUDA cores,
+// hex_common.cuh::conv_tile: a block of 256 threads is 4 or 8 output rows x 64 columns x COB = 64, 32 or 16
+// output channels (conv_tile_plan), each thread 8 pixels x 8 channels in
+// f32 FMAs, the next input chunk copied in with cp.async while this one
+// multiplies: TF32 would not hold the 1e-5 agreement with the reference.
 //
 // GroupNorm (norm "gn"): the TPU kernel holds the layer's pre-activations
 // in VMEM and normalises them in place; here they do not fit in a block, so
 // the conv pass writes them, once, and two small passes follow:
 //   1. the conv pass's epilogue writes the f32 pre-activation y (+bias) and,
-//      from the same registers, the block's sums of y and y^2 per segment of
-//      seg = gcd(Cout / G, N) output channels (a segment lies in one group and
-//      one block) over its valid pixels only: a tree over the thread's
-//      pixels, the lanes of a warp (shuffles), the warps and the segment's
-//      channels (shared memory), written to a fixed place per (sample,
-//      output row, column tile, segment): no atomics, so repeated launches
-//      and the split layer (the same block geometry) are bit-equal;
+//      from the same registers, the sums of y and y^2 of each output row of
+//      the block per segment of seg = gcd(Cout / G, N) output channels (a
+//      segment lies in one group and one block) over its valid pixels only:
+//      a tree over the thread's pixels, the lanes of a warp (shuffles), the
+//      warps (bf16) and the segment's channels (shared memory), written to a
+//      fixed place per (sample, output row, column tile, segment): no
+//      atomics, so repeated launches and the split layer (the same block
+//      geometry) are bit-equal;
 //   2. gn_stats_kernel folds a (sample, group)'s sums in a fixed order into
 //      mean and rstd as the TPU kernel does (conv_pallas.py:1774-1786):
 //      E[y^2] - mean^2 clamped at 0, over the valid pixels x channels per
@@ -85,16 +88,13 @@
 
 namespace {
 
-using hg::kChanT;
 using hg::kConvThreads;
+using hg::kF32Pix;
+using hg::kF32Threads;
 using hg::kMaxTaps;
 using hg::kTileP;
 using hg::Geometry;
 using hg::store;
-
-constexpr int COB = 32;   // float32: output channels per block
-constexpr int PT = hg::ConvTile<COB>::kPT;           // 4 pixels per thread
-constexpr int kPixLanes = hg::ConvTile<COB>::kPixLanes;  // 16
 
 __device__ __forceinline__ float with_bias(float v, int co,
                                            const float* __restrict__ bias) {
@@ -145,12 +145,44 @@ __device__ __forceinline__ void gn_segment_sums(float* red, int seg, int co0,
   }
 }
 
-// kN output channels per block: COB for float32 (hg::conv_tile), the
-// tensor-core tile's N for bfloat16 (hg::conv_tile_mma).  kSplit: the
+// The float32 stats epilogue's last steps: red holds [kRows][2][kN], each
+// output row's per-channel sums of y and y^2; each segment of seg (a power
+// of 2) consecutive channels is folded as a tree, and the segment sums of
+// the channels below Cout of the rows below H go to the row's entry of
+// gn_part (B, H, tiles, Cout / seg, 2).
+template <int kN, int kRows>
+__device__ __forceinline__ void gn_row_segment_sums(
+    float* red, int seg, int b, int o0, int H, int co0, int Cout,
+    float* __restrict__ gn_part) {
+  for (int st = seg / 2; st > 0; st /= 2) {
+    __syncthreads();
+    for (int e = threadIdx.x; e < kRows * kN; e += kF32Threads) {
+      const int r = e / kN, ch = e % kN;
+      if ((ch & (seg - 1)) < st) {
+        red[2 * r * kN + ch] += red[2 * r * kN + ch + st];
+        red[(2 * r + 1) * kN + ch] += red[(2 * r + 1) * kN + ch + st];
+      }
+    }
+  }
+  __syncthreads();
+  const int n_seg = kN / seg;
+  for (int e = threadIdx.x; e < kRows * n_seg; e += kF32Threads) {
+    const int r = e / n_seg, k = e % n_seg;
+    const int c = co0 + k * seg, o = o0 + r;
+    if (c < Cout && o < H) {
+      float* part = gn_part + (((long long)b * H + o) * gridDim.x +
+                               blockIdx.x) * 2 * (Cout / seg);
+      part[2 * (c / seg)] = red[2 * r * kN + k * seg];
+      part[2 * (c / seg) + 1] = red[(2 * r + 1) * kN + k * seg];
+    }
+  }
+}
+
+// The bfloat16 conv pass: kN output channels per block, the tensor-core
+// tile's N (hg::conv_tile_mma), one output row (blockIdx.y).  kSplit: the
 // layer's input is the channel concatenation of x (B, H, W, Ca) and x2
-// (B, H, W, Cin - Ca); otherwise x2 and Ca are not read.  w: float32
-// (kn, Cin, Cout), or for bfloat16 the packed weights; vec: see
-// hg::stage_patch (bfloat16 only).  kStats (GN layers: Tout float32, no
+// (B, H, W, Cin - Ca); otherwise x2 and Ca are not read.  w: the packed
+// weights; vec: see hg::stage_patch.  kStats (GN layers: Tout float32, no
 // scale or ReLU): the epilogue also writes the block's segment sums of y and
 // y^2 to gn_part (B, H, tiles, Cout / seg, 2); otherwise gn_part and seg
 // are not read.  pre (not kStats, may be null): the float32 pre-activation
@@ -171,154 +203,205 @@ hex_conv_kernel(const Tin* __restrict__ x, const Tin* __restrict__ x2, int Ca,
   const int n_cob = (Cout + kN - 1) / kN;
   const int b = blockIdx.z / n_cob;
   const int co0 = (blockIdx.z % n_cob) * kN;
-  const int o = blockIdx.y;
   const int w0 = blockIdx.x * kTileP;
+
+  static_assert(std::is_same<Tin, __nv_bfloat16>::value,
+                "the float32 pass is hex_conv_fma_kernel");
+  const int o = blockIdx.y;
   float* part = nullptr;   // this block's row of segment sums
   if constexpr (kStats)
-    part = gn_part + (((long long)b * H + o) * gridDim.x + blockIdx.x) * 2 *
-                         (Cout / seg);
-
-  if constexpr (std::is_same<Tin, __nv_bfloat16>::value) {
-    const long long pix0 = (long long)b * H * W;   // the sample's first pixel
-    float acc[kN / 2];
-    hg::conv_tile_mma<kN, kSplit>(
-        x + pix0 * (kSplit ? Ca : Cin), kSplit ? x2 + pix0 * (Cin - Ca) : x,
-        Ca, w, reinterpret_cast<uint4*>(smem), H, W, Cin, Cout, kn, taps,
-        r_lo, n_rows, c_lo, n_cols, o, w0, co0, vec != 0, acc);
-    const int lane = threadIdx.x % 32;
-    const bool pairs = Cout % 2 == 0;
+    part = gn_part + (((long long)b * H + o) * gridDim.x + blockIdx.x) *
+                         2 * (Cout / seg);
+  const long long pix0 = (long long)b * H * W;   // the sample's first pixel
+  float acc[kN / 2];
+  hg::conv_tile_mma<kN, kSplit>(
+      x + pix0 * (kSplit ? Ca : Cin), kSplit ? x2 + pix0 * (Cin - Ca) : x,
+      Ca, w, reinterpret_cast<uint4*>(smem), H, W, Cin, Cout, kn, taps,
+      r_lo, n_rows, c_lo, n_cols, o, w0, co0, vec != 0, acc);
+  const int lane = threadIdx.x % 32;
+  const bool pairs = Cout % 2 == 0;
 #pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int pix = w0 + 16 * (threadIdx.x / 32) + lane / 4 + 8 * h;
-      if (pix >= W) continue;
-      const long long at = ((pix0 + (long long)o * W) + pix) * Cout;
-      Tout* op = out + at;
-      float* pp = pre ? pre + at : nullptr;
+  for (int h = 0; h < 2; ++h) {
+    const int pix = w0 + 16 * (threadIdx.x / 32) + lane / 4 + 8 * h;
+    if (pix >= W) continue;
+    const long long at = ((pix0 + (long long)o * W) + pix) * Cout;
+    Tout* op = out + at;
+    float* pp = pre ? pre + at : nullptr;
 #pragma unroll
-      for (int i = 0; i < kN / 8; ++i) {
-        const int co = co0 + 8 * i + 2 * (lane % 4);
-        if (co >= Cout) continue;
-        const float y0 = with_bias(acc[4 * i + 2 * h], co, bias);
-        const float v0 = post(y0, co, scale, shift, relu);
-        if (co + 1 >= Cout) {
-          store(op + co, v0);
-          if (pp) pp[co] = y0;
-          continue;
-        }
-        const float y1 = with_bias(acc[4 * i + 2 * h + 1], co + 1, bias);
-        const float v1 = post(y1, co + 1, scale, shift, relu);
-        if (pairs) {
-          store2(op + co, v0, v1);
-          if (pp) store2(pp + co, y0, y1);
-        } else {
-          store(op + co, v0);
-          store(op + co + 1, v1);
-          if (pp) {
-            pp[co] = y0;
-            pp[co + 1] = y1;
-          }
+    for (int i = 0; i < kN / 8; ++i) {
+      const int co = co0 + 8 * i + 2 * (lane % 4);
+      if (co >= Cout) continue;
+      const float y0 = with_bias(acc[4 * i + 2 * h], co, bias);
+      const float v0 = post(y0, co, scale, shift, relu);
+      if (co + 1 >= Cout) {
+        store(op + co, v0);
+        if (pp) pp[co] = y0;
+        continue;
+      }
+      const float y1 = with_bias(acc[4 * i + 2 * h + 1], co + 1, bias);
+      const float v1 = post(y1, co + 1, scale, shift, relu);
+      if (pairs) {
+        store2(op + co, v0, v1);
+        if (pp) store2(pp + co, y0, y1);
+      } else {
+        store(op + co, v0);
+        store(op + co + 1, v1);
+        if (pp) {
+          pp[co] = y0;
+          pp[co + 1] = y1;
         }
       }
     }
-    if constexpr (kStats) {
-      // per channel: the thread's two pixels, then the 8 lanes that share
-      // lane % 4 (shuffles), then the four warps ([2][4 warps][kN] in the
-      // free staging buffers: conv_tile_mma ends on a barrier)
-      float* red = smem;
-      const int warp = threadIdx.x / 32;
+  }
+  if constexpr (kStats) {
+    // per channel: the thread's two pixels, then the 8 lanes that share
+    // lane % 4 (shuffles), then the four warps ([2][4 warps][kN] in the
+    // free staging buffers: conv_tile_mma ends on a barrier)
+    float* red = smem;
+    const int warp = threadIdx.x / 32;
 #pragma unroll
-      for (int i = 0; i < kN / 8; ++i)
+    for (int i = 0; i < kN / 8; ++i)
 #pragma unroll
-        for (int j = 0; j < 2; ++j) {
-          const int co = co0 + 8 * i + 2 * (lane % 4) + j;
-          const float bv = bias && co < Cout ? bias[co] : 0.f;
-          float s = 0.f, ss = 0.f;
-#pragma unroll
-          for (int h = 0; h < 2; ++h) {
-            const int pix = w0 + 16 * warp + lane / 4 + 8 * h;
-            const float v = pix < W ? acc[4 * i + 2 * h + j] + bv : 0.f;
-            s += v;
-            ss = fmaf(v, v, ss);
-          }
-#pragma unroll
-          for (int off = 4; off < 32; off *= 2) {
-            s += __shfl_xor_sync(0xffffffffu, s, off);
-            ss += __shfl_xor_sync(0xffffffffu, ss, off);
-          }
-          if (lane < 4) {
-            red[warp * kN + 8 * i + 2 * lane + j] = s;
-            red[(4 + warp) * kN + 8 * i + 2 * lane + j] = ss;
-          }
-        }
-      __syncthreads();
-      for (int ch = threadIdx.x; ch < kN; ch += kConvThreads) {
-        const float s = (red[ch] + red[kN + ch]) +
-                        (red[2 * kN + ch] + red[3 * kN + ch]);
-        const float ss = (red[4 * kN + ch] + red[5 * kN + ch]) +
-                         (red[6 * kN + ch] + red[7 * kN + ch]);
-        red[ch] = s;               // this thread's column only
-        red[kN + ch] = ss;
-      }
-      gn_segment_sums<kN>(red, seg, co0, Cout, part);
-    }
-  } else {
-    const int tp = threadIdx.x % kPixLanes;
-    const int tc = threadIdx.x / kPixLanes;
-    float acc[PT][kChanT];
-    if constexpr (kSplit) {
-      const long long pix0 = (long long)b * H * W;
-      hg::conv_tile<COB, false, true>(
-          x + pix0 * Ca, w, smem, H, W, Cin, Cout, kn, taps, r_lo, n_rows,
-          c_lo, n_cols, o, w0, co0, true, acc, x2 + pix0 * (Cin - Ca), Ca);
-    } else {
-      hg::conv_tile<COB>(x + (long long)b * H * W * Cin, w, smem, H, W, Cin,
-                         Cout, kn, taps, r_lo, n_rows, c_lo, n_cols, o, w0,
-                         co0, true, acc);
-    }
-
-#pragma unroll
-    for (int i = 0; i < PT; ++i) {
-      const int pix = w0 + tp + i * kPixLanes;
-      if (pix >= W) continue;
-      const long long at = (((long long)b * H + o) * W + pix) * Cout;
-#pragma unroll
-      for (int j = 0; j < kChanT; ++j) {
-        const int co = co0 + tc * kChanT + j;
-        if (co >= Cout) continue;
-        const float y = with_bias(acc[i][j], co, bias);
-        store(out + at + co, post(y, co, scale, shift, relu));
-        if (pre) pre[at + co] = y;
-      }
-    }
-    if constexpr (kStats) {
-      // per channel: the thread's PT = 4 pixels as a tree, then the 16
-      // lanes of its pixel run (shuffles); [2][COB] in shared memory once
-      // every thread is done with the tile's staging buffers
-      static_assert(PT == 4, "the tree below");
-      float* red = smem;
-      __syncthreads();
-#pragma unroll
-      for (int j = 0; j < kChanT; ++j) {
-        const int co = co0 + tc * kChanT + j;
+      for (int j = 0; j < 2; ++j) {
+        const int co = co0 + 8 * i + 2 * (lane % 4) + j;
         const float bv = bias && co < Cout ? bias[co] : 0.f;
-        float v[PT];
+        float s = 0.f, ss = 0.f;
 #pragma unroll
-        for (int i = 0; i < PT; ++i)
-          v[i] = w0 + tp + i * kPixLanes < W ? acc[i][j] + bv : 0.f;
-        float s = (v[0] + v[1]) + (v[2] + v[3]);
-        float ss = fmaf(v[0], v[0], v[1] * v[1]) + fmaf(v[2], v[2], v[3] * v[3]);
+        for (int h = 0; h < 2; ++h) {
+          const int pix = w0 + 16 * warp + lane / 4 + 8 * h;
+          const float v = pix < W ? acc[4 * i + 2 * h + j] + bv : 0.f;
+          s += v;
+          ss = fmaf(v, v, ss);
+        }
 #pragma unroll
-        for (int off = 1; off < kPixLanes; off *= 2) {
+        for (int off = 4; off < 32; off *= 2) {
           s += __shfl_xor_sync(0xffffffffu, s, off);
           ss += __shfl_xor_sync(0xffffffffu, ss, off);
         }
-        if (tp == 0) {
-          red[tc * kChanT + j] = s;
-          red[COB + tc * kChanT + j] = ss;
+        if (lane < 4) {
+          red[warp * kN + 8 * i + 2 * lane + j] = s;
+          red[(4 + warp) * kN + 8 * i + 2 * lane + j] = ss;
         }
       }
-      gn_segment_sums<COB>(red, seg, co0, Cout, part);
+    __syncthreads();
+    for (int ch = threadIdx.x; ch < kN; ch += kConvThreads) {
+      const float s = (red[ch] + red[kN + ch]) +
+                      (red[2 * kN + ch] + red[3 * kN + ch]);
+      const float ss = (red[4 * kN + ch] + red[5 * kN + ch]) +
+                       (red[6 * kN + ch] + red[7 * kN + ch]);
+      red[ch] = s;               // this thread's column only
+      red[kN + ch] = ss;
     }
+    gn_segment_sums<kN>(red, seg, co0, Cout, part);
+  }
+}
+
+// The float32 conv pass on the CUDA cores (hg::conv_tile): kN = the
+// tile's COB output channels per block, F32Tile<kN>::kRows output rows
+// (blockIdx.y) x 64 columns, kF32Threads threads; vec: the tile's flags
+// (hg::kF32VecX ...); kGroups: the taps in groups of tg, n_rows the most
+// rows one reaches (hg::F32Plan; without it tg is kn).  The other
+// arguments as hex_conv_kernel's, float32 throughout.
+template <int kN, bool kSplit, bool kStats, bool kGroups>
+__global__ void __launch_bounds__(kF32Threads, 2)
+hex_conv_fma_kernel(const float* __restrict__ x, const float* __restrict__ x2,
+                    int Ca, const float* __restrict__ w,
+                    const float* __restrict__ bias,
+                    const float* __restrict__ scale,
+                    const float* __restrict__ shift, float* __restrict__ out,
+                    float* __restrict__ pre, int H, int W, int Cin, int Cout,
+                    int kn, int tg, const __grid_constant__ hg::TapTable taps,
+                    int r_lo, int n_rows, int c_lo, int n_cols, int relu,
+                    int vec, float* __restrict__ gn_part, int seg) {
+  extern __shared__ __align__(16) float smem[];
+  const int n_cob = (Cout + kN - 1) / kN;
+  const int b = blockIdx.z / n_cob;
+  const int co0 = (blockIdx.z % n_cob) * kN;
+  const int w0 = blockIdx.x * kTileP;
+  using T = hg::F32Tile<kN>;
+  constexpr int CT = T::kCT;
+  const int o0 = blockIdx.y * T::kRows;
+  const int cl = threadIdx.x % 8;
+  const int tc = (threadIdx.x / 8) % T::kCL;
+  const int row = (threadIdx.x / 8) / T::kCL;
+  const int o = o0 + row;
+  const long long pix0 = (long long)b * H * W;   // the sample's first pixel
+  float acc[kF32Pix][CT];
+  hg::conv_tile<kN, kSplit, kGroups>(
+      x + pix0 * (kSplit ? Ca : Cin), w, smem, H, W, Cin, Cout, kn, tg,
+      taps, r_lo, n_rows, c_lo, n_cols, o0, w0, co0, true, vec, acc,
+      kSplit ? x2 + pix0 * (Cin - Ca) : nullptr, Ca);
+
+  // thread channels co0 + h kN / 2 + 4 tc + j, 16-byte stores where Cout
+  // is a multiple of 4 and the outputs are aligned
+  const bool vec_out = (vec & hg::kF32VecOut) != 0;
+  if (o < H) {
+#pragma unroll
+    for (int i = 0; i < kF32Pix; ++i) {
+      const int pix = w0 + cl + 8 * i;
+      if (pix >= W) continue;
+      const long long at = ((pix0 + (long long)o * W) + pix) * Cout;
+#pragma unroll
+      for (int h = 0; h < CT / 4; ++h) {
+        const int co = co0 + h * (kN / 2) + 4 * tc;
+        if (co >= Cout) continue;
+        float y[4], v[4];
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          y[j] = co + j < Cout ? with_bias(acc[i][4 * h + j], co + j, bias)
+                               : 0.f;
+          v[j] = co + j < Cout ? post(y[j], co + j, scale, shift, relu)
+                               : 0.f;
+        }
+        if (vec_out) {
+          *reinterpret_cast<float4*>(out + at + co) =
+              make_float4(v[0], v[1], v[2], v[3]);
+          if (pre)
+            *reinterpret_cast<float4*>(pre + at + co) =
+                make_float4(y[0], y[1], y[2], y[3]);
+        } else {
+#pragma unroll
+          for (int j = 0; j < 4; ++j)
+            if (co + j < Cout) {
+              store(out + at + co + j, v[j]);
+              if (pre) pre[at + co + j] = y[j];
+            }
+        }
+      }
+    }
+  }
+  if constexpr (kStats) {
+    // per output row and channel: the thread's 8 pixels as a tree, then
+    // the row's 8 column lanes (shuffles within the warp); [kRows][2][kN]
+    // in the staging buffers, free once conv_tile's last barrier passed
+    float* red = smem;
+#pragma unroll
+    for (int k = 0; k < CT; ++k) {
+      const int ch = (k / 4) * (kN / 2) + 4 * tc + k % 4;
+      const int co = co0 + ch;
+      const float bv = bias && co < Cout ? bias[co] : 0.f;
+      float v[kF32Pix];
+#pragma unroll
+      for (int i = 0; i < kF32Pix; ++i)
+        v[i] = o < H && w0 + cl + 8 * i < W ? acc[i][k] + bv : 0.f;
+      float s = ((v[0] + v[1]) + (v[2] + v[3])) +
+                ((v[4] + v[5]) + (v[6] + v[7]));
+      float ss = (fmaf(v[0], v[0], v[1] * v[1]) +
+                  fmaf(v[2], v[2], v[3] * v[3])) +
+                 (fmaf(v[4], v[4], v[5] * v[5]) +
+                  fmaf(v[6], v[6], v[7] * v[7]));
+#pragma unroll
+      for (int off = 1; off < 8; off *= 2) {
+        s += __shfl_xor_sync(0xffffffffu, s, off);
+        ss += __shfl_xor_sync(0xffffffffu, ss, off);
+      }
+      if (cl == 0) {
+        red[2 * row * kN + ch] = s;
+        red[(2 * row + 1) * kN + ch] = ss;
+      }
+    }
+    gn_row_segment_sums<kN, T::kRows>(red, seg, b, o0, H, co0, Cout,
+                                      gn_part);
   }
 }
 
@@ -393,24 +476,44 @@ gn_apply_kernel(const float* __restrict__ y, const float* __restrict__ stats,
   }
 }
 
+// A block: kConvThreads threads on one output row (bfloat16), or
+// kF32Threads on F32Tile<kN>::kRows rows (float32, its taps in groups of
+// tg reaching at most g.n_rows rows: hg::F32Plan).
 template <int kN, typename Tin, typename Tout, bool kStats>
 int launch_conv_n(const void* x, const void* x2, int Ca, const void* w,
                   const float* bias, const float* scale, const float* shift,
                   void* out, float* pre, int B, int H, int W, int Cin, int Cout, int kn,
-                  const Geometry& g, int relu, int vec, size_t smem,
+                  int tg, const Geometry& g, int relu, int vec, size_t smem,
                   float* gn_part, int seg, cudaStream_t stream) {
-  auto kernel = x2 ? hex_conv_kernel<kN, Tin, Tout, true, kStats>
-                   : hex_conv_kernel<kN, Tin, Tout, false, kStats>;
+  constexpr bool f32 = std::is_same<Tin, float>::value;
+  auto kernel = [&] {
+    if constexpr (f32) {
+      if (tg < kn)
+        return x2 ? hex_conv_fma_kernel<kN, true, kStats, true>
+                  : hex_conv_fma_kernel<kN, false, kStats, true>;
+      return x2 ? hex_conv_fma_kernel<kN, true, kStats, false>
+                : hex_conv_fma_kernel<kN, false, kStats, false>;
+    } else
+      return x2 ? hex_conv_kernel<kN, Tin, Tout, true, kStats>
+                : hex_conv_kernel<kN, Tin, Tout, false, kStats>;
+  }();
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
+  const int rows = f32 ? hg::f32_tile_rows(kN) : 1;
   const int n_cob = (Cout + kN - 1) / kN;
-  dim3 grid((W + kTileP - 1) / kTileP, H, B * n_cob);
-  kernel<<<grid, kConvThreads, smem, stream>>>(
-      static_cast<const Tin*>(x), static_cast<const Tin*>(x2), Ca,
-      static_cast<const Tin*>(w), bias, scale, shift, static_cast<Tout*>(out),
-      pre, H, W, Cin, Cout, kn, g.taps, g.r_lo, g.n_rows, g.c_lo, g.n_cols, relu,
-      vec, gn_part, seg);
+  dim3 grid((W + kTileP - 1) / kTileP, (H + rows - 1) / rows, B * n_cob);
+  auto xt = static_cast<const Tin*>(x), x2t = static_cast<const Tin*>(x2);
+  auto wt = static_cast<const Tin*>(w);
+  auto ot = static_cast<Tout*>(out);
+  if constexpr (f32)
+    kernel<<<grid, kF32Threads, smem, stream>>>(
+        xt, x2t, Ca, wt, bias, scale, shift, ot, pre, H, W, Cin, Cout, kn, tg,
+        g.taps, g.r_lo, g.n_rows, g.c_lo, g.n_cols, relu, vec, gn_part, seg);
+  else
+    kernel<<<grid, kConvThreads, smem, stream>>>(
+        xt, x2t, Ca, wt, bias, scale, shift, ot, pre, H, W, Cin, Cout, kn,
+        g.taps, g.r_lo, g.n_rows, g.c_lo, g.n_cols, relu, vec, gn_part, seg);
   return (int)cudaGetLastError();
 }
 
@@ -419,8 +522,9 @@ bool aligned16(const void* p) {
 }
 
 // x2 non-null selects the split instantiation (input channels [0, Ca) from
-// x, [Ca, Cin) from x2).  n: the bfloat16 tile's N.  kStats: the GN
-// layer's conv pass (Tout float32), writing segment sums to gn_part.
+// x, [Ca, Cin) from x2).  n: the tile's output channels (the float32
+// tile's COB or the bfloat16 tile's N).  kStats: the GN layer's conv pass
+// (Tout float32), writing segment sums to gn_part.
 template <typename Tin, typename Tout, bool kStats>
 int launch_conv(const void* x, const void* x2, int Ca, const void* w,
                 const float* bias, const float* scale, const float* shift,
@@ -428,9 +532,30 @@ int launch_conv(const void* x, const void* x2, int Ca, const void* w,
                 const Geometry& g, int relu, int n, float* gn_part, int seg,
                 cudaStream_t stream) {
   if constexpr (std::is_same<Tin, float>::value) {
-    return launch_conv_n<COB, Tin, Tout, kStats>(
-        x, x2, Ca, w, bias, scale, shift, out, pre, B, H, W, Cin, Cout, kn, g,
-        relu, 0, hg::conv_tile_smem(g, kn, COB), gn_part, seg, stream);
+    const hg::F32Plan p = hg::conv_tile_plan(g, kn, Cin, Cout);
+    if (p.cob != n) return -1;
+    const int vec =
+        (Cin % 4 == 0 && (!x2 || Ca % 4 == 0) && aligned16(x) &&
+                 (!x2 || aligned16(x2)) ? hg::kF32VecX : 0) |
+        (Cout % 4 == 0 && aligned16(w) ? hg::kF32VecW : 0) |
+        (Cout % 4 == 0 && aligned16(out) && (!pre || aligned16(pre))
+             ? hg::kF32VecOut : 0) |
+        (p.stages == 2 ? hg::kF32TwoStages : 0);
+    Geometry band = g;
+    band.n_rows = p.band;
+    switch (n) {
+#define HG_CONV_F32(N)                                                      \
+  case N:                                                                   \
+    return launch_conv_n<N, Tin, Tout, kStats>(                             \
+        x, x2, Ca, w, bias, scale, shift, out, pre, B, H, W, Cin, Cout, kn, \
+        p.taps, band, relu, vec, p.smem, gn_part, seg, stream);
+      HG_CONV_F32(16)
+      HG_CONV_F32(32)
+      HG_CONV_F32(64)
+#undef HG_CONV_F32
+      default:
+        return -1;
+    }
   } else {
     // 16-byte copies where every unit of 8 channels lies whole in one
     // aligned input
@@ -442,7 +567,7 @@ int launch_conv(const void* x, const void* x2, int Ca, const void* w,
   case N:                                                                   \
     return launch_conv_n<N, Tin, Tout, kStats>(                             \
         x, x2, Ca, w, bias, scale, shift, out, pre, B, H, W, Cin, Cout, kn, \
-        g, relu, vec, smem, gn_part, seg, stream);
+        kn, g, relu, vec, smem, gn_part, seg, stream);
       HG_CONV_N(16)
       HG_CONV_N(32)
       HG_CONV_N(64)
@@ -513,8 +638,8 @@ int launch_layer(const void* x, const void* x2, int Ca, const void* w,
 // x is (B, H, W, Ca) with input channels [0, Ca), x2 (B, H, W, Cin - Ca)
 // with [Ca, Cin), 0 < Ca < Cin, and w still the unsplit layer's.  The grid
 // has B x ceil(Cout / N) blocks in z, N the output channels of a block:
-// COB in float32, hg::conv_tile_mma_n's choice in bfloat16
-// (conv_stack.py::_tile_n mirrors both).
+// hg::conv_tile_plan's COB in float32, hg::conv_tile_mma_n's choice in
+// bfloat16 (conv_stack.py::_tile_n mirrors both).
 // Returns the first non-zero cudaGetLastError() of its launches, or -1 for
 // arguments the kernels do not take.
 extern "C" int hg_hex_conv_layer(
@@ -534,7 +659,9 @@ extern "C" int hg_hex_conv_layer(
   if ((scale == nullptr) != (shift == nullptr)) return -1;
   if (dtype == 1 && !aligned16(w)) return -1;
   const Geometry g = hg::make_geometry(static_cast<const int*>(taps), kn);
-  const int n = dtype == 0 ? COB : hg::conv_tile_mma_n(g, kn, Cin, Cout);
+  const int n = dtype == 0 ? hg::conv_tile_plan(g, kn, Cin, Cout).cob
+                           : hg::conv_tile_mma_n(g, kn, Cin, Cout);
+  if (n == 0) return -1;
   if ((long long)B * ((Cout + n - 1) / n) > 65535) return -1;
   auto s = static_cast<cudaStream_t>(stream);
   auto f = [](const void* p) { return static_cast<const float*>(p); };

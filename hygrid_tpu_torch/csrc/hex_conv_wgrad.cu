@@ -41,16 +41,33 @@
 // memory (Cin or Cout not a multiple of 8, as at the 3-channel stem) it is
 // staged element by element into the same layout.  The wrapper cuts the
 // rows into fixed chunks, about 792 blocks in all (conv_stack.py::
-// _wgrad_chunks): fewer, longer blocks than the float32 pass's write fewer
-// partial sums.  The chunks depend on the shapes alone, so every card
-// folds the same partial sums and gives the same bits.
+// _wgrad_chunks): few, long blocks write few partial sums.  The chunks
+// depend on the shapes alone, so every card folds the same partial sums
+// and gives the same bits.
 //
-// float32, the partial pass on the CUDA cores (wgrad_partial_kernel): grid
-// (chunk, tap, channel tile); a block walks its rows KP pixels at a time,
-// stages the tap-shifted x (KP x CIB) and g (KP x COB) in shared memory,
-// and each of its 256 threads accumulates a 4 x 4 (ci, co) register tile
-// in f32 over its slice of the pixels; the slices are folded in a fixed
-// order through shared memory.
+// float32, the partial pass on the CUDA cores in full f32 FMAs
+// (wgrad_partial_kernel), on the bf16 pass's structure.  Grid (chunk, tap
+// group, input-channel tile x output-channel tile); a block is one warp a
+// tap, up to kWgTaps taps (all seven at radius 2), and covers CIB = 8, 16
+// or 32 input x COB = 32 or 64 output channels (conv_stack.py::_wgrad_tile
+// mirrors the choice).  A step stages KP = 64 pixels (128 where CIB = 8)
+// of one output row of g (KP x COB) and the x patch its taps reach (the
+// rows r_lo .. r_hi x KP + tap width columns x CIB), both NHWC as 16-byte
+// cp.async units (element by element where Cin or Cout is not a multiple
+// of 4), once for every tap: a tap's window is an offset into the patch.
+// The patch grows with the rows the taps reach (2 d + 1 at dilation d);
+// where it does not fit, a block takes fewer taps, down to one (one row),
+// and more blocks cover the taps (wgrad_f32_plan).  A tap's sums do not
+// depend on its block, so no bit moves.
+// The next step is copied while this one multiplies, behind one barrier a
+// step; each thread reads the next pixel's operands while it multiplies
+// this one's.  Each thread holds an 8 x 8 (ci, co)
+// tile of its warp's tap, 64 f32 accumulators, and per pixel reads two
+// float4 of x and two of g for 64 FMAs; where CIB x COB / 64 is under 32
+// lanes, the warp's lanes split the pixels into PS interleaved slices,
+// folded by shuffles at the end.  The pixel strides of the staged x and g
+// are padded so that the slices' reads fall in distinct banks.  About 792
+// blocks in all, as in bf16.
 #include "hex_common.cuh"
 
 namespace {
@@ -58,102 +75,254 @@ namespace {
 using hg::kMaxTaps;
 using hg::TapTable;
 
-constexpr int KP = 64;          // pixels staged per step
-constexpr int TI = 4;           // input channels per thread
-constexpr int TO = 4;           // output channels per thread
-constexpr int kThreads = 256;
+constexpr int kWgTaps = 8;      // taps a block at most: one a warp
 
+// The float32 tile: CIB input x COB output channels, 8 x 8 a thread (two
+// groups of 4 of each, CIB / 2 and COB / 2 apart), CIL x COL channel lanes
+// and PS pixel slices a warp; SX and SG the staged pixel strides of x and g
+// in floats; KP pixels of one output row a step (128 where CIB = 8: a
+// thread's share of a step is then 16 pixels, enough to hide the next
+// step's copies).  conv_stack.py::_wgrad_f32_plan mirrors it.
 template <int CIB, int COB>
-__global__ void __launch_bounds__(kThreads)
+struct WgradTile {
+  static_assert((CIB == 8 || CIB == 16 || CIB == 32) &&
+                (COB == 32 || COB == 64), "the tile's widths");
+  static constexpr int kCIL = CIB / 8, kCOL = COB / 8;
+  static constexpr int kPS = 32 / (kCIL * kCOL);
+  static constexpr int kSX = kPS > 1 ? CIB * 3 / 2 : CIB;
+  static constexpr int kSG = COB == 32 ? 48 : COB;
+  static constexpr int kKP = CIB == 8 ? 128 : 64;
+  static_assert(kKP % kPS == 0, "pixel slices");
+};
+
+// Shared memory of the float32 partial pass, in bytes, for a patch of
+// n_rows (the rows a block's taps reach) x (64 + tap width) columns around
+// 64 pixels.
+template <int CIB, int COB>
+size_t wgrad_f32_smem(int n_rows, int n_cols, int stages) {
+  using T = WgradTile<CIB, COB>;
+  return sizeof(float) * stages *
+         ((size_t)T::kKP * T::kSG +
+          (size_t)n_rows * (n_cols - 64 + T::kKP) * T::kSX);
+}
+
+// The taps a block takes: kn in ceil(kn / kWgTaps) groups as even as they
+// go.
+inline int wgrad_f32_taps(int kn) {
+  const int groups = (kn + kWgTaps - 1) / kWgTaps;
+  return (kn + groups - 1) / groups;
+}
+
+// A thread's operands of one pixel: its 8 input channels of x and its 8
+// output channels of g, two float4 each.
+template <int CIB, int COB>
+struct WgradFrag {
+  float4 x[2], g[2];
+
+  __device__ __forceinline__ void load(const float* xp, const float* gp) {
+    x[0] = *reinterpret_cast<const float4*>(xp);
+    x[1] = *reinterpret_cast<const float4*>(xp + CIB / 2);
+    g[0] = *reinterpret_cast<const float4*>(gp);
+    g[1] = *reinterpret_cast<const float4*>(gp + COB / 2);
+  }
+
+  __device__ __forceinline__ void fma(float (&acc)[8][8]) const {
+    const float xv[8] = {x[0].x, x[0].y, x[0].z, x[0].w,
+                         x[1].x, x[1].y, x[1].z, x[1].w};
+    const float gv[8] = {g[0].x, g[0].y, g[0].z, g[0].w,
+                         g[1].x, g[1].y, g[1].z, g[1].w};
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(xv[i], gv[j], acc[i][j]);
+  }
+};
+
+// x, g: NHWC float32; partial as hg_hex_conv_wgrad.  Block (chunk, tap
+// group, channel tiles), 32 threads a tap; flags: 1 x in 16-byte units
+// (Cin % 4 == 0, aligned), 2 the same for g, 4 two stages.  rows = B x H
+// (under 2^31, as the wrapper's checks keep it).  table_r_lo, table_rows:
+// the rows the whole tap table reaches, which a block stages unless
+// kBands (then only the rows its own taps reach).
+template <int CIB, int COB, bool kBands>
+__global__ void __launch_bounds__(kWgTaps * 32, 2)
 wgrad_partial_kernel(const float* __restrict__ x, const float* __restrict__ g,
                      float* __restrict__ partial, int H, int W, int Cin,
-                     int Cout, long long rows,
-                     const __grid_constant__ TapTable taps,
-                     int rows_per_chunk) {
-  constexpr int NI = CIB / TI, NO = COB / TO;
-  constexpr int PS = kThreads / (NI * NO);   // pixel slices
-  static_assert(PS * NI * NO == kThreads && KP % PS == 0, "tile shape");
-  constexpr int kStage = KP * (CIB + COB);
-  constexpr int kRed = PS > 1 ? PS * CIB * COB : 0;
-  __shared__ __align__(16) float smem[kStage > kRed ? kStage : kRed];
-  float* xs = smem;                          // [KP][CIB]
-  float* gs = smem + KP * CIB;               // [KP][COB]
-
-  const int chunk = blockIdx.x, t = blockIdx.y, kn = gridDim.y;
+                     int Cout, int kn, const __grid_constant__ TapTable taps,
+                     int table_r_lo, int table_rows, int c_lo, int n_cols,
+                     int rows, int rows_per_chunk, int flags) {
+  using T = WgradTile<CIB, COB>;
+  constexpr int PS = T::kPS, SX = T::kSX, SG = T::kSG, KP = T::kKP;
+  extern __shared__ __align__(16) float wsm[];
+  const int nthreads = blockDim.x;
+  const int tb = nthreads / 32;
+  const int chunk = blockIdx.x;
+  const int t0 = blockIdx.y * tb;
+  const int nt = min(tb, kn - t0);
+  // the patch: the rows r_lo .. r_lo + n_rows - 1 the block's taps reach
+  // (kBands), or the table's
+  int n_rows = table_rows;
+  const int r_lo =
+      kBands ? hg::tap_band(taps, t0, t0 + nt, &n_rows) : table_r_lo;
+  const int g_floats = KP * SG;
+  const int stage_floats = g_floats + n_rows * n_cols * SX;
   const int n_co = (Cout + COB - 1) / COB;
   const int ci0 = (blockIdx.z / n_co) * CIB;
   const int co0 = (blockIdx.z % n_co) * COB;
+  const int r0 = chunk * rows_per_chunk;
+  const int r1 = min(r0 + rows_per_chunk, rows);
+  const int per_row = (W + KP - 1) / KP;
+  const int n_steps = (r1 - r0) * per_row;
   const int tid = threadIdx.x;
-  const int to = tid % NO;
-  const int ti = (tid / NO) % NI;
-  const int s = tid / (NO * NI);
+  const int warp = tid / 32, lane = tid % 32;
+  const int col = lane % T::kCOL;
+  const int cil = (lane / T::kCOL) % T::kCIL;
+  const int sl = lane / (T::kCOL * T::kCIL);
+  const bool two = (flags & 4) != 0;
 
-  float acc[TI][TO];
-#pragma unroll
-  for (int i = 0; i < TI; ++i)
-#pragma unroll
-    for (int k = 0; k < TO; ++k) acc[i][k] = 0.f;
+  // step s: output row r0 + s / per_row (row o of its sample), pixels
+  // j0 .. j0 + 63
+  auto stage = [&](int s, float* gs) {
+    float* xs = gs + g_floats;
+    const int row = r0 + s / per_row;
+    const int j0 = (s % per_row) * KP;
+    const int o = row % H;
+    const int sample = row - o;               // the sample's first row
+    const float* grow = g + ((long long)row * W + j0) * Cout + co0;
+    // each thread keeps its part of a pixel (a unit, or all its
+    // elements) and walks the pixels with pointer steps: no division a
+    // copy
+    if (flags & 2) {
+      constexpr int U = COB / 4;
+      const int u = tid % U, dp = nthreads / U;
+      const bool co_live = co0 + 4 * u < Cout;
+      for (int p = tid / U; p < KP; p += dp) {
+        const bool live = co_live && j0 + p < W;
+        hg::cp_async16(gs + p * SG + 4 * u,
+                       live ? grow + (long long)p * Cout + 4 * u : g,
+                       live ? 16 : 0);
+      }
+    } else {
+      for (int p = tid; p < KP; p += nthreads)
+        for (int u = 0; u < COB; ++u) {
+          const bool live = j0 + p < W && co0 + u < Cout;
+          hg::cp_async4(gs + p * SG + u,
+                        live ? grow + (long long)p * Cout + u : g,
+                        live ? 4 : 0);
+        }
+    }
+    // x: the patch's pixels pc = r * n_cols + c; channels past Cin are
+    // not staged (they reach only accumulators that are never stored)
+    if (flags & 1) {
+      constexpr int U = CIB / 4;
+      const int u = tid % U, dpc = nthreads / U;
+      const bool ci_live = ci0 + 4 * u < Cin;
+      int pc = tid / U;
+      int r = pc / n_cols, c = pc - r * n_cols;
+      for (; r < n_rows; pc += dpc) {
+        const int xi = o + r_lo + r, xj = j0 + c_lo + c;
+        const bool live = ci_live && xi >= 0 && xi < H && xj >= 0 && xj < W;
+        hg::cp_async16(
+            xs + pc * SX + 4 * u,
+            live ? x + ((long long)(sample + xi) * W + xj) * Cin + ci0 + 4 * u
+                 : x,
+            live ? 16 : 0);
+        c += dpc;
+        while (c >= n_cols) {
+          c -= n_cols;
+          ++r;
+        }
+      }
+    } else {
+      const int kcw = min(CIB, Cin - ci0);
+      for (int pc = tid; pc < n_rows * n_cols; pc += nthreads) {
+        const int r = pc / n_cols, c = pc - r * n_cols;
+        const int xi = o + r_lo + r, xj = j0 + c_lo + c;
+        const bool inside = xi >= 0 && xi < H && xj >= 0 && xj < W;
+        const float* src =
+            x + ((long long)(sample + xi) * W + xj) * Cin + ci0;
+        for (int u = 0; u < kcw; ++u)
+          hg::cp_async4(xs + pc * SX + u, inside ? src + u : x,
+                        inside ? 4 : 0);
+      }
+    }
+    hg::cp_async_commit();
+  };
 
-  const long long r0 = (long long)chunk * rows_per_chunk;
-  const long long r1 = r0 + rows_per_chunk < rows ? r0 + rows_per_chunk : rows;
-  for (long long r = r0; r < r1; ++r) {
-    const int o = (int)(r % H);
-    const int xi = o + taps.dr[o & 1][t];
-    if (xi < 0 || xi >= H) continue;         // the same for the whole block
-    const int dc = taps.dc[o & 1][t];
-    const float* grow = g + r * W * Cout;
-    const float* xrow = x + (r - o + xi) * W * Cin;
-    for (int j0 = 0; j0 < W; j0 += KP) {
-      __syncthreads();
-      for (int e = tid; e < KP * COB; e += kThreads) {
-        const int c = e % COB, j = j0 + e / COB, co = co0 + c;
-        gs[e] = (j < W && co < Cout) ? grow[(long long)j * Cout + co] : 0.f;
-      }
-      for (int e = tid; e < KP * CIB; e += kThreads) {
-        const int c = e % CIB, j = j0 + e / CIB + dc, ci = ci0 + c;
-        xs[e] = (j >= 0 && j < W && ci < Cin) ? xrow[(long long)j * Cin + ci]
-                                              : 0.f;
-      }
-      __syncthreads();
+  float acc[8][8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
+
+  // thread (warp, lane): tap t0 + warp, input channels ci0 + h CIB / 2 +
+  // 4 cil + j, output channels co0 + h COB / 2 + 4 col + j, the step's
+  // pixels p with p % PS == sl, in order
+  const int t = t0 + min(warp, nt - 1);
+  if (n_steps > 0) stage(0, wsm);
+  for (int s = 0; s < n_steps; ++s) {
+    hg::cp_async_wait<0>();
+    // step s's copies are seen by every thread, and every warp is done
+    // with step s - 1, whose buffer step s + 1 refills (one stage: after
+    // this step's multiplies)
+    __syncthreads();
+    if (two && s + 1 < n_steps)
+      stage(s + 1, wsm + ((s + 1) & 1) * stage_floats);
+    if (warp < nt) {
+      const float* gs = wsm + (two ? (s & 1) * stage_floats : 0);
+      const float* xs = gs + g_floats;
+      const int q = ((r0 + s / per_row) % H) & 1;
+      const float* xr = xs + ((taps.dr[q][t] - r_lo) * n_cols +
+                              taps.dc[q][t] - c_lo + sl) * SX + 4 * cil;
+      const float* gr = gs + sl * SG + 4 * col;
+      // pixel k + 1's operands are read while pixel k multiplies
+      constexpr int NP = KP / PS;
+      WgradFrag<CIB, COB> f[2];
+      f[0].load(xr, gr);
 #pragma unroll 4
-      for (int p = s; p < KP; p += PS) {
-        const float4 xv = *reinterpret_cast<const float4*>(xs + p * CIB + ti * TI);
-        const float4 gv = *reinterpret_cast<const float4*>(gs + p * COB + to * TO);
-        const float xa[TI] = {xv.x, xv.y, xv.z, xv.w};
-        const float ga[TO] = {gv.x, gv.y, gv.z, gv.w};
-#pragma unroll
-        for (int i = 0; i < TI; ++i)
-#pragma unroll
-          for (int k = 0; k < TO; ++k) acc[i][k] = fmaf(xa[i], ga[k], acc[i][k]);
+      for (int k = 0; k < NP; ++k) {
+        if (k + 1 < NP)
+          f[(k + 1) & 1].load(xr + (k + 1) * PS * SX, gr + (k + 1) * PS * SG);
+        f[k & 1].fma(acc);
       }
+    }
+    if (!two && s + 1 < n_steps) {
+      __syncthreads();
+      stage(s + 1, wsm);
     }
   }
 
+  // fold the pixel slices (lanes CIL x COL apart): the same butterfly in
+  // every warp
+#pragma unroll
+  for (int off = T::kCIL * T::kCOL; off < 32; off *= 2)
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+        acc[i][j] += __shfl_xor_sync(0xffffffffu, acc[i][j], off);
+  if (warp >= nt || sl != 0) return;
   float* out = partial + ((long long)chunk * kn + t) * Cin * Cout;
-  if constexpr (PS == 1) {
+  const bool vec_out = Cout % 4 == 0;
 #pragma unroll
-    for (int i = 0; i < TI; ++i)
+  for (int i = 0; i < 8; ++i) {
+    const int ci = ci0 + (i / 4) * (CIB / 2) + 4 * cil + i % 4;
+    if (ci >= Cin) continue;
 #pragma unroll
-      for (int k = 0; k < TO; ++k) {
-        const int ci = ci0 + ti * TI + i, co = co0 + to * TO + k;
-        if (ci < Cin && co < Cout) out[(long long)ci * Cout + co] = acc[i][k];
+    for (int h = 0; h < 2; ++h) {
+      const int co = co0 + h * (COB / 2) + 4 * col;
+      if (co >= Cout) continue;
+      float* op = out + (long long)ci * Cout + co;
+      if (vec_out) {
+        *reinterpret_cast<float4*>(op) =
+            make_float4(acc[i][4 * h], acc[i][4 * h + 1], acc[i][4 * h + 2],
+                        acc[i][4 * h + 3]);
+      } else {
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          if (co + j < Cout) op[j] = acc[i][4 * h + j];
       }
-    return;
-  }
-  // fold the pixel slices in slice order
-  __syncthreads();
-  float* red = smem;                         // [PS][CIB][COB]
-#pragma unroll
-  for (int i = 0; i < TI; ++i)
-#pragma unroll
-    for (int k = 0; k < TO; ++k)
-      red[(s * CIB + ti * TI + i) * COB + to * TO + k] = acc[i][k];
-  __syncthreads();
-  for (int e = tid; e < CIB * COB; e += kThreads) {
-    float v = 0.f;
-    for (int k = 0; k < PS; ++k) v += red[k * CIB * COB + e];
-    const int ci = ci0 + e / COB, co = co0 + e % COB;
-    if (ci < Cin && co < Cout) out[(long long)ci * Cout + co] = v;
+    }
   }
 }
 
@@ -440,16 +609,64 @@ __global__ void wgrad_finalize_kernel(const float* __restrict__ partial,
   dw[((long long)co * Cin + ci) * kn + t] = v;
 }
 
+// The float32 partial pass's block for CIB x COB: taps a block (a warp
+// each: wgrad_f32_taps, fewer where the patch their rows reach does not
+// fit, as at a wide dilation), two stages where they fit, else one, and
+// the shared bytes.  taps = 0: nothing fits.  conv_stack.py::
+// _wgrad_f32_plan mirrors it, and the wrapper's copy must agree.
+struct WgradF32Plan {
+  int taps, stages;
+  int band;   // the most rows one block's taps reach
+  size_t smem;
+};
+
+template <int CIB, int COB>
+WgradF32Plan wgrad_f32_plan(const hg::Geometry& geo, int kn) {
+  for (int tb = wgrad_f32_taps(kn); tb >= 1; --tb) {
+    const int band = hg::tap_band_rows(geo.taps, kn, tb);
+    for (int stages = 2; stages >= 1; --stages) {
+      const size_t smem =
+          wgrad_f32_smem<CIB, COB>(band, mma_patch_cols(geo), stages);
+      if (smem <= (size_t)hg::kMmaMaxSmem) return {tb, stages, band, smem};
+    }
+  }
+  return {0, 0, 0, 0};
+}
+
+// plan: the wrapper's CIB, COB, taps a block, stages and shared bytes.
 template <int CIB, int COB>
 int launch_partial(const void* x, const void* g, float* partial, int B, int H,
-                   int W, int Cin, int Cout, int kn, const TapTable& taps,
-                   int rows_per_chunk, int n_chunks, cudaStream_t stream) {
-  const int tiles = ((Cin + CIB - 1) / CIB) * ((Cout + COB - 1) / COB);
+                   int W, int Cin, int Cout, int kn, const hg::Geometry& geo,
+                   int rows_per_chunk, int n_chunks, const int* plan,
+                   cudaStream_t stream) {
+  const long long tiles =
+      (long long)((Cin + CIB - 1) / CIB) * ((Cout + COB - 1) / COB);
   if (tiles > 65535) return -1;
-  wgrad_partial_kernel<CIB, COB><<<dim3(n_chunks, kn, tiles), kThreads, 0,
-                                   stream>>>(
+  const WgradF32Plan pl = wgrad_f32_plan<CIB, COB>(geo, kn);
+  if (pl.taps == 0 || plan[0] != CIB || plan[1] != COB ||
+      plan[2] != pl.taps || plan[3] != pl.stages || plan[4] != (int)pl.smem)
+    return -1;
+  // the patch's columns for 64 pixels; a step of KP pixels stages KP - 64
+  // more
+  const int n_cols = mma_patch_cols(geo) + WgradTile<CIB, COB>::kKP - 64;
+  // a block stages the rows its own taps reach where they are fewer than
+  // the table's
+  auto kernel = pl.band < geo.n_rows ? wgrad_partial_kernel<CIB, COB, true>
+                                     : wgrad_partial_kernel<CIB, COB, false>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)pl.smem);
+  if (err != cudaSuccess) return (int)err;
+  auto aligned = [](const void* p) {
+    return reinterpret_cast<uintptr_t>(p) % 16 == 0;
+  };
+  const int flags = (Cin % 4 == 0 && aligned(x) ? 1 : 0) |
+                    (Cout % 4 == 0 && aligned(g) ? 2 : 0) |
+                    (pl.stages == 2 ? 4 : 0);
+  dim3 grid(n_chunks, (kn + pl.taps - 1) / pl.taps, (unsigned)tiles);
+  kernel<<<grid, 32 * pl.taps, pl.smem, stream>>>(
       static_cast<const float*>(x), static_cast<const float*>(g), partial,
-      H, W, Cin, Cout, (long long)B * H, taps, rows_per_chunk);
+      H, W, Cin, Cout, kn, geo.taps, geo.r_lo, geo.n_rows, geo.c_lo, n_cols,
+      B * H, rows_per_chunk, flags);
   return (int)cudaGetLastError();
 }
 
@@ -463,22 +680,22 @@ int finalize(const float* partial, float* dw, int n_chunks, int kn,
 
 int launch_wgrad_f32(const void* x, const void* g, float* partial, float* dw,
                      int B, int H, int W, int Cin, int Cout, int kn,
-                     const TapTable& taps, int rows_per_chunk, int n_chunks,
-                     cudaStream_t stream) {
+                     const hg::Geometry& geo, int rows_per_chunk,
+                     int n_chunks, const int* plan, cudaStream_t stream) {
   int err;
-  const int ci_blk = Cin <= 4 ? 4 : (Cin <= 32 ? 32 : 64);
+  const int ci_blk = Cin <= 8 ? 8 : Cin <= 16 ? 16 : 32;
   const int co_blk = Cout <= 32 ? 32 : 64;
 #define HG_WGRAD_CASE(CIB, COB)                                             \
   if (ci_blk == CIB && co_blk == COB)                                       \
-    err = launch_partial<CIB, COB>(x, g, partial, B, H, W, Cin,             \
-                                          Cout, kn, taps, rows_per_chunk,   \
-                                          n_chunks, stream);
-  HG_WGRAD_CASE(4, 32)
-  else HG_WGRAD_CASE(4, 64)
+    err = launch_partial<CIB, COB>(x, g, partial, B, H, W, Cin, Cout, kn,   \
+                                   geo, rows_per_chunk, n_chunks, plan,     \
+                                   stream);
+  HG_WGRAD_CASE(8, 32)
+  else HG_WGRAD_CASE(8, 64)
+  else HG_WGRAD_CASE(16, 32)
+  else HG_WGRAD_CASE(16, 64)
   else HG_WGRAD_CASE(32, 32)
   else HG_WGRAD_CASE(32, 64)
-  else HG_WGRAD_CASE(64, 32)
-  else HG_WGRAD_CASE(64, 64)
   else return -1;
 #undef HG_WGRAD_CASE
   if (err) return err;
@@ -513,20 +730,25 @@ int launch_wgrad_bf16(const void* x, const void* g, float* partial,
 // 1 = bfloat16); taps: host (2, kn, 2) int32 (the forward table);
 // partial: float32 scratch (n_chunks, kn, Cin, Cout) with n_chunks =
 // ceil(B * H / rows_per_chunk); dw: float32 (Cout, Cin, kn).  The partial
-// pass's grid: float32, n_chunks x kn x ceil(Cin / CIB) * ceil(Cout / COB);
-// bfloat16, n_chunks x ceil(kn / 7) x ceil(Cout / 64) * ceil(Cin / N)
-// (conv_stack.py::_wgrad_tile mirrors it).  Returns the first non-zero
-// cudaGetLastError() of its launches, or -1 for arguments the kernels do
-// not take.
+// pass's grid: float32, n_chunks x ceil(kn / taps a block) x
+// ceil(Cin / CIB) * ceil(Cout / COB); bfloat16, n_chunks x ceil(kn / 7) x
+// ceil(Cout / 64) * ceil(Cin / N) (conv_stack.py::_wgrad_tile mirrors
+// both).  plan: float32, 5 host ints, the block the wrapper planned (CIB,
+// COB, taps a block, stages, shared bytes: conv_stack.py::
+// _wgrad_f32_plan), refused where this entry plans another; bfloat16,
+// null.  Returns the first non-zero cudaGetLastError() of its launches, or
+// -1 for arguments or a plan the kernels do not take.
 extern "C" int hg_hex_conv_wgrad(const void* x, const void* g, void* partial,
                                  void* dw, int dtype, int B, int H, int W,
                                  int Cin, int Cout, int kn, const void* taps,
                                  int rows_per_chunk, int n_chunks,
-                                 void* stream) {
+                                 const int* plan, void* stream) {
   if (kn < 1 || kn > kMaxTaps || B < 1 || H < 1 || W < 1 || Cin < 1 ||
       Cout < 1 || rows_per_chunk < 1 || n_chunks < 1 ||
+      (long long)B * H > 0x7fffffffLL ||
       (long long)n_chunks !=
-          ((long long)B * H + rows_per_chunk - 1) / rows_per_chunk)
+          ((long long)B * H + rows_per_chunk - 1) / rows_per_chunk ||
+      (dtype == 0) != (plan != nullptr))
     return -1;
   auto s = static_cast<cudaStream_t>(stream);
   auto p = static_cast<float*>(partial);
@@ -534,8 +756,8 @@ extern "C" int hg_hex_conv_wgrad(const void* x, const void* g, void* partial,
   if (dtype == 0)
     return launch_wgrad_f32(
         x, g, p, d, B, H, W, Cin, Cout, kn,
-        hg::make_tap_table(static_cast<const int*>(taps), kn),
-        rows_per_chunk, n_chunks, s);
+        hg::make_geometry(static_cast<const int*>(taps), kn),
+        rows_per_chunk, n_chunks, plan, s);
   if (dtype == 1)
     return launch_wgrad_bf16(
         x, g, p, d, B, H, W, Cin, Cout, kn,

@@ -49,7 +49,7 @@ _SIGNATURES = {
                             _I, _LL, _I, _I, _I, _F, _P, _P],
     "hg_gn_backward_device": [_P],
     "hg_hex_conv_wgrad": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _I,
-                          _I, _P],
+                          _I, _P, _P],
     "hg_shift_resample": [_P, _P, _P, _P, _P, _I, _P, _P, _I, _LL, _I, _I,
                           _I, _I, _I, _I, _I, _P],
     "hg_hex_conv_fused_stack": [_P, _P, _P, _P, _P, _P, _ULL, _ULL, _I, _I,

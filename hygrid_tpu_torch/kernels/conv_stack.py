@@ -139,24 +139,27 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _EPS = 1e-5
 _GN_BWD_THREADS = 512  # a GN backward block's threads where V > 1
 _GN_BWD_DEVICE: dict = {}  # device index -> (SMs, shared bytes a block)
-# target blocks of the dW partial-sum pass: float32 (CUDA cores), and
-# bfloat16 (tensor cores: fewer, longer blocks, so the f32 partial sums each
-# chunk writes and the fold reads stay few)
-_WGRAD_BLOCKS = 2048
-_WGRAD_MMA_BLOCKS = 792
+# target blocks of the dW partial-sum pass, float32 (CUDA cores) and
+# bfloat16 (tensor cores): few, long blocks, so that the f32 partial sums
+# each chunk writes and the fold reads stay few
+_WGRAD_BLOCKS = 792
+# the float32 dW tile (hex_conv_wgrad.cu::WgradTile): taps a block at most
+# (one a warp)
+_WGRAD_F32_TAPS = 8
 # batch elements of one fused-stack group: each of its two scratch buffers
 # holds at most this many bytes, so both stay in the card's 50 MB L2
 _FUSED_GROUP_BYTES = 16 * 2 ** 20
 _FUSED_MAX_LAYERS = 64
 # the fused stack's weights modes, as the C side numbers them
 _FUSED_WEIGHTS = ("layer", "chunk")
-# kernel B's conv tiles (csrc/hex_common.cuh): output pixels and staged input
-# channels per block, the float32 tile's output channels, and the shared
-# memory a block may use on the H100 (the bf16 tile's N is chosen under it)
+# kernel B's conv tiles (csrc/hex_common.cuh): output columns of a tile row
+# and staged input channels, and the shared memory a block may use on the
+# H100 (each tile is chosen under it); the float32 tile's output rows for
+# each width COB (hex_common.cuh::F32Tile)
 _TILE_P = 64
 _CHUNK_C = 16
-_COB = 32
 _MMA_MAX_SMEM = 232448
+_F32_ROWS = {16: 8, 32: 8, 64: 4}
 
 
 def _frozen(table: np.ndarray) -> np.ndarray:
@@ -193,14 +196,75 @@ def _mma_smem(cin: int, kn: int, n: int, n_rows: int, n_cols: int) -> int:
     return stages * 16 * (n_rows * 2 * n_cols + kn * 2 * n)
 
 
+@functools.lru_cache(maxsize=None)
+def _tap_rows(radius: int, dilation: int, adjoint: bool
+              ) -> tuple[tuple[int, int], ...]:
+    """Each tap's ``(first, last)`` row offset over both parities, for the
+    (adjoint) tap table."""
+    dr = (_adjoint_taps if adjoint else _taps)(radius, dilation)[..., 0]
+    return tuple((int(lo), int(hi)) for lo, hi in
+                 zip(dr.min(axis=0), dr.max(axis=0)))
+
+
+def _band_rows(tap_rows, tg: int) -> int:
+    """The most patch rows one group reaches where the taps go in groups of
+    ``tg`` (``hex_common.cuh::tap_band_rows``)."""
+    return max(max(hi for _, hi in tap_rows[t:t + tg])
+               - min(lo for lo, _ in tap_rows[t:t + tg]) + 1
+               for t in range(0, len(tap_rows), tg))
+
+
+def _f32_smem(tg: int, cob: int, stages: int, band: int,
+              n_cols: int) -> int:
+    """Shared memory of the float32 tile (``conv_tile_smem``): ``stages``
+    copies of one 16-channel chunk's patch for a group of ``tg`` taps (the
+    tile's rows + band - 1 rows x n_cols columns) and its weights (tg x 16
+    x cob)."""
+    return 4 * stages * ((_F32_ROWS[cob] + band - 1) * n_cols * _CHUNK_C
+                         + tg * _CHUNK_C * cob)
+
+
+def _f32_tile(cin: int, cout: int, tap_rows, n_cols: int):
+    """Kernel B's float32 tile as the C entry chooses it
+    (``hex_common.cuh::conv_tile_plan``) for taps reaching ``tap_rows``
+    (:func:`_tap_rows`): ``cob`` the least of 16, 32, 64 output channels
+    that covers Cout (64 above), ``rows`` output rows of 64 columns a block
+    (8, 8, 4), two ``stages`` where Cin spans more than one 16-channel
+    chunk; while that does not fit in a block's shared memory, one stage,
+    then half the channels; where no tile of all the taps fits, the taps
+    in groups of ``taps`` (the most that fit), each group's stage holding
+    at most ``band`` rows.  A dict with these keys and ``smem``; None where
+    nothing fits."""
+    kn = len(tap_rows)
+    for tg in range(kn, 0, -1):
+        band = _band_rows(tap_rows, tg)
+        cob = next((c for c in (16, 32) if cout <= c), 64)
+        while cob >= 16:
+            for stages in ((2, 1) if cin > _CHUNK_C else (1,)):
+                smem = _f32_smem(tg, cob, stages, band, n_cols)
+                if smem <= _MMA_MAX_SMEM:
+                    return dict(cob=cob, rows=_F32_ROWS[cob], stages=stages,
+                                taps=tg, band=band, smem=smem)
+            cob //= 2
+    return None
+
+
 def _tile_n(dtype: torch.dtype, cin: int, cout: int, kn: int, n_rows: int,
-            n_cols: int) -> int:
+            n_cols: int, tap_rows=None) -> int:
     """Output channels one block of kernel B's conv pass covers, as the
-    C entry chooses them: 32 in float32; in bfloat16 the least of 16, 32,
-    64, 128 that covers Cout (128 above), halved while the tile's stages
-    do not fit in shared memory (``hex_common.cuh::conv_tile_mma_n``)."""
+    C entry chooses them: in float32 :func:`_f32_tile`'s ``cob`` for the
+    taps' ``tap_rows`` (default: each tap reaching all ``n_rows``, so that
+    the taps never go in groups; raises where no tile fits); in bfloat16
+    the least of 16, 32, 64, 128 that covers Cout (128 above), halved
+    while the tile's stages do not fit in shared memory
+    (``hex_common.cuh::conv_tile_mma_n``)."""
     if dtype != torch.bfloat16:
-        return _COB
+        plan = _f32_tile(cin, cout, tap_rows or ((0, n_rows - 1),) * kn,
+                         n_cols)
+        if plan is None:
+            raise ValueError(f"hex_conv_layer: no float32 tile of {kn} taps "
+                             f"fits in shared memory")
+        return plan["cob"]
     n = next((n for n in (16, 32, 64) if cout <= n), 128)
     while n > 16 and _mma_smem(cin, kn, n, n_rows, n_cols) > _MMA_MAX_SMEM:
         n //= 2
@@ -656,7 +720,8 @@ def _conv_launch(x, wt, cout, taps_key, what, bias=None, norm=None,
     b, h, w, ca = x.shape
     cin = ca + (0 if x2 is None else x2.shape[-1])
     kn = wt.shape[0]
-    n = _tile_n(x.dtype, cin, cout, kn, *_patch_shape(*taps_key))
+    n = _tile_n(x.dtype, cin, cout, kn, *_patch_shape(*taps_key),
+                _tap_rows(*taps_key))
     if h > 65535 or b * math.ceil(cout / n) > 65535:
         raise ValueError(f"{what}: grid too large for H={h}, B={b}, "
                          f"Cout={cout}")
@@ -677,7 +742,7 @@ def _conv_launch(x, wt, cout, taps_key, what, bias=None, norm=None,
         gamma = _check_param(gamma, "gamma", cout, x.device)
         beta = _check_param(beta, "beta", cout, x.device)
         y = torch.empty((b, h, w, cout), dtype=torch.float32, device=x.device)
-        # the conv epilogue's sums: one pair per (sample, row, 64-pixel
+        # the conv epilogue's sums: one pair per (sample, row, 64-column
         # tile, segment of gcd(Cout / G, N) channels)
         seg = math.gcd(cout // groups, n)
         n_part = 2 * b * h * -(-w // _TILE_P) * (cout // seg)
@@ -1020,28 +1085,60 @@ def hex_conv_layer_split_dgrad(gpre: torch.Tensor, kernel: torch.Tensor,
 def _wgrad_tile(dtype: torch.dtype, cin: int, cout: int, kn: int
                 ) -> tuple[int, int, int]:
     """``(input channels, output channels, taps)`` one block of the dW
-    partial pass covers, as the chunking counts it: float32, one tap and
-    64 x 64 channels (the kernel's tile is 4, 32 or 64 of Cin by 32 or 64
-    of Cout); bfloat16, as the C entry chooses it, N = 8, 16 or 32 input
-    channels from Cin, 64 output channels (wgmma's M) and 7 taps
-    (``hex_conv_wgrad.cu::wgrad_mma_n``)."""
+    partial pass covers, as the C entry chooses it: float32, CIB = 8, 16
+    or 32 input channels from Cin, COB = 32 or 64 output channels from
+    Cout and a warp a tap, kn in ``ceil(kn / 8)`` groups as even as they
+    go (all 7 at radius 2; ``hex_conv_wgrad.cu::wgrad_f32_taps``; where
+    their patch does not fit, :func:`_wgrad_f32_plan` takes fewer a block,
+    and the chunks stay these taps'); bfloat16, N = 8, 16 or 32 input channels from Cin, 64 output channels
+    (wgmma's M) and 7 taps (``hex_conv_wgrad.cu::wgrad_mma_n``)."""
+    ci = 8 if cin <= 8 else 16 if cin <= 16 else 32
     if dtype != torch.bfloat16:
-        return 64, 64, 1
-    return (8 if cin <= 8 else 16 if cin <= 16 else 32), 64, 7
+        groups = -(-kn // _WGRAD_F32_TAPS)
+        return ci, 32 if cout <= 32 else 64, -(-kn // groups)
+    return ci, 64, 7
+
+
+def _wgrad_f32_plan(cin: int, cout: int, tap_rows, n_cols: int) -> dict:
+    """The float32 dW partial pass's block for these shapes, as
+    ``hex_conv_wgrad.cu`` lays it out (``wgrad_f32_plan``; the C entry
+    refuses a launch whose plan differs): ``cib``, ``cob``, ``taps`` (a
+    warp each: ``threads``; :func:`_wgrad_tile`'s, fewer where the patch
+    their rows reach does not fit), the warp's channel lanes and pixel
+    slices ``ps`` (a thread holds 8 x 8), the staged pixel strides ``sx`` /
+    ``sg`` of x and g in floats, ``kp`` pixels a step (128 where cib = 8,
+    else 64), ``stages`` (two where they fit in a block's shared memory)
+    and ``smem`` bytes, for taps reaching ``tap_rows`` (:func:`_tap_rows`)
+    and a patch of ``n_cols`` (64 + tap width) columns around 64 pixels;
+    None where one stage of one tap does not fit."""
+    cib, cob, most = _wgrad_tile(torch.float32, cin, cout, len(tap_rows))
+    lanes = (cib // 8) * (cob // 8)
+    ps = 32 // lanes
+    sx = cib * 3 // 2 if ps > 1 else cib
+    sg = 48 if cob == 32 else cob
+    kp = 128 if cib == 8 else 64
+    for taps in range(most, 0, -1):
+        band = _band_rows(tap_rows, taps)
+        for stages in (2, 1):
+            smem = 4 * stages * (kp * sg + band * (n_cols - 64 + kp) * sx)
+            if smem <= _MMA_MAX_SMEM:
+                return dict(cib=cib, cob=cob, taps=taps, threads=32 * taps,
+                            lanes=lanes, ps=ps, sx=sx, sg=sg, kp=kp,
+                            stages=stages, smem=smem)
+    return None
 
 
 def _wgrad_chunks(dtype: torch.dtype, rows: int, cin: int, cout: int,
                   kn: int) -> tuple[int, int]:
     """``(rows_per_chunk, n_chunks)`` of the dW partial pass over ``rows``
     image rows (B x H): as many chunks as bring the blocks (chunks x
-    channel tiles x tap groups) to the dtype's target, at least one row a
+    channel tiles x tap groups) to ``_WGRAD_BLOCKS``, at least one row a
     chunk, the rows spread evenly, from the shapes alone (so every card
     folds the same partial sums).  The partial scratch is ``(n_chunks,
     kn, Cin, Cout)`` float32."""
     ci, co, taps = _wgrad_tile(dtype, cin, cout, kn)
     tiles = -(-cin // ci) * -(-cout // co) * -(-kn // taps)
-    target = _WGRAD_MMA_BLOCKS if dtype == torch.bfloat16 else _WGRAD_BLOCKS
-    n_chunks = max(1, min(rows, -(-target // tiles)))
+    n_chunks = max(1, min(rows, -(-_WGRAD_BLOCKS // tiles)))
     rows_per_chunk = -(-rows // n_chunks)
     return rows_per_chunk, -(-rows // rows_per_chunk)
 
@@ -1052,6 +1149,15 @@ def _wgrad_launch(x, gpre, radius, dilation, what):
     cout = gpre.shape[-1]
     kn = F.hex_kernel_num(radius)
     rows_per_chunk, n_chunks = _wgrad_chunks(x.dtype, b * h, cin, cout, kn)
+    fields = None
+    if x.dtype == torch.float32:
+        plan = _wgrad_f32_plan(cin, cout, _tap_rows(radius, dilation, False),
+                               _patch_shape(radius, dilation, False)[1])
+        if plan is None:
+            raise ValueError(f"{what}: no float32 dW block of {kn} taps "
+                             f"fits in shared memory")
+        fields = (ctypes.c_int * 5)(plan["cib"], plan["cob"], plan["taps"],
+                                    plan["stages"], plan["smem"])
     partial = torch.empty((n_chunks, kn, cin, cout), dtype=torch.float32,
                           device=x.device)
     dw = torch.empty((cout, cin, kn), dtype=torch.float32, device=x.device)
@@ -1062,7 +1168,7 @@ def _wgrad_launch(x, gpre, radius, dilation, what):
             x.data_ptr(), gpre.data_ptr(), partial.data_ptr(), dw.data_ptr(),
             _DTYPES[x.dtype], b, h, w, cin, cout, kn,
             _taps(radius, dilation).ctypes.data, rows_per_chunk, n_chunks,
-            stream)
+            fields, stream)
     _build.check(status, what)
     return dw
 

@@ -1603,3 +1603,261 @@ def test_exported_hexcnn_runs_the_kernels_on_cuda(cuda, tmp_path):
                     conv_stack.LAUNCHES - before[1]) == (1, 2)
             with torch.inference_mode():
                 assert torch.equal(got, model(hexify_batch(xb)))
+
+
+# ---- the float32 conv passes' tiles at their edges --------------------------
+#
+# Kernel B's CUDA-core tile (hex_common.cuh::conv_tile: 4 or 8 output rows x
+# 64 columns x 16, 32 or 64 channels, 16-channel input chunks) and the
+# float32 dW (hex_conv_wgrad.cu::wgrad_partial_kernel: a warp a tap, 8 x 8
+# channels a thread) where their shapes do not divide: Cin = 3 and Cin off
+# 4 and 16 (element-wise copies, a short last chunk), W off the 64-column
+# strip, odd H (a band past the image), Cout off the channel tile.
+
+F32_EDGE_CASES = [  # (B, H, W, Cin, Cout, radius)
+    (2, 9, 70, 3, 32, 2),      # the stem's 3 channels; W one strip + 6
+    (1, 11, 65, 6, 40, 2),     # Cin off 4; Cout over 32, off 64
+    (2, 7, 33, 18, 21, 2),     # two chunks, the last of 2; Cout off 4
+    (1, 13, 129, 35, 64, 2),   # three chunks, the last of 3; 2 strips + 1
+    (2, 5, 64, 16, 16, 2),     # one chunk, the 16-channel tile
+    (1, 9, 40, 37, 130, 3),    # radius 3; three 64-channel tiles
+]
+
+
+def _f32_edge_inputs(case, cuda):
+    b, h, w, cin, cout, r = case
+    gen = torch.Generator(device=cuda).manual_seed(
+        100 + F32_EDGE_CASES.index(case))
+    kn = 3 * r * r - 3 * r + 1
+    x = torch.rand((b, h, w, cin), generator=gen, device=cuda)
+    g = torch.randn((b, h, w, cout), generator=gen, device=cuda)
+    k = torch.randn((cout, cin, kn), generator=gen, device=cuda) \
+        / math.sqrt(cin * kn)
+    bias = 0.1 * torch.randn((cout,), generator=gen, device=cuda)
+    norm = ("gn", math.gcd(8, cout),
+            1 + 0.1 * torch.rand((cout,), generator=gen, device=cuda),
+            0.1 * torch.randn((cout,), generator=gen, device=cuda))
+    return x, g, k, bias, norm, r
+
+
+@pytest.mark.parametrize("norm_kind", [None, "gn"])
+@pytest.mark.parametrize("case", F32_EDGE_CASES)
+def test_f32_conv_pass_at_its_edges_matches_plain(cuda, case, norm_kind):
+    """The float32 conv pass against its plain version (1e-5 absolute
+    without a norm, 1e-4 relative with GN, whose statistics come from the
+    epilogue's per-row sums), a second launch bit-equal."""
+    x, _, k, bias, norm, r = _f32_edge_inputs(case, cuda)
+    kw = dict(radius=r, norm=norm if norm_kind else None, relu=True)
+    with torch.inference_mode():
+        got = conv_stack.hex_conv_layer(x, k, bias, **kw)
+        again = conv_stack.hex_conv_layer(x, k, bias, **kw)
+        want = conv_stack.hex_conv_layer_plain(x, k, bias, **kw)
+    torch.cuda.synchronize()
+    assert got.shape == want.shape and got.dtype == torch.float32
+    assert torch.equal(got, again)
+    if norm_kind:
+        assert _rel(got, want) <= 1e-4
+    else:
+        assert float((got - want).abs().max()) <= 1e-5
+
+
+@pytest.mark.parametrize("case", F32_EDGE_CASES)
+def test_f32_dgrad_at_its_edges_matches_plain(cuda, case):
+    """dx in float32 (the conv pass on the adjoint taps): 1e-5 relative,
+    as the dgrad tests hold it."""
+    x, g, k, _, _, r = _f32_edge_inputs(case, cuda)
+    got = conv_stack.hex_conv_layer_dgrad(g, k, radius=r)
+    want = conv_stack.hex_conv_layer_dgrad_plain(g, k, radius=r)
+    torch.cuda.synchronize()
+    assert got.shape == x.shape and got.dtype == torch.float32
+    assert _rel(got, want) <= 1e-5
+
+
+@pytest.mark.parametrize("case", F32_EDGE_CASES)
+def test_f32_wgrad_at_its_edges_matches_plain_and_a_second_launch(cuda,
+                                                                   case):
+    x, g, k, _, _, r = _f32_edge_inputs(case, cuda)
+    got = conv_stack.hex_conv_layer_wgrad(x, g, radius=r)
+    again = conv_stack.hex_conv_layer_wgrad(x, g, radius=r)
+    want = conv_stack.hex_conv_layer_wgrad_plain(x, g, radius=r)
+    torch.cuda.synchronize()
+    assert got.shape == k.shape and got.dtype == torch.float32
+    assert torch.equal(got, again)
+    assert _rel(got, want) <= 1e-4
+
+
+@pytest.mark.parametrize("cb", [8, 21])
+@pytest.mark.parametrize("norm_kind", [None, "gn"])
+def test_f32_split_at_ca_24_is_bit_equal_to_the_concatenation(cuda,
+                                                              norm_kind, cb):
+    """The split layer at Ca = 24 (its second 16-channel chunk straddles
+    Ca; Cb = 21 off the 4-channel unit), forward and backward in float32:
+    bit-equal to the layer on the concatenation, to the dgrad cut at Ca and
+    to the dW on each input; the plain versions' tolerances."""
+    gen = torch.Generator(device=cuda).manual_seed(cb)
+    b, h, w, ca, cout = 2, 9, 70, 24, 40
+    xa = torch.rand((b, h, w, ca), generator=gen, device=cuda)
+    xb = torch.rand((b, h, w, cb), generator=gen, device=cuda)
+    g = torch.randn((b, h, w, cout), generator=gen, device=cuda)
+    k = torch.randn((cout, ca + cb, 7), generator=gen, device=cuda) \
+        / math.sqrt((ca + cb) * 7)
+    norm = None
+    if norm_kind:
+        norm = ("gn", 8,
+                1 + 0.1 * torch.rand((cout,), generator=gen, device=cuda),
+                0.1 * torch.randn((cout,), generator=gen, device=cuda))
+    kw = dict(radius=2, norm=norm, relu=True)
+    with torch.inference_mode():
+        got = conv_stack.hex_conv_layer_split(xa, xb, k, **kw)
+        cat = conv_stack.hex_conv_layer(torch.cat([xa, xb], -1), k, **kw)
+        want = conv_stack.hex_conv_layer_split_plain(xa, xb, k, **kw)
+    da, db = conv_stack.hex_conv_layer_split_dgrad(g, k, ca, radius=2)
+    dx = conv_stack.hex_conv_layer_dgrad(g, k, radius=2)
+    dw = conv_stack.hex_conv_layer_split_wgrad(xa, xb, g, radius=2)
+    parts = torch.cat([conv_stack.hex_conv_layer_wgrad(xa, g, radius=2),
+                       conv_stack.hex_conv_layer_wgrad(xb, g, radius=2)], 1)
+    dw_want = conv_stack.hex_conv_layer_split_wgrad_plain(xa, xb, g,
+                                                          radius=2)
+    torch.cuda.synchronize()
+    assert torch.equal(got, cat)
+    if norm_kind:
+        assert _rel(got, want) <= 1e-4
+    else:
+        assert float((got - want).abs().max()) <= 1e-5
+    assert torch.equal(da, dx[..., :ca]) and torch.equal(db, dx[..., ca:])
+    assert torch.equal(dw, parts)
+    assert _rel(dw, dw_want) <= 1e-4
+
+
+@pytest.mark.parametrize("c", [16, 14])
+def test_f32_fused_stack_at_c16_stages_one_layers_weights(cuda, c):
+    """C <= 16 in float32: one input chunk, the 16-channel tile (8 rows x
+    64 columns, 256 threads), a layer's weights staged once a block; the
+    stack bit-equal to chained layers and within 1e-4 of the plain
+    version, at C = 16 (16-byte copies) and C = 14 (element-wise)."""
+    gen = torch.Generator(device=cuda).manual_seed(c)
+    x = torch.rand((3, 19, 70, c), generator=gen, device=cuda)
+    ks = [torch.randn((c, c, 7), generator=gen, device=cuda)
+          / math.sqrt(c * 7) for _ in range(4)]
+    bs = [0.1 * torch.randn((c,), generator=gen, device=cuda)
+          for _ in range(4)]
+    relus = [True, True, True, False]
+    got = conv_stack.hex_conv_fused_stack(x, ks, bs, radius=2, relus=relus)
+    plan = dict(conv_stack.LAST_FUSED_PLAN)
+    chained = x
+    for k, b, relu in zip(ks, bs, relus):
+        chained = conv_stack.hex_conv_layer(chained, k, b, radius=2,
+                                            relu=relu)
+    want = conv_stack.hex_conv_fused_stack_plain(x, ks, bs, radius=2,
+                                                 relus=relus)
+    torch.cuda.synchronize()
+    assert torch.equal(got, chained)
+    assert _rel(got, want) <= 1e-4
+    assert (plan["n"], plan["rows"], plan["threads"], plan["weights"]) == \
+        (16, 8, 256, "layer")
+    assert plan["smem"] <= conv_stack._MMA_MAX_SMEM
+
+
+# ---- the float32 conv passes at a wide dilation -----------------------------
+#
+# The patch a float32 tile stages grows with the rows its taps reach (2 d + 1
+# at radius 2, dilation d).  Where a tile of all the taps does not fit in a
+# block's shared memory, kernel B's tile takes the taps in groups, a stage
+# each (the same order of products), and the dW takes fewer taps a block.
+
+F32_WIDE_CASES = [  # (B, H, W, Cin, Cout, radius, dilation)
+    (2, 24, 66, 35, 24, 2, 10),    # dW 5 taps a block; the conv whole
+    (1, 40, 80, 48, 64, 2, 16),    # conv, dx and dW in groups of 5 taps
+    (1, 70, 90, 20, 40, 2, 30),    # one tap a group and a block
+    (1, 30, 70, 40, 48, 3, 8),     # radius 3: 16 taps a group
+]
+
+
+def _wide_plans_split_taps(case):
+    """Which of the float32 conv, dx and dW of a wide case take fewer taps
+    a group or a block than the patch of dilation 1 lets them."""
+    _, _, _, cin, cout, r, d = case
+    kn = 3 * r * r - 3 * r + 1
+    conv = conv_stack._f32_tile(cin, cout, conv_stack._tap_rows(r, d, False),
+                                conv_stack._patch_shape(r, d, False)[1])
+    dx = conv_stack._f32_tile(cout, cin, conv_stack._tap_rows(r, d, True),
+                              conv_stack._patch_shape(r, d, True)[1])
+    dw = conv_stack._wgrad_f32_plan(cin, cout,
+                                    conv_stack._tap_rows(r, d, False),
+                                    conv_stack._patch_shape(r, d, False)[1])
+    most = conv_stack._wgrad_tile(torch.float32, cin, cout, kn)[2]
+    return conv["taps"] < kn, dx["taps"] < kn, dw["taps"] < most
+
+
+@pytest.mark.parametrize("norm_kind", [None, "gn"])
+@pytest.mark.parametrize("case", F32_WIDE_CASES)
+def test_f32_passes_at_a_wide_dilation_match_plain(cuda, case, norm_kind):
+    """The float32 conv pass, dx and dW where the patch of all the taps
+    does not fit: each against its plain version (the edge tests'
+    tolerances), a second launch of the conv pass and of dW bit-equal."""
+    b, h, w, cin, cout, r, d = case
+    kn = 3 * r * r - 3 * r + 1
+    assert any(_wide_plans_split_taps(case))
+    gen = torch.Generator(device=cuda).manual_seed(200 + d)
+    x = torch.rand((b, h, w, cin), generator=gen, device=cuda)
+    g = torch.randn((b, h, w, cout), generator=gen, device=cuda)
+    k = torch.randn((cout, cin, kn), generator=gen, device=cuda) \
+        / math.sqrt(cin * kn)
+    bias = 0.1 * torch.randn((cout,), generator=gen, device=cuda)
+    norm = None
+    if norm_kind:
+        norm = ("gn", 8,
+                1 + 0.1 * torch.rand((cout,), generator=gen, device=cuda),
+                0.1 * torch.randn((cout,), generator=gen, device=cuda))
+    kw = dict(radius=r, dilation=d, norm=norm, relu=True)
+    with torch.inference_mode():
+        got = conv_stack.hex_conv_layer(x, k, bias, **kw)
+        again = conv_stack.hex_conv_layer(x, k, bias, **kw)
+        want = conv_stack.hex_conv_layer_plain(x, k, bias, **kw)
+    dx = conv_stack.hex_conv_layer_dgrad(g, k, radius=r, dilation=d)
+    dx_want = conv_stack.hex_conv_layer_dgrad_plain(g, k, radius=r,
+                                                    dilation=d)
+    dw = conv_stack.hex_conv_layer_wgrad(x, g, radius=r, dilation=d)
+    dw_again = conv_stack.hex_conv_layer_wgrad(x, g, radius=r, dilation=d)
+    dw_want = conv_stack.hex_conv_layer_wgrad_plain(x, g, radius=r,
+                                                    dilation=d)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    if norm_kind:
+        assert _rel(got, want) <= 1e-4
+    else:
+        assert float((got - want).abs().max()) <= 1e-5
+    assert _rel(dx, dx_want) <= 1e-5
+    assert torch.equal(dw, dw_again)
+    assert _rel(dw, dw_want) <= 1e-4
+
+
+def test_f32_fused_stack_at_a_wide_dilation_equals_chained_layers(cuda):
+    """C = 32 at radius 2, dilation 16: the fused stack's tile takes its
+    taps in groups (the weights staged a chunk at a time) and stays
+    bit-equal to chained layers."""
+    gen = torch.Generator(device=cuda).manual_seed(16)
+    c, d = 32, 16
+    x = torch.rand((2, 40, 80, c), generator=gen, device=cuda)
+    ks = [torch.randn((c, c, 7), generator=gen, device=cuda)
+          / math.sqrt(c * 7) for _ in range(3)]
+    bs = [0.1 * torch.randn((c,), generator=gen, device=cuda)
+          for _ in range(3)]
+    relus = [True, True, False]
+    got = conv_stack.hex_conv_fused_stack(x, ks, bs, radius=2, dilation=d,
+                                          relus=relus)
+    plan = dict(conv_stack.LAST_FUSED_PLAN)
+    chained = x
+    for k, b, relu in zip(ks, bs, relus):
+        chained = conv_stack.hex_conv_layer(chained, k, b, radius=2,
+                                            dilation=d, relu=relu)
+    want = conv_stack.hex_conv_fused_stack_plain(x, ks, bs, radius=2,
+                                                 dilation=d, relus=relus)
+    torch.cuda.synchronize()
+    assert torch.equal(got, chained)
+    assert _rel(got, want) <= 1e-4
+    tile = conv_stack._f32_tile(c, c, conv_stack._tap_rows(2, d, False),
+                                conv_stack._patch_shape(2, d, False)[1])
+    assert tile["taps"] < 7
+    assert (plan["n"], plan["rows"], plan["smem"]) == \
+        (tile["cob"], tile["rows"], tile["smem"])

@@ -147,13 +147,14 @@ def test_split_wgrad_is_the_gemm_on_each_input():
 
 def test_wgrad_tile_follows_cin():
     """bf16: N = 8, 16 or 32 input channels from Cin, 64 output channels,
-    7 taps a block; float32 counts 64 x 64 channels and one tap."""
+    7 taps a block; float32: 8, 16 or 32 input and 32 or 64 output channels,
+    a warp a tap, 19 taps in three groups of at most 7."""
     bf = torch.bfloat16
     assert [tcs._wgrad_tile(bf, ci, 32, 7) for ci in (1, 3, 8, 9, 16, 17,
                                                      24, 40, 128)] == \
         [(8, 64, 7), (8, 64, 7), (8, 64, 7), (16, 64, 7), (16, 64, 7),
          (32, 64, 7), (32, 64, 7), (32, 64, 7), (32, 64, 7)]
-    assert tcs._wgrad_tile(torch.float32, 3, 32, 19) == (64, 64, 1)
+    assert tcs._wgrad_tile(torch.float32, 3, 32, 19) == (8, 32, 7)
 
 
 # (Cin, Cout, H, W, B) -> (rows_per_chunk, n_chunks) in bf16: HexCNN-small's
@@ -174,9 +175,9 @@ CHUNKS = {
     "{0}->{1} {2}x{3} b={4}".format(*s) for s in CHUNKS])
 def test_wgrad_chunks_and_scratch(shape):
     """The bf16 chunking: blocks (chunks x channel tiles x tap groups) at
-    ``_WGRAD_MMA_BLOCKS``, each chunk at least one row, the rows spread
-    evenly, and the float32 partial scratch it implies; float32 keeps its
-    own target."""
+    ``_WGRAD_BLOCKS``, each chunk at least one row, the rows spread
+    evenly, and the float32 partial scratch it implies; float32 at the
+    same target over its own tile."""
     cin, cout, h, w, b = shape
     rows = b * h
     rpc, n = tcs._wgrad_chunks(torch.bfloat16, rows, cin, cout, 7)
@@ -184,12 +185,14 @@ def test_wgrad_chunks_and_scratch(shape):
     assert (n - 1) * rpc < rows <= n * rpc
     ci, co, taps = tcs._wgrad_tile(torch.bfloat16, cin, cout, 7)
     tiles = -(-cin // ci) * -(-cout // co) * -(-7 // taps)
-    assert n * tiles < tcs._WGRAD_MMA_BLOCKS + tiles
+    assert n * tiles < tcs._WGRAD_BLOCKS + tiles
     scratch = n * 7 * cin * cout * 4       # (n_chunks, kn, Cin, Cout) f32
     assert scratch <= 64 * 2 ** 20
-    # float32: 2048 target blocks of one tap and 64 x 64 channels, as before
+    # float32: the same target over its own tile (all 7 taps a block)
     rpc32, n32 = tcs._wgrad_chunks(torch.float32, rows, cin, cout, 7)
-    tiles = -(-cin // 64) * -(-cout // 64) * 7
+    ci, co, taps = tcs._wgrad_tile(torch.float32, cin, cout, 7)
+    assert taps == 7
+    tiles = -(-cin // ci) * -(-cout // co)
     want = max(1, min(rows, -(-tcs._WGRAD_BLOCKS // tiles)))
     assert rpc32 == -(-rows // want) and n32 == -(-rows // rpc32)
 

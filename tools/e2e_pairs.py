@@ -9,7 +9,9 @@ for example a ``git archive`` of the parent, or ``ROOT_B``, this one),
 builds HexCNN-small and HexUNet-small (GN, bf16, random weights from a
 seed) as users do, and times by CUDA events, 3 timings each after 2
 warm-up calls: a HexCNN-small request (b=32 512^2, rect->hex included, 20
-calls a timing) and AdamW training step (10), the request's host time
+calls a timing) and AdamW training step (10), the same step of
+HexCNN-small in its default dtype, float32 (``train_hexcnn_f32``, 5), the
+request's host time
 (``serve_hexcnn host``: ``chip_smoke.host_ms``, 10 requests enqueued back
 to back, 3 timings), a HexUNet-small request (b=8, 20) and training step (5), and the pipelines of ``chip_smoke.py``
 phase 13 (P-512, P-512 fused, P-4K; 5 calls), each pipeline also on the
@@ -55,6 +57,8 @@ unet_labels = torch.randint(0, 4, (8, 256, 256), generator=gen,
                             device="cuda")
 cnn_state = create_train_state(hexcnn_small(norm="GN", dtype=bf,
                                             device="cuda", generator=gen))
+cnn32_state = create_train_state(hexcnn_small(norm="GN", device="cuda",
+                                              generator=gen))
 unet_state = create_train_state(HexUNet(dtype=bf, generator=gen, **unet_kw))
 serve_cnn = hexcnn_small(norm="GN", dtype=bf, device="cuda",
                          generator=gen).eval()
@@ -63,6 +67,8 @@ runs = {
     "serve_hexcnn": (True, 20, lambda: serve_cnn(hexify_batch(x_cnn.to(bf)))),
     "train_hexcnn": (False, 10, lambda: train_step(
         cnn_state, hexify_batch(x_cnn), cnn_labels)),
+    "train_hexcnn_f32": (False, 5, lambda: train_step(
+        cnn32_state, hexify_batch(x_cnn), cnn_labels)),
     "serve_hexunet": (True, 20,
                       lambda: serve_unet(hexify_batch(x_unet.to(bf)))),
     "train_hexunet": (False, 5, lambda: train_step(

@@ -26,11 +26,20 @@ in a process of its own:
 * ``plan_gather`` on the device alone (the best of 3 graph replays) at
   ``chip_smoke.KT_GATHER``'s plans (the main paths' plans of phases 3 and
   11), its grid (``resample.last_launch()``) and its max abs difference to
-  ``apply_plan``.
+  ``apply_plan``;
+* the float32 conv passes at HexCNN-small's six layers (b=32, 512^2
+  input): kernel B's conv pass with GN (``kernel_b_f32_ms``), dx of layers
+  1-5 (``dgrad_f32_ms``) and dW of all six (``wgrad_f32_ms``), each summed
+  over its layers by CUDA events, 3 times, and layer by layer
+  (``*_layers_ms``; kernel B's conv pass alone by torch.profiler,
+  ``kernel_b_f32_conv_pass_layers_ms``); each pass's max relative
+  difference to its plain version (``*_rel``) and whether two dW launches
+  are bit-equal; the float32 fused P-512 stack (``fused_f32_ms``) and
+  whether it is bit-equal to chained layers.
 
 Prints the registers and spills ptxas reports for each variant's fused,
-shift and plan-gather kernels, then one ``<name> {json}`` line per
-variant.  A variant whose edits break bit-equality is still timed: it is
+shift, plan-gather and float32 conv kernels, then one ``<name> {json}``
+line per variant.  A variant whose edits break bit-equality is still timed: it is
 a measurement, not a candidate.  Needs the GPU; the script imports no JAX.
 """
 import json
@@ -121,6 +130,68 @@ with torch.inference_mode():
         out[f"plan_gather_{label}_ms"] = min(smoke.graph_ms(
             torch, functools.partial(resample.plan_gather, x, plan))
             for _ in range(3))
+# the float32 conv passes at HexCNN-small's layers
+f32 = {"kernel_b_f32": [], "dgrad_f32": [], "wgrad_f32": []}
+rel = dict.fromkeys(f32, 0.0)
+wgrad_equal = True
+
+
+def _rel(got, want):
+    return float((got - want).abs().max() / want.abs().max())
+
+
+for li, (cin, cout, h, w) in enumerate(smoke.LAYERS):
+    x = torch.rand((32, h, w, cin), generator=gen, device="cuda")
+    g = torch.randn((32, h, w, cout), generator=gen, device="cuda")
+    k = torch.randn((cout, cin, 7), generator=gen, device="cuda") \
+        / (cin * 7) ** 0.5
+    norm = ("gn", 8, torch.ones(cout, device="cuda"),
+            torch.zeros(cout, device="cuda"))
+    passes = {"kernel_b_f32": (
+        functools.partial(cs.hex_conv_layer, x, k, radius=2, norm=norm,
+                          relu=True),
+        functools.partial(cs.hex_conv_layer_plain, x, k, radius=2,
+                          norm=norm, relu=True)),
+        "wgrad_f32": (
+        functools.partial(cs.hex_conv_layer_wgrad, x, g, radius=2),
+        functools.partial(cs.hex_conv_layer_wgrad_plain, x, g, radius=2))}
+    if li:
+        passes["dgrad_f32"] = (
+            functools.partial(cs.hex_conv_layer_dgrad, g, k, radius=2),
+            functools.partial(cs.hex_conv_layer_dgrad_plain, g, k,
+                              radius=2))
+    # outside inference mode: the plain dW is autograd's
+    for name, (kernel, plain) in passes.items():
+        got = kernel()
+        rel[name] = max(rel[name], _rel(got, plain()))
+        if name == "wgrad_f32":
+            wgrad_equal = wgrad_equal and torch.equal(got, kernel())
+        f32[name].append(kernel)
+    del got
+with torch.inference_mode():
+    for name, fns in f32.items():
+        out[f"{name}_ms"] = [sum(smoke.cuda_ms(torch, fn, iters=5)
+                                 for fn in fns) for _ in range(3)]
+        out[f"{name}_layers_ms"] = [smoke.cuda_ms(torch, fn, iters=5)
+                                    for fn in fns]
+        out[f"{name}_rel"] = rel[name]
+    # kernel B's conv pass alone (torch.profiler), layer by layer
+    out["kernel_b_f32_conv_pass_layers_ms"] = [
+        smoke._gn_half(torch, fn)[0] for fn in f32["kernel_b_f32"]]
+    out["wgrad_f32_equal"] = wgrad_equal
+    _, ks32 = smoke.build_pipeline((512, 512), 16, 10, 2, torch.float32)
+    xs32 = xs.float()
+
+    def fused32():
+        return cs.hex_conv_fused_stack(xs32, ks32, radius=2, relus=relus)
+
+    v = xs32
+    for k, r in zip(ks32, relus):
+        v = cs.hex_conv_layer(v, k, radius=2, relu=r)
+    out["fused_f32_equal"] = torch.equal(fused32(), v)
+    out["fused_f32_plan"] = dict(cs.LAST_FUSED_PLAN)
+    out["fused_f32_ms"] = [smoke.cuda_ms(torch, fused32, iters=5)
+                           for _ in range(3)]
 print("RESULT", json.dumps(out))
 '''
 
@@ -130,13 +201,15 @@ BUILD = ("import sys; sys.path.insert(0, sys.argv[1]); "
 
 
 def ptxas_notes(log: str):
-    """ptxas's registers and spills for the fused, shift and plan-gather
-    kernels."""
+    """ptxas's registers and spills for the fused, shift, plan-gather and
+    float32 conv kernels (kernel B's, the fused stack's and the dW's)."""
     lines = log.splitlines()
     for i, line in enumerate(lines):
         if "Compiling entry function" in line and (
-                "fused_stack_mma" in line or "shift_resample_kernel" in line
-                or "plan_gather_kernel" in line):
+                "fused_stack" in line or "shift_resample_kernel" in line
+                or "plan_gather_kernel" in line
+                or "wgrad_partial_kernel" in line
+                or "hex_conv_fma_kernel" in line):
             name = line.split("'")[1] if "'" in line else line
             notes = [x.split(":", 1)[-1].strip() for x in lines[i + 1:i + 4]
                      if "Used" in x or "spill" in x]
