@@ -770,7 +770,6 @@ def check_kernel_b(torch, gen):
 
 
 def run_slice(torch):
-    from hygrid_tpu_torch.kernels import conv_stack, resample
     from hygrid_tpu_torch.models import hexcnn_small, hexify_batch
     gen = torch.Generator(device="cuda").manual_seed(0)
     model = hexcnn_small(norm="GN", dtype=torch.bfloat16, device="cuda",
@@ -787,8 +786,7 @@ def run_slice(torch):
         serve(warm)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        resample.LAUNCHES = 0
-        conv_stack.LAUNCHES = 0
+        _zero_launches()
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         t0 = time.perf_counter()
@@ -797,8 +795,8 @@ def run_slice(torch):
         end.record()
         end.synchronize()
         wall = time.perf_counter() - t0
-        launches = {"plan_gather": resample.LAUNCHES,
-                    "hex_conv_layer": conv_stack.LAUNCHES}
+        launches = {k: v for k, v in _launches().items()
+                    if k in ("plan_gather", "hex_conv_layer")}
         peak = torch.cuda.max_memory_allocated()
         dev_ms = start.elapsed_time(end)
         require(launches["plan_gather"] == N_REQUESTS,
@@ -1074,7 +1072,6 @@ def check_gn_backward(torch, gen):
 
 def run_training(torch):
     """Phase 7: the training slice.  Returns the per-kernel launches."""
-    from hygrid_tpu_torch.kernels import conv_stack as cs, resample
     from hygrid_tpu_torch.models import (create_train_state,
                                          dense_onehot_xent, hexcnn_small,
                                          hexify_batch, train_step)
@@ -1093,8 +1090,7 @@ def run_training(torch):
     step(batches[0])
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    resample.LAUNCHES = cs.LAUNCHES = 0
-    cs.DGRAD_LAUNCHES = cs.WGRAD_LAUNCHES = cs.GN_BWD_LAUNCHES = 0
+    _zero_launches()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     t0 = time.perf_counter()
@@ -1103,11 +1099,8 @@ def run_training(torch):
     end.record()
     end.synchronize()
     wall = time.perf_counter() - t0
-    launches = {"plan_gather": resample.LAUNCHES,
-                "hex_conv_layer": cs.LAUNCHES,
-                "hex_conv_layer_dgrad": cs.DGRAD_LAUNCHES,
-                "hex_conv_wgrad": cs.WGRAD_LAUNCHES,
-                "gn_relu_backward": cs.GN_BWD_LAUNCHES}
+    launches = {k: v for k, v in _launches().items()
+                if k in TRAIN_STEP_LAUNCHES}
     peak = torch.cuda.max_memory_allocated()
     dev_ms = start.elapsed_time(end)
     for name, n in TRAIN_STEP_LAUNCHES.items():
@@ -1176,7 +1169,6 @@ def run_training_f32(torch):
     split, and one step's loss (loss_rel) and every grad (grad_f32_rel)
     against the plain float32 path.  Returns the launches of the requests
     and steps."""
-    from hygrid_tpu_torch.kernels import conv_stack as cs, resample
     from hygrid_tpu_torch.models import (create_train_state,
                                          dense_onehot_xent, hexcnn_small,
                                          hexify_batch, train_step)
@@ -1207,22 +1199,14 @@ def run_training_f32(torch):
         end.synchronize()
         return out, start.elapsed_time(end)
 
-    counters = ("LAUNCHES", "DGRAD_LAUNCHES", "WGRAD_LAUNCHES",
-                "GN_BWD_LAUNCHES")
-
     def launches():
-        return {"plan_gather": resample.LAUNCHES,
-                "hex_conv_layer": cs.LAUNCHES,
-                "hex_conv_layer_dgrad": cs.DGRAD_LAUNCHES,
-                "hex_conv_wgrad": cs.WGRAD_LAUNCHES,
-                "gn_relu_backward": cs.GN_BWD_LAUNCHES}
+        return {k: v for k, v in _launches().items()
+                if k in TRAIN_STEP_LAUNCHES}
 
     with torch.inference_mode():
         serve(batches[0])
         torch.cuda.synchronize()
-        resample.LAUNCHES = 0
-        for c in counters:
-            setattr(cs, c, 0)
+        _zero_launches()
         logits, serve_ms = timed(serve, batches[1:N_REQUESTS + 1])
         served = launches()
     for name, n in SERVE_LAUNCHES.items():
@@ -1238,9 +1222,7 @@ def run_training_f32(torch):
     step(batches[0])
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    resample.LAUNCHES = 0
-    for c in counters:
-        setattr(cs, c, 0)
+    _zero_launches()
     metrics, train_ms = timed(step, batches[1:N_STEPS + 1])
     trained = launches()
     peak = torch.cuda.max_memory_allocated()
@@ -1393,7 +1375,6 @@ def _bf16_ulp(torch, a, b):
 def run_video(torch):
     """Phase 9: the 720p video slice.  Returns the launches of the
     streamed run."""
-    from hygrid_tpu_torch.kernels import resample, resample_shift as rs
     from hygrid_tpu_torch.models import video
     from hygrid_tpu_torch.nn import filters
     from hygrid_tpu_torch.ops import geometry, sampling
@@ -1408,7 +1389,7 @@ def run_video(torch):
         proc(staged[0])
         batch(torch.stack(staged[:MICROBATCH]))
         torch.cuda.synchronize()
-        rs.LAUNCHES = resample.LAUNCHES = 0
+        _zero_launches()
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -1417,9 +1398,11 @@ def run_video(torch):
         end.record()
         end.synchronize()
         dev_ms = start.elapsed_time(end) / VIDEO_TIMED
-        require((rs.LAUNCHES, resample.LAUNCHES) == (VIDEO_TIMED, 0),
-                f"video: {rs.LAUNCHES} shift_resample and "
-                f"{resample.LAUNCHES} plan_gather launches for "
+        got = _launches()
+        require((got["shift_resample"], got["plan_gather"])
+                == (VIDEO_TIMED, 0),
+                f"video: {got['shift_resample']} shift_resample and "
+                f"{got['plan_gather']} plan_gather launches for "
                 f"{VIDEO_TIMED} frames")
 
         graph_frame_ms = graph_ms(torch, lambda: proc(staged[0]))
@@ -1430,11 +1413,11 @@ def run_video(torch):
             list(video.process_stream(iter(frames[:2 * mb]), processor,
                                       microbatch=mb))
             stats = video.StreamStats()
-            rs.LAUNCHES = resample.LAUNCHES = 0
+            _zero_launches()
             outs = list(video.process_stream(iter(frames), processor, stats,
                                              depth=8, microbatch=mb))
-            launches = {"shift_resample": rs.LAUNCHES,
-                        "plan_gather": resample.LAUNCHES}
+            launches = {k: v for k, v in _launches().items()
+                        if k in ("shift_resample", "plan_gather")}
             calls = -(-VIDEO_FRAMES // mb)
             require(launches == {"shift_resample": calls, "plan_gather": 0},
                     f"video {label} stream: launches {launches} for "
@@ -1490,7 +1473,7 @@ def run_mosaic(torch):
         for img in (img32, img8):
             render.render_mosaic(img, out_size)
             torch.cuda.synchronize()
-            rs.LAUNCHES = resample.LAUNCHES = 0
+            _zero_launches()
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
             start.record()
@@ -1499,11 +1482,13 @@ def run_mosaic(torch):
             end.record()
             end.synchronize()
             ms = start.elapsed_time(end) / MOSAIC_RENDERS
-            require((rs.LAUNCHES, resample.LAUNCHES) == (MOSAIC_RENDERS, 0),
-                    f"mosaic {img.dtype}: {rs.LAUNCHES} shift_resample and "
-                    f"{resample.LAUNCHES} plan_gather launches for "
-                    f"{MOSAIC_RENDERS} renders")
-            launches["shift_resample"] += rs.LAUNCHES
+            got = _launches()
+            require((got["shift_resample"], got["plan_gather"])
+                    == (MOSAIC_RENDERS, 0),
+                    f"mosaic {img.dtype}: {got['shift_resample']} "
+                    f"shift_resample and {got['plan_gather']} plan_gather "
+                    f"launches for {MOSAIC_RENDERS} renders")
+            launches["shift_resample"] += got["shift_resample"]
             want = sampling.apply_plan(
                 img.to(torch.bfloat16) if img.dtype == torch.float32
                 else img, plan).to(img.dtype)
@@ -1817,8 +1802,6 @@ def _run_pipeline(torch, name, batch, shape, fused):
     """One configuration of phase 13; returns its launches.  A function of
     its own, so that one configuration's tensors are freed before the
     next one's peak memory is read."""
-    from hygrid_tpu_torch.kernels import conv_stack as cs
-    from hygrid_tpu_torch.kernels import resample, resample_shift as rs
     t0 = time.perf_counter()
     pipe, _ = build_pipeline(shape, PIPE_CHANNELS, PIPE_LAYERS, PIPE_RADIUS,
                              torch.bfloat16, fused=fused)
@@ -1832,8 +1815,7 @@ def _run_pipeline(torch, name, batch, shape, fused):
         torch.cuda.synchronize()
         setup = time.perf_counter() - t0
         torch.cuda.reset_peak_memory_stats()
-        resample.LAUNCHES = rs.LAUNCHES = 0
-        cs.LAUNCHES = cs.FUSED_LAUNCHES = 0
+        _zero_launches()
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -1842,10 +1824,9 @@ def _run_pipeline(torch, name, batch, shape, fused):
         end.synchronize()
         ms = start.elapsed_time(end) / PIPE_CALLS
         peak = torch.cuda.max_memory_allocated()
-        launches = {"plan_gather": resample.LAUNCHES,
-                    "shift_resample": rs.LAUNCHES,
-                    "hex_conv_layer": cs.LAUNCHES,
-                    "hex_conv_fused_stack": cs.FUSED_LAUNCHES}
+        launches = {k: v for k, v in _launches().items()
+                    if k in ("plan_gather", "shift_resample",
+                             "hex_conv_layer", "hex_conv_fused_stack")}
         n_layers = PIPE_LAYERS + 1
         want = {"plan_gather": 2, "shift_resample": 0,
                 "hex_conv_layer": 0 if fused else n_layers,
@@ -2088,22 +2069,36 @@ def _timed_windows(torch, routes, xs, first_ms):
         n = math.ceil(n * 1.1 * PERMODULE_WINDOW_MS / shortest)
 
 
-def _launch_counters():
-    """Every kernel's launch counter: ``{kernel name: (module, attribute)}``."""
-    from hygrid_tpu_torch.kernels import conv_single, conv_stack, resample
-    from hygrid_tpu_torch.kernels import resample_shift as rs
-    return {"plan_gather": (resample, "LAUNCHES"),
-            "shift_resample": (rs, "LAUNCHES"),
-            "hex_conv_layer": (conv_stack, "LAUNCHES"),
-            "hex_conv_layer_split": (conv_stack, "SPLIT_LAUNCHES"),
-            "hex_conv_layer_dgrad": (conv_stack, "DGRAD_LAUNCHES"),
-            "hex_conv_wgrad": (conv_stack, "WGRAD_LAUNCHES"),
-            "hex_conv_layer_split_dgrad": (conv_stack,
-                                           "SPLIT_DGRAD_LAUNCHES"),
-            "hex_conv_wgrad_split": (conv_stack, "SPLIT_WGRAD_LAUNCHES"),
-            "gn_relu_backward": (conv_stack, "GN_BWD_LAUNCHES"),
-            "hex_conv_fused_stack": (conv_stack, "FUSED_LAUNCHES"),
-            "hex_conv_single": (conv_single, "LAUNCHES")}
+KERNELS = {"plan_gather": "plan_gather",
+           "shift_resample": "shift_resample",
+           "hex_conv_layer": "hex_conv_layer",
+           "hex_conv_layer_split": "hex_conv_layer_split",
+           "hex_conv_layer_dgrad": "hex_conv_layer_dgrad",
+           "hex_conv_wgrad": "hex_conv_layer_wgrad",
+           "hex_conv_layer_split_dgrad": "hex_conv_layer_split_dgrad",
+           "hex_conv_wgrad_split": "hex_conv_layer_split_wgrad",
+           "gn_relu_backward": "gn_relu_backward",
+           "hex_conv_fused_stack": "hex_conv_fused_stack",
+           "hex_conv_single": "hex_conv_single"}
+"""Every kernel's launch counter: ``{label on this script's lines: its
+name in hygrid_tpu_torch.utils.profiling.counts()}``."""
+_LAUNCH_ZERO: dict = {}
+
+
+def _zero_launches():
+    """Count kernel launches from here on (:func:`_launches`)."""
+    from hygrid_tpu_torch.utils.profiling import counts
+    _LAUNCH_ZERO.clear()
+    _LAUNCH_ZERO.update(counts())
+
+
+def _launches() -> dict:
+    """Every kernel's launches since the last :func:`_zero_launches`, by
+    label (:data:`KERNELS`)."""
+    from hygrid_tpu_torch.utils.profiling import counts
+    now = counts()
+    return {label: now.get(name, 0) - _LAUNCH_ZERO.get(name, 0)
+            for label, name in KERNELS.items()}
 
 
 def _run_permodule(torch, config, batch, size):
@@ -2126,7 +2121,7 @@ def _run_permodule(torch, config, batch, size):
     in_gen = torch.Generator(device="cuda").manual_seed(8)
     xs = [torch.rand((batch, 3, size, size), generator=in_gen,
                      device="cuda") for _ in range(N_REQUESTS + 1)]
-    counters = _launch_counters()
+    counters = KERNELS
     per_request = {"a": {"plan_gather": 1}, "b": {"plan_gather": 1,
                                                   "hex_conv_single": 5}}
     launches, first_ms, reports = {}, {}, {}
@@ -2138,15 +2133,13 @@ def _run_permodule(torch, config, batch, size):
             serve(xs[0])
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
-            for mod, attr in counters.values():
-                setattr(mod, attr, 0)
+            _zero_launches()
             t0 = time.perf_counter()
             outs = [serve(x) for x in xs[1:]]
             torch.cuda.synchronize()
             first_ms[route] = (time.perf_counter() - t0) * 1e3 / N_REQUESTS
             peak = torch.cuda.max_memory_allocated()
-            got = {name: getattr(mod, attr)
-                   for name, (mod, attr) in counters.items()}
+            got = _launches()
             want = {name: per_request[route].get(name, 0) * N_REQUESTS
                     for name in counters}
             require(got == want, f"{config} route ({route}): launches "
@@ -2324,16 +2317,14 @@ def run_hexunet(torch):
     def serve(x, m=model):
         return m(hexify_batch(x.to(torch.bfloat16)))
 
-    counters = _launch_counters()
+    counters = KERNELS
     per_request = {"plan_gather": 1, "hex_conv_layer": 3,
                    "hex_conv_layer_split": 2}
 
     def counted(fn, n):
-        for mod, attr in counters.values():
-            setattr(mod, attr, 0)
+        _zero_launches()
         out = fn()
-        got = {name: getattr(mod, attr)
-               for name, (mod, attr) in counters.items()}
+        got = _launches()
         want = {name: per_request.get(name, 0) * n for name in counters}
         require(got == want, f"HexUNet: launches {got}, want {want}")
         return out, {k: v for k, v in got.items() if v}
@@ -2595,7 +2586,7 @@ def run_hexunet_training(torch):
     def step(batch):
         return train_step(state, hexify_batch(batch[0]), batch[1])[1]
 
-    counters = _launch_counters()
+    counters = KERNELS
     per_step = {"plan_gather": 1, "hex_conv_layer": 3,
                 "hex_conv_layer_split": 2, "hex_conv_layer_dgrad": 2,
                 "hex_conv_layer_split_dgrad": 4, "hex_conv_wgrad": 3,
@@ -2603,13 +2594,12 @@ def run_hexunet_training(torch):
     step(data[0])
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    for mod, attr in counters.values():
-        setattr(mod, attr, 0)
+    _zero_launches()
     t0 = time.perf_counter()
     metrics = [step(b) for b in data[1:N_STEPS + 1]]
     torch.cuda.synchronize()
     first_ms = (time.perf_counter() - t0) * 1e3 / N_STEPS
-    got = {name: getattr(mod, attr) for name, (mod, attr) in counters.items()}
+    got = _launches()
     want = {name: per_step.get(name, 0) * N_STEPS for name in counters}
     require(got == want, f"HexUNet training: launches {got}, want {want}")
     launches = {k: v for k, v in got.items() if v}
@@ -2756,9 +2746,8 @@ def _affine_stack_path(torch, gen):
     stages = [dict(x=image, kernels=[kernel(32, 3), kernel(32, 32)]),
               dict(x=up, extra_input=skip,
                    kernels=[kernel(32, 64), kernel(32, 32)])]
-    counters = _launch_counters()
-    for mod, attr in counters.values():
-        setattr(mod, attr, 0)
+    counters = KERNELS
+    _zero_launches()
     for st in stages:
         norms = [affine(32) for _ in st["kernels"]]
         out = cs.hex_conv_stack(
@@ -2772,7 +2761,7 @@ def _affine_stack_path(torch, gen):
                     for g in grads), "affine stack: missing or non-finite "
                                      "grads")
     torch.cuda.synchronize()
-    got = {name: getattr(mod, attr) for name, (mod, attr) in counters.items()}
+    got = _launches()
     want = {"hex_conv_layer": 3, "hex_conv_layer_split": 1,
             "hex_conv_layer_dgrad": 2, "hex_conv_layer_split_dgrad": 2,
             "hex_conv_wgrad": 3, "hex_conv_wgrad_split": 2}
@@ -2933,19 +2922,17 @@ def run_hexvit(torch):
     def serve(x, m=model):
         return m(hexify_batch(x.to(torch.bfloat16)))
 
-    counters = _launch_counters()
+    counters = KERNELS
     with torch.inference_mode():
         serve(xs[0])
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        for mod, attr in counters.values():
-            setattr(mod, attr, 0)
+        _zero_launches()
         t0 = time.perf_counter()
         outs = [serve(x) for x in xs[1:]]
         torch.cuda.synchronize()
         first_ms = (time.perf_counter() - t0) * 1e3 / N_REQUESTS
-        got = {name: getattr(mod, attr)
-               for name, (mod, attr) in counters.items()}
+        got = _launches()
         want = {name: N_REQUESTS if name == "plan_gather" else 0
                 for name in counters}
         require(got == want, f"HexViT: launches {got}, want {want}")
@@ -3077,9 +3064,8 @@ def _train_model(torch, label, state, batches, labels, refs, per_step,
     step(batches[0], labels[0])
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    counters = _launch_counters()
-    for mod, attr in counters.values():
-        setattr(mod, attr, 0)
+    counters = KERNELS
+    _zero_launches()
     means = [b for n, b in state.model.named_buffers()
              if n.endswith("running_mean")]
     start = torch.cuda.Event(enable_timing=True)
@@ -3095,7 +3081,7 @@ def _train_model(torch, label, state, batches, labels, refs, per_step,
     end.synchronize()
     ms = start.elapsed_time(end) / N_STEPS
     peak = torch.cuda.max_memory_allocated()
-    got = {name: getattr(mod, attr) for name, (mod, attr) in counters.items()}
+    got = _launches()
     want = {name: per_step.get(name, 0) * N_STEPS for name in counters}
     require(got == want, f"{label}: launches {got}, want {want}")
     losses = [float(m["loss"]) for m in metrics]
@@ -3259,14 +3245,12 @@ def run_new_training(torch):
     # the card (one plan_gather a batch, in the counted path) and, for the
     # check, on the CPU (the plain version)
     t0 = time.perf_counter()
-    counters = _launch_counters()
-    for mod, attr in counters.values():
-        setattr(mod, attr, 0)
+    counters = KERNELS
+    _zero_launches()
     data = [synthetic_hex_cifar(np.random.default_rng(20 + i),
                                 HEXRESNET_BATCH, device="cuda")
             for i in range(N_STEPS + 2)]
-    prep = {name: getattr(mod, attr) for name, (mod, attr) in
-            counters.items()}
+    prep = _launches()
     require(prep == {n: len(data) if n == "plan_gather" else 0
                      for n in counters},
             f"HexResNet data: launches {prep}")
@@ -3349,15 +3333,13 @@ def run_augment_training(torch):
 
     step(batches[0])
     step(batches[0], aug=False)
-    counters = _launch_counters()
-    for mod, attr in counters.values():
-        setattr(mod, attr, 0)
+    counters = KERNELS
+    _zero_launches()
     # the checked run: N_STEPS augmented steps whose draws and batches are
     # kept for the checks below, outside the timed runs
     metrics = [step(b, keep=True) for b in batches[:N_STEPS]]
     torch.cuda.synchronize()
-    launches = {n: getattr(m, a) for n, (m, a) in counters.items()
-                if getattr(m, a)}
+    launches = {n: v for n, v in _launches().items() if v}
     # augmented and plain runs in turns (aug, plain, plain, aug), each over
     # the same N_STEPS distinct batches, with no bookkeeping in them
     aug_ms = [timed(True)]
@@ -3461,7 +3443,7 @@ def check_hexrot(torch, gen):
                      device="cuda") * 255
     xs = {"float32": x32, "bfloat16": x32.to(torch.bfloat16),
           "uint8": x32.to(torch.uint8)}
-    counters = _launch_counters()
+    counters = KERNELS
     launches, summary = {}, {}
     for k in range(1, 6):
         plan = hexrot.rot_plan(256, 256, k)
@@ -3472,13 +3454,11 @@ def check_hexrot(torch, gen):
             require(tables.index_form == "dense",
                     f"hexrot60 k={k}: {tables.index_form} index form, not "
                     "dense")
-            for mod, attr in counters.values():
-                setattr(mod, attr, 0)
+            _zero_launches()
             got = hexrot.hexrot60(x, k)
             again = hexrot.hexrot60(x, k)
             torch.cuda.synchronize()
-            used = {n: getattr(m, a) for n, (m, a) in counters.items()
-                    if getattr(m, a)}
+            used = {n: v for n, v in _launches().items() if v}
             require(used == {"plan_gather": 2},
                     f"hexrot60 k={k} {name}: launches {used}")
             for n, c in used.items():
@@ -3538,14 +3518,13 @@ def run_ingest(torch):
                           dtype=np.uint16)
     stage("make", t0)
     (ROOT / "build").mkdir(exist_ok=True)
-    counters = _launch_counters()
+    counters = KERNELS
     with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
         path = str(Path(tmp) / "s2_l2a_10m.tif")
         t0 = time.perf_counter()
         codecs.write_raster(path, raster, S2_GEO, S2_PROJ, compress="none")
         stage("write", t0)
-        for mod, attr in counters.values():
-            setattr(mod, attr, 0)
+        _zero_launches()
         # the main path: disk -> IMAGE -> tiled rect->hex on the card ->
         # pad -> HEXIMAGE window -> mosaic -> .heximg round trip
         t0 = time.perf_counter()
@@ -3580,8 +3559,7 @@ def run_ingest(torch):
         him.SaveHexImage(str(Path(tmp) / "window.heximg"))
         back = HEXIMAGE(str(Path(tmp) / "window.heximg"))
         stage("heximg", t0)
-        launches = {n: getattr(m, a) for n, (m, a) in counters.items()
-                    if getattr(m, a)}
+        launches = {n: v for n, v in _launches().items() if v}
         n_tiles = -(-S2_HEX[0] // S2_TILE_ROWS)
         require(launches == {"plan_gather": n_tiles, "shift_resample": 1},
                 f"ingest: launches {launches}, want {n_tiles} plan_gather "
@@ -3775,16 +3753,14 @@ def _counts():
     """(kernel launches, collectives) since the last :func:`_zero_counts`,
     only those that are not zero."""
     from hygrid_tpu_torch.parallel import _comm
-    launches = {name: getattr(mod, attr)
-                for name, (mod, attr) in _launch_counters().items()}
+    launches = _launches()
     return ({k: v for k, v in launches.items() if v},
             {k: v for k, v in _comm.COUNTS.items() if v})
 
 
 def _zero_counts():
     from hygrid_tpu_torch.parallel import _comm
-    for mod, attr in _launch_counters().values():
-        setattr(mod, attr, 0)
+    _zero_launches()
     _comm.reset_counts()
 
 

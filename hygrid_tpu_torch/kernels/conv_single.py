@@ -41,13 +41,11 @@ import torch
 from torch.autograd.function import once_differentiable
 
 from ..nn import functional as F
+from ..utils.profiling import count
 from . import _build, _ops, conv_stack
 
 __all__ = ["hex_conv_single", "hex_conv_single_plain",
            "pallas_conv_applicable", "takes_single_route"]
-
-LAUNCHES = 0
-"""Number of ``hex_conv_single`` kernel launches."""
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -196,8 +194,7 @@ def _single_fake(x, kernel, parity, radius, dilation):
 
 def _launch(x, kernel, parity, radius, dilation):
     """The op's launch: one ``hg_hex_conv_single`` call on padded NCHW
-    ``x``, counted in ``LAUNCHES``."""
-    global LAUNCHES
+    ``x``, counted as ``"hex_conv_single"`` (``utils.profiling.counts``)."""
     if x.dtype not in _DTYPES:
         raise TypeError(f"hex_conv_single: the kernel takes float32 or "
                         f"bfloat16 activations, got {x.dtype}")
@@ -229,7 +226,7 @@ def _launch(x, kernel, parity, radius, dilation):
             x.data_ptr(), wt.data_ptr(), out.data_ptr(), _DTYPES[x.dtype], b,
             h, w, cin, ho, wo, cout, kn, table.ctypes.data, stream)
     _build.check(status, "hex_conv_single")
-    LAUNCHES += 1
+    count("hex_conv_single")
     return out
 
 

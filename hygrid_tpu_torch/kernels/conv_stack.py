@@ -93,6 +93,7 @@ import torch
 from torch.autograd.function import once_differentiable
 
 from ..nn import functional as F
+from ..utils.profiling import count, span
 from . import _build, _ops
 
 __all__ = ["hex_conv_layer", "hex_conv_layer_plain", "hex_conv_layer_dgrad",
@@ -106,34 +107,11 @@ __all__ = ["hex_conv_layer", "hex_conv_layer_plain", "hex_conv_layer_dgrad",
            "gn_backward_plan", "gn_backward_device",
            "affine_relu_backward", "hex_conv_stack"]
 
-LAUNCHES = 0
-"""Number of layers run by the kernel (one GN layer is three CUDA launches
-and counts once)."""
-DGRAD_LAUNCHES = 0
-"""Number of dL/dx launches (:func:`hex_conv_layer_dgrad`)."""
-WGRAD_LAUNCHES = 0
-"""Number of dL/dW runs (:func:`hex_conv_layer_wgrad`; two CUDA launches
-each)."""
-FUSED_LAUNCHES = 0
-"""Number of whole-stack launches (:func:`hex_conv_fused_stack`)."""
 LAST_FUSED_PLAN: dict = {}
 """The tile the C side chose for the last fused-stack launch: ``n`` (the
 tile's output channels), ``rows`` (band rows), ``threads`` a block,
 ``weights`` ("layer" or "chunk"), ``smem`` bytes, ``grid``,
 ``blocks_per_sm`` and the batch ``group``."""
-SPLIT_LAUNCHES = 0
-"""Number of split layers run by the kernel (:func:`hex_conv_layer_split`;
-one GN layer is three CUDA launches and counts once)."""
-SPLIT_DGRAD_LAUNCHES = 0
-"""Number of dgrad launches made by :func:`hex_conv_layer_split_dgrad`
-(two a split layer, one on each input's part of the kernel)."""
-SPLIT_WGRAD_LAUNCHES = 0
-"""Number of dW runs made by :func:`hex_conv_layer_split_wgrad` (two a
-split layer, one on each input; a run is two CUDA launches)."""
-GN_BWD_LAUNCHES = 0
-"""Number of GN/ReLU tail backward launches (:func:`gn_relu_backward`, one a
-GN layer's backward: one cooperative launch after a memset of its
-counters)."""
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _EPS = 1e-5
@@ -550,10 +528,9 @@ def gn_relu_backward(y, mean, rstd, gamma, beta, gout, groups: int,
     A CPU tensor runs :func:`gn_relu_backward_plain`.  A CUDA tensor (gout
     float32 or bfloat16, C <= 1024) launches ``csrc/gn_backward.cu`` once
     (one cooperative pass over ``(y, gout)`` staged in shared memory, walked
-    as :func:`gn_backward_plan` says, with fixed-order folds; counted in
-    ``GN_BWD_LAUNCHES``); anything else raises, as does a device that cannot
-    run the launch."""
-    global GN_BWD_LAUNCHES
+    as :func:`gn_backward_plan` says, with fixed-order folds; counted as
+    ``"gn_relu_backward"``); anything else raises, as does a device that
+    cannot run the launch."""
     if y.device.type == "cpu":
         return gn_relu_backward_plain(y, mean, rstd, gamma, beta, gout,
                                       groups, relu)
@@ -593,7 +570,7 @@ def gn_relu_backward(y, mean, rstd, gamma, beta, gout, groups: int,
             n_scratch, gpre.data_ptr(), grads.data_ptr(), _DTYPES[gout.dtype],
             b, h * w, c, groups, int(relu), _EPS, fields, stream)
     _build.check(status, what)
-    GN_BWD_LAUNCHES += 1
+    count("gn_relu_backward")
     return gpre, grads[0], grads[1], grads[2]
 
 
@@ -835,9 +812,9 @@ def _layer_cpu(x, x2, kernel, bias, p, q, radius, dilation, kind, groups,
 
 def _layer_cuda(x, x2, kernel, bias, p, q, radius, dilation, kind, groups,
                 relu, save_pre):
-    """The op's launch of kernel B (its split mode with ``x2``), counted in
-    ``LAUNCHES`` (``SPLIT_LAUNCHES``)."""
-    global LAUNCHES, SPLIT_LAUNCHES
+    """The op's launch of kernel B (its split mode with ``x2``), counted as
+    ``"hex_conv_layer"`` (``"hex_conv_layer_split"``); a GN layer is three
+    CUDA launches and counts once."""
     what = "hex_conv_layer" if x2 is None else "hex_conv_layer_split"
     if x2 is None:
         _check_activations(x, what)
@@ -851,10 +828,7 @@ def _layer_cuda(x, x2, kernel, bias, p, q, radius, dilation, kind, groups,
     out, y, stats = _conv_launch(x, wt, cout, (radius, dilation, False),
                                  what, bias, _norm_spec(kind, groups, p, q),
                                  relu, x2=x2, save_pre=save_pre)
-    if x2 is None:
-        LAUNCHES += 1
-    else:
-        SPLIT_LAUNCHES += 1
+    count(what)
 
     def empty():
         return torch.empty(0, dtype=torch.float32, device=x.device)
@@ -910,9 +884,10 @@ class _HexConvLayer(torch.autograd.Function):
         dp = dq = None
         if kind is not None:
             if kind == "gn":
-                gpre, dp, dq, dbias = gn_relu_backward(
-                    y, stats[..., 0], stats[..., 1], p, q,
-                    gout.contiguous(), groups, relu)
+                with span("hygrid.gn_backward"):
+                    gpre, dp, dq, dbias = gn_relu_backward(
+                        y, stats[..., 0], stats[..., 1], p, q,
+                        gout.contiguous(), groups, relu)
             else:
                 gpre, dp, dq, dbias = affine_relu_backward(y, p, gout, out)
             gpre = gpre.to(x.dtype).contiguous()
@@ -1002,8 +977,8 @@ def hex_conv_layer_split(a: torch.Tensor, b: torch.Tensor,
     A CPU tensor runs the plain versions (forward and backward, as
     :func:`hex_conv_layer_split_plain` on the concatenation).  A CUDA
     tensor (float32 or bfloat16, contiguous, both inputs alike) launches
-    the split mode of ``csrc/hex_conv_layer.cu`` (counted in
-    ``SPLIT_LAUNCHES``), and its backward the split dgrad and wgrad
+    the split mode of ``csrc/hex_conv_layer.cu`` (counted as
+    ``"hex_conv_layer_split"``), and its backward the split dgrad and wgrad
     kernels; anything else raises.
     """
     if a.device.type not in ("cpu", "cuda"):
@@ -1030,7 +1005,6 @@ def hex_conv_layer_dgrad(gpre: torch.Tensor, kernel: torch.Tensor, *,
     adjoint tap table and the weights transposed to ``(kn, Cout, Cin)``.
     A CPU tensor runs :func:`hex_conv_layer_dgrad_plain`.
     """
-    global DGRAD_LAUNCHES
     if gpre.device.type == "cpu":
         return hex_conv_layer_dgrad_plain(gpre, kernel, radius=radius,
                                           dilation=dilation)
@@ -1042,7 +1016,7 @@ def hex_conv_layer_dgrad(gpre: torch.Tensor, kernel: torch.Tensor, *,
     _check_kernel(kernel, (cout, cin, F.hex_kernel_num(radius)), gpre.device,
                   "hex_conv_layer_dgrad")
     dx = _dgrad_launch(gpre, kernel, radius, dilation, "hex_conv_layer_dgrad")
-    DGRAD_LAUNCHES += 1
+    count("hex_conv_layer_dgrad")
     return dx
 
 
@@ -1054,13 +1028,12 @@ def hex_conv_layer_split_dgrad(gpre: torch.Tensor, kernel: torch.Tensor,
     Cin, kn)``.
 
     On CUDA it is :func:`hex_conv_layer_dgrad`'s pass launched on
-    ``kernel[:, :ca]`` and on ``kernel[:, ca:]`` (each launch counted in
-    ``SPLIT_DGRAD_LAUNCHES``).  An output channel's sum does not depend on
+    ``kernel[:, :ca]`` and on ``kernel[:, ca:]`` (each launch counted as
+    ``"hex_conv_layer_split_dgrad"``).  An output channel's sum does not depend on
     the other output channels, so the pair is bit-equal to the unsplit
     dgrad cut at ``ca``.  A CPU tensor runs
     :func:`hex_conv_layer_split_dgrad_plain`.
     """
-    global SPLIT_DGRAD_LAUNCHES
     if gpre.device.type == "cpu":
         return hex_conv_layer_split_dgrad_plain(gpre, kernel, ca,
                                                 radius=radius,
@@ -1078,7 +1051,7 @@ def hex_conv_layer_split_dgrad(gpre: torch.Tensor, kernel: torch.Tensor,
     out = []
     for part in (kernel[:, :ca], kernel[:, ca:]):
         out.append(_dgrad_launch(gpre, part, radius, dilation, what))
-        SPLIT_DGRAD_LAUNCHES += 1
+        count(what)
     return tuple(out)
 
 
@@ -1183,7 +1156,6 @@ def hex_conv_layer_wgrad(x: torch.Tensor, gpre: torch.Tensor, *,
     on the tensor cores in bfloat16, then a fold in chunk order:
     deterministic).  A CPU tensor runs :func:`hex_conv_layer_wgrad_plain`.
     """
-    global WGRAD_LAUNCHES
     if x.device.type == "cpu":
         return hex_conv_layer_wgrad_plain(x, gpre, radius=radius,
                                           dilation=dilation)
@@ -1192,7 +1164,7 @@ def hex_conv_layer_wgrad(x: torch.Tensor, gpre: torch.Tensor, *,
                          f"{x.device}")
     _check_pair(x, gpre, "hex_conv_layer_wgrad")
     dw = _wgrad_launch(x, gpre, radius, dilation, "hex_conv_layer_wgrad")
-    WGRAD_LAUNCHES += 1
+    count("hex_conv_layer_wgrad")
     return dw
 
 
@@ -1205,11 +1177,11 @@ def hex_conv_layer_split_wgrad(a: torch.Tensor, b: torch.Tensor,
     ``(B, H, W, Cout)``, all of one dtype.
 
     On CUDA it runs :func:`hex_conv_layer_wgrad`'s kernel on ``a`` and on
-    ``b`` (each run counted in ``SPLIT_WGRAD_LAUNCHES``) and concatenates
+    ``b`` (each run counted as ``"hex_conv_layer_split_wgrad"``; a run is
+    two CUDA launches) and concatenates
     the two along Cin, as the reference does.  A CPU tensor runs
     :func:`hex_conv_layer_split_wgrad_plain`.
     """
-    global SPLIT_WGRAD_LAUNCHES
     if a.device.type == "cpu":
         return hex_conv_layer_split_wgrad_plain(a, b, gpre, radius=radius,
                                                 dilation=dilation)
@@ -1222,7 +1194,7 @@ def hex_conv_layer_split_wgrad(a: torch.Tensor, b: torch.Tensor,
     out = []
     for x in (a, b):
         out.append(_wgrad_launch(x, gpre, radius, dilation, what))
-        SPLIT_WGRAD_LAUNCHES += 1
+        count(what)
     return torch.cat(out, dim=1)
 
 
@@ -1239,8 +1211,8 @@ def hex_conv_fused_stack_plain(x: torch.Tensor, kernels, biases, *,
 
 
 def _fused_launch(x, kernels, biases, radius, dilation, relus):
-    """One ``hg_hex_conv_fused_stack`` call on checked NHWC ``x``."""
-    global FUSED_LAUNCHES
+    """One ``hg_hex_conv_fused_stack`` call on checked NHWC ``x``, counted
+    as ``"hex_conv_fused_stack"``."""
     _check_activations(x, "hex_conv_fused_stack")
     b, h, w, c = x.shape
     n = len(kernels)
@@ -1274,7 +1246,7 @@ def _fused_launch(x, kernels, biases, radius, dilation, relus):
             group, h, w, c, kn, _taps(radius, dilation).ctypes.data,
             plan.ctypes.data, stream)
     _build.check(status, "hex_conv_fused_stack")
-    FUSED_LAUNCHES += 1
+    count("hex_conv_fused_stack")
     LAST_FUSED_PLAN.clear()
     LAST_FUSED_PLAN.update(zip(
         ("n", "rows", "threads", "weights", "smem", "grid", "blocks_per_sm"),

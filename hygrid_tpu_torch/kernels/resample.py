@@ -57,14 +57,12 @@ import torch
 from torch.autograd.function import once_differentiable
 
 from ..ops.sampling import SamplePlan, gather_blend
+from ..utils.profiling import count
 from . import _build, _ops
 
 __all__ = ["plan_gather", "plan_gather_vjp_plain", "rowsep_decompose",
            "rowsep_decompose_cached", "GatherTables", "gather_tables",
            "gather_tables_cached", "dense_plan", "last_launch"]
-
-LAUNCHES = 0
-"""Number of kernel launches made by :func:`plan_gather`."""
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _MAX_TAPS = 8
@@ -514,9 +512,8 @@ def _plan_gather_cpu(image, idx, dk, weights, rowf, colf, rowbase,
 def _plan_gather_cuda(image, idx, dk, weights, rowf, colf, rowbase,
                       tile_row_lo, tile_col_lo, h, w, h1, w1, esz, index_form,
                       weight_form, band_rows, band_pitch, exact_select):
-    """The op's launch of ``csrc/plan_gather.cu``, counted in
-    ``LAUNCHES``."""
-    global LAUNCHES
+    """The op's launch of ``csrc/plan_gather.cu``, counted as
+    ``"plan_gather"`` (``utils.profiling.counts``)."""
     if image.dtype not in _DTYPES:
         raise TypeError(f"plan_gather: the kernel takes float32 or bfloat16 "
                         f"images, got {image.dtype}")
@@ -550,7 +547,7 @@ def _plan_gather_cuda(image, idx, dk, weights, rowf, colf, rowbase,
             image.data_ptr(), out.data_ptr(), _DTYPES[image.dtype], n_planes,
             ctypes.addressof(args), stream)
     _build.check(status, "plan_gather")
-    LAUNCHES += 1
+    count("plan_gather")
     return out
 
 

@@ -51,6 +51,7 @@ import torch
 from torch.autograd.function import once_differentiable
 
 from ..ops.sampling import SamplePlan
+from ..utils.profiling import count
 from . import _build, _ops
 from .resample import (_check_image, _out_dtype, rowsep_decompose,
                        rowsep_decompose_cached)
@@ -58,9 +59,6 @@ from .resample import (_check_image, _out_dtype, rowsep_decompose,
 __all__ = ["rowsep_decompose", "ShiftGeometry", "expand_weights",
            "shift_decompose", "shift_decompose_cached", "slot_shifts",
            "shift_resample", "shift_resample_plain"]
-
-LAUNCHES = 0
-"""Number of kernel launches made by :func:`shift_resample`."""
 
 _MAX_SHIFTS = 8
 _MAX_SLOTS = 10
@@ -331,9 +329,8 @@ class _ShiftResample(torch.autograd.Function):
 
 def _shift_cuda(image, rowbase, phase_idx, wtab, form, slot_d, slot_s, h, w,
                 h1, w1, num, den):
-    """The op's launch of ``csrc/shift_resample.cu``, counted in
-    ``LAUNCHES``."""
-    global LAUNCHES
+    """The op's launch of ``csrc/shift_resample.cu``, counted as
+    ``"shift_resample"`` (``utils.profiling.counts``)."""
     if image.dtype not in _DTYPES:
         raise TypeError(f"shift_resample: the kernel takes float32 or "
                         f"bfloat16 images, got {image.dtype}")
@@ -361,7 +358,7 @@ def _shift_cuda(image, rowbase, phase_idx, wtab, form, slot_d, slot_s, h, w,
             slot_s.ctypes.data, len(slot_d), n_planes, h, w, h1, w1, num,
             den, _DTYPES[image.dtype], stream)
     _build.check(status, "shift_resample")
-    LAUNCHES += 1
+    count("shift_resample")
     return out
 
 

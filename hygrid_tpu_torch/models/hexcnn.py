@@ -28,6 +28,7 @@ from torch import nn
 from ..nn import functional as F
 from ..nn.layers import HexConvStack
 from ..nn.modules import HexConvModule
+from ..utils.profiling import count, span
 
 __all__ = ["HexCNN", "HexConvNeXtBlock", "HexResBlock", "HexResNet",
            "hexcnn_small", "hexcnn_tiny"]
@@ -131,23 +132,27 @@ class HexCNN(nn.Module):
         ``plain=True`` runs the conv layers' plain versions (the reference
         a kernel run is compared with; the per-module route's convs are
         plain already).  ``train=True`` normalises BN layers with batch
-        statistics and updates their running statistics."""
-        x = x.to(self.dtype)
-        last = len(self.channels) - 1
-        fmt = "NHWC" if self.stacked else "NCHW"
-        if self.stacked:
-            x = x.permute(0, 2, 3, 1).contiguous()
-        for stage in range(len(self.channels)):
+        statistics and updates their running statistics.  Each call is
+        counted as ``"forward"`` and traced as the span ``hygrid.forward``,
+        identified by that count."""
+        with span("hygrid.forward", count("forward")):
+            x = x.to(self.dtype)
+            last = len(self.channels) - 1
+            fmt = "NHWC" if self.stacked else "NCHW"
             if self.stacked:
-                x = getattr(self, f"stage{stage}")(x, plain=plain)
-            else:
-                for d in range(self.depth):
-                    x = getattr(self, f"stage{stage}_conv{d}")(x, train=train)
-            if stage != last:
-                x = F.hex_pool2d(x, "max", kernel_size=2, stride=2,
-                                 data_format=fmt).contiguous()
-        x = F.hex_global_pool2d(x, "average", data_format=fmt)
-        return _linear(x, self.head, self.dtype)
+                x = x.permute(0, 2, 3, 1).contiguous()
+            for stage in range(len(self.channels)):
+                if self.stacked:
+                    x = getattr(self, f"stage{stage}")(x, plain=plain)
+                else:
+                    for d in range(self.depth):
+                        x = getattr(self, f"stage{stage}_conv{d}")(
+                            x, train=train)
+                if stage != last:
+                    x = F.hex_pool2d(x, "max", kernel_size=2, stride=2,
+                                     data_format=fmt).contiguous()
+            x = F.hex_global_pool2d(x, "average", data_format=fmt)
+            return _linear(x, self.head, self.dtype)
 
 
 def _trunc_normal(shape, std, dtype, device, generator) -> nn.Parameter:

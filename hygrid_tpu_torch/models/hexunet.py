@@ -33,6 +33,7 @@ from ..nn import experimental as E
 from ..nn import functional as F
 from ..nn.layers import HexConvStack, _kaiming_hex_init
 from ..nn.modules import HexConvModule
+from ..utils.profiling import count, span
 from .hexcnn import _dense_init
 
 __all__ = ["HexUNet", "HexConvTranspose2d", "HexPixelShuffleUpsample"]
@@ -211,37 +212,40 @@ class HexUNet(nn.Module):
         C, h, w)``.  ``plain=True`` runs the conv stacks' plain versions
         (the reference a kernel run is compared with); ``train=True``
         normalises BN bundles with batch statistics.  Differentiable in
-        the input and every parameter on both routes."""
-        x = x.to(self.dtype)
-        nhwc = self.stacked
-        fmt = "NHWC" if nhwc else "NCHW"
-        if nhwc:
-            x = x.permute(0, 2, 3, 1).contiguous()
-        skips = []
-        last = len(self.widths) - 1
-        for i in range(len(self.widths)):
-            x = self._stage(x, f"enc{i}", plain, train)
-            if i != last:
-                skips.append(x)
-                x = F.hex_pool2d(x, "max", kernel_size=2, stride=2,
-                                 data_format=fmt).contiguous()
-        for i in range(len(self.widths) - 1):
-            up = getattr(self, f"up{i}")
-            if isinstance(up, HexPixelShuffleUpsample) and nhwc:
-                x = up(x.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
-            else:
-                x = up(x)
-            skip = skips.pop()
-            x = _crop_or_pad_to(x, skip.shape[1:3] if nhwc
-                                else skip.shape[-2:], nhwc)
+        the input and every parameter on both routes.  Each call is counted
+        as ``"forward"`` and traced as the span ``hygrid.forward``,
+        identified by that count."""
+        with span("hygrid.forward", count("forward")):
+            x = x.to(self.dtype)
+            nhwc = self.stacked
+            fmt = "NHWC" if nhwc else "NCHW"
             if nhwc:
-                x = getattr(self, f"dec{i}")(x, extra=skip, plain=plain)
-            else:
-                x = self._stage(torch.cat([x, skip], dim=1), f"dec{i}",
-                                plain, train)
-        if not nhwc:
-            x = x.permute(0, 2, 3, 1)
-        x = nn.functional.linear(x.to(self.dtype),
-                                 self.head.weight.to(self.dtype),
-                                 self.head.bias.to(self.dtype))
-        return x.permute(0, 3, 1, 2)
+                x = x.permute(0, 2, 3, 1).contiguous()
+            skips = []
+            last = len(self.widths) - 1
+            for i in range(len(self.widths)):
+                x = self._stage(x, f"enc{i}", plain, train)
+                if i != last:
+                    skips.append(x)
+                    x = F.hex_pool2d(x, "max", kernel_size=2, stride=2,
+                                     data_format=fmt).contiguous()
+            for i in range(len(self.widths) - 1):
+                up = getattr(self, f"up{i}")
+                if isinstance(up, HexPixelShuffleUpsample) and nhwc:
+                    x = up(x.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
+                else:
+                    x = up(x)
+                skip = skips.pop()
+                x = _crop_or_pad_to(x, skip.shape[1:3] if nhwc
+                                    else skip.shape[-2:], nhwc)
+                if nhwc:
+                    x = getattr(self, f"dec{i}")(x, extra=skip, plain=plain)
+                else:
+                    x = self._stage(torch.cat([x, skip], dim=1), f"dec{i}",
+                                    plain, train)
+            if not nhwc:
+                x = x.permute(0, 2, 3, 1)
+            x = nn.functional.linear(x.to(self.dtype),
+                                     self.head.weight.to(self.dtype),
+                                     self.head.bias.to(self.dtype))
+            return x.permute(0, 3, 1, 2)

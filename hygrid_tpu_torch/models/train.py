@@ -23,6 +23,7 @@ import torch
 from torch import nn
 
 from ..ops import geometry, sampling
+from ..utils.profiling import count, span
 
 __all__ = [
     "TrainState",
@@ -136,22 +137,28 @@ def train_step(state: TrainState, images: torch.Tensor,
     (one all-reduce a dtype) before the update, and the metrics are the
     global batch's.  A step then equals one step on the global batch, as
     ``jit`` over a sharded batch gives in ``hygrid_tpu``.
+
+    Each step is counted as ``"train_step"`` (``utils.profiling.counts``)
+    and, under a profiler, traced as the span ``hygrid.train_step``
+    identified by ``state.step``.
     """
     from ..nn.modules import batch_stats_group
+    count("train_step")
     group = None if mesh is None else mesh.group("dp")
-    model = state.model.train()
-    state.optimizer.zero_grad(set_to_none=True)
-    with batch_stats_group(group):
-        logits = _class_axis_last(_forward(model, images, True), labels)
-    loss = dense_onehot_xent(logits, labels)
-    loss.backward()
-    metrics = {"loss": loss.detach(),
-               "accuracy": _accuracy(logits.detach(), labels)}
-    if group is not None:
-        from ..parallel._comm import average_grads_
-        average_grads_(model.parameters(), group)
-        metrics = _global_mean(metrics, group)
-    state.optimizer.step()
+    with span("hygrid.train_step", state.step):
+        model = state.model.train()
+        state.optimizer.zero_grad(set_to_none=True)
+        with batch_stats_group(group):
+            logits = _class_axis_last(_forward(model, images, True), labels)
+        loss = dense_onehot_xent(logits, labels)
+        loss.backward()
+        metrics = {"loss": loss.detach(),
+                   "accuracy": _accuracy(logits.detach(), labels)}
+        if group is not None:
+            from ..parallel._comm import average_grads_
+            average_grads_(model.parameters(), group)
+            metrics = _global_mean(metrics, group)
+        state.optimizer.step()
     state.step += 1
     return state, metrics
 
@@ -196,15 +203,18 @@ def hexify_batch(images: torch.Tensor,
 
     Default target is (H//2, W//2).  A CUDA batch runs the resample kernel
     that ``apply_plan_auto`` picks for the plan; ``plain=True`` runs the
-    plain gather-blend on any device.
+    plain gather-blend on any device.  Each call is counted as
+    ``"hexify_batch"`` and traced as the span ``hygrid.hexify``.
     """
     h, w = images.shape[-2:]
     if hex_size is None:
         hex_size = (h // 2, w // 2)
-    if not plain:
-        return geometry.rect_to_hex_resample(images, hex_size, interpolation)
-    plan = geometry.rect_to_hex_plan(h, w, *hex_size, interpolation)
-    return sampling.apply_plan(images, plan)
+    with span("hygrid.hexify", count("hexify_batch")):
+        if not plain:
+            return geometry.rect_to_hex_resample(images, hex_size,
+                                                 interpolation)
+        plan = geometry.rect_to_hex_plan(h, w, *hex_size, interpolation)
+        return sampling.apply_plan(images, plan)
 
 
 def synthetic_hex_cifar(rng: np.random.Generator, n: int, *,

@@ -26,6 +26,7 @@ import torch.nn.functional as tF
 from .functional import (_as_4d, _conv, _hex_kernel_rows, _input_device,
                          _merge_phases, _reduction, pad2d)
 from ..ops.convert import heximage_to_type1, type1_to_heximage
+from ..utils.profiling import annotate, span
 
 __all__ = [
     "hex_to_square_downsample_weight",
@@ -149,6 +150,7 @@ def square_to_hex_conv2d_by_double_stride(x, kernel, *, padding: int = 0,
 
 # --------------------------- transposed conv -------------------------------
 
+@annotate("hygrid.conv_transpose")
 def hex_conv_transpose2d(x, kernel, bias=None, *, even_odd_offset: int = 0,
                          radius: int, stride: int = 1, groups: int = 1,
                          impl: str = "auto", data_format: str = "NCHW",
@@ -413,7 +415,8 @@ def _hex_conv_transpose2d_phase(x, kernel, bias, *, even_odd_offset: int,
                 if pt or pb or pl_ or pr:
                     xp = tF.pad(x, (pl_, pr, pt, pb))
                 xs = xp[:, :, r0 + pt:r1 + pt, c0 + pl_:c1 + pl_]
-                sub = _conv(xs.to(dt), subk, (ai, aj), groups)
+                with span("hygrid.conv_transpose.subconv"):
+                    sub = _conv(xs.to(dt), subk, (ai, aj), groups)
                 if sub.shape[2] < Hm or sub.shape[3] < Wm:
                     sub = tF.pad(sub, (0, Wm - sub.shape[3],
                                        0, Hm - sub.shape[2]))

@@ -28,6 +28,8 @@ import numpy as np
 import torch
 import torch.nn.functional as tF
 
+from ..utils.profiling import annotate
+
 __all__ = [
     "pad2d",
     "hex_kernel_num",
@@ -433,6 +435,7 @@ def _reduction(method: str):
     return _REDUCTIONS[method]
 
 
+@annotate("hygrid.pool")
 def hex_pool2d(x, method: str, kernel_size=2, stride=None, padding: int = 0,
                even_odd_offset: int = 0, padding_mode: str = "constant",
                padding_value=0, ceil_mode: bool = False,
@@ -541,6 +544,7 @@ def hex_adaptive_pool2d(x, outsize, method: str, device="cuda"):
                           half)
 
 
+@annotate("hygrid.pool")
 def hex_global_pool2d(x, method: str, data_format: str = "NCHW",
                       device="cuda"):
     """Global pooling over the flattened spatial dims -> (B, C).  A tensor

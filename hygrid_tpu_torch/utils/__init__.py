@@ -5,7 +5,8 @@ weight converters."""
 from .native_loader import (NativeTileLoader, RawRasterSpec,
                             native_available, read_raw_raster,
                             write_raw_raster)
-from .profiling import annotate, benchmark, device_timer, get_logger
+from .profiling import (annotate, benchmark, count, counts, device_timer,
+                        get_logger, span)
 from .checkpoint import HAS_ORBAX, restore_checkpoint, save_checkpoint
 from .export import (export_fn, export_inference, exported_info,
                      load_exported)
@@ -19,7 +20,8 @@ from .params import (flax_tree_from_npz, hexcnn_state_dict_from_flax,
 __all__ = ["export_fn", "export_inference", "load_exported",
            "exported_info", "NativeTileLoader", "RawRasterSpec", "native_available",
            "read_raw_raster", "write_raw_raster",
-           "annotate", "device_timer", "benchmark", "get_logger",
+           "span", "annotate", "count", "counts", "device_timer", "benchmark",
+           "get_logger",
            "save_checkpoint", "restore_checkpoint", "HAS_ORBAX",
            "flax_tree_from_npz",
            "hexcnn_state_dict_from_flax", "hexconvmodule_state_dict_from_flax",

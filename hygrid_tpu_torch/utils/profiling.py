@@ -1,18 +1,27 @@
 """Tracing and timing helpers, PyTorch port of
-``hygrid_tpu/utils/profiling.py``: named ranges in ``torch.profiler``
-traces, and wall times that wait for the result's CUDA device to finish
-(``torch.cuda.synchronize``, in place of ``jax.block_until_ready``)."""
+``hygrid_tpu/utils/profiling.py``: named spans in ``torch.profiler``
+traces, the port's call and launch counters, and wall times that wait for
+the result's CUDA device to finish (``torch.cuda.synchronize``, in place of
+``jax.block_until_ready``).
+
+The port marks its layer boundaries with :func:`span` (``hygrid.*``
+names) and counts each kernel wrapper's calls, each ``train_step`` and each
+model forward with :func:`count`; :func:`counts` reads them all."""
 from __future__ import annotations
 
+import collections
 import contextlib
 import functools
 import logging
+import threading
 import time
 from typing import Callable, Optional
 
 import torch
+from torch.autograd import profiler as _profiler
 
-__all__ = ["annotate", "device_timer", "Timer", "benchmark", "get_logger"]
+__all__ = ["span", "annotate", "count", "counts", "CALLS", "device_timer",
+           "Timer", "benchmark", "get_logger"]
 
 _LOGGER = logging.getLogger("hygrid_tpu_torch")
 
@@ -22,18 +31,69 @@ def get_logger() -> logging.Logger:
     return _LOGGER
 
 
+_OFF = contextlib.nullcontext()
+
+
+def span(name: str, ident=None):
+    """A named range of the host's work, and of the device work it launches,
+    in a ``torch.profiler`` trace; ``ident`` (an int) identifies the call it
+    belongs to, and shows as the range's one input where the profiler
+    records inputs (``record_shapes=True``).
+
+    The range is an op-scope ``RecordFunction`` (``torch.profiler``'s own
+    ``_RecordFunctionFast``), not ``record_function``'s user-scope one: the
+    profiler links a kernel to the innermost op-scope range open when it
+    was launched, so a kernel that a wrapper launches through ``ctypes``
+    directly inside a span counts in the span's device time, where under a
+    user-scope range it would land on the enclosing op or autograd node.
+
+    Live only while a profiler runs: otherwise, at the cost of one attribute
+    read, the one shared null context.  A profiler that records the device
+    alone (no ``ProfilerActivity.CPU``) installs no observer of ranges, so a
+    span leaves nothing in its trace either."""
+    if not _profiler._is_profiler_enabled:
+        return _OFF
+    return torch._C._profiler._RecordFunctionFast(
+        name, () if ident is None else (ident,))
+
+
 def annotate(name: Optional[str] = None) -> Callable:
-    """Decorator: run a function inside ``torch.profiler.record_function``
-    so it shows up named in profiler traces."""
+    """Decorator: run a function inside :func:`span` so it shows up named in
+    profiler traces."""
     def deco(fn):
         label = name or fn.__qualname__
 
         @functools.wraps(fn)
         def wrapper(*args, **kwargs):
-            with torch.profiler.record_function(label):
+            with span(label):
                 return fn(*args, **kwargs)
         return wrapper
     return deco
+
+
+CALLS = ("train_step", "forward", "hexify_batch")
+"""The counters of the port's entry points; every other counter counts a
+kernel wrapper's calls, under the kernel's name."""
+
+_COUNTS: collections.Counter = collections.Counter()
+_COUNTS_LOCK = threading.Lock()
+
+
+def count(name: str, n: int = 1) -> int:
+    """Add ``n`` to the counter ``name``; returns its new total.  The kernel
+    wrappers count each call (``"plan_gather"``, ``"hex_conv_layer"``, ...),
+    :func:`~hygrid_tpu_torch.models.train_step` its steps and the models
+    their forwards (:data:`CALLS`)."""
+    with _COUNTS_LOCK:
+        _COUNTS[name] += n
+        return _COUNTS[name]
+
+
+def counts() -> dict:
+    """A snapshot of every counter since the process started; the calls
+    made between two snapshots are their difference."""
+    with _COUNTS_LOCK:
+        return dict(_COUNTS)
 
 
 def _synchronize(result) -> None:

@@ -44,9 +44,17 @@ from hygrid_tpu_torch.models import video
 from hygrid_tpu_torch.nn import HexConvModule
 from hygrid_tpu_torch.nn import functional as F
 from hygrid_tpu_torch.ops import geometry, sampling
+from hygrid_tpu_torch.utils.profiling import counts
 from hygrid_tpu_torch.viz import render
 
 pytestmark = pytest.mark.cuda
+
+
+def _since(before, *names):
+    """Each named counter's calls (``utils.profiling.counts``) since the
+    snapshot ``before``."""
+    now = counts()
+    return tuple(now.get(n, 0) - before.get(n, 0) for n in names)
 
 
 @pytest.fixture(autouse=True)
@@ -79,11 +87,11 @@ def test_plan_gather_matches_plain(cuda, name, dtype):
     plan = PLANS[name]()
     h, w = plan.src_shape
     x = torch.rand((2, 3, h, w), device=cuda).to(dtype)
-    before = resample.LAUNCHES
+    before = counts()
     got = resample.plan_gather(x, plan)
     want = sampling.apply_plan(x, plan)
     torch.cuda.synchronize()
-    assert resample.LAUNCHES == before + 1
+    assert _since(before, "plan_gather") == (1,)
     assert got.shape == want.shape and got.dtype == dtype
     if dtype == torch.float32:
         assert float((got - want).abs().max()) <= 1e-6
@@ -181,10 +189,10 @@ def test_hexrot60_dense_plan_equals_plain(cuda, dtype):
     esz = torch.finfo(dtype).bits // 8
     assert resample.gather_tables_cached(plan, esz).index_form == "dense"
     x = (torch.rand((2, 3, 256, 256), device=cuda) * 255).to(dtype)
-    before = resample.LAUNCHES
+    before = counts()
     got = hexrot.hexrot60(x, 1)
     torch.cuda.synchronize()
-    assert resample.LAUNCHES == before + 1
+    assert _since(before, "plan_gather") == (1,)
     assert got.dtype == dtype and torch.equal(got, sampling.apply_plan(x,
                                                                        plan))
     x8 = x.to(torch.uint8)
@@ -221,11 +229,11 @@ def test_hex_conv_layer_matches_plain(cuda, case, dtype):
         norm = ("affine", 1 + 0.1 * torch.rand((cout,), generator=gen, device=cuda),
                 0.1 * torch.randn((cout,), generator=gen, device=cuda))
     kw = dict(radius=r, dilation=d, norm=norm, relu=relu)
-    before = conv_stack.LAUNCHES
+    before = counts()
     got = conv_stack.hex_conv_layer(x, k, bias, **kw)
     want = conv_stack.hex_conv_layer_plain(x, k, bias, **kw)
     torch.cuda.synchronize()
-    assert conv_stack.LAUNCHES == before + 1
+    assert _since(before, "hex_conv_layer") == (1,)
     assert got.shape == want.shape and got.dtype == dtype
     if dtype == torch.bfloat16:
         assert _rel(got, want) <= 3e-2
@@ -265,11 +273,11 @@ def test_hexcnn_on_cuda_goes_through_both_kernels(cuda):
     ref = hexcnn_tiny(norm="GN", device=cuda)
     ref.load_state_dict(model.state_dict())
     rect = torch.rand((4, 3, 64, 64), generator=gen, device=cuda)
-    resample.LAUNCHES = conv_stack.LAUNCHES = 0
+    before = counts()
     with torch.inference_mode():
         out = model(hexify_batch(rect.to(torch.bfloat16)))
         want = ref(hexify_batch(rect, plain=True), plain=True)
-    assert (resample.LAUNCHES, conv_stack.LAUNCHES) == (1, 2)
+    assert _since(before, "plan_gather", "hex_conv_layer") == (1, 2)
     assert out.dtype == torch.bfloat16 and out.shape == (4, 10)
     assert bool(torch.isfinite(out).all())
     assert _rel(out, want) <= 5e-2
@@ -305,11 +313,11 @@ def _bwd_inputs(case, dtype, cuda):
 @pytest.mark.parametrize("case", BWD_CASES)
 def test_dgrad_matches_plain(cuda, case, dtype):
     x, g, k, kw = _bwd_inputs(case, dtype, cuda)
-    before = conv_stack.DGRAD_LAUNCHES
+    before = counts()
     got = conv_stack.hex_conv_layer_dgrad(g, k, **kw)
     want = conv_stack.hex_conv_layer_dgrad_plain(g, k, **kw)
     torch.cuda.synchronize()
-    assert conv_stack.DGRAD_LAUNCHES == before + 1
+    assert _since(before, "hex_conv_layer_dgrad") == (1,)
     assert got.shape == x.shape and got.dtype == dtype
     assert _rel(got, want) <= (1e-5 if dtype == torch.float32 else 3e-2)
 
@@ -318,11 +326,11 @@ def test_dgrad_matches_plain(cuda, case, dtype):
 @pytest.mark.parametrize("case", BWD_CASES)
 def test_wgrad_matches_plain(cuda, case, dtype):
     x, g, k, kw = _bwd_inputs(case, dtype, cuda)
-    before = conv_stack.WGRAD_LAUNCHES
+    before = counts()
     got = conv_stack.hex_conv_layer_wgrad(x, g, **kw)
     want = conv_stack.hex_conv_layer_wgrad_plain(x, g, **kw)
     torch.cuda.synchronize()
-    assert conv_stack.WGRAD_LAUNCHES == before + 1
+    assert _since(before, "hex_conv_layer_wgrad") == (1,)
     assert got.shape == k.shape and got.dtype == torch.float32
     assert _rel(got, want) <= 1e-4
 
@@ -394,16 +402,13 @@ def test_hexcnn_kernel_path_grads_match_plain(cuda, norm):
                    generator=gen)
     rect = torch.rand((2, 3, 64, 64), generator=gen, device=cuda)
     labels = torch.tensor([3, 7], device=cuda)
-    for mod in (resample, conv_stack):
-        mod.LAUNCHES = 0
-    conv_stack.DGRAD_LAUNCHES = conv_stack.WGRAD_LAUNCHES = 0
-    conv_stack.GN_BWD_LAUNCHES = 0
+    before = counts()
     got = _model_grads(model, rect, labels, plain=False)
-    counts = (resample.LAUNCHES, conv_stack.LAUNCHES,
-              conv_stack.DGRAD_LAUNCHES, conv_stack.WGRAD_LAUNCHES,
-              conv_stack.GN_BWD_LAUNCHES)
+    launched = _since(before, "plan_gather", "hex_conv_layer",
+                      "hex_conv_layer_dgrad", "hex_conv_layer_wgrad",
+                      "gn_relu_backward")
     want = _model_grads(model, rect, labels, plain=True)
-    assert counts == (1, 4, 3, 4, 4 if norm else 0)
+    assert launched == (1, 4, 3, 4, 4 if norm else 0)
     assert sorted(got) == sorted(want)
     for name in want:
         assert got[name] is not None, name
@@ -464,11 +469,11 @@ def test_shift_resample_matches_plain(cuda, name, dtype):
     gen = torch.Generator(device=cuda).manual_seed(len(name))
     x = torch.rand(lead + plan.src_shape, generator=gen,
                    device=cuda).to(dtype)
-    before = resample_shift.LAUNCHES
+    before = counts()
     got = resample_shift.shift_resample(x, plan)
     want = resample_shift.shift_resample_plain(x, plan)
     torch.cuda.synchronize()
-    assert resample_shift.LAUNCHES == before + 1
+    assert _since(before, "shift_resample") == (1,)
     assert got.dtype == dtype and got.shape == want.shape
     if plan.exact_select:
         assert torch.equal(got, want)
@@ -508,10 +513,10 @@ def test_video_frame_launches_the_shift_kernel_once(cuda):
     proc = video.make_frame_processor(720, 1280)
     frame = torch.rand((3, 720, 1280), device=cuda)
     proc(frame)
-    resample.LAUNCHES = resample_shift.LAUNCHES = 0
+    before = counts()
     out = proc(frame)
     torch.cuda.synchronize()
-    assert (resample_shift.LAUNCHES, resample.LAUNCHES) == (1, 0)
+    assert _since(before, "shift_resample", "plan_gather") == (1, 0)
     assert out.shape == (3, 360, 640) and out.dtype == torch.bfloat16
     assert out.device.type == "cuda"
 
@@ -542,10 +547,10 @@ def test_mosaic_render_launches_once_and_is_bit_exact(cuda):
     assert geo.form == "select"
     assert geo.tensors(cuda)["table_bytes"] < 4 * 2 ** 20
     render.render_mosaic(img, (2160, 3840))
-    resample.LAUNCHES = resample_shift.LAUNCHES = 0
+    before = counts()
     out = render.render_mosaic(img, (2160, 3840))
     torch.cuda.synchronize()
-    assert (resample_shift.LAUNCHES, resample.LAUNCHES) == (1, 0)
+    assert _since(before, "shift_resample", "plan_gather") == (1, 0)
     assert out.dtype == torch.uint8
     assert torch.equal(out, sampling.apply_plan(img, plan))
     f32 = img.float()
@@ -592,11 +597,10 @@ def test_fused_stack_matches_plain_and_chained_layers(cuda, case, dtype):
     for N = 16, 32, 64 and up), shared memory within a block's 227 KB, one
     layer's weights staged a block unless they do not fit."""
     x, ks, bs, relus, r = _fused_inputs(case, dtype, cuda)
-    before = (conv_stack.FUSED_LAUNCHES, conv_stack.LAUNCHES)
+    before = counts()
     got = conv_stack.hex_conv_fused_stack(x, ks, bs, radius=r, relus=relus)
     torch.cuda.synchronize()
-    assert (conv_stack.FUSED_LAUNCHES, conv_stack.LAUNCHES) == \
-        (before[0] + 1, before[1])
+    assert _since(before, "hex_conv_fused_stack", "hex_conv_layer") == (1, 0)
     want = conv_stack.hex_conv_fused_stack_plain(x, ks, bs, radius=r,
                                                  relus=relus)
     chained = x
@@ -636,11 +640,10 @@ def test_fused_stack_grads_match_chained_layers(cuda):
 
 def test_hex_conv_stack_fused_option_launches_once(cuda):
     x, ks, _, _, r = _fused_inputs(FUSED_CASES[1], torch.bfloat16, cuda)
-    before = (conv_stack.FUSED_LAUNCHES, conv_stack.LAUNCHES)
+    before = counts()
     fused = conv_stack.hex_conv_stack(x, ks, radius=r, data_format="NHWC",
                                       final_activation=False, fused=True)
-    assert (conv_stack.FUSED_LAUNCHES, conv_stack.LAUNCHES) == \
-        (before[0] + 1, before[1])
+    assert _since(before, "hex_conv_fused_stack", "hex_conv_layer") == (1, 0)
     chained = conv_stack.hex_conv_stack(x, ks, radius=r, data_format="NHWC",
                                         final_activation=False)
     banded = conv_stack.hex_conv_stack(x, ks, radius=r, data_format="NHWC",
@@ -655,11 +658,10 @@ def test_plan_gather_at_the_4k_banded_plan(cuda, dtype):
     plan = geometry.rect_to_hex_plan(2160, 3840, 1080, 1920, "bilinear")
     assert not sampling.takes_shift_route(plan, 2)
     x = torch.rand((1, 3, 2160, 3840), device=cuda).to(dtype)
-    before = (resample.LAUNCHES, resample_shift.LAUNCHES)
+    before = counts()
     got = sampling.apply_plan_auto(x, plan)
     torch.cuda.synchronize()
-    assert (resample.LAUNCHES, resample_shift.LAUNCHES) == \
-        (before[0] + 1, before[1])
+    assert _since(before, "plan_gather", "shift_resample") == (1, 0)
     want = sampling.apply_plan(x, plan)
     if dtype == torch.float32:
         assert float((got - want).abs().max()) <= 1e-6
@@ -793,11 +795,11 @@ def test_hex_conv_single_matches_plain(cuda, case, dtype):
          / math.sqrt(cin * kn)).to(dtype)
     bias = torch.randn((cout,), generator=gen, device=cuda).to(dtype)
     kw = dict(even_odd_offset=off, radius=r, padding=pad, dilation=d)
-    before = conv_single.LAUNCHES
+    before = counts()
     got = conv_single.hex_conv_single(x, k, bias, **kw)
     want = conv_single.hex_conv_single_plain(x, k, bias, **kw)
     torch.cuda.synchronize()
-    assert conv_single.LAUNCHES == before + 1
+    assert _since(before, "hex_conv_single") == (1,)
     assert got.dtype == dtype and tuple(got.shape) == (b, cout) + \
         F.hex_conv2d_output_shape(h, w, r, 1, pad, d)
     if dtype == torch.float32:
@@ -853,9 +855,9 @@ def test_hex_conv_single_packs_short_rows_bit_equal_to_kernel_b(cuda, case):
     k = torch.randn((cout, cin, kn), generator=gen, device=cuda) \
         / math.sqrt(cin * kn)
     kw = dict(even_odd_offset=off, radius=r, padding=d * (r - 1), dilation=d)
-    before = conv_single.LAUNCHES
+    before = counts()
     got = conv_single.hex_conv_single(x, k, **kw)
-    assert conv_single.LAUNCHES == before + 1
+    assert _since(before, "hex_conv_single") == (1,)
     want = conv_single.hex_conv_single_plain(x, k, **kw)
     torch.cuda.synchronize()
     assert got.shape == (b, cout, h, w)
@@ -871,7 +873,7 @@ def test_hex_conv_single_refuses_what_it_does_not_take(cuda):
     """An unsupported dtype raises; the plain version never runs instead."""
     x = torch.rand((1, 16, 10, 10), device=cuda)
     k = torch.rand((16, 16, 7), device=cuda)
-    before = conv_single.LAUNCHES
+    before = counts()
     for dt in (torch.float16, torch.float64):
         with pytest.raises(TypeError, match="float32 or bfloat16"):
             conv_single.hex_conv_single(x, k.to(dt), radius=2)
@@ -879,7 +881,7 @@ def test_hex_conv_single_refuses_what_it_does_not_take(cuda):
             F.hex_conv2d(x, k.to(dt), radius=2, padding=1, impl="pallas")
     with pytest.raises(ValueError, match="kernel must be"):
         conv_single.hex_conv_single(x, k[:, :8], radius=2)
-    assert conv_single.LAUNCHES == before
+    assert _since(before, "hex_conv_single") == (0,)
 
 
 def test_hex_conv_single_grads_match_plain(cuda):
@@ -908,10 +910,10 @@ def test_hexconvmodule_pallas_launches_the_single_conv(cuda):
             for impl in ("pallas", "direct")]
     mods[1].load_state_dict(mods[0].state_dict())
     x = torch.rand((4, 32, 24, 23), generator=gen, device=cuda)
-    before = conv_single.LAUNCHES
+    before = counts()
     with torch.inference_mode():
         got, want = mods[0](x), mods[1](x)
-    assert conv_single.LAUNCHES == before + 1
+    assert _since(before, "hex_conv_single") == (1,)
     assert float((got - want).abs().max()) <= 1e-5
 
 
@@ -953,11 +955,11 @@ def test_split_layer_matches_plain_and_concat(cuda, case, dtype):
     and bit-equal to kernel B on the materialised concatenation, whether
     or not Ca is a multiple of the 16-channel staging chunk."""
     xa, xb, k, bias, kw = _split_case(case, cuda, dtype)
-    before = (conv_stack.SPLIT_LAUNCHES, conv_stack.LAUNCHES)
+    before = counts()
     with torch.inference_mode():
         got = conv_stack.hex_conv_layer_split(xa, xb, k, bias, **kw)
-        assert (conv_stack.SPLIT_LAUNCHES, conv_stack.LAUNCHES) == \
-            (before[0] + 1, before[1])
+        assert _since(before, "hex_conv_layer_split",
+                      "hex_conv_layer") == (1, 0)
         want = conv_stack.hex_conv_layer_split_plain(xa, xb, k, bias, **kw)
         cat = conv_stack.hex_conv_layer(torch.cat([xa, xb], -1), k, bias,
                                         **kw)
@@ -1030,14 +1032,13 @@ def test_hexunet_on_cuda_goes_through_the_kernels(cuda):
         ref = HexUNet(num_classes=4, widths=(16, 32, 64), norm="GN",
                       upsample=upsample)
         ref.load_state_dict(model.state_dict())
-        resample.LAUNCHES = conv_stack.LAUNCHES = 0
-        conv_stack.SPLIT_LAUNCHES = 0
+        before = counts()
         with torch.inference_mode():
             out = model(hexify_batch(rect.to(torch.bfloat16)))
-            counts = (resample.LAUNCHES, conv_stack.LAUNCHES,
-                      conv_stack.SPLIT_LAUNCHES)
+            launched = _since(before, "plan_gather", "hex_conv_layer",
+                              "hex_conv_layer_split")
             want = ref(hexify_batch(rect, plain=True), plain=True)
-        assert counts == (1, 3, 2)
+        assert launched == (1, 3, 2)
         assert out.dtype == torch.bfloat16 and out.shape == (2, 4, 32, 32)
         assert bool(torch.isfinite(out).all())
         assert _rel(out, want) <= 5e-2
@@ -1074,10 +1075,10 @@ def test_split_dgrad_matches_plain_and_unsplit(cuda, case, dtype):
     version."""
     xa, xb, g, k = _split_bwd_inputs(case, dtype, cuda)
     ca = xa.shape[-1]
-    before = (conv_stack.SPLIT_DGRAD_LAUNCHES, conv_stack.DGRAD_LAUNCHES)
+    before = counts()
     da, db = conv_stack.hex_conv_layer_split_dgrad(g, k, ca, radius=2)
-    assert (conv_stack.SPLIT_DGRAD_LAUNCHES, conv_stack.DGRAD_LAUNCHES) == \
-        (before[0] + 2, before[1])
+    assert _since(before, "hex_conv_layer_split_dgrad",
+                  "hex_conv_layer_dgrad") == (2, 0)
     dx = conv_stack.hex_conv_layer_dgrad(g, k, radius=2)
     want = conv_stack.hex_conv_layer_split_dgrad_plain(g, k, ca, radius=2)
     torch.cuda.synchronize()
@@ -1095,10 +1096,10 @@ def test_split_wgrad_matches_plain_and_unsplit(cuda, case, dtype):
     on each input concatenated along Cin and to a second launch, within
     1e-4 of the plain version."""
     xa, xb, g, k = _split_bwd_inputs(case, dtype, cuda)
-    before = (conv_stack.SPLIT_WGRAD_LAUNCHES, conv_stack.WGRAD_LAUNCHES)
+    before = counts()
     got = conv_stack.hex_conv_layer_split_wgrad(xa, xb, g, radius=2)
-    assert (conv_stack.SPLIT_WGRAD_LAUNCHES, conv_stack.WGRAD_LAUNCHES) == \
-        (before[0] + 2, before[1])
+    assert _since(before, "hex_conv_layer_split_wgrad",
+                  "hex_conv_layer_wgrad") == (2, 0)
     parts = torch.cat([conv_stack.hex_conv_layer_wgrad(xa, g, radius=2),
                        conv_stack.hex_conv_layer_wgrad(xb, g, radius=2)], 1)
     again = conv_stack.hex_conv_layer_split_wgrad(xa, xb, g, radius=2)
@@ -1136,32 +1137,25 @@ def test_hexunet_train_step_on_cuda_goes_through_the_kernels(cuda):
     kw = dict(num_classes=4, widths=(16, 32, 64), norm="GN")
     rect = torch.rand((2, 3, 64, 64), generator=gen, device=cuda)
     labels = torch.randint(0, 4, (2, 32, 32), generator=gen, device=cuda)
-    counters = {"plan_gather": (resample, "LAUNCHES"),
-                "shift_resample": (resample_shift, "LAUNCHES"),
-                "hex_conv_layer": (conv_stack, "LAUNCHES"),
-                "split": (conv_stack, "SPLIT_LAUNCHES"),
-                "dgrad": (conv_stack, "DGRAD_LAUNCHES"),
-                "split_dgrad": (conv_stack, "SPLIT_DGRAD_LAUNCHES"),
-                "wgrad": (conv_stack, "WGRAD_LAUNCHES"),
-                "split_wgrad": (conv_stack, "SPLIT_WGRAD_LAUNCHES"),
-                "gn_bwd": (conv_stack, "GN_BWD_LAUNCHES"),
-                "fused": (conv_stack, "FUSED_LAUNCHES"),
-                "single": (conv_single, "LAUNCHES")}
-    want_counts = {"plan_gather": 1, "hex_conv_layer": 3, "split": 2,
-                   "dgrad": 2, "split_dgrad": 4, "wgrad": 3,
-                   "split_wgrad": 4, "gn_bwd": 5}
+    counters = ("plan_gather", "shift_resample", "hex_conv_layer",
+                "hex_conv_layer_split", "hex_conv_layer_dgrad",
+                "hex_conv_layer_split_dgrad", "hex_conv_layer_wgrad",
+                "hex_conv_layer_split_wgrad", "gn_relu_backward",
+                "hex_conv_fused_stack", "hex_conv_single")
+    want_counts = {"plan_gather": 1, "hex_conv_layer": 3,
+                   "hex_conv_layer_split": 2, "hex_conv_layer_dgrad": 2,
+                   "hex_conv_layer_split_dgrad": 4, "hex_conv_layer_wgrad": 3,
+                   "hex_conv_layer_split_wgrad": 4, "gn_relu_backward": 5}
     for dtype in (torch.float32, torch.bfloat16):
         model = HexUNet(dtype=dtype, generator=gen, **kw)
         ref = HexUNet(**kw)
         ref.load_state_dict(model.state_dict())
-        for mod, attr in counters.values():
-            setattr(mod, attr, 0)
+        before = counts()
         _, m = train_step(create_train_state(model), hexify_batch(rect),
                           labels)
-        counts = {name: getattr(mod, attr)
-                  for name, (mod, attr) in counters.items()}
-        assert counts == {name: want_counts.get(name, 0)
-                          for name in counters}
+        launched = dict(zip(counters, _since(before, *counters)))
+        assert launched == {name: want_counts.get(name, 0)
+                            for name in counters}
         assert math.isfinite(float(m["loss"]))
         if dtype == torch.bfloat16:
             continue
@@ -1297,12 +1291,12 @@ def test_gn_relu_backward_matches_plain(cuda, case, dtype):
     gout = torch.randn((b, h, w, c), generator=gen, device=cuda).to(dtype)
     mean, rstd = conv_stack.gn_stats_plain(y, g)
     args = (y, mean, rstd, gamma, beta, gout, g, relu)
-    before = conv_stack.GN_BWD_LAUNCHES
+    before = counts()
     got = conv_stack.gn_relu_backward(*args)
     again = conv_stack.gn_relu_backward(*args)
     want = conv_stack.gn_relu_backward_plain(*args)
     torch.cuda.synchronize()
-    assert conv_stack.GN_BWD_LAUNCHES == before + 2
+    assert _since(before, "gn_relu_backward") == (2,)
     assert got[0].dtype == dtype and got[0].shape == y.shape
     assert all(torch.equal(a, b) for a, b in zip(got, again))
     assert _rel(got[0], want[0]) <= (1e-4 if dtype == torch.float32
@@ -1377,10 +1371,10 @@ def test_gn_relu_backward_raises_where_no_plan_fits(cuda, monkeypatch):
     conv_stack.gn_backward_device(cuda)
     index = torch.cuda.current_device()
     monkeypatch.setitem(conv_stack._GN_BWD_DEVICE, index, (132, 4096))
-    before = conv_stack.GN_BWD_LAUNCHES
+    before = counts()
     with pytest.raises(ValueError, match="cannot stage one pixel"):
         conv_stack.gn_relu_backward(*args)
-    assert conv_stack.GN_BWD_LAUNCHES == before
+    assert _since(before, "gn_relu_backward") == (0,)
 
 
 def test_gn_training_step_runs_no_plain_tail_on_cuda(cuda, monkeypatch):
@@ -1400,10 +1394,10 @@ def test_gn_training_step_runs_no_plain_tail_on_cuda(cuda, monkeypatch):
                    dtype=torch.bfloat16, device=cuda, generator=gen)
     images = hexify_batch(torch.rand((2, 3, 64, 64), generator=gen,
                                      device=cuda))
-    conv_stack.GN_BWD_LAUNCHES = 0
+    before = counts()
     _, m = train_step(create_train_state(model), images,
                       torch.tensor([1, 4], device=cuda))
-    assert conv_stack.GN_BWD_LAUNCHES == 4
+    assert _since(before, "gn_relu_backward") == (4,)
     assert not calls
     assert math.isfinite(float(m["loss"]))
 
@@ -1450,18 +1444,18 @@ def test_affine_layer_backward_matches_plain(cuda, case, dtype):
         (fn(*xl, kl, bias, **kw) * g).sum().backward()
         return [t.grad for t in leaves]
 
-    counters = ("LAUNCHES", "DGRAD_LAUNCHES", "WGRAD_LAUNCHES",
-                "SPLIT_LAUNCHES", "SPLIT_DGRAD_LAUNCHES",
-                "SPLIT_WGRAD_LAUNCHES")
-    for name in counters:
-        setattr(conv_stack, name, 0)
+    counters = ("hex_conv_layer", "hex_conv_layer_dgrad",
+                "hex_conv_layer_wgrad", "hex_conv_layer_split",
+                "hex_conv_layer_split_dgrad", "hex_conv_layer_split_wgrad")
+    before = counts()
     got, again = run(False), run(False)
     want = run(True)
-    launches = {n: getattr(conv_stack, n) for n in counters}
-    want_launches = ({"SPLIT_LAUNCHES": 2, "SPLIT_DGRAD_LAUNCHES": 4,
-                      "SPLIT_WGRAD_LAUNCHES": 4} if split else
-                     {"LAUNCHES": 2, "DGRAD_LAUNCHES": 2,
-                      "WGRAD_LAUNCHES": 2})
+    launches = dict(zip(counters, _since(before, *counters)))
+    want_launches = ({"hex_conv_layer_split": 2,
+                      "hex_conv_layer_split_dgrad": 4,
+                      "hex_conv_layer_split_wgrad": 4} if split else
+                     {"hex_conv_layer": 2, "hex_conv_layer_dgrad": 2,
+                      "hex_conv_layer_wgrad": 2})
     assert launches == {n: want_launches.get(n, 0) for n in counters}
     tol = 1e-4 if dtype == torch.float32 else 3e-2
     for i, (u, v, wv) in enumerate(zip(got, again, want)):
@@ -1481,16 +1475,11 @@ def test_hexvit_on_cuda_serves_through_plan_gather_alone(cuda):
     ref = HexViT(device=cuda, **kw)
     ref.load_state_dict(model.state_dict())
     rect = torch.rand((2, 3, 64, 64), generator=gen, device=cuda)
-    before = {n: getattr(m, "LAUNCHES") for n, m in
-              (("gather", resample), ("layer", conv_stack),
-               ("single", conv_single), ("shift", resample_shift))}
+    before = counts()
     with torch.inference_mode():
         out = model(hexify_batch(rect.to(torch.bfloat16)))
-    after = {n: getattr(m, "LAUNCHES") for n, m in
-             (("gather", resample), ("layer", conv_stack),
-              ("single", conv_single), ("shift", resample_shift))}
-    assert {n: after[n] - before[n] for n in after} == \
-        {"gather": 1, "layer": 0, "single": 0, "shift": 0}
+    assert _since(before, "plan_gather", "hex_conv_layer", "hex_conv_single",
+                  "shift_resample") == (1, 0, 0, 0)
     want = ref(hexify_batch(rect, plain=True))
     assert out.shape == (2, 5) and out.dtype == torch.bfloat16
     assert _rel(out, want) <= 5e-2
@@ -1596,11 +1585,10 @@ def test_exported_hexcnn_runs_the_kernels_on_cuda(cuda, tmp_path):
         for b in (1, 3):
             xb = torch.rand((b, 3, 32, 32), generator=gen,
                             device=cuda).to(torch.bfloat16)
-            before = (resample.LAUNCHES, conv_stack.LAUNCHES)
+            before = counts()
             with torch.inference_mode():
                 got = program(xb)
-            assert (resample.LAUNCHES - before[0],
-                    conv_stack.LAUNCHES - before[1]) == (1, 2)
+            assert _since(before, "plan_gather", "hex_conv_layer") == (1, 2)
             with torch.inference_mode():
                 assert torch.equal(got, model(hexify_batch(xb)))
 

@@ -10,6 +10,7 @@ import torch
 
 from hygrid_tpu.nn import functional as JF
 from hygrid_tpu_torch.kernels import conv_stack
+from hygrid_tpu_torch.utils.profiling import counts
 from hygrid_tpu_torch.nn import functional as TF
 from tools.make_nn_goldens import CONV_CONFIGS, POOL_CONFIGS
 
@@ -103,10 +104,10 @@ def test_hex_conv_layer_cpu_runs_plain_version():
     x = _t(rng.random((2, 9, 11, 4)).astype(np.float32))
     k = _t(rng.normal(size=(8, 4, 7)).astype(np.float32))
     norm = ("gn", 4, torch.ones(8), torch.zeros(8))
-    before = conv_stack.LAUNCHES
+    before = counts().get("hex_conv_layer", 0)
     got = conv_stack.hex_conv_layer(x, k, radius=2, norm=norm, relu=True)
     want = conv_stack.hex_conv_layer_plain(x, k, radius=2, norm=norm, relu=True)
-    assert torch.equal(got, want) and conv_stack.LAUNCHES == before
+    assert torch.equal(got, want) and counts().get("hex_conv_layer", 0) == before
 
 
 @pytest.mark.parametrize("impl", ["type1", "direct"])

@@ -18,6 +18,7 @@ import torch
 from hygrid_tpu.kernels import conv_pallas as JP
 from hygrid_tpu.nn import functional as JF
 from hygrid_tpu_torch.kernels import conv_single
+from hygrid_tpu_torch.utils.profiling import counts
 from hygrid_tpu_torch.nn import functional as TF
 from hygrid_tpu_torch.nn import layers as TL
 
@@ -99,9 +100,9 @@ def test_off_envelope_matches_jax_fallback(c, co, stride, groups, h):
                                               2, 1)
     want = np.asarray(jax.jit(functools.partial(
         JF.hex_conv2d, impl="pallas", **kw))(x, k))
-    before = conv_single.LAUNCHES
+    before = counts().get("hex_conv_single", 0)
     got = TF.hex_conv2d(_t(x), _t(k), impl="pallas", **kw)
-    assert conv_single.LAUNCHES == before
+    assert counts().get("hex_conv_single", 0) == before
     assert tuple(got.shape) == want.shape
     assert float(np.abs(got.numpy() - want).max()) <= TOL
 

@@ -13,6 +13,7 @@ import torch
 from hygrid_tpu.kernels import conv_pallas as jcp
 from hygrid_tpu.nn.layers import HexConvStack as JHexConvStack
 from hygrid_tpu_torch.kernels import conv_stack as tcs
+from hygrid_tpu_torch.utils.profiling import counts
 from hygrid_tpu_torch.nn import HexConvStack
 from hygrid_tpu_torch.nn.functional import hex_kernel_num
 
@@ -317,8 +318,8 @@ def test_fused_stack_wrapper_refuses_other_devices_and_mixed_widths():
     # conv_pallas.py:1544 does
     x = torch.rand((1, 6, 5, 3))
     ks = [torch.rand((8, 3, 7)), torch.rand((8, 8, 7))]
-    before = tcs.FUSED_LAUNCHES
+    before = counts().get("hex_conv_fused_stack", 0)
     assert torch.equal(
         tcs.hex_conv_stack(x, ks, radius=2, data_format="NHWC", fused=True),
         tcs.hex_conv_stack(x, ks, radius=2, data_format="NHWC"))
-    assert tcs.FUSED_LAUNCHES == before
+    assert counts().get("hex_conv_fused_stack", 0) == before
