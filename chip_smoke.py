@@ -39,8 +39,9 @@ Phases, each of which raises on failure (the script then exits non-zero):
    NHWC viewed as NCHW, then ReLU and the cast);
 5. the serving slice: HexCNN-small (norm="GN", bf16, random weights from a
    seed) serves distinct b=32 batches of 512^2 RGB images, rect->hex
-   included; the launch counters must show one kernel-A launch and six
-   kernel-B layers per request, the logits must be finite, and one
+   included; the launch counters must show one kernel-A launch, six
+   kernel-B layers and two max-pools (``hex_max_pool``) per request, the
+   logits must be finite, and one
    request must agree with the plain path run in float32 on the card;
    a torch.profiler split of one request by kernel group;
 6. the backward kernels against their plain versions at the six layer
@@ -56,15 +57,23 @@ Phases, each of which raises on failure (the script then exits non-zero):
    time, the library's (the ReLU mask and
    ``aten.native_group_norm_backward`` on NCHW float32), the bound, the
    rate at the function's bytes and the walk ``gn_backward_plan`` chose;
+6c. the hex max-pool (``csrc/hex_pool.cu``: ``hex_max_pool`` and
+   ``hex_max_pool_backward``) against ``hex_pool2d``'s plain path and its
+   autograd at the models' two pools (256^2 x 32 and 128x127 x 64, 2 x 2
+   windows at stride 2), bf16 at b=128 and float32 at b=512, ReLU'd
+   values on a coarse grid with a NaN cell: values and input gradient bit
+   for bit; each kernel's ms (the forward without and with the tie mask),
+   the plain ms and the bound (bytes);
 7. the training slice: HexCNN-small (norm="GN", bf16 compute, float32
    parameters) with AdamW takes one warm-up and 4 timed steps on distinct
    b=32 512^2 float32 batches (rect->hex, forward, one-hot cross-entropy,
    backward, update); per step the counters must show 1 kernel-A launch,
    6 kernel-B layers, 5 dL/dx, 6 dL/dW and 6 GN backward launches (no
-   autograd of the plain GN tail); losses must be
-   finite; a torch.profiler split of one step by kernel group; one step's
-   loss and every parameter's grad must agree with the plain path run in
-   float32 on the card (and, tighter, the float32 kernel path with it);
+   autograd of the plain GN tail), 2 max-pools and their 2 backward;
+   losses must be finite; a torch.profiler split of one step by kernel
+   group; one step's loss and every parameter's grad must agree with the
+   plain path run in float32 on the card (and, tighter, the float32
+   kernel path with it);
 7f. HexCNN-small in its default dtype, float32 (``hexcnn_small(norm="GN")``
    with no dtype, as users build it: every conv pass, dx and dW on the
    float32 tiles), at phase 7's shapes: 4 requests and 4 AdamW steps by
@@ -147,12 +156,12 @@ Phases, each of which raises on failure (the script then exits non-zero):
     and the bf16 tile's N and HGMMA/HMMA count;
 17. HexUNet-small serving (GN(8), widths 32/64/128, depth 1, bf16, random
     weights from a seed) on distinct b=8 512^2 RGB batches, rect->hex
-    included: per request 1 plan_gather, 3 hex_conv_layer (the encoder)
-    and 2 split layers (the decoder), no other kernel; logits (8, 4, 256,
-    256) finite and within 5e-2 of the plain float32 path, the
-    pixel-shuffle decoder too; images/s by CUDA events, the median and
-    spread of 3 windows of at least 1 s; peak memory; a torch.profiler
-    split of one request by kernel group;
+    included: per request 1 plan_gather, 3 hex_conv_layer (the encoder),
+    2 hex_max_pool and 2 split layers (the decoder), no other kernel;
+    logits (8, 4, 256, 256) finite and within 5e-2 of the plain float32
+    path, the pixel-shuffle decoder too; images/s by CUDA events, the
+    median and spread of 3 windows of at least 1 s; peak memory; a
+    torch.profiler split of one request by kernel group;
 18. the split layer's backward (TPU kernel #12 on the split layer, 12s:
     the dgrad pass on Ka and on Kb, the dW kernel on (A, g) and on (B, g))
     at dec0, dec1 and two splits of uneven widths (24+8->32, 40+24->64),
@@ -165,7 +174,8 @@ Phases, each of which raises on failure (the script then exits non-zero):
     distinct b=8 512^2 float32 batches with per-cell labels drawn as
     benchmarks/suite.py draws them: per step 1 plan_gather, 3
     hex_conv_layer, 2 split layers, 2 dgrad, 4 split dgrad, 3 wgrad, 4
-    split wgrad and 5 GN backward launches, no other kernel; finite losses; images/s by
+    split wgrad, 5 GN backward, 2 max-pool and 2 max-pool backward
+    launches, no other kernel; finite losses; images/s by
     CUDA events, the median and spread of 3 windows of at least 1 s;
     peak memory; a torch.profiler split of one step by kernel group; one
     step of the timed state, its loss, every grad and mean IoU against
@@ -273,17 +283,18 @@ Phases, each of which raises on failure (the script then exits non-zero):
 27. ``utils/export.py`` on the card: HexCNN-small (phase 5's model)
     exported with a symbolic batch from a b=32 example, saved under
     build/, loaded and served at b=32 and b=8, ``torch.equal`` to the
-    eager kernel path with 1 plan_gather and 6 hex_conv_layer launches a
-    call; the same weights exported on the CPU (b=2, platforms cpu and
-    cuda) and moved to the card at load, likewise at b=32; export and
-    load seconds, artifact bytes; a request from the artifact against
-    the eager one in turns, 3 windows of at least 1 s each (CUDA
+    eager kernel path with 1 plan_gather, 6 hex_conv_layer and 2
+    hex_max_pool launches a call; the same weights exported on the CPU
+    (b=2, platforms cpu and cuda) and moved to the card at load, likewise
+    at b=32 (no hex_max_pool: the CPU trace took the pools' plain path);
+    export and load seconds, artifact bytes; a request from the artifact
+    against the eager one in turns, 3 windows of at least 1 s each (CUDA
     events), and each one's host ms; the host ms a call of
     plan_gather and a GN hex_conv_layer through the wrapper, the op and
     the op's CUDA implementation called directly; then one program for
     each other op, saved, loaded, ``torch.equal`` to its eager call with
     its launches: HexUNet-small b=2 (1 plan_gather, 3 hex_conv_layer, 2
-    split layers), BN-512's kernel route b=2 (1 plan_gather, 5
+    hex_max_pool, 2 split layers), BN-512's kernel route b=2 (1 plan_gather, 5
     hex_conv_single), P-512 fused b=2 (2 plan_gather, 1 fused stack),
     the 720p frame processor (1 shift_resample).
 
@@ -796,9 +807,13 @@ def run_slice(torch):
         end.synchronize()
         wall = time.perf_counter() - t0
         launches = {k: v for k, v in _launches().items()
-                    if k in ("plan_gather", "hex_conv_layer")}
+                    if k in ("plan_gather", "hex_conv_layer",
+                             "hex_max_pool")}
         peak = torch.cuda.max_memory_allocated()
         dev_ms = start.elapsed_time(end)
+        require(launches["hex_max_pool"] == 2 * N_REQUESTS,
+                f"hex_max_pool launches {launches['hex_max_pool']} for "
+                f"{N_REQUESTS} requests")
         require(launches["plan_gather"] == N_REQUESTS,
                 f"plan_gather launches {launches['plan_gather']} for "
                 f"{N_REQUESTS} requests")
@@ -891,6 +906,7 @@ HEXCNN_GROUPS = [
     ("GN backward", _is_gn_bwd),
     ("plan_gather", lambda k: "plan_gather" in k),
     ("AdamW", lambda k: "adam" in k.lower() or "multi_tensor" in k),
+    ("max-pool", lambda k: "max_pool" in k),
     ("reductions", lambda k: "reduce_kernel" in k),
 ]
 
@@ -1068,6 +1084,118 @@ def check_gn_backward(torch, gen):
                 hexunet_plain_ms=unet["plain_ms"],
                 hexunet_library_ms=unet["library_ms"],
                 hexunet_bound_ms=unet["bound_ms"])
+
+
+# phase 6c's pools: (name, H, W, C) of the models' two max-pools (2 x 2
+# windows at stride 2), at the batch of each dtype's cells: bf16 serving at
+# b=128, float32 training at b=512
+POOL_LAYERS = [("first", 256, 256, 32), ("second", 128, 127, 64)]
+POOL_BATCHES = {"bf16": 128, "f32": 512}
+
+
+def _float_bits(torch, t):
+    """``t``'s bit patterns, every NaN as one pattern."""
+    t = torch.where(torch.isnan(t), torch.nan, t)
+    return t.view(torch.int16 if t.element_size() == 2 else torch.int32)
+
+
+def check_pool(torch, gen):
+    """Phase 6c: the hex max-pool (``kernels/pool.py::hex_max_pool``,
+    ``csrc/hex_pool.cu``) against ``hex_pool2d``'s plain path
+    (``_window_reduce``: the window gather, NaN as -inf, two ``amax``
+    stages) and its autograd at the models' two pools, bf16 at b=128 and
+    float32 at b=512, on ReLU'd values on a coarse grid (most windows tie)
+    with a NaN cell: the values and the input gradient bit for bit, the
+    forward under ``inference_mode`` equal to the one that keeps the mask.
+    Beside each kernel (the forward without and with the tie mask, the
+    backward from the mask) its ms, the plain ms (the backward on a kept
+    graph) and the bound: the windows' cells read and the output written
+    once; the output gradient read and the input gradient written once.
+    Returns the bf16 sums for the kernels line, the float32 sums under
+    ``f32``."""
+    from hygrid_tpu_torch.kernels import pool
+    from hygrid_tpu_torch.nn import functional as F
+    op = torch.ops.hygrid
+    sums = {"forward": {}, "backward": {}}
+    for tag, dtype in (("bf16", torch.bfloat16), ("f32", torch.float32)):
+        b = POOL_BATCHES[tag]
+        fwd = dict(ms=0.0, mask_ms=0.0, plain_ms=0.0)
+        bwd = dict(ms=0.0, plain_ms=0.0)
+        f_bounds, b_bounds = [], []
+        for name, h, w, c in POOL_LAYERS:
+            x = torch.randn((b, h, w, c), generator=gen, device="cuda")
+            x = torch.clamp(torch.round(x * 2) / 2, min=0).to(dtype)
+            x[0, 0, 0, 0] = float("nan")
+            hn, wn = pool.pool_shape(h, w, 2, 2, 2, 2)
+            g = torch.randn((b, hn, wn, c), generator=gen,
+                            device="cuda").to(dtype)
+
+            def plain(t):
+                return F._window_reduce(t.permute(0, 3, 1, 2), "max", hn, wn,
+                                        2, 2, 2, 2, 1, True)
+
+            t = x.clone().requires_grad_()
+            want = plain(t)
+            want.backward(g)
+            k = x.clone().requires_grad_()
+            got = pool.hex_max_pool(k, (2, 2), (2, 2))
+            got.backward(g)
+            with torch.inference_mode():
+                served = pool.hex_max_pool(x, (2, 2), (2, 2))
+            torch.cuda.synchronize()
+            what = f"hex_max_pool {name} pool {tag} b={b} {h}x{w}x{c}"
+            require(torch.equal(_float_bits(torch, got),
+                                _float_bits(torch, want)),
+                    f"{what}: values differ from the plain path's")
+            require(torch.equal(_float_bits(torch, k.grad),
+                                _float_bits(torch, t.grad)),
+                    f"{what}: the input gradient differs from the plain "
+                    "path's")
+            require(torch.equal(_float_bits(torch, served),
+                                _float_bits(torch, got)),
+                    f"{what}: inference_mode differs from the masked call")
+            del t, k, want, got, served
+            _, mask = op.hex_max_pool(x, 2, 2, 2, 2, True)
+            ms = cuda_ms(torch, lambda: op.hex_max_pool(x, 2, 2, 2, 2, False))
+            mask_ms = cuda_ms(torch,
+                              lambda: op.hex_max_pool(x, 2, 2, 2, 2, True))
+            bms = cuda_ms(torch, lambda: op.hex_max_pool_backward(
+                g, mask, h, w, 2, 2, 2, 2))
+            with torch.inference_mode():
+                pms = cuda_ms(torch, lambda: plain(x), iters=5)
+            xr = x.clone().requires_grad_()
+            out = plain(xr)
+
+            def plain_backward():
+                xr.grad = None
+                out.backward(g, retain_graph=True)
+
+            pbms = cuda_ms(torch, plain_backward, iters=5)
+            e = x.element_size()
+            f_b = bound(e * b * hn * wn * c * 5, 0, "f32")
+            b_b = bound(nbytes(g, x), 0, "f32")
+            log(f"{what}: values and input gradient bit-equal to the plain "
+                f"path; forward kernel_ms={ms!r} with the mask {mask_ms!r} "
+                f"plain_ms={pms!r} bound_ms={f_b[0]!r} "
+                f"({100 * f_b[0] / ms:.1f} % of it); backward "
+                f"kernel_ms={bms!r} plain_ms={pbms!r} (autograd on a kept "
+                f"graph) bound_ms={b_b[0]!r} ({100 * b_b[0] / bms:.1f} %)")
+            for acc, vals in ((fwd, (ms, mask_ms, pms)), (bwd, (bms, pbms))):
+                for key, v in zip(acc, vals):
+                    acc[key] += v
+            f_bounds.append(f_b)
+            b_bounds.append(b_b)
+            del x, g, mask, xr, out
+            torch.cuda.empty_cache()
+        fwd.update(summed_bound(f_bounds))
+        bwd.update(summed_bound(b_bounds))
+        for part, acc in (("forward", fwd), ("backward", bwd)):
+            if tag == "bf16":
+                sums[part].update(acc, max_abs_err=0.0)
+            else:
+                sums[part]["f32"] = dict(acc, max_abs_err=0.0)
+    log(f"hex_max_pool sums over the two pools: {sums}")
+    return sums
 
 
 def run_training(torch):
@@ -2079,7 +2207,9 @@ KERNELS = {"plan_gather": "plan_gather",
            "hex_conv_wgrad_split": "hex_conv_layer_split_wgrad",
            "gn_relu_backward": "gn_relu_backward",
            "hex_conv_fused_stack": "hex_conv_fused_stack",
-           "hex_conv_single": "hex_conv_single"}
+           "hex_conv_single": "hex_conv_single",
+           "hex_max_pool": "hex_max_pool",
+           "hex_max_pool_backward": "hex_max_pool_backward"}
 """Every kernel's launch counter: ``{label on this script's lines: its
 name in hygrid_tpu_torch.utils.profiling.counts()}``."""
 _LAUNCH_ZERO: dict = {}
@@ -2298,8 +2428,7 @@ UNET_GROUPS = [
     ("plan_gather", lambda k: "plan_gather" in k),
     ("cuDNN (transposed convs)", lambda k: any(
         s in k.lower() for s in ("xmma", "cudnn", "conv", "gemm", "cutlass"))),
-    ("max-pool reductions", lambda k: "reduce_kernel" in k),
-    ("gathers (pool windows)", lambda k: "index" in k or "gather" in k),
+    ("max-pool", lambda k: "max_pool" in k),
 ]
 
 
@@ -2319,7 +2448,7 @@ def run_hexunet(torch):
 
     counters = KERNELS
     per_request = {"plan_gather": 1, "hex_conv_layer": 3,
-                   "hex_conv_layer_split": 2}
+                   "hex_conv_layer_split": 2, "hex_max_pool": 2}
 
     def counted(fn, n):
         _zero_launches()
@@ -2590,7 +2719,8 @@ def run_hexunet_training(torch):
     per_step = {"plan_gather": 1, "hex_conv_layer": 3,
                 "hex_conv_layer_split": 2, "hex_conv_layer_dgrad": 2,
                 "hex_conv_layer_split_dgrad": 4, "hex_conv_wgrad": 3,
-                "hex_conv_wgrad_split": 4, "gn_relu_backward": 5}
+                "hex_conv_wgrad_split": 4, "gn_relu_backward": 5,
+                "hex_max_pool": 2, "hex_max_pool_backward": 2}
     step(data[0])
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -3347,7 +3477,8 @@ def run_augment_training(torch):
     aug_ms.append(timed(True))
     per_step = {"plan_gather": 1, "hex_conv_layer": 6,
                 "hex_conv_layer_dgrad": 5, "hex_conv_wgrad": 6,
-                "gn_relu_backward": 6}
+                "gn_relu_backward": 6, "hex_max_pool": 2,
+                "hex_max_pool_backward": 2}
     require(launches == {n: k * N_STEPS for n, k in per_step.items()},
             f"augmented training: launches {launches} in {N_STEPS} steps, "
             f"want {per_step} a step")
@@ -3684,7 +3815,8 @@ PAR_TOL = {"f32_rel": 1e-5, "bf16_rel": 5e-2, "fit_rel": 1e-6,
 # one HexCNN-small training step's launches (phase 7)
 TRAIN_STEP_LAUNCHES = {"plan_gather": 1, "hex_conv_layer": 6,
                        "hex_conv_layer_dgrad": 5, "hex_conv_wgrad": 6,
-                       "gn_relu_backward": 6}
+                       "gn_relu_backward": 6, "hex_max_pool": 2,
+                       "hex_max_pool_backward": 2}
 
 
 def chain_frame(torch, r0, r1):
@@ -4161,7 +4293,11 @@ def run_parallel_ranks(torch, tmp, ref):
 # reloaded artifact at EXPORT_BATCHES; the other programs at EXPORT_BATCH
 EXPORT_BATCHES = (BATCH, 8)
 EXPORT_BATCH = 2
-SERVE_LAUNCHES = {"plan_gather": 1, "hex_conv_layer": 6}
+SERVE_LAUNCHES = {"plan_gather": 1, "hex_conv_layer": 6, "hex_max_pool": 2}
+# a program exported on the CPU traced the pools' plain path (the kernel
+# takes CUDA tensors alone), so it launches no pool kernel on the card
+CPU_EXPORT_LAUNCHES = {k: v for k, v in SERVE_LAUNCHES.items()
+                       if k != "hex_max_pool"}
 
 
 def _export_artifact(torch, tmp, name, export, device=None):
@@ -4290,9 +4426,11 @@ def run_export(torch, tmp):
                 log(f"phase 27 HexCNN-small artifact exported on {label}, "
                     f"b={b}: launches {counts}, logits {tuple(got.shape)} "
                     f"torch.equal to eager {torch.equal(got, want)}")
-                require(counts == SERVE_LAUNCHES,
+                want_launches = (SERVE_LAUNCHES if label == "cuda"
+                                 else CPU_EXPORT_LAUNCHES)
+                require(counts == want_launches,
                         f"phase 27 {label} b={b}: launches {counts}, want "
-                        f"{SERVE_LAUNCHES} a call")
+                        f"{want_launches} a call")
                 require(got.shape == (b, 10)
                         and bool(torch.isfinite(got).all()),
                         f"phase 27 {label} b={b}: logits {tuple(got.shape)}")
@@ -4337,7 +4475,8 @@ def run_export(torch, tmp):
 
     others = [
         ("HexUNet-small", served(unet), inference(unet, x_bf), x_bf,
-         {"plan_gather": 1, "hex_conv_layer": 3, "hex_conv_layer_split": 2}),
+         {"plan_gather": 1, "hex_conv_layer": 3, "hex_conv_layer_split": 2,
+          "hex_max_pool": 2}),
         ("BN-512 kernel route", served(bn), inference(bn, x_f32), x_f32,
          {"plan_gather": 1, "hex_conv_single": 5}),
         ("P-512 fused", pipe, functools.partial(
@@ -4817,6 +4956,7 @@ def main():
     paths = {"serve": run_slice(torch)}
     bwd = check_backward(torch, gen)
     gn_bwd = check_gn_backward(torch, gen)
+    pools = check_pool(torch, gen)
     paths["train"] = run_training(torch)
     t0 = time.perf_counter()
     paths["train_f32"] = run_training_f32(torch)
@@ -4940,6 +5080,15 @@ def main():
              replaces_mode="jax.vjp of _make_post (conv_pallas.py:1752-1800) "
                            "under XLA, not a Pallas kernel",
              **count("gn_relu_backward"), **gn_bwd),
+        dict(name="hex_max_pool", route="cuda",
+             source="hygrid_tpu_torch/csrc/hex_pool.cu",
+             replaces="none: hygrid_tpu's pools are XLA "
+                      "(hygrid_tpu/nn/functional.py::_hex_window_reduce)",
+             **count("hex_max_pool"), **pools["forward"]),
+        dict(name="hex_max_pool_backward", route="cuda",
+             source="hygrid_tpu_torch/csrc/hex_pool.cu",
+             replaces="none: autograd of the XLA pool",
+             **count("hex_max_pool_backward"), **pools["backward"]),
     ]
     for k in kernels:
         require(k["launches"] > 0, f"{k['name']}: no launch on the main path")

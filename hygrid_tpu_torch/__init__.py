@@ -14,8 +14,8 @@ from . import parallel  # noqa: F401
 from . import viz  # noqa: F401
 from . import utils  # noqa: F401
 # registers the hygrid ops, which loading an exported program needs
-from .kernels import (conv_single, conv_stack, resample,  # noqa: F401
-                      resample_shift)
+from .kernels import (conv_single, conv_stack, pool,  # noqa: F401
+                      resample, resample_shift)
 from .image import IMAGE, HEXIMAGE
 from .lattice import HexSpec
 from .ops.geometry import (hex_to_rect_resample, hexresize,

@@ -22,11 +22,15 @@
   (replaces ``conv_pallas.py::_fused_stack_kernel``);
 * ``conv_single.hex_conv_single`` — ``csrc/hex_conv_single.cu`` (replaces
   ``conv_pallas.py::_conv_kernel`` and ``::_conv_kernel_banded``, the
-  single-op conv of ``hex_conv2d(impl="pallas")``).
+  single-op conv of ``hex_conv2d(impl="pallas")``);
+* ``pool.hex_max_pool`` — ``csrc/hex_pool.cu``, the strided NHWC hex
+  max-pool and its backward from a tie mask (replaces no TPU kernel:
+  ``hygrid_tpu``'s pools are XLA; ``nn.functional.hex_pool2d`` routes the
+  models' 2 x 2 max-pools of CUDA tensors to it).
 
 Importing these modules builds nothing: ``_build.load_library`` compiles
 the CUDA sources at the first kernel launch.  Each forward wrapper calls
 its ``hygrid`` op (``_ops.py``), which runs the kernel's plain PyTorch
 version on a CPU tensor and launches the kernel on a CUDA tensor; the
-backward kernels are called directly.
+backward kernels are called directly, but for the pool's, an op too.
 """

@@ -56,6 +56,10 @@ _SIGNATURES = {
                                 _I, _I, _I, _I, _I, _I, _P, _P, _P],
     "hg_hex_conv_single": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
                            _P, _P],
+    "hg_hex_max_pool": [_P, _P, _P, _I, _LL, _I, _I, _I, _I, _I, _I, _I, _I,
+                        _I, _P],
+    "hg_hex_max_pool_backward": [_P, _P, _P, _I, _LL, _I, _I, _I, _I, _I, _I,
+                                 _I, _I, _I, _P],
 }
 
 _lock = threading.Lock()

@@ -446,7 +446,13 @@ def hex_pool2d(x, method: str, kernel_size=2, stride=None, padding: int = 0,
     replicated).  Window ``(gi, gj)`` covers rows ``sh*gi + [0, kh)`` and
     cols ``(gi % 2)*(sw//2) + sw*gj + [0, kw)``.  ``data_format="NHWC"``
     pools (B, H, W, C) tensors with the same window math.  A tensor pools
-    on its own device; other input is moved to ``device`` first."""
+    on its own device; other input is moved to ``device`` first.
+
+    An NHWC max-pool of a CUDA float32 or bfloat16 tensor over windows of
+    at most 2 x 2 cells that do not overlap, without padding or ceil mode
+    (the models' pools), runs the hand-written kernel
+    (:func:`hygrid_tpu_torch.kernels.pool.hex_max_pool`), whose values and
+    gradient are this plain path's bit for bit."""
     x = _as_4d(x, device)
     _reduction(method)  # validate method early (clear centroid/KeyError)
     if data_format not in ("NCHW", "NHWC"):
@@ -475,8 +481,7 @@ def hex_pool2d(x, method: str, kernel_size=2, stride=None, padding: int = 0,
         # reference quirk replicated: pw pads height, ph pads width
         x = tF.pad(x, (0, ph, 0, pw_), value=fill)
         h, w = x.shape[2], x.shape[3]
-    hn = (h - kh) // sh + 1
-    wn = (w - sw // 2) // sw
+    hn, wn = _pool_windows(h, w, kh, sh, sw)
 
     half = sw // 2
     max_i = sh * (hn - 1) + kh - 1
@@ -486,7 +491,31 @@ def hex_pool2d(x, method: str, kernel_size=2, stride=None, padding: int = 0,
             f"pooling window exceeds input: kernel {kernel_size}, stride "
             f"{stride} on ({h}, {w}) (the reference indexes out of bounds "
             "here as well, HexFrames.py:330-331)")
+    if nhwc and method == "max" and x.is_cuda and padding == 0 \
+            and not ceil_mode:
+        from ..kernels import pool
+        y = x.permute(0, 2, 3, 1)
+        if pool.takes(y, kh, kw, sh, sw):
+            return pool.hex_max_pool(y, (kh, kw), (sh, sw))
     return _window_reduce(x, method, hn, wn, kh, kw, sh, sw, half, nhwc)
+
+
+def _pool_windows(h: int, w: int, kh: int, sh: int, sw: int) -> tuple:
+    """``(hn, wn)``: the brick-lattice windows of rows ``kh`` at stride
+    ``(sh, sw)`` in an ``(h, w)`` input (:func:`hex_pool2d` after its
+    padding)."""
+    return (h - kh) // sh + 1, (w - sw // 2) // sw
+
+
+def _window_index(hn, wn, kh, kw, sh, sw, half, device):
+    """``(rows (hn, 1, kh, 1), cols (hn, wn, 1, kw))``: the cells of each
+    brick-lattice window, broadcasting to ``(hn, wn, kh, kw)``."""
+    gi = torch.arange(hn, device=device)
+    gj = torch.arange(wn, device=device)
+    rows = sh * gi[:, None] + torch.arange(kh, device=device)   # (hn, kh)
+    cols = ((gi % 2) * half)[:, None, None] + sw * gj[None, :, None] \
+        + torch.arange(kw, device=device)                        # (hn, wn, kw)
+    return rows[:, None, :, None], cols[:, :, None, :]
 
 
 def _window_reduce(x, method, hn, wn, kh, kw, sh, sw, half, nhwc=False):
@@ -500,13 +529,7 @@ def _window_reduce(x, method, hn, wn, kh, kw, sh, sw, half, nhwc=False):
     ``hygrid_tpu``'s ``_hex_window_reduce`` does: the same values, and a
     tie's gradient split as ``jax.grad`` splits it (evenly at each stage,
     so three tied cells of a 2x2 window get 1/4, 1/4 and 1/2)."""
-    dev = x.device
-    gi = torch.arange(hn, device=dev)
-    gj = torch.arange(wn, device=dev)
-    rows = sh * gi[:, None] + torch.arange(kh, device=dev)      # (hn, kh)
-    cols = ((gi % 2) * half)[:, None, None] + sw * gj[None, :, None] \
-        + torch.arange(kw, device=dev)                           # (hn, wn, kw)
-    ri, ci = rows[:, None, :, None], cols[:, :, None, :]        # (hn,wn,kh,kw)
+    ri, ci = _window_index(hn, wn, kh, kw, sh, sw, half, x.device)
     reduce = _REDUCTIONS[method]
     two_stage = method in ("max", "min") and kh <= sh and kw <= sw
     if nhwc:

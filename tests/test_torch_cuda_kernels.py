@@ -26,7 +26,11 @@ it was.  The split layer: the
 layer's tolerances against its plain version, and bit-equal to
 ``hex_conv_layer`` on the concatenation; its backward (split dgrad and
 wgrad) the unsplit kernels' tolerances, and bit-equal to the unsplit
-kernels on each input's part.
+kernels on each input's part.  The hex max-pool and its backward: bit-equal
+to the plain path (``_window_reduce`` and its autograd) in both dtypes, NaN
+payloads aside; a training step through it bit-equal to one through the
+plain path; a gradient penalty's second-order gradient through it equal to
+the plain path's.
 """
 import math
 
@@ -35,7 +39,7 @@ import torch
 
 import numpy as np
 
-from hygrid_tpu_torch.kernels import (_build, conv_single, conv_stack,
+from hygrid_tpu_torch.kernels import (_build, conv_single, conv_stack, pool,
                                       resample, resample_shift)
 from hygrid_tpu_torch.models import (HexCNN, create_train_state,
                                      dense_onehot_xent, hexcnn_tiny,
@@ -1534,6 +1538,16 @@ def _op_cases(cuda):
             (rand(2, 6, 7, 16, dtype=dt),
              [rand(16, 16, 7, dtype=dt) * 0.2 for _ in range(2)],
              [rand(16), None], 2, 1, [True, False]))
+        for mask in (False, True):
+            cases[f"hex_max_pool-{'mask' if mask else 'values'}-{tag}"] = (
+                torch.ops.hygrid.hex_max_pool,
+                (rand(2, 7, 9, 16, dtype=dt), 2, 2, 2, 2, mask))
+        x = rand(2, 7, 9, 16, dtype=dt)
+        cases[f"hex_max_pool_backward-{tag}"] = (
+            torch.ops.hygrid.hex_max_pool_backward,
+            (rand(2, 3, 4, 16, dtype=dt),
+             torch.ops.hygrid.hex_max_pool(x, 2, 2, 2, 2, True)[1], 7, 9, 2,
+             2, 2, 2))
     return cases
 
 
@@ -1546,7 +1560,9 @@ OP_CASE_NAMES = [f"{op}-{form}-{tag}" for tag in ("f32", "bf16")
     f"{name}-{tag}" for tag in ("f32", "bf16")
     for name in ("hex_conv_single", "hex_conv_layer-gn",
                  "hex_conv_layer-affine", "hex_conv_layer-None",
-                 "hex_conv_layer-gn-split", "hex_conv_fused_stack")]
+                 "hex_conv_layer-gn-split", "hex_conv_fused_stack",
+                 "hex_max_pool-values", "hex_max_pool-mask",
+                 "hex_max_pool_backward")]
 
 
 @pytest.mark.parametrize("name", OP_CASE_NAMES)
@@ -1849,3 +1865,192 @@ def test_f32_fused_stack_at_a_wide_dilation_equals_chained_layers(cuda):
     assert tile["taps"] < 7
     assert (plan["n"], plan["rows"], plan["smem"]) == \
         (tile["cob"], tile["rows"], tile["smem"])
+
+
+# ---- the hex max-pool (csrc/hex_pool.cu) ------------------------------------
+
+POOL_CASES = [  # (B, H, W, C), (kh, kw), stride
+    ((2, 256, 256, 32), (2, 2), 2),   # the models' first pool
+    ((2, 128, 127, 64), (2, 2), 2),   # their second
+    ((1, 9, 10, 3), (2, 2), 2),       # C off a 16-byte unit: a value a thread
+    ((2, 7, 11, 8), (1, 2), 2),
+    ((2, 8, 13, 16), (2, 1), 3),
+    ((1, 11, 12, 24), (2, 2), 3),
+    ((3, 5, 7, 4), (1, 2), 3),
+]
+
+
+def _pool_bits(t):
+    t = torch.where(torch.isnan(t), torch.nan, t)
+    return t.view(torch.int16 if t.element_size() == 2 else torch.int32)
+
+
+def _plain_max_pool(x, kernel, stride):
+    """``hex_pool2d``'s plain path (``_window_reduce``) on NHWC ``x``."""
+    (kh, kw), (sh, sw) = kernel, stride
+    hn, wn = pool.pool_shape(x.shape[1], x.shape[2], kh, kw, sh, sw)
+    return F._window_reduce(x.permute(0, 3, 1, 2), "max", hn, wn, kh, kw, sh,
+                            sw, sw // 2, True)
+
+
+def _pool_input(case, dtype, cuda):
+    shape, _, _ = case
+    gen = torch.Generator(device=cuda).manual_seed(POOL_CASES.index(case))
+    x = torch.clamp(torch.round(torch.randn(shape, generator=gen,
+                                            device=cuda) * 2) / 2, min=0)
+    x = x.to(dtype)
+    x[0, 0, 0, 0] = float("nan")
+    x[0, 2:4, 1:3, -1] = float("nan")           # an all-NaN window
+    x[-1, 1, 2, 0] = float("inf")
+    x[-1, 0, 1, -1] = -float("inf")
+    return x
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", POOL_CASES)
+def test_hex_max_pool_is_bit_equal_to_the_plain_path(cuda, case, dtype):
+    """Forward and backward, with NaN cells, an all-NaN window, +-inf and
+    the cells no window covers; one launch each."""
+    shape, kernel, s = case
+    x = _pool_input(case, dtype, cuda)
+    t = x.clone().requires_grad_()
+    want = _plain_max_pool(t, kernel, (s, s))
+    cot = torch.randn(want.shape, generator=torch.Generator(
+        device=cuda).manual_seed(9), device=cuda).to(dtype)
+    cot[0, 0, 0, 0] = float("inf")
+    want.backward(cot)
+    k = x.clone().requires_grad_()
+    before = counts()
+    got = pool.hex_max_pool(k, kernel, (s, s))
+    got.backward(cot)
+    torch.cuda.synchronize()
+    assert _since(before, "hex_max_pool", "hex_max_pool_backward") == (1, 1)
+    assert got.is_contiguous() and got.shape == want.shape
+    assert torch.equal(got, want.detach())
+    assert torch.equal(_pool_bits(k.grad), _pool_bits(t.grad))
+    with torch.inference_mode():
+        assert torch.equal(pool.hex_max_pool(x, kernel, (s, s)), got.detach())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", POOL_CASES)
+def test_hex_max_pool_backward_is_differentiable_on_cuda(cuda, case, dtype):
+    """A gradient penalty through ``hex_pool2d``'s kernel route: the
+    gradient bit-equal to the plain path's, the second-order gradient
+    equal in value; the backward kernel launched once."""
+    from test_torch_pool import second_order
+    shape, kernel, s = case
+    x = _pool_input(case, dtype, cuda)
+    gen = torch.Generator(device=cuda).manual_seed(11)
+    hn, wn = pool.pool_shape(shape[1], shape[2], *kernel, s, s)
+    cot = torch.randn((shape[0], hn, wn, shape[3]), generator=gen,
+                      device=cuda).to(dtype)
+    weight = torch.randn(shape, generator=gen, device=cuda).to(dtype)
+    want_dx, want = second_order(
+        lambda t: _plain_max_pool(t, kernel, (s, s)), x, cot, weight)
+    before = counts()
+    got_dx, got = second_order(
+        lambda t: F.hex_pool2d(t, "max", kernel_size=kernel, stride=s,
+                               data_format="NHWC"), x, cot, weight)
+    torch.cuda.synchronize()
+    assert _since(before, "hex_max_pool", "hex_max_pool_backward") == (1, 1)
+    assert torch.equal(_pool_bits(got_dx), _pool_bits(want_dx))
+    torch.testing.assert_close(got, want, rtol=0, atol=0, equal_nan=True)
+
+
+@pytest.mark.parametrize("name", ["nchw", "min", "average", "padding",
+                                  "ceil_mode", "overlapping", "3-wide",
+                                  "float64"])
+def test_pools_the_kernel_does_not_take_stay_plain_on_cuda(cuda, name):
+    from test_torch_pool import plain_route_case
+    before = counts()
+    got, want = plain_route_case(name, cuda)
+    assert _since(before, "hex_max_pool") == (0,)
+    torch.testing.assert_close(got, want, rtol=0, atol=0, equal_nan=True)
+
+
+def _model_pool_launches(model, images, labels):
+    """(pool launches of a forward under inference_mode, of a train step)."""
+    before = counts()
+    with torch.inference_mode():
+        model.eval()(images)
+    serve = _since(before, "hex_max_pool", "hex_max_pool_backward")
+    before = counts()
+    train_step(create_train_state(model.train()), images, labels)
+    return serve, _since(before, "hex_max_pool", "hex_max_pool_backward")
+
+
+def test_models_pool_through_the_kernel(cuda):
+    """The stacked route's two max-pools a forward, two and their two
+    backward launches a training step, in HexCNN and HexUNet."""
+    from hygrid_tpu_torch.models import HexUNet
+    gen = torch.Generator(device=cuda).manual_seed(21)
+    images = hexify_batch(torch.rand((2, 3, 64, 64), generator=gen,
+                                     device=cuda))
+    cnn = HexCNN(channels=(16, 32, 64), depth=1, norm="GN", generator=gen)
+    assert _model_pool_launches(cnn, images, torch.arange(2, device=cuda)) \
+        == ((2, 0), (2, 2))
+    unet = HexUNet(num_classes=4, widths=(16, 32, 64), norm="GN",
+                   generator=gen)
+    labels = torch.randint(0, 4, (2, 32, 32), generator=gen, device=cuda)
+    assert _model_pool_launches(unet, images, labels) == ((2, 0), (2, 2))
+
+
+def test_hexcnn_small_train_step_is_bit_equal_with_the_plain_pool(
+        cuda, monkeypatch):
+    """One float32 training step of HexCNN-small at b=4 (512^2 RGB): the
+    loss and every gradient bit for bit the same through the kernel and
+    through the plain pool."""
+    from hygrid_tpu_torch.models import hexcnn_small
+    gen = torch.Generator(device=cuda).manual_seed(22)
+    rect = torch.rand((4, 3, 512, 512), generator=gen, device=cuda)
+    labels = torch.arange(4, device=cuda) % 10
+    models, losses = [], []
+    for route in ("kernel", "plain"):
+        if route == "plain":
+            monkeypatch.setattr(pool, "hex_max_pool", _plain_max_pool)
+        model = hexcnn_small(norm="GN", generator=torch.Generator(
+            device=cuda).manual_seed(23))
+        before = counts()
+        _, m = train_step(create_train_state(model), hexify_batch(rect),
+                          labels)
+        torch.cuda.synchronize()
+        launched = _since(before, "hex_max_pool", "hex_max_pool_backward")
+        assert launched == ((2, 2) if route == "kernel" else (0, 0))
+        models.append(model)
+        losses.append(m["loss"])
+    assert torch.equal(_pool_bits(losses[0]), _pool_bits(losses[1]))
+    for (name, p), q in zip(models[0].named_parameters(),
+                            models[1].parameters()):
+        assert torch.equal(_pool_bits(p.grad), _pool_bits(q.grad)), name
+        assert torch.equal(p, q), name
+
+
+def test_exported_hexcnn_small_keeps_the_pool_kernel(cuda, tmp_path):
+    """HexCNN-small (GN, bf16) exported on the card with a symbolic batch
+    keeps its two pools as ``hygrid.hex_max_pool`` nodes; the loaded
+    program launches them and equals the eager model at b = 1 and 3."""
+    from hygrid_tpu_torch.models import hexcnn_small
+    from hygrid_tpu_torch.utils import export as texp
+    gen = torch.Generator(device=cuda).manual_seed(24)
+    model = hexcnn_small(norm="GN", dtype=torch.bfloat16,
+                         generator=gen).eval()
+    x = torch.rand((2, 3, 512, 512), generator=gen,
+                   device=cuda).to(torch.bfloat16)
+    exp = texp.export_inference(model, None, x, symbolic_batch=True)
+    nodes = [n for n in exp.program.graph.nodes if n.op == "call_function"
+             and n.target == torch.ops.hygrid.hex_max_pool.default]
+    assert len(nodes) == 2
+    path = str(tmp_path / "hexcnn_small.pt2")
+    texp.save_exported(path, exp)
+    program = texp.load_exported(path)
+    for b in (1, 3):
+        xb = torch.rand((b, 3, 512, 512), generator=gen,
+                        device=cuda).to(torch.bfloat16)
+        before = counts()
+        with torch.inference_mode():
+            got = program(xb)
+        assert _since(before, "plan_gather", "hex_conv_layer",
+                      "hex_max_pool") == (1, 6, 2)
+        with torch.inference_mode():
+            assert torch.equal(got, model(hexify_batch(xb)))

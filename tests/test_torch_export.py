@@ -37,7 +37,7 @@ from torch._subclasses.fake_tensor import FakeTensor
 from hygrid_tpu import models as jm
 from hygrid_tpu.utils import export as jexp
 from hygrid_tpu_torch import models as tm
-from hygrid_tpu_torch.kernels import conv_single, conv_stack, resample
+from hygrid_tpu_torch.kernels import conv_single, conv_stack, pool, resample
 from hygrid_tpu_torch.kernels import resample_shift
 from hygrid_tpu_torch.models import video
 from hygrid_tpu_torch.ops import geometry as tgeo
@@ -266,6 +266,17 @@ OP_CASES = {
     "hex_conv_fused_stack": lambda: (
         _randn(11, 2, 6, 7, 4), [_randn(12, 4, 4, 7), _randn(13, 4, 4, 7)],
         [_randn(14, 4), None], 2, 1, [True, False]),
+    **{f"hex_max_pool-{tag}-{'mask' if mask else 'values'}": (
+        lambda dt=dt, mask=mask: (_randn(15, 2, 7, 9, 4, dtype=dt), 2, 2, 2,
+                                  2, mask))
+       for tag, dt in (("f32", torch.float32), ("bf16", torch.bfloat16))
+       for mask in (False, True)},
+    **{f"hex_max_pool_backward-{tag}": (
+        lambda dt=dt: (_randn(16, 2, 3, 4, 4, dtype=dt),
+                       torch.ops.hygrid.hex_max_pool(
+                           _randn(15, 2, 7, 9, 4, dtype=dt), 2, 2, 2, 2,
+                           True)[1], 7, 9, 2, 2, 2, 2))
+       for tag, dt in (("f32", torch.float32), ("bf16", torch.bfloat16))},
 }
 
 
@@ -332,6 +343,9 @@ SINGLE = {
         "hex_conv_fused_stack", lambda c, x: conv_stack.hex_conv_stack(
             x, c, radius=2, fused=True), KS,
         lambda b: (_randn(46, b, 4, 6, 7),)),
+    "hex_max_pool": (
+        "hex_max_pool", lambda x: pool.hex_max_pool(x, (2, 2), (2, 2)), None,
+        lambda b: (_randn(47, b, 7, 9, 4),)),
 }
 
 

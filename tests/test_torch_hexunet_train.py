@@ -35,6 +35,7 @@ from hygrid_tpu.models import train as jtrain
 from hygrid_tpu.nn import functional as JF
 from hygrid_tpu_torch import models as tm
 from hygrid_tpu_torch.kernels import conv_stack as tcs
+from hygrid_tpu_torch.kernels import pool as tpool
 from hygrid_tpu_torch.nn import functional as TF
 from hygrid_tpu_torch.nn.functional import hex_kernel_num
 from hygrid_tpu_torch.utils import hexunet_state_dict_from_flax
@@ -271,12 +272,16 @@ def test_three_steps_track_jax_and_mean_iou_agrees():
 # ---- hex_pool2d max with ties ----------------------------------------------
 
 @pytest.mark.parametrize("data_format,kernel,stride", [
-    ("NHWC", 2, 2), ("NCHW", 2, 2), ("NHWC", 3, 2)])
+    ("NHWC", 2, 2), ("NCHW", 2, 2), ("NHWC", 3, 2), ("NHWC", (1, 2), 3),
+    ("NHWC", (2, 1), 2), ("NHWC", 2, 3)])
 def test_max_pool_tie_grads_match_jax(data_format, kernel, stride):
     """ReLU'd values on a coarse grid tie in most windows (two, three or
     four cells): the split of each tie's gradient is jax.grad's (rows
     first, then columns, for the non-overlapping model pool: bit for bit;
-    evenly over the flat window otherwise, within a float32 ulp)."""
+    evenly over the flat window otherwise, within a float32 ulp).  The
+    non-overlapping NHWC pools give the same bits through the
+    ``hygrid::hex_max_pool`` op and its backward (the kernel's plain
+    version, ``kernels/pool.py``)."""
     rng = np.random.default_rng(kernel)
     shape = (2, 9, 10, 3) if data_format == "NHWC" else (2, 3, 9, 10)
     x = np.maximum(np.round(rng.normal(0, 1, shape) * 2) / 2, 0).astype(
@@ -290,11 +295,18 @@ def test_max_pool_tie_grads_match_jax(data_format, kernel, stride):
     out = TF.hex_pool2d(t, "max", device="cpu", **kw)
     np.testing.assert_array_equal(out.detach().numpy(), np.asarray(ref))
     (out * _t(cot)).sum().backward()
-    if kernel <= stride:
+    if np.max(kernel) > stride:   # overlapping windows sum their cells'
+        np.testing.assert_allclose(  # shares in another order
+            t.grad.numpy(), np.asarray(want), rtol=1e-6, atol=1e-7)
+        return
+    np.testing.assert_array_equal(t.grad.numpy(), np.asarray(want))
+    if data_format == "NHWC":
+        t = _t(x).requires_grad_()
+        k = (kernel, kernel) if isinstance(kernel, int) else kernel
+        out = tpool.hex_max_pool(t, k, (stride, stride))
+        np.testing.assert_array_equal(out.detach().numpy(), np.asarray(ref))
+        (out * _t(cot)).sum().backward()
         np.testing.assert_array_equal(t.grad.numpy(), np.asarray(want))
-    else:   # overlapping windows sum their cells' shares in another order
-        np.testing.assert_allclose(t.grad.numpy(), np.asarray(want),
-                                   rtol=1e-6, atol=1e-7)
 
 
 # ---- fit ---------------------------------------------------------------------

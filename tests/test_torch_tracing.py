@@ -41,7 +41,8 @@ LAYER_SPANS = ("hygrid.pool", "hygrid.conv_transpose",
 CALL_SPANS = ("hygrid.train_step", "hygrid.forward")
 NEW_METRICS = ("pool_roofline_pct", "upsample_roofline_pct",
                "upsample_copy_pct", "gn_bwd_roofline_pct",
-               "resample_roofline_pct", "kernel_calls")
+               "resample_roofline_pct", "kernel_calls",
+               "pool_bwd_roofline_pct")
 
 
 def _tiny_unet():
@@ -274,6 +275,25 @@ def test_pool_bound_by_hand():
                   + 128 * (64 * 63 + 1))
     want = 100 * nbytes / roofline.HBM_BYTES_S * 12 / 1e-3
     assert _read("pool_roofline_pct.train", run) == pytest.approx(want)
+
+
+@pytest.mark.parametrize("config,family", [("hexcnn_small", fam_hexcnn),
+                                           ("hexunet_small", fam_hexunet)])
+def test_pool_backward_bound_by_hand(config, family):
+    # both models' two max-pools, 256 x 256 -> 128 x 127 -> 64 x 63: the
+    # output gradient read and the input gradient written (HexCNN's global
+    # pool has no such backward)
+    run = _run(config, family, "train", "float32", 2,
+               {"hygrid.pool_backward": 1e-3, "hygrid.pool": 1.0})
+    nbytes = 2 * 4 * (32 * (128 * 127 + 256 * 256)
+                      + 64 * (64 * 63 + 128 * 127))
+    want = 100 * nbytes / roofline.HBM_BYTES_S * 12 / 1e-3
+    assert _read("pool_bwd_roofline_pct.train", run) == pytest.approx(want)
+    assert _read("pool_bwd_roofline_pct.train", _run(
+        config, family, "serve", "bfloat16", 2,
+        {"hygrid.pool_backward": 1e-3})) is None
+    assert _read("pool_bwd_roofline_pct.train", _run(
+        config, family, "train", "float32", 2, {"hygrid.pool": 1.0})) is None
 
 
 def test_gn_backward_bound_by_hand():
