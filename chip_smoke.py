@@ -484,7 +484,7 @@ def mma_note(cin, cout, gn=False, split=False, radius=2, adjoint=False,
     import torch
     from hygrid_tpu_torch.kernels import conv_stack as cs
     n = cs._tile_n(torch.bfloat16, cin, cout, 3 * radius * (radius - 1) + 1,
-                   *cs._patch_shape(radius, dilation, adjoint))
+                   *cs._mma_patch_shape(radius, dilation, adjoint))
     return (f"tile N={n}, HGMMA/HMMA in hex_conv_kernel<{n}, bf16, "
             f"{'float' if gn else 'bf16'}, {str(split).lower()}, "
             f"{str(gn).lower()}>={MMA_COUNTS[(n, gn, split)]}")

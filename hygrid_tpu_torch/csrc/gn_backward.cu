@@ -579,7 +579,9 @@ extern "C" int hg_gn_backward_device(int* out) {
   return (int)cudaGetLastError();
 }
 
-// The backward of act(GroupNorm(y)).  y: float32 (B, HW, C) NHWC, the
+// The backward of act(GroupNorm(y)), C <= 2048 (above 1024 a multiple of 4
+// with y, gout and gpre 16-byte aligned: a thread a vector of 4 channels).
+// y: float32 (B, HW, C) NHWC, the
 // layer's pre-activation (bias included); gout and gpre: (B, HW, C) of
 // `dtype` (0 = float32, 1 = bfloat16); mean, rstd: float32, (sample, group)
 // at ((b G + g) stat_stride); gamma, beta: float32 (C,); plan: V, threads,
@@ -596,7 +598,7 @@ extern "C" int hg_gn_relu_backward(
     long long n_scratch, void* gpre, void* grads, int dtype, int B,
     long long HW, int C, int G, int relu, float eps, const int* plan,
     void* stream) {
-  if (B < 1 || HW < 1 || C < 1 || C > 1024 || G < 1 || C % G ||
+  if (B < 1 || HW < 1 || C < 1 || C > 2048 || G < 1 || C % G ||
       stat_stride < 1 || (dtype != 0 && dtype != 1) || !y || !gout ||
       !mean || !rstd || !gamma || !beta || !scratch || !gpre || !grads ||
       !plan)
@@ -604,6 +606,7 @@ extern "C" int hg_gn_relu_backward(
   const int gb = dtype == 0 ? 4 : 2;
   const bool aligned = aligned16(y) && aligned16(gout) && aligned16(gpre);
   const Layout l = layout(C, aligned);
+  if (l.threads > 1024) return -1;   // C > 1024 needs vectors of 4
   const int chunk_px = plan[2], staged_px = plan[3], chunks = plan[4],
             spw = plan[5], stages = plan[6];
   if (plan[0] != l.V || plan[1] != l.threads || chunk_px < 1 ||

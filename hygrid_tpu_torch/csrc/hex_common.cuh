@@ -233,6 +233,38 @@ inline Geometry make_geometry(const int* taps_host, int kn) {
   return g;
 }
 
+// The patch rows the bf16 tiles stage (conv_tile_mma; hex_conv_wgrad.cu's
+// tensor-core pass): only the rows some tap reads, in order, so that patch
+// row k is input row o + dr[k] around output row o.  A dilated kernel reads
+// few of the rows its taps span (radius 2 at dilation d: rows -d, 0 and d
+// of 2 d + 1), and its patch shrinks to those; a table whose taps read
+// every row between their first and last (dilation 1) keeps the patch of
+// all of them, row k at r_lo + k, unchanged.
+struct RowMap {
+  int dr[kMaxTaps];
+};
+
+// The geometry of the staged rows alone: g with each tap's row offset
+// replaced by its patch row (so r_lo = 0 and n_rows the rows read), the
+// input row of each patch row in *rows.
+inline Geometry compact_rows(const Geometry& g, int kn, RowMap* rows) {
+  Geometry c = g;
+  int n = 0;
+  for (int r = g.r_lo; r < g.r_lo + g.n_rows; ++r) {
+    bool read = false;
+    for (int q = 0; q < 2; ++q)
+      for (int t = 0; t < kn; ++t) read = read || g.taps.dr[q][t] == r;
+    if (read) rows->dr[n++] = r;
+  }
+  for (int q = 0; q < 2; ++q)
+    for (int t = 0; t < kn; ++t)
+      for (int k = 0; k < n; ++k)
+        if (rows->dr[k] == g.taps.dr[q][t]) c.taps.dr[q][t] = k;
+  c.r_lo = 0;
+  c.n_rows = n;
+  return c;
+}
+
 // The rows a group of taps t0 .. t1 - 1 reaches at either parity: its
 // first row (returned) and their count (in *rows).
 __host__ __device__ inline int tap_band(const TapTable& taps, int t0, int t1,
@@ -579,7 +611,8 @@ __device__ __forceinline__ void conv_tile(
 // or 128: conv_tile_mma_n) and K = kn x Cin, walked as (16-channel chunk,
 // tap) in that order, the 16 channels of a chunk inside one MMA.
 //
-//   A: the input patch of the chunk, the rows the taps reach x (64 + tap
+//   A: the input patch of the chunk, the rows the taps read (compact_rows:
+//      a dilated kernel's rows between its taps are not staged) x (64 + tap
 //      width) columns x 16 channels, in bf16, as [row][channel group of 8]
 //      [column][8 channels]: each 16-byte unit is 8 channels of one pixel.
 //      wgmma's K-major operand without swizzle is a grid of 8-row x 16-byte
@@ -756,21 +789,22 @@ inline int conv_tile_mma_n(const Geometry& g, int kn, int cin, int cout) {
 }
 
 // One chunk's patch (input channels ci0 .. ci0 + 15) into xs, laid out
-// [row][group][column] in 16-byte units.  Consecutive threads take the two
-// groups of a pixel, then the next pixel: consecutive 16-byte global reads
-// when Cin = 16.
+// [row][group][column] in 16-byte units, patch row r from input row o +
+// rows.dr[r] (compact_rows).  Consecutive threads take the two groups of a
+// pixel, then the next pixel: consecutive 16-byte global reads when Cin =
+// 16.
 template <bool kSplit>
 __device__ __forceinline__ void stage_patch(
     uint4* xs, const __nv_bfloat16* __restrict__ xb,
     const __nv_bfloat16* __restrict__ xb2, int Ca, int H, int W, int Cin,
-    int r_lo, int n_rows, int c_lo, int n_cols, int o, int w0, int ci0,
-    bool vec) {
+    const RowMap& rows, int n_rows, int c_lo, int n_cols, int o, int w0,
+    int ci0, bool vec) {
   const int n_units = mma_patch_units(n_rows, n_cols);
   for (int e = threadIdx.x; e < n_units; e += kConvThreads) {
     const int grp = e & 1;
     const int c = (e >> 1) % n_cols;
     const int r = (e >> 1) / n_cols;
-    const int gi = o + r_lo + r, gj = w0 + c_lo + c, gc = ci0 + 8 * grp;
+    const int gi = o + rows.dr[r], gj = w0 + c_lo + c, gc = ci0 + 8 * grp;
     const bool inside = gi >= 0 && gi < H && gj >= 0 && gj < W;
     const long long pix = (long long)gi * W + gj;
     uint4* dst = xs + (r * 2 + grp) * n_cols + c;
@@ -830,15 +864,16 @@ __device__ __forceinline__ void stage_weights(
 // l = t % 32, holds acc[4 i + 2 h + j] = pixel w0 + 16 (t / 32) + l / 4 +
 // 8 h, channel co0 + 8 i + 2 (l % 4) + j.  w: the packed weights; smem
 // holds conv_tile_mma_smem bytes, 16-byte aligned; vec: every 16-byte unit
-// of the inputs is one aligned copy (see stage_patch).
+// of the inputs is one aligned copy (see stage_patch).  taps, r_lo and
+// n_rows are compact_rows' (each tap's row its patch row), rows its map.
 template <int N, bool kSplit>
 __device__ __forceinline__ void conv_tile_mma(
     const __nv_bfloat16* __restrict__ xb,
     const __nv_bfloat16* __restrict__ xb2, int Ca,
     const __nv_bfloat16* __restrict__ w, uint4* smem, int H, int W,
-    int Cin, int Cout, int kn, const TapTable& taps, int r_lo, int n_rows,
-    int c_lo, int n_cols, int o, int w0, int co0, bool vec,
-    float (&acc)[N / 2]) {
+    int Cin, int Cout, int kn, const TapTable& taps, const RowMap& rows,
+    int r_lo, int n_rows, int c_lo, int n_cols, int o, int w0, int co0,
+    bool vec, float (&acc)[N / 2]) {
   const int q = o & 1;
   const int n_chunks = (Cin + kChunkC - 1) / kChunkC;
   const int x_units = mma_patch_units(n_rows, n_cols);
@@ -848,7 +883,7 @@ __device__ __forceinline__ void conv_tile_mma(
 
   auto stage = [&](int chunk) {
     uint4* xs = smem + (chunk & 1) * stage_units;
-    stage_patch<kSplit>(xs, xb, xb2, Ca, H, W, Cin, r_lo, n_rows, c_lo,
+    stage_patch<kSplit>(xs, xb, xb2, Ca, H, W, Cin, rows, n_rows, c_lo,
                         n_cols, o, w0, chunk * kChunkC, vec);
     stage_weights<N>(xs + x_units, w, chunk, kn, Cout, co0);
     cp_async_commit();

@@ -34,7 +34,9 @@
 // f32 FMAs, the next input chunk copied in with cp.async while this one
 // multiplies: TF32 would not hold the 1e-5 agreement with the reference.
 //
-// GroupNorm (norm "gn"): the TPU kernel holds the layer's pre-activations
+// GroupNorm (norm "gn", Cout <= 2048; above 1024 a multiple of 4, so that a
+// thread of the apply pass holds a vector of 4 or 8 channels): the TPU
+// kernel holds the layer's pre-activations
 // in VMEM and normalises them in place; here they do not fit in a block, so
 // the conv pass writes them, once, and two small passes follow:
 //   1. the conv pass's epilogue writes the f32 pre-activation y (+bias) and,
@@ -196,7 +198,8 @@ hex_conv_kernel(const Tin* __restrict__ x, const Tin* __restrict__ x2, int Ca,
                 const float* __restrict__ shift, Tout* __restrict__ out,
                 float* __restrict__ pre,
                 int H, int W, int Cin, int Cout, int kn,
-                const __grid_constant__ hg::TapTable taps, int r_lo, int n_rows,
+                const __grid_constant__ hg::TapTable taps,
+                const __grid_constant__ hg::RowMap rows, int r_lo, int n_rows,
                 int c_lo, int n_cols, int relu, int vec,
                 float* __restrict__ gn_part, int seg) {
   extern __shared__ __align__(16) float smem[];
@@ -217,7 +220,7 @@ hex_conv_kernel(const Tin* __restrict__ x, const Tin* __restrict__ x2, int Ca,
   hg::conv_tile_mma<kN, kSplit>(
       x + pix0 * (kSplit ? Ca : Cin), kSplit ? x2 + pix0 * (Cin - Ca) : x,
       Ca, w, reinterpret_cast<uint4*>(smem), H, W, Cin, Cout, kn, taps,
-      r_lo, n_rows, c_lo, n_cols, o, w0, co0, vec != 0, acc);
+      rows, r_lo, n_rows, c_lo, n_cols, o, w0, co0, vec != 0, acc);
   const int lane = threadIdx.x % 32;
   const bool pairs = Cout % 2 == 0;
 #pragma unroll
@@ -483,8 +486,9 @@ template <int kN, typename Tin, typename Tout, bool kStats>
 int launch_conv_n(const void* x, const void* x2, int Ca, const void* w,
                   const float* bias, const float* scale, const float* shift,
                   void* out, float* pre, int B, int H, int W, int Cin, int Cout, int kn,
-                  int tg, const Geometry& g, int relu, int vec, size_t smem,
-                  float* gn_part, int seg, cudaStream_t stream) {
+                  int tg, const Geometry& g, const hg::RowMap& rmap, int relu,
+                  int vec, size_t smem, float* gn_part, int seg,
+                  cudaStream_t stream) {
   constexpr bool f32 = std::is_same<Tin, float>::value;
   auto kernel = [&] {
     if constexpr (f32) {
@@ -513,7 +517,8 @@ int launch_conv_n(const void* x, const void* x2, int Ca, const void* w,
   else
     kernel<<<grid, kConvThreads, smem, stream>>>(
         xt, x2t, Ca, wt, bias, scale, shift, ot, pre, H, W, Cin, Cout, kn,
-        g.taps, g.r_lo, g.n_rows, g.c_lo, g.n_cols, relu, vec, gn_part, seg);
+        g.taps, rmap, g.r_lo, g.n_rows, g.c_lo, g.n_cols, relu, vec, gn_part,
+        seg);
   return (int)cudaGetLastError();
 }
 
@@ -524,13 +529,14 @@ bool aligned16(const void* p) {
 // x2 non-null selects the split instantiation (input channels [0, Ca) from
 // x, [Ca, Cin) from x2).  n: the tile's output channels (the float32
 // tile's COB or the bfloat16 tile's N).  kStats: the GN layer's conv pass
-// (Tout float32), writing segment sums to gn_part.
+// (Tout float32), writing segment sums to gn_part.  g: the tap table's
+// geometry; in bfloat16 hg::compact_rows', with its row map rmap.
 template <typename Tin, typename Tout, bool kStats>
 int launch_conv(const void* x, const void* x2, int Ca, const void* w,
                 const float* bias, const float* scale, const float* shift,
                 void* out, float* pre, int B, int H, int W, int Cin, int Cout, int kn,
-                const Geometry& g, int relu, int n, float* gn_part, int seg,
-                cudaStream_t stream) {
+                const Geometry& g, const hg::RowMap& rmap, int relu, int n,
+                float* gn_part, int seg, cudaStream_t stream) {
   if constexpr (std::is_same<Tin, float>::value) {
     const hg::F32Plan p = hg::conv_tile_plan(g, kn, Cin, Cout);
     if (p.cob != n) return -1;
@@ -548,7 +554,7 @@ int launch_conv(const void* x, const void* x2, int Ca, const void* w,
   case N:                                                                   \
     return launch_conv_n<N, Tin, Tout, kStats>(                             \
         x, x2, Ca, w, bias, scale, shift, out, pre, B, H, W, Cin, Cout, kn, \
-        p.taps, band, relu, vec, p.smem, gn_part, seg, stream);
+        p.taps, band, rmap, relu, vec, p.smem, gn_part, seg, stream);
       HG_CONV_F32(16)
       HG_CONV_F32(32)
       HG_CONV_F32(64)
@@ -567,7 +573,7 @@ int launch_conv(const void* x, const void* x2, int Ca, const void* w,
   case N:                                                                   \
     return launch_conv_n<N, Tin, Tout, kStats>(                             \
         x, x2, Ca, w, bias, scale, shift, out, pre, B, H, W, Cin, Cout, kn, \
-        kn, g, relu, vec, smem, gn_part, seg, stream);
+        kn, g, rmap, relu, vec, smem, gn_part, seg, stream);
       HG_CONV_N(16)
       HG_CONV_N(32)
       HG_CONV_N(64)
@@ -588,26 +594,28 @@ int launch_layer(const void* x, const void* x2, int Ca, const void* w,
                  const float* gamma, const float* beta, int gn_groups,
                  float eps, float* y, float* part, long long n_part,
                  float* stats, void* out, int B, int H, int W, int Cin,
-                 int Cout, int kn, const Geometry& g, int relu, int n,
-                 cudaStream_t stream) {
+                 int Cout, int kn, const Geometry& g, const hg::RowMap& rmap,
+                 int relu, int n, cudaStream_t stream) {
   if (gn_groups == 0)
     return launch_conv<T, T, false>(x, x2, Ca, w, bias, scale, shift, out, y,
-                                    B, H, W, Cin, Cout, kn, g, relu, n,
+                                    B, H, W, Cin, Cout, kn, g, rmap, relu, n,
                                     nullptr, 0, stream);
   const int cpg = Cout / gn_groups;
   const int seg = std::gcd(cpg, n);
   const int tiles = (W + kTileP - 1) / kTileP;
   if (n_part != 2LL * B * H * tiles * (Cout / seg)) return -1;
+  const hg::GnLayout lay = hg::gn_layout(Cout, aligned16(y) && aligned16(out));
+  // a thread a vector: more than 1024 channels need vectors of 4 or 8
+  if (lay.threads() > 1024) return -1;
   int err = launch_conv<T, float, true>(x, x2, Ca, w, bias, nullptr, nullptr,
-                                        y, nullptr, B, H, W, Cin, Cout, kn, g, 0, n,
-                                        part, seg, stream);
+                                        y, nullptr, B, H, W, Cin, Cout, kn, g,
+                                        rmap, 0, n, part, seg, stream);
   if (err) return err;
   const long long HW = (long long)H * W;
   gn_stats_kernel<<<B * gn_groups, 256, 0, stream>>>(
       part, stats, H * tiles, Cout / seg, cpg / seg, gn_groups,
       (float)(HW * cpg), eps);
   if ((err = (int)cudaGetLastError())) return err;
-  const hg::GnLayout lay = hg::gn_layout(Cout, aligned16(y) && aligned16(out));
   const int px = lay.k * kApplyPasses;
   const dim3 grid((unsigned)((HW + px - 1) / px), B);
   return hg::dispatch_v(lay.V, [&](auto v) {
@@ -652,13 +660,15 @@ extern "C" int hg_hex_conv_layer(
       Cout < 1 || H > 65535 || (dtype != 0 && dtype != 1))
     return -1;
   if (x2 && (Ca < 1 || Ca >= Cin)) return -1;
-  if (gn_groups < 0 || (gn_groups > 0 && (Cout % gn_groups || Cout > 1024 ||
+  if (gn_groups < 0 || (gn_groups > 0 && (Cout % gn_groups || Cout > 2048 ||
                                            !y || !part || !stats || !gamma ||
                                            !beta)))
     return -1;
   if ((scale == nullptr) != (shift == nullptr)) return -1;
   if (dtype == 1 && !aligned16(w)) return -1;
-  const Geometry g = hg::make_geometry(static_cast<const int*>(taps), kn);
+  hg::RowMap rmap{};
+  Geometry g = hg::make_geometry(static_cast<const int*>(taps), kn);
+  if (dtype == 1) g = hg::compact_rows(g, kn, &rmap);
   const int n = dtype == 0 ? hg::conv_tile_plan(g, kn, Cin, Cout).cob
                            : hg::conv_tile_mma_n(g, kn, Cin, Cout);
   if (n == 0) return -1;
@@ -670,10 +680,10 @@ extern "C" int hg_hex_conv_layer(
         x, x2, Ca, w, f(bias), f(scale), f(shift), f(gamma), f(beta),
         gn_groups, eps, static_cast<float*>(y), static_cast<float*>(part),
         n_part, static_cast<float*>(stats), out, B, H, W, Cin, Cout, kn, g,
-        relu, n, s);
+        rmap, relu, n, s);
   return launch_layer<__nv_bfloat16>(
       x, x2, Ca, w, f(bias), f(scale), f(shift), f(gamma), f(beta),
       gn_groups, eps, static_cast<float*>(y), static_cast<float*>(part),
       n_part, static_cast<float*>(stats), out, B, H, W, Cin, Cout, kn, g,
-      relu, n, s);
+      rmap, relu, n, s);
 }

@@ -27,15 +27,17 @@
 // tap a GEMM dW_t (M = 64 output channels) x (N = 8, 16 or 32 input
 // channels) over K = the chunk's pixels, wgmma m64nNk16 bf16 x bf16 -> f32.
 // A step stages 64 pixels of one output row of g and the x patch its taps
-// reach (the rows r_lo .. r_hi around it x 64 + tap width columns) in
-// shared memory, both as 16-byte units of 8 channels of one pixel, as NHWC
+// read (the rows among r_lo .. r_hi around it that a tap reads, as
+// hg::compact_rows keeps them: 3 rows at any dilation of a radius-2
+// kernel, x 64 + tap width columns) in shared memory, both as 16-byte units of 8 channels of one pixel, as NHWC
 // holds them.  8 consecutive pixels of one channel group are then the
 // MN-major ("transposed") core matrix that bf16 wgmma reads for A and B:
 // A = g^T with co contiguous, B = the x window with ci contiguous, K =
 // pixels.  So a tap's shifted window is a descriptor offset into the one
 // staged patch, as in hex_common.cuh::conv_tile_mma; nothing is staged per
 // tap.  Each block holds up to kTapsBlk taps' 64 x N f32 accumulators in
-// registers (7 x 16 a thread at N = 32); more taps take more blocks.  The
+// registers (7 x 16 a thread at N = 32), or the one tap's of a one-tap
+// kernel (a 1 x 1 conv); more taps take more blocks.  The
 // next two steps are copied with cp.async (16-byte units, zero fill at the
 // image edges) while this one multiplies; where a unit is not whole in
 // memory (Cin or Cout not a multiple of 8, as at the 3-channel stem) it is
@@ -413,27 +415,29 @@ __device__ __forceinline__ void stage_unit(uint4* dst,
   }
 }
 
-// grid (chunk, tap group of kTapsBlk, output-channel tile x input-channel
+// grid (chunk, tap group of TB, output-channel tile x input-channel
 // tile).  Shared memory: kMmaStages stages of [8][kGStride] g units (64
 // channels x 64 pixels, the channel groups padded apart so the copies do
-// not conflict) and [n_rows][N / 8][n_cols] x units.  Step s's MMAs are
-// issued, then step s + 2's copies, then the MMAs are waited on: two
-// steps' copies are in flight while the tensor cores work.
-template <int N>
+// not conflict) and [n_rows][N / 8][n_cols] x units, patch row r from input
+// row o + rmap.dr[r] (hg::compact_rows: taps, r_lo and n_rows are its).
+// Step s's MMAs are issued, then step s + 2's copies, then the MMAs are
+// waited on: two steps' copies are in flight while the tensor cores work.
+template <int N, int TB>
 __global__ void __launch_bounds__(kMmaThreads)
 wgrad_mma_kernel(const __nv_bfloat16* __restrict__ x,
                  const __nv_bfloat16* __restrict__ g,
                  float* __restrict__ partial, int H, int W, int Cin,
                  int Cout, int kn, const __grid_constant__ TapTable taps,
-                 int r_lo, int n_rows, int c_lo, int n_cols, long long rows,
+                 const __grid_constant__ hg::RowMap rmap, int r_lo,
+                 int n_rows, int c_lo, int n_cols, long long rows,
                  int rows_per_chunk, int vec_x, int vec_g) {
   constexpr int NG = N / 8;
   extern __shared__ __align__(16) uint4 smem_u[];
   const int g_units = 8 * kGStride;
   const int stage_units = g_units + n_rows * NG * n_cols;
   const int chunk = blockIdx.x;
-  const int t0 = blockIdx.y * kTapsBlk;
-  const int nt = min(kTapsBlk, kn - t0);
+  const int t0 = blockIdx.y * TB;
+  const int nt = min(TB, kn - t0);
   const int n_ci = (Cin + N - 1) / N;
   const int co0 = (blockIdx.z / n_ci) * kMmaM;
   const int ci0 = (blockIdx.z % n_ci) * N;
@@ -462,7 +466,7 @@ wgrad_mma_kernel(const __nv_bfloat16* __restrict__ x,
     const int x_units = n_rows * NG * n_cols;
     for (int e = tid; e < x_units; e += kMmaThreads) {
       const int cig = e % NG, c = (e / NG) % n_cols, r = e / (NG * n_cols);
-      const int xi = o + r_lo + r, xj = j0 + c_lo + c;
+      const int xi = o + rmap.dr[r], xj = j0 + c_lo + c;
       if (ci0 + 8 * cig < Cin)
         stage_unit(xs + (r * NG + cig) * n_cols + c, x,
                    (row - o + xi) * W + xj, Cin, ci0 + 8 * cig,
@@ -471,18 +475,18 @@ wgrad_mma_kernel(const __nv_bfloat16* __restrict__ x,
     hg::cp_async_commit();
   };
 
-  float acc[kTapsBlk][N / 2];
+  float acc[TB][N / 2];
 #pragma unroll
-  for (int t = 0; t < kTapsBlk; ++t)
+  for (int t = 0; t < TB; ++t)
 #pragma unroll
     for (int i = 0; i < N / 2; ++i) acc[t][i] = 0.f;
 
   // a block's last tap group may hold fewer taps: the missing ones repeat
   // its last tap into accumulators that are never stored, so every step
   // issues the same MMAs with no branch among them
-  int tap[kTapsBlk];
+  int tap[TB];
 #pragma unroll
-  for (int t = 0; t < kTapsBlk; ++t) tap[t] = t0 + min(t, nt - 1);
+  for (int t = 0; t < TB; ++t) tap[t] = t0 + min(t, nt - 1);
 
 #pragma unroll
   for (int s = 0; s < kMmaStages - 1; ++s) {
@@ -498,10 +502,10 @@ wgrad_mma_kernel(const __nv_bfloat16* __restrict__ x,
     const uint4* xs = gs + g_units;
     const int q = (int)((r0 + s / per_row) % H) & 1;
 #pragma unroll
-    for (int t = 0; t < kTapsBlk; ++t) hg::fence_acc(acc[t]);
+    for (int t = 0; t < TB; ++t) hg::fence_acc(acc[t]);
     asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
 #pragma unroll
-    for (int t = 0; t < kTapsBlk; ++t) {
+    for (int t = 0; t < TB; ++t) {
       const uint4* xw = xs + (taps.dr[q][tap[t]] - r_lo) * NG * n_cols +
                         (taps.dc[q][tap[t]] - c_lo);
 #pragma unroll
@@ -519,14 +523,14 @@ wgrad_mma_kernel(const __nv_bfloat16* __restrict__ x,
     else hg::cp_async_commit();
     asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
 #pragma unroll
-    for (int t = 0; t < kTapsBlk; ++t) hg::fence_acc(acc[t]);
+    for (int t = 0; t < TB; ++t) hg::fence_acc(acc[t]);
   }
 
   // acc[t][4 i + 2 h + j]: output channel co0 + 16 warp + lane / 4 + 8 h,
   // input channel ci0 + 8 i + 2 (lane % 4) + j
   const int lane = tid % 32;
 #pragma unroll
-  for (int t = 0; t < kTapsBlk; ++t) {
+  for (int t = 0; t < TB; ++t) {
     if (t >= nt) break;
     float* out = partial + ((long long)chunk * kn + t0 + t) * Cin * Cout;
 #pragma unroll
@@ -555,16 +559,17 @@ int mma_patch_cols(const hg::Geometry& geo) {
   return geo.n_cols - hg::kTileP + kStepP;
 }
 
-template <int N>
+template <int N, int TB>
 int launch_mma(const void* x, const void* g, float* partial, int B, int H,
                int W, int Cin, int Cout, int kn, const hg::Geometry& geo,
-               int rows_per_chunk, int n_chunks, cudaStream_t stream) {
+               const hg::RowMap& rmap, int rows_per_chunk, int n_chunks,
+               cudaStream_t stream) {
   const long long tiles =
       (long long)((Cout + kMmaM - 1) / kMmaM) * ((Cin + N - 1) / N);
   if (tiles > 65535) return -1;
   const size_t smem = wgrad_mma_smem(N, geo.n_rows, mma_patch_cols(geo));
   if (smem > (size_t)hg::kMmaMaxSmem) return -1;
-  auto kernel = wgrad_mma_kernel<N>;
+  auto kernel = wgrad_mma_kernel<N, TB>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
@@ -573,11 +578,11 @@ int launch_mma(const void* x, const void* g, float* partial, int B, int H,
   };
   const int vec_x = Cin % 8 == 0 && aligned(x);
   const int vec_g = Cout % 8 == 0 && aligned(g);
-  dim3 grid(n_chunks, (kn + kTapsBlk - 1) / kTapsBlk, (unsigned)tiles);
+  dim3 grid(n_chunks, (kn + TB - 1) / TB, (unsigned)tiles);
   kernel<<<grid, kMmaThreads, smem, stream>>>(
       static_cast<const __nv_bfloat16*>(x),
       static_cast<const __nv_bfloat16*>(g), partial, H, W, Cin, Cout, kn,
-      geo.taps, geo.r_lo, geo.n_rows, geo.c_lo, mma_patch_cols(geo),
+      geo.taps, rmap, geo.r_lo, geo.n_rows, geo.c_lo, mma_patch_cols(geo),
       (long long)B * H, rows_per_chunk, vec_x, vec_g);
   return (int)cudaGetLastError();
 }
@@ -702,24 +707,32 @@ int launch_wgrad_f32(const void* x, const void* g, float* partial, float* dw,
   return finalize(partial, dw, n_chunks, kn, Cin, Cout, stream);
 }
 
+// The bf16 partial pass: a block takes kTapsBlk taps, or the one tap of a
+// one-tap kernel (a 1 x 1 conv), on the patch of the rows its taps read.
 int launch_wgrad_bf16(const void* x, const void* g, float* partial,
                       float* dw, int B, int H, int W, int Cin, int Cout,
-                      int kn, const hg::Geometry& geo, int rows_per_chunk,
+                      int kn, const hg::Geometry& table, int rows_per_chunk,
                       int n_chunks, cudaStream_t stream) {
+  hg::RowMap rmap{};
+  const hg::Geometry geo = hg::compact_rows(table, kn, &rmap);
   int err;
+#define HG_WGRAD_MMA(N)                                                    \
+  (kn == 1 ? launch_mma<N, 1>(x, g, partial, B, H, W, Cin, Cout, kn, geo,   \
+                              rmap, rows_per_chunk, n_chunks, stream)       \
+           : launch_mma<N, kTapsBlk>(x, g, partial, B, H, W, Cin, Cout, kn, \
+                                     geo, rmap, rows_per_chunk, n_chunks,   \
+                                     stream))
   switch (wgrad_mma_n(Cin)) {
     case 8:
-      err = launch_mma<8>(x, g, partial, B, H, W, Cin, Cout, kn, geo,
-                          rows_per_chunk, n_chunks, stream);
+      err = HG_WGRAD_MMA(8);
       break;
     case 16:
-      err = launch_mma<16>(x, g, partial, B, H, W, Cin, Cout, kn, geo,
-                           rows_per_chunk, n_chunks, stream);
+      err = HG_WGRAD_MMA(16);
       break;
     default:
-      err = launch_mma<32>(x, g, partial, B, H, W, Cin, Cout, kn, geo,
-                           rows_per_chunk, n_chunks, stream);
+      err = HG_WGRAD_MMA(32);
   }
+#undef HG_WGRAD_MMA
   if (err) return err;
   return finalize(partial, dw, n_chunks, kn, Cin, Cout, stream);
 }

@@ -167,6 +167,18 @@ def _patch_shape(radius: int, dilation: int, adjoint: bool
             _TILE_P + int(dc.max() - dc.min()))
 
 
+@functools.lru_cache(maxsize=None)
+def _mma_patch_shape(radius: int, dilation: int, adjoint: bool
+                     ) -> tuple[int, int]:
+    """Rows and columns of the patch the bf16 tile stages for the (adjoint)
+    tap table: the rows some tap reads (``hex_common.cuh::compact_rows``;
+    3 at any dilation of a radius-2 kernel) x :func:`_patch_shape`'s
+    columns."""
+    table = (_adjoint_taps if adjoint else _taps)(radius, dilation)
+    return (len(np.unique(table[..., 0])),
+            _patch_shape(radius, dilation, adjoint)[1])
+
+
 def _mma_smem(cin: int, kn: int, n: int, n_rows: int, n_cols: int) -> int:
     """Shared memory of the bf16 tile (``conv_tile_mma_smem``): two stages
     of patch and weights, one when Cin fits in one 16-channel chunk."""
@@ -293,8 +305,34 @@ def _group_norm_nchw(v: torch.Tensor, groups: int, gamma, beta,
     return out.to(v.dtype)
 
 
+def _pre_plain_taps(x, kernel, radius: int, dilation: int) -> torch.Tensor:
+    """The float32 'same' conv of NHWC ``x`` as a sum over the tap table's
+    shifted windows, one matmul a row parity: what a dilated layer's plain
+    version computes, where ``hex_conv2d``'s dense masked kernel would hold
+    ``(2 d (r - 1) + 1)^2`` weights a channel pair for ``3 r^2 - 3 r + 1``
+    taps."""
+    b, h, w, cin = x.shape
+    table = _taps(radius, dilation)
+    p = int(np.abs(table).max())
+    xp = torch.nn.functional.pad(x.float(), (0, 0, p, p, p, p))
+    wt = kernel.float().permute(2, 1, 0).reshape(-1, kernel.shape[0])
+    out = xp.new_zeros((b, h, w, kernel.shape[0]))
+    for q in (0, 1):
+        rows = torch.arange(q, h, 2, device=x.device)
+        if not len(rows):
+            continue
+        win = torch.stack([xp[:, rows + p + int(dr), p + int(dc):
+                              p + int(dc) + w] for dr, dc in table[q]], 3)
+        out[:, q::2] = win.flatten(3) @ wt
+    return out
+
+
 def _pre_plain(x, kernel, bias, radius: int, dilation: int) -> torch.Tensor:
-    """The float32 pre-activation ``conv(x) + bias`` of a layer, NHWC."""
+    """The float32 pre-activation ``conv(x) + bias`` of a layer, NHWC; a
+    dilated layer's by :func:`_pre_plain_taps`."""
+    if dilation > 1:
+        h = _pre_plain_taps(x, kernel, radius, dilation)
+        return h if bias is None else h + bias.float()
     h = F.hex_conv2d(x.permute(0, 3, 1, 2).float(), kernel.float(),
                      None if bias is None else bias.float(),
                      even_odd_offset=0, radius=radius,
@@ -526,7 +564,8 @@ def gn_relu_backward(y, mean, rstd, gamma, beta, gout, groups: int,
     dbias)`` as :func:`gn_relu_backward_plain` does.
 
     A CPU tensor runs :func:`gn_relu_backward_plain`.  A CUDA tensor (gout
-    float32 or bfloat16, C <= 1024) launches ``csrc/gn_backward.cu`` once
+    float32 or bfloat16, C <= 2048, a multiple of 4 above 1024) launches
+    ``csrc/gn_backward.cu`` once
     (one cooperative pass over ``(y, gout)`` staged in shared memory, walked
     as :func:`gn_backward_plan` says, with fixed-order folds; counted as
     ``"gn_relu_backward"``); anything else raises, as does a device that
@@ -543,9 +582,9 @@ def gn_relu_backward(y, mean, rstd, gamma, beta, gout, groups: int,
             or not y.is_contiguous() or y.device != gout.device):
         raise ValueError(f"{what}: y must be a contiguous float32 "
                          f"{tuple(gout.shape)} tensor on {gout.device}")
-    if c % groups or c > 1024:
-        raise ValueError(f"{what}: GroupNorm needs groups | C <= 1024, got "
-                         f"{groups} groups, C={c}")
+    _check_gn_channels(c, groups, what)
+    if c > 1024 and gout.data_ptr() % 16:
+        gout = gout.clone()     # above 1024 channels the vectors are aligned
     if mean.shape != (b, groups) or rstd.shape != (b, groups):
         raise ValueError(f"{what}: mean and rstd must be ({b}, {groups})")
     mean, rstd, stride = _stat_views(mean, rstd, b, groups)
@@ -655,6 +694,19 @@ def hex_conv_layer_split_wgrad_plain(a: torch.Tensor, b: torch.Tensor,
                                       radius=radius, dilation=dilation)
 
 
+_GN_MAX_C = 2048
+
+
+def _check_gn_channels(c: int, groups: int, what: str) -> None:
+    """GroupNorm's kernels take ``groups | C <= 2048``, and above 1024
+    channels ``C % 4 == 0``: a thread of their passes holds a vector of 4
+    (or 8) channels, and a block holds at most 1024 threads."""
+    if c % groups or c > _GN_MAX_C or (c > 1024 and c % 4):
+        raise ValueError(f"{what}: GroupNorm needs groups | C <= "
+                         f"{_GN_MAX_C} (a multiple of 4 above 1024), got "
+                         f"{groups} groups, C={c}")
+
+
 def _check_param(t, name, n, device):
     if t is None:
         return None
@@ -697,8 +749,9 @@ def _conv_launch(x, wt, cout, taps_key, what, bias=None, norm=None,
     b, h, w, ca = x.shape
     cin = ca + (0 if x2 is None else x2.shape[-1])
     kn = wt.shape[0]
-    n = _tile_n(x.dtype, cin, cout, kn, *_patch_shape(*taps_key),
-                _tap_rows(*taps_key))
+    patch = (_mma_patch_shape if x.dtype == torch.bfloat16
+             else _patch_shape)(*taps_key)
+    n = _tile_n(x.dtype, cin, cout, kn, *patch, _tap_rows(*taps_key))
     if h > 65535 or b * math.ceil(cout / n) > 65535:
         raise ValueError(f"{what}: grid too large for H={h}, B={b}, "
                          f"Cout={cout}")
@@ -713,9 +766,7 @@ def _conv_launch(x, wt, cout, taps_key, what, bias=None, norm=None,
     groups = n_part = 0
     if norm is not None and norm[0] == "gn":
         _, groups, gamma, beta = norm
-        if cout % groups or cout > 1024:
-            raise ValueError(f"{what}: GroupNorm needs groups | Cout <= 1024, "
-                             f"got {groups} groups, Cout={cout}")
+        _check_gn_channels(cout, groups, what)
         gamma = _check_param(gamma, "gamma", cout, x.device)
         beta = _check_param(beta, "beta", cout, x.device)
         y = torch.empty((b, h, w, cout), dtype=torch.float32, device=x.device)
@@ -1064,12 +1115,13 @@ def _wgrad_tile(dtype: torch.dtype, cin: int, cout: int, kn: int
     go (all 7 at radius 2; ``hex_conv_wgrad.cu::wgrad_f32_taps``; where
     their patch does not fit, :func:`_wgrad_f32_plan` takes fewer a block,
     and the chunks stay these taps'); bfloat16, N = 8, 16 or 32 input channels from Cin, 64 output channels
-    (wgmma's M) and 7 taps (``hex_conv_wgrad.cu::wgrad_mma_n``)."""
+    (wgmma's M) and 7 taps, one for a one-tap kernel
+    (``hex_conv_wgrad.cu::wgrad_mma_n``, ``launch_wgrad_bf16``)."""
     ci = 8 if cin <= 8 else 16 if cin <= 16 else 32
     if dtype != torch.bfloat16:
         groups = -(-kn // _WGRAD_F32_TAPS)
         return ci, 32 if cout <= 32 else 64, -(-kn // groups)
-    return ci, 64, 7
+    return ci, 64, 1 if kn == 1 else 7
 
 
 def _wgrad_f32_plan(cin: int, cout: int, tap_rows, n_cols: int) -> dict:

@@ -57,7 +57,7 @@ import torch
 from torch.autograd.function import once_differentiable
 
 from ..ops.sampling import SamplePlan, gather_blend
-from ..utils.profiling import count
+from ..utils.profiling import count, span
 from . import _build, _ops
 
 __all__ = ["plan_gather", "plan_gather_vjp_plain", "rowsep_decompose",
@@ -395,7 +395,8 @@ def plan_gather(image: torch.Tensor, plan: SamplePlan) -> torch.Tensor:
     on the dense plan the tables encode, bit-equal to it).  A CUDA tensor
     (float32 or bfloat16, contiguous) launches the kernel; anything else
     raises.  The result has the image's dtype and shape ``(..., h1, w1)``;
-    its gradient is :func:`plan_gather_vjp_plain` on either device.
+    its gradient is :func:`plan_gather_vjp_plain` on either device, traced
+    as the span ``hygrid.resample_backward``.
     """
     if image.device.type not in ("cpu", "cuda"):
         raise ValueError(f"plan_gather: no kernel for device {image.device}")
@@ -427,7 +428,8 @@ class _PlanGather(torch.autograd.Function):
     @staticmethod
     @once_differentiable
     def backward(ctx, grad):
-        return plan_gather_vjp_plain(grad, ctx.plan), None
+        with span("hygrid.resample_backward"):
+            return plan_gather_vjp_plain(grad, ctx.plan), None
 
 
 def _launch(image: torch.Tensor, plan: SamplePlan,

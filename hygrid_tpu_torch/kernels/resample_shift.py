@@ -51,7 +51,7 @@ import torch
 from torch.autograd.function import once_differentiable
 
 from ..ops.sampling import SamplePlan
-from ..utils.profiling import count
+from ..utils.profiling import count, span
 from . import _build, _ops
 from .resample import (_check_image, _out_dtype, rowsep_decompose,
                        rowsep_decompose_cached)
@@ -301,7 +301,8 @@ def shift_resample(image: torch.Tensor, plan: SamplePlan) -> torch.Tensor:
     or bfloat16, contiguous) launches the kernel; anything else raises, as
     does a plan that :func:`shift_decompose` refuses.  The result has the
     image's dtype and shape ``(..., h1, w1)``; its gradient is the plan's
-    transpose on either device.
+    transpose on either device, traced as the span
+    ``hygrid.resample_backward``.
     """
     if image.device.type not in ("cpu", "cuda"):
         raise ValueError(
@@ -324,7 +325,8 @@ class _ShiftResample(torch.autograd.Function):
     @once_differentiable
     def backward(ctx, grad):
         from .resample import plan_gather_vjp_plain
-        return plan_gather_vjp_plain(grad, ctx.plan), None
+        with span("hygrid.resample_backward"):
+            return plan_gather_vjp_plain(grad, ctx.plan), None
 
 
 def _shift_cuda(image, rowbase, phase_idx, wtab, form, slot_d, slot_s, h, w,

@@ -19,6 +19,7 @@ import numpy as np
 import torch
 
 from .. import lattice
+from ..utils.profiling import count, span
 from . import sampling
 
 __all__ = [
@@ -187,9 +188,15 @@ def rect_to_hex_resample(rect_image, hex_dsize: Optional[Tuple[int, int]] = None
 def hexresize(image, dsize: Tuple[int, int], interpolation: str = "linear",
               offset: int = 0, device="cuda"):
     """Hex->hex rescale to ``dsize`` (plain linspace output lattice, as in
-    the reference)."""
+    the reference).  Differentiable in a tensor ``image``.  Each call on the
+    card is counted as ``"hexresize"`` (as the resample kernels count their
+    launches), and each is traced as the span ``hygrid.hexresize``, its
+    gradient as ``hygrid.resample_backward``."""
     img = _as_image(image, device)
     h, w = img.shape[-2:]
     h1, w1 = tuple(dsize)
-    plan = hexresize_plan(h, w, h1, w1, interpolation)
-    return _ref_squeeze(sampling.apply_plan_auto(img, plan), img.ndim)
+    with span("hygrid.hexresize", count("hexresize") if img.is_cuda
+              else None):
+        plan = hexresize_plan(h, w, h1, w1, interpolation)
+        out = sampling.apply_plan_auto(img, plan)
+    return _ref_squeeze(out, img.ndim)

@@ -71,9 +71,12 @@ def annotate(name: Optional[str] = None) -> Callable:
     return deco
 
 
-CALLS = ("train_step", "forward", "hexify_batch")
-"""The counters of the port's entry points; every other counter counts a
-kernel wrapper's calls, under the kernel's name."""
+CALLS = ("train_step", "forward", "hexify_batch", "residual", "hexresize",
+         "conv_strided")
+"""The counters of calls rather than of launches: the port's entry points,
+and the stages a model counts on the card (the kernels they launch, where
+the port has its own, count their launches as well); every other counter
+counts a kernel wrapper's launches, under the kernel's name."""
 
 _COUNTS: collections.Counter = collections.Counter()
 _COUNTS_LOCK = threading.Lock()
@@ -82,6 +85,8 @@ _COUNTS_LOCK = threading.Lock()
 def count(name: str, n: int = 1) -> int:
     """Add ``n`` to the counter ``name``; returns its new total.  The kernel
     wrappers count each call (``"plan_gather"``, ``"hex_conv_layer"``, ...),
+    the stages theirs on the card (``"residual"``, ``"hexresize"``,
+    ``"conv_strided"``),
     :func:`~hygrid_tpu_torch.models.train_step` its steps and the models
     their forwards (:data:`CALLS`)."""
     with _COUNTS_LOCK:

@@ -212,7 +212,8 @@ def test_the_entry_points_count_each_call():
              if after[k] != before.get(k, 0)}
     # the CPU runs the plain versions: no kernel is counted
     assert moved == {"train_step": 1, "forward": 2, "hexify_batch": 2}
-    assert set(profiling.CALLS) == {"train_step", "forward", "hexify_batch"}
+    assert set(profiling.CALLS) == {"train_step", "forward", "hexify_batch",
+                                    "residual", "hexresize", "conv_strided"}
 
 
 @pytest.mark.parametrize("module", ("conv_single", "conv_stack", "resample",
